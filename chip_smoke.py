@@ -1,0 +1,456 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py [--seed N]
+
+Builds the port's CUDA kernels from ``video_transformer_tpu_torch/csrc`` (one
+``nvcc`` call), holds each kernel against its plain PyTorch version at the
+serving path's shapes and times both, checks the whole model against the
+plain versions on the CPU at the tiny preset, then serves three requests
+through ``InferenceEngine.generate`` at the full ``base`` width (int8
+weights, int8 KV cache, BPE vocabulary, the note grammar, greedy) with
+seeded random weights, shows that the requests went through every kernel,
+and profiles one short request to show where its time goes (device busy
+share, top device ops). It prints one JSON object per line, flushed; the
+last line is ``{"ok": true, "device": {...}}``. Any failure raises (exit
+code 1). It needs a CUDA device and exits with an error without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from dataclasses import replace
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from video_transformer_tpu_torch.analyzer.schema import note_dfa
+from video_transformer_tpu_torch.models.bpe import BpeTokenizer
+from video_transformer_tpu_torch.models.config import VLMConfig, get_preset
+from video_transformer_tpu_torch.models.lm import init_kv_cache
+from video_transformer_tpu_torch.ops import _lib
+from video_transformer_tpu_torch.ops.attention import flash_attention, mha_reference
+from video_transformer_tpu_torch.ops.decode_attention import (
+    _scaled_reference,
+    decode_attention,
+    update_cache_rows,
+    write_cache_rows,
+)
+from video_transformer_tpu_torch.ops.preprocess import preprocess_frames
+from video_transformer_tpu_torch.parallel.engine import InferenceEngine
+from video_transformer_tpu_torch.weights import random_params
+
+REPO = Path(__file__).resolve().parent
+TOKENIZER = REPO / "data" / "tokenizers" / "bpe-zh-2048.json"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
+MAX_NEW_TOKENS = 256  # capped for the smoke; the shipped config says 4096
+PROMPT = "分析这段视频的内容，写出结构化的知识笔记。"
+KERNELS = (flash_attention, write_cache_rows, decode_attention)
+# K1 and K3 compute in f32 and round their output to bf16 once, as their plain
+# versions do. One rounding step is at most 2**-7 of the value, so the two
+# agree within 1e-2 of the largest output.
+REL_TOL = 1e-2
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj, ensure_ascii=False), flush=True)
+
+
+def time_ms(fn, warmup: int = 3, reps: int = 10, rounds: int = 20) -> float:
+    """Time of one call of ``fn`` in ms: CUDA events around ``reps`` calls
+    back to back, divided by ``reps``; the median of ``rounds`` such runs,
+    after warm-up. Where launching takes longer than the work, this is the
+    launch rate."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time in ms for the work, and which resource sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def base_config(vocab_size: int) -> VLMConfig:
+    cfg = get_preset("base")
+    return replace(cfg, decoder=replace(cfg.decoder, vocab_size=vocab_size))
+
+
+# -- kernel phase ----------------------------------------------------------------
+
+
+def check_flash(gen: torch.Generator, dev: torch.device, batch: int, heads: int, kv_heads: int,
+                seq: int, causal: bool) -> dict:
+    """K1 against mha_reference at one attention shape; times and bound."""
+    d = 128
+    q = torch.randn(batch, heads, seq, d, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(batch, kv_heads, seq, d, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(batch, kv_heads, seq, d, generator=gen, device=dev).to(torch.bfloat16)
+    out = flash_attention(q, k, v, causal=causal)
+    ref = mha_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = REL_TOL * ref.float().abs().max().item()
+    if err > tol:
+        raise AssertionError(f"flash_attention (causal={causal}) disagrees with mha_reference: {err} > {tol}")
+    pairs = seq * (seq + 1) / 2 if causal else seq * seq
+    flops = 4 * batch * heads * d * pairs
+    bound_ms, bound_by = bound(nbytes(q, k, v, out), flops)
+    library_ms = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=kv_heads != heads)
+    )
+    return {
+        "max_abs_err": err,
+        "tol": tol,
+        "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal)),
+        "plain_ms": time_ms(lambda: mha_reference(q, k, v, causal=causal), warmup=1, reps=2),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "shape": f"q [{batch},{heads},{seq},{d}] kv [{batch},{kv_heads},{seq},{d}] bf16 causal={causal}",
+    }
+
+
+def kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, prompt_bucket: int, cache_len: int) -> dict:
+    """Every kernel at the serving path's shapes, held against its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    enc, dec = cfg.encoder, cfg.decoder
+    batch, width = 2, 3
+    results = {}
+
+    prefill_seq = cfg.video_tokens + prompt_bucket
+    k1 = check_flash(gen, dev, batch, dec.num_heads, dec.num_kv_heads, prefill_seq, causal=True)
+    k1_enc = check_flash(gen, dev, batch, enc.num_heads, enc.num_heads, enc.tokens_per_clip, causal=False)
+    for key in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "library_ms", "shape"):
+        k1[f"encoder_{key}"] = k1_enc[key]
+    results["flash_attention"] = k1
+
+    # K2: int8 rows into int8 caches at per-row offsets, through a row table.
+    hkv, d = dec.num_kv_heads, dec.head_dim
+    phys_rows = batch + 1
+    k_cache = torch.randint(-127, 128, (phys_rows, hkv, cache_len, d), generator=gen, device=dev, dtype=torch.int8)
+    v_cache = torch.randint(-127, 128, (phys_rows, hkv, cache_len, d), generator=gen, device=dev, dtype=torch.int8)
+    k_new = torch.randint(-127, 128, (batch, hkv, width, d), generator=gen, device=dev, dtype=torch.int8)
+    v_new = torch.randint(-127, 128, (batch, hkv, width, d), generator=gen, device=dev, dtype=torch.int8)
+    index = torch.tensor([prefill_seq + 47, prefill_seq + 198], dtype=torch.int32, device=dev)
+    rows = torch.tensor([2, 0], dtype=torch.int32, device=dev)
+    k_ref, v_ref = k_cache.clone(), v_cache.clone()
+    write_cache_rows(k_cache, v_cache, k_new, v_new, index, rows)
+    update_cache_rows(k_ref, k_new, index, rows)
+    update_cache_rows(v_ref, v_new, index, rows)
+    torch.cuda.synchronize()
+    err = max((k_cache.int() - k_ref.int()).abs().max().item(), (v_cache.int() - v_ref.int()).abs().max().item())
+    if err != 0:
+        raise AssertionError(f"write_cache_rows differs from update_cache_rows by {err}")
+    bound_ms, bound_by = bound(2 * nbytes(k_new, v_new) + nbytes(index, rows), 0)
+    results["write_cache_rows"] = {
+        "max_abs_err": err, "tol": 0,
+        "ms": time_ms(lambda: write_cache_rows(k_cache, v_cache, k_new, v_new, index, rows)),
+        "plain_ms": time_ms(lambda: (update_cache_rows(k_ref, k_new, index, rows),
+                                     update_cache_rows(v_ref, v_new, index, rows))),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "shape": f"caches int8 [{phys_rows},{hkv},{cache_len},{d}] new int8 [{batch},{hkv},{width},{d}] rows=[2,0]",
+    }
+
+    # K3: int8 caches, W = 3, ragged lengths, a row permutation. k_scale is
+    # that of a cache whose k values reach about 5 (x 1.5 / 127), so that the
+    # softmax is peaked as in serving and not flat.
+    q = torch.randn(batch, dec.num_heads, width, d, generator=gen, device=dev).to(torch.bfloat16)
+    k_scale = torch.rand(hkv, generator=gen, device=dev) * 0.04 + 0.02
+    v_scale = torch.rand(hkv, generator=gen, device=dev) * 0.04 + 0.02
+    lengths = index + 1
+    out = decode_attention(q, k_cache, v_cache, lengths, rows, k_scale, v_scale)
+    ref = _scaled_reference(q, k_cache, v_cache, lengths, rows, k_scale, v_scale)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = REL_TOL * ref.float().abs().max().item()
+    if err > tol:
+        raise AssertionError(f"decode_attention disagrees with its plain version: {err} > {tol}")
+    # The causal edge: row 0's edge straddles a 64-position tile boundary.
+    edge_lengths = torch.tensor([64 * (prefill_seq // 64 + 1) - 1, int(lengths[1])], dtype=torch.int32, device=dev)
+    eq, ek, ev = q.clone(), k_cache.clone(), v_cache.clone()
+    expected = mark_decode_edges(eq, ek, ev, edge_lengths, rows, v_scale)
+    edge_out = decode_attention(eq, ek, ev, edge_lengths, rows, k_scale, v_scale)
+    edge_ref = _scaled_reference(eq, ek, ev, edge_lengths, rows, k_scale, v_scale)
+    torch.cuda.synchronize()
+    edge_tol = REL_TOL * expected.abs().max().item()
+    edge_err = (edge_out.float() - expected).abs().max().item()
+    edge_ref_err = (edge_ref.float() - expected).abs().max().item()
+    if max(edge_err, edge_ref_err) > edge_tol:
+        raise AssertionError(f"decode_attention at the causal edge: kernel {edge_err}, plain {edge_ref_err} > {edge_tol}")
+    group = dec.num_heads // hkv
+    visible = sum(int(n) + width - 1 for n in lengths.tolist())  # positions read per kv head
+    cache_bytes = 2 * hkv * visible * d  # int8 k and v
+    flops = sum(4 * group * d * (int(n) + j) for n in lengths.tolist() for j in range(width)) * hkv
+    bound_ms, bound_by = bound(cache_bytes + 2 * nbytes(q) + nbytes(lengths, rows, k_scale, v_scale), flops)
+    results["decode_attention"] = {
+        "max_abs_err": err, "tol": tol, "edge_max_abs_err": edge_err, "edge_tol": edge_tol,
+        "ms": time_ms(lambda: decode_attention(q, k_cache, v_cache, lengths, rows, k_scale, v_scale)),
+        "plain_ms": time_ms(lambda: _scaled_reference(q, k_cache, v_cache, lengths, rows, k_scale, v_scale)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "shape": (f"q bf16 [{batch},{dec.num_heads},{width},{d}] caches int8 [{phys_rows},{hkv},{cache_len},{d}]"
+                  f" lengths={lengths.tolist()} rows=[2,0]"),
+    }
+    return results
+
+
+def mark_decode_edges(q, k_cache, v_cache, lengths, rows, v_scale=None) -> torch.Tensor:
+    """Rewrite q and the caches in place so that each row's attention is
+    decided by the W + 1 positions around its causal edge, and return the
+    output exact masking gives, f32 [B, Hq, W, D].
+
+    q becomes all ones; at positions lengths[b] - 1 + o (o = 0..W) of the
+    row's physical cache row every k element is large (its score dwarfs
+    every other position's) and v is (o + 1) * step with alternating signs
+    across D. Query column j sees positions < lengths[b] + j, i.e. offsets
+    0..j, so it puts out (j + 2) / 2 * step * sign (times v_scale). A column
+    that sees one position more or less, or misses a 64-position tile, is
+    off by a quarter or more of that value.
+    """
+    b, hq, width, d = q.shape
+    hkv = k_cache.shape[1]
+    quantized = k_cache.dtype == torch.int8
+    k_hi, step = (127, 25.0) if quantized else (4.0, 1.0)
+    sign = torch.ones(d, device=q.device)
+    sign[1::2] = -1
+    q.fill_(1)
+    phys = rows.tolist() if rows is not None else list(range(b))
+    for row, n in zip(phys, lengths.tolist()):
+        for o in range(width + 1):
+            k_cache[row, :, n - 1 + o] = k_hi
+            v_cache[row, :, n - 1 + o] = ((o + 1) * step * sign).to(v_cache.dtype)
+    cols = (torch.arange(width, device=q.device, dtype=torch.float32) + 2) / 2 * step
+    expected = cols[None, None, :, None] * sign[None, None, None, :]
+    if v_scale is not None:
+        expected = expected * v_scale.float().repeat_interleave(hq // hkv)[None, :, None, None]
+    return expected.expand(b, hq, width, d)
+
+
+# -- whole-model reference -------------------------------------------------------
+
+
+def reference_phase(seed: int, dev: torch.device, vocab_size: int) -> dict:
+    """Tiny preset, bf16, int8 KV: prefill and decode logits through the
+    kernels on the card against the plain versions on the CPU, same weights."""
+    cfg = get_preset("tiny")
+    cfg = replace(cfg, decoder=replace(cfg.decoder, vocab_size=vocab_size))
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    cpu_model = random_params(cfg, gen, device="cpu", dtype=torch.bfloat16)
+    gpu_model = random_params(cfg, torch.Generator(device="cpu").manual_seed(seed), device="cpu",
+                              dtype=torch.bfloat16).to(dev)
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, cfg.encoder.num_frames, 64, 64, 3), dtype=np.uint8))
+    prompt = torch.from_numpy(rng.integers(0, 256, (2, 128)).astype(np.int64))
+    blocks = torch.from_numpy(rng.integers(0, 256, (3, 2, 3)).astype(np.int64))
+    lengths = torch.tensor([128, 100], dtype=torch.int32)
+    logits = {}
+    for name, model, device in (("cpu", cpu_model, torch.device("cpu")), ("gpu", gpu_model, dev)):
+        with torch.no_grad():
+            patches = preprocess_frames(frames.to(device), cfg.encoder, torch.bfloat16)
+            cache = init_kv_cache(cfg.decoder, 2, 512, torch.bfloat16, quant=True, device=device)
+            last, cache = model.prefill(patches, prompt.to(device), cache, lengths.to(device))
+            outs = [last.float().cpu()]
+            for block in blocks:
+                step, cache = model.decode_block_pick(block.to(device), cache, torch.tensor([2, 1], device=device))
+                outs.append(step.float().cpu())
+        logits[name] = torch.stack(outs)
+    err = (logits["cpu"] - logits["gpu"]).abs().max().item()
+    scale = logits["cpu"].abs().max().item()
+    tol = 2e-2 * max(scale, 1.0)
+    if not torch.isfinite(logits["gpu"]).all() or err > tol:
+        raise AssertionError(f"tiny-preset logits: card vs CPU max_abs_err {err} > {tol}")
+    return {"phase": "reference", "preset": "tiny", "max_abs_err": err, "tol": tol, "logit_scale": scale}
+
+
+# -- serving phase ---------------------------------------------------------------
+
+
+def grammar_walk(grammar, ids: list[int]) -> int:
+    """The byte-DFA state after ``ids``; raises if a byte leaves the grammar."""
+    table = grammar.dfa.next_state
+    state = grammar.start
+    for tok in ids:
+        for byte in grammar.tokenizer.token_bytes(tok):
+            state = int(table[state, byte])
+            if state < 0:
+                raise AssertionError(f"generated token {tok} leaves the grammar")
+    return state
+
+
+def serve(engine: InferenceEngine, frames: np.ndarray) -> list[dict]:
+    """One generate call; per-row results checked against the grammar."""
+    stats = engine.stats
+    before = (stats.prefill_seconds, stats.generate_seconds, stats.decode_steps, stats.tokens_generated)
+    torch.cuda.reset_peak_memory_stats()
+    texts, status, ids = engine.generate(
+        frames, [PROMPT] * len(frames), return_status=True, return_tokens=True
+    )
+    prefill_s = stats.prefill_seconds - before[0]
+    total_s = stats.generate_seconds - before[1]
+    steps = stats.decode_steps - before[2]
+    tokens = stats.tokens_generated - before[3]
+    out = []
+    for row, (text, done, row_ids) in enumerate(zip(texts, status, ids)):
+        if not 0 < len(row_ids) <= MAX_NEW_TOKENS + 2:
+            raise AssertionError(f"row {row}: {len(row_ids)} tokens")
+        end_state = grammar_walk(engine.dfa, row_ids)
+        if done:
+            if end_state != engine.dfa.accept:
+                raise AssertionError(f"row {row} reports complete but the grammar did not accept")
+            json.loads(text)
+        out.append({
+            "phase": "request", "batch": len(frames), "row": row, "tokens": len(row_ids),
+            "complete": done, "prefill_ms": prefill_s * 1e3, "decode_steps": steps,
+            "call_tokens": tokens, "call_seconds": total_s,
+            "tokens_per_s": tokens / total_s if total_s else 0.0,
+            "decode_tokens_per_s": tokens / (total_s - prefill_s) if total_s > prefill_s else 0.0,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "text_head": text[:48],
+        })
+    return out
+
+
+def profile_phase(engine: InferenceEngine, frames: np.ndarray, max_new: int = 32) -> dict:
+    """Where a batch-2 request's time goes: one short generate call timed
+    alone, then the same call under torch.profiler with device activity only.
+    The busy share is the profiled device time over the unprofiled wall time,
+    since the profiler slows the host down."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cap, engine.max_new_tokens = engine.max_new_tokens, max_new
+    try:
+        steps0 = engine.stats.decode_steps
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        engine.generate(frames, [PROMPT] * len(frames))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+        steps = engine.stats.decode_steps - steps0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            engine.generate(frames, [PROMPT] * len(frames))
+            torch.cuda.synchronize()
+            profiled_wall_ms = (time.perf_counter() - start) * 1e3
+        profiled_steps = engine.stats.decode_steps - steps0 - steps
+    finally:
+        engine.max_new_tokens = cap
+    ops = [  # device-side events only (host ops carry their kernels' time too)
+        (e.key, e.self_device_time_total / 1e3, e.count)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+    ]
+    ops = sorted((op for op in ops if op[1] > 0), key=lambda op: -op[1])
+    device_ms = sum(op[1] for op in ops)
+    if not ops or profiled_steps != steps:
+        raise AssertionError(f"profile: {len(ops)} device ops, {profiled_steps} steps against {steps}")
+    return {
+        "phase": "profile", "batch": len(frames), "max_new_tokens": max_new, "decode_steps": steps,
+        "wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_ms, "device_busy_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms if wall_ms else 0.0,
+        "device_launches": sum(op[2] for op in ops),
+        "top_device_ops_ms": [[name[:60], ms, count] for name, ms, count in ops[:10]],
+    }
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU only")
+    start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    _lib.library()
+    emit({"phase": "build", "nvcc_seconds": _lib.build_seconds, "load_seconds": time.perf_counter() - t0})
+    ptxas = [line for line in _lib.build_log.splitlines() if "registers" in line or "spill" in line]
+    emit({"phase": "ptxas", "lines": ptxas})
+
+    t0 = time.perf_counter()
+    tokenizer = BpeTokenizer.load(TOKENIZER)
+    cfg = base_config(tokenizer.vocab_size)
+    engine = InferenceEngine(
+        cfg, max_new_tokens=MAX_NEW_TOKENS, temperature=0.0, seed=args.seed, tokenizer=tokenizer,
+        param_dtype="bfloat16", quantize="int8", kv_quant="int8", max_forced_run=2, device=dev,
+    )
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    engine.dfa = engine.wrap_grammar(note_dfa(engine.byte_vocab))
+    emit({"phase": "setup", "engine_seconds": t1 - t0, "grammar_seconds": time.perf_counter() - t1,
+          "preset": cfg.name, "weights": "random, seeded", "quantize": "int8", "kv_quant": "int8"})
+    prompt_bucket = engine._prompt_bucket([PROMPT], with_video=True)
+    width = 1 + engine.max_forced_run
+    # The engine's cache sizing: live positions plus tail slack.
+    cache_len = 128 * math.ceil((cfg.video_tokens + prompt_bucket + MAX_NEW_TOKENS + 2 * width + 17) / 128)
+    t0 = time.perf_counter()
+    kernels = kernel_phase(args.seed, dev, cfg, prompt_bucket, cache_len)
+    emit({"phase": "kernels_checked", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    emit(dict(reference_phase(args.seed, dev, tokenizer.vocab_size), seconds=time.perf_counter() - t0))
+
+    rng = np.random.default_rng(args.seed)
+    clips = rng.integers(0, 256, (3, cfg.encoder.num_frames, 256, 256, 3), dtype=np.uint8)
+    for kernel in KERNELS:
+        kernel.launches = 0
+    requests = serve(engine, clips[:2]) + serve(engine, clips[2:])
+    launches = {kernel.__name__: kernel.launches for kernel in KERNELS}
+    for line in requests:
+        emit(dict(line, max_new_tokens_cap=MAX_NEW_TOKENS))
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was not launched by the requests: {launches}")
+    emit(profile_phase(engine, clips[:2]))
+
+    sources = {
+        "flash_attention": ("csrc/flash_attention.cu", "video_transformer_tpu/ops/attention.py:56"),
+        "write_cache_rows": ("csrc/write_cache_rows.cu", "video_transformer_tpu/ops/decode_attention.py:570"),
+        "decode_attention": ("csrc/decode_attention.cu", "video_transformer_tpu/ops/decode_attention.py:164"),
+    }
+    line = []
+    for name, result in kernels.items():
+        source, replaces = sources[name]
+        line.append(dict(
+            name=name, route="cuda", source=f"video_transformer_tpu_torch/{source}", replaces=replaces,
+            launches=launches[name], kernel_ms=result["ms"], **result,
+        ))
+    emit({"kernels": line})
+    emit({"phase": "done", "seconds": time.perf_counter() - start, "card": smi})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,149 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test asks the ``cuda`` fixture for the device, which
+skips the test when ``torch.cuda.is_available()`` is false (as on a CPU-only
+host). On a GPU host run them with
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+
+Tolerances: the row write is exact. Attention computes in f32 and rounds its
+bf16 output once, as the plain version does, so the two agree within 1e-2 of
+the largest output (one bf16 rounding step is at most 2**-7 of the value).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import REL_TOL, mark_decode_edges
+from video_transformer_tpu_torch.ops.attention import flash_attention, mha_reference
+from video_transformer_tpu_torch.ops.decode_attention import (
+    _scaled_reference,
+    decode_attention,
+    update_cache_rows,
+    write_cache_rows,
+)
+
+
+def assert_close(out: torch.Tensor, ref: torch.Tensor) -> None:
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= REL_TOL * ref.float().abs().max().item(), err
+
+
+def require_cuda() -> torch.device:
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def cuda():
+    return require_cuda()
+
+
+def test_cuda_tests_skip_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(pytest.skip.Exception):
+        require_cuda()
+
+
+def randn(gen, *shape, device, dtype=torch.bfloat16):
+    return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv,sq,sk", [(8, 2, 1152, 1152), (4, 4, 100, 100), (2, 1, 64, 200), (8, 8, 1024, 1024)])
+def test_flash_attention_matches_plain(cuda, causal, hq, hkv, sq, sk):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = randn(gen, 2, hq, sq, 128, device=cuda), randn(gen, 2, hkv, sk, 128, device=cuda), \
+        randn(gen, 2, hkv, sk, 128, device=cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    assert_close(out, mha_reference(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("rows", [None, [3, 0, 1]])
+def test_write_cache_rows_is_exact(cuda, dtype, rows):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    b, phys = 3, (3 if rows is None else 4)
+    k_cache = randn(gen, phys, 2, 384, 128, device=cuda, dtype=torch.float32).mul(40).to(dtype)
+    v_cache = randn(gen, phys, 2, 384, 128, device=cuda, dtype=torch.float32).mul(40).to(dtype)
+    k_new = randn(gen, b, 2, 3, 128, device=cuda, dtype=torch.float32).mul(40).to(dtype)
+    v_new = randn(gen, b, 2, 3, 128, device=cuda, dtype=torch.float32).mul(40).to(dtype)
+    index = torch.tensor([0, 190, 381], dtype=torch.int32, device=cuda)
+    rows_t = None if rows is None else torch.tensor(rows, dtype=torch.int32, device=cuda)
+    k_ref, v_ref = k_cache.clone(), v_cache.clone()
+    write_cache_rows(k_cache, v_cache, k_new, v_new, index, rows_t)
+    update_cache_rows(k_ref, k_new, index, rows_t)
+    update_cache_rows(v_ref, v_new, index, rows_t)
+    assert torch.equal(k_cache, k_ref) and torch.equal(v_cache, v_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("hq,hkv,w", [(8, 2, 3), (1, 1, 3), (4, 2, 1), (8, 1, 2)])
+def test_decode_attention_matches_plain(cuda, quantized, hq, hkv, w):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    b, phys, s = 2, 3, 1536
+    q = randn(gen, b, hq, w, 128, device=cuda)
+    if quantized:
+        k_cache = torch.randint(-127, 128, (phys, hkv, s, 128), generator=gen, device=cuda, dtype=torch.int8)
+        v_cache = torch.randint(-127, 128, (phys, hkv, s, 128), generator=gen, device=cuda, dtype=torch.int8)
+        k_scale = torch.rand(hkv, generator=gen, device=cuda) * 0.04 + 0.02
+        v_scale = torch.rand(hkv, generator=gen, device=cuda) * 0.04 + 0.02
+    else:
+        k_cache, v_cache = randn(gen, phys, hkv, s, 128, device=cuda), randn(gen, phys, hkv, s, 128, device=cuda)
+        k_scale = v_scale = None
+    lengths = torch.tensor([1, 1400], dtype=torch.int32, device=cuda)
+    rows = torch.tensor([2, 0], dtype=torch.int32, device=cuda)
+    out = decode_attention(q, k_cache, v_cache, lengths, rows, k_scale, v_scale)
+    assert_close(out, _scaled_reference(q, k_cache, v_cache, lengths, rows, k_scale, v_scale))
+    # Positions past each row's extent are never read.
+    poisoned = k_cache.clone()
+    poisoned[0, :, 1400 + w:] = 100 if quantized else 1e4
+    poisoned[2, :, 1 + w:] = 100 if quantized else 1e4
+    again = decode_attention(q, poisoned, v_cache, lengths, rows, k_scale, v_scale)
+    assert torch.equal(out, again)
+    # Column j sees positions < lengths + j: rows whose edge straddles a
+    # 64-position tile boundary (1407 + 1 = 1408) and starts at position 0.
+    edge_lengths = torch.tensor([1, 1407], dtype=torch.int32, device=cuda)
+    expected = mark_decode_edges(q, k_cache, v_cache, edge_lengths, rows, v_scale)
+    assert_close(decode_attention(q, k_cache, v_cache, edge_lengths, rows, k_scale, v_scale), expected)
+    assert_close(_scaled_reference(q, k_cache, v_cache, edge_lengths, rows, k_scale, v_scale), expected)
+
+
+@pytest.mark.cuda
+def test_decode_attention_rejects_more_than_16_rows_per_kv_head(cuda):
+    q = torch.zeros(1, 12, 3, 128, dtype=torch.bfloat16, device=cuda)  # 6 q heads per kv head x 3
+    cache = torch.zeros(1, 2, 128, 128, dtype=torch.bfloat16, device=cuda)
+    lengths = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most 16 q rows"):
+        decode_attention(q, cache, cache, lengths)
+
+
+@pytest.mark.cuda
+def test_tiny_engine_runs_through_every_kernel(cuda):
+    from dataclasses import replace
+    from pathlib import Path
+
+    from video_transformer_tpu_torch.analyzer.schema import note_dfa
+    from video_transformer_tpu_torch.models.bpe import BpeTokenizer
+    from video_transformer_tpu_torch.models.config import get_preset
+    from video_transformer_tpu_torch.parallel.engine import InferenceEngine
+
+    tok = BpeTokenizer.load(Path(__file__).resolve().parents[1] / "data" / "tokenizers" / "bpe-zh-2048.json")
+    cfg = get_preset("tiny")
+    cfg = replace(cfg, decoder=replace(cfg.decoder, vocab_size=tok.vocab_size))
+    engine = InferenceEngine(cfg, max_new_tokens=32, temperature=0.0, tokenizer=tok, param_dtype="bfloat16",
+                             quantize="int8", kv_quant="int8", device=cuda)
+    engine.dfa = engine.wrap_grammar(note_dfa(engine.byte_vocab))
+    kernels = (flash_attention, write_cache_rows, decode_attention)
+    before = [k.launches for k in kernels]
+    frames = np.random.default_rng(0).integers(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)
+    texts, ids = engine.generate(frames, ["分析", "hi"], return_tokens=True)
+    assert all(0 < len(row) <= 34 for row in ids)
+    assert all(k.launches > n for k, n in zip(kernels, before))

@@ -1,0 +1,107 @@
+"""Build the hand-written CUDA kernels in ``csrc/`` and bind them with ctypes.
+
+All ``csrc/*.cu`` sources compile in ONE ``nvcc`` call for ``sm_90a`` into a
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds, not minutes). The library lands in ``build/vtx_torch_kernels/``
+under the repository root, named by a hash of the sources and flags, and is
+built at first use only. Each ``extern "C"`` entry takes device pointers,
+int sizes and the CUDA stream, launches on that stream, and returns
+``cudaGetLastError()``; ``check`` raises on a non-zero return.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = ["library", "build_seconds", "build_log", "check", "ptr", "stream"]
+
+_PACKAGE = Path(__file__).resolve().parents[1]
+_CSRC = _PACKAGE / "csrc"
+_BUILD_DIR = _PACKAGE.parent / "build" / "vtx_torch_kernels"
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Entry name -> argtypes (every entry returns a cudaError_t as int).
+_SIGNATURES = {
+    # q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal, scale, stream
+    "vtx_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # k_cache, v_cache, k_new, v_new, index, rows, B, Hkv, S, W, D, elem_bytes, stream
+    "vtx_write_cache_rows": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # q, k_cache, v_cache, lengths, rows, k_scale, v_scale, out, part_acc, part_ml,
+    # B, Hq, Hkv, S, W, D, splits, tiles_per_split, cache_is_int8, scale, stream
+    "vtx_decode_attention": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
+}
+
+build_seconds = 0.0
+"""Seconds the last ``nvcc`` build took in this process (0 when cached)."""
+build_log = ""
+"""``nvcc``'s report of that build: registers, shared memory, spills."""
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [str(Path(home) / "bin" / "nvcc")] if home else []
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for path in candidates:
+        if path and os.access(path, os.X_OK):
+            return path
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use, with argtypes set."""
+    global build_seconds, build_log
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    sources = sorted(_CSRC.glob("*.cu"))
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    target = _BUILD_DIR / f"libvtx_kernels_{digest.hexdigest()[:16]}.so"
+    if not target.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        start = time.perf_counter()
+        result = subprocess.run(cmd, capture_output=True, text=True)
+        if result.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({result.returncode}):\n{result.stderr}")
+        build_seconds = time.perf_counter() - start
+        build_log = result.stderr
+        os.replace(tmp, target)
+    lib = ctypes.CDLL(str(target))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(name: str, code: int) -> None:
+    """Raise when a kernel entry reports a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code}")
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """Device pointer of a tensor (None stays a null pointer)."""
+    return None if t is None else t.data_ptr()
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a raw handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream

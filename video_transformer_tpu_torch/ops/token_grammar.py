@@ -1,0 +1,123 @@
+"""Token-level grammar: a byte-schema DFA projected onto a BPE vocabulary.
+
+This package's counterpart of the JAX package's ``ops/token_grammar.py``
+(serving half). Per state, a bitset ``allowed_bits[S, ceil(V/32)]`` answers
+which tokens keep the automaton alive (one row gather and a bit test); the
+successor of the one sampled token per row is a walk of its byte columns
+through the byte table; forced literal runs re-tokenize by the BPE codec so
+the engine's fast-forward blocks work unchanged.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .constrained import NEG_INF, JsonDfa
+
+__all__ = ["TokenGrammar"]
+
+
+class TokenGrammar:
+    """Engine-facing grammar over a BPE vocab (same surface as JsonDfa)."""
+
+    def __init__(self, dfa: JsonDfa, tokenizer, max_token_bytes: int = 16):
+        if tokenizer.vocab_size % 128:
+            raise ValueError("BPE vocab must be a multiple of 128")
+        self.dfa = dfa
+        self.tokenizer = tokenizer
+        self.start = dfa.start
+        self.accept = dfa.accept
+        self.max_token_bytes = max_token_bytes
+        self.vocab_size = tokenizer.vocab_size
+        self.token_cols, self.token_len = tokenizer.token_table(max_token_bytes)
+        self.allowed_bits = self._compute_allowed_bits()
+
+    def _compute_allowed_bits(self) -> np.ndarray:
+        """Walk every token's bytes from every state through the byte table."""
+        table = self.dfa.next_state
+        num_states = table.shape[0]
+        vocab = self.vocab_size
+        bits = np.zeros((num_states, (vocab + 31) // 32), np.uint32)
+        states = np.arange(num_states, dtype=np.int32)
+        chunk = 2048
+        for v0 in range(0, vocab, chunk):
+            cols = self.token_cols[v0 : v0 + chunk]  # [C, L]
+            lens = self.token_len[v0 : v0 + chunk]  # [C]
+            cur = np.repeat(states[:, None], cols.shape[0], axis=1)  # [S, C]
+            for pos in range(self.max_token_bytes):
+                active = (pos < lens)[None, :] & (cur >= 0)
+                if not active.any():
+                    break
+                col = np.maximum(cols[:, pos], 0)[None, :]
+                nxt = table[np.maximum(cur, 0), np.broadcast_to(col, cur.shape)]
+                cur = np.where(active, nxt, cur)
+            ok = (cur >= 0) & (lens > 0)[None, :]
+            token_ids = np.arange(v0, v0 + cols.shape[0])
+            word_idx = token_ids // 32
+            bit_val = np.uint32(1) << (token_ids % 32).astype(np.uint32)
+            for w in np.unique(word_idx):
+                sel = word_idx == w
+                bits[:, w] |= (ok[:, sel] * bit_val[sel][None, :]).astype(np.uint32).sum(
+                    axis=1, dtype=np.uint32
+                )
+        return bits
+
+    @property
+    def num_states(self) -> int:
+        return self.dfa.num_states
+
+    def device_table(self, device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+        """The grammar's tables on ``device`` (bits widened to int64)."""
+        return {
+            "bits": torch.from_numpy(self.allowed_bits.astype(np.int64)).to(device),
+            "byte_table": torch.from_numpy(self.dfa.next_state).to(device=device, dtype=torch.long),
+            "token_cols": torch.from_numpy(self.token_cols).to(device=device, dtype=torch.long),
+            "token_len": torch.from_numpy(self.token_len).to(device=device, dtype=torch.long),
+        }
+
+    @staticmethod
+    def constrain(logits: torch.Tensor, state: torch.Tensor, tables) -> torch.Tensor:
+        """Mask logits [B, V] via the bitset: one row gather + bit test."""
+        vocab = logits.shape[-1]
+        token_ids = torch.arange(vocab, device=logits.device)
+        words = tables["bits"][state][:, token_ids // 32]  # [B, V]
+        allowed = (words >> (token_ids % 32)) & 1
+        return torch.where(allowed.bool(), logits, torch.full_like(logits, NEG_INF))
+
+    @staticmethod
+    def advance(state: torch.Tensor, token: torch.Tensor, tables) -> torch.Tensor:
+        """Successor state after emitting ``token``: walk its byte columns."""
+        cols = tables["token_cols"][token]  # [B, L]
+        lens = tables["token_len"][token]  # [B]
+        byte_table = tables["byte_table"]
+        s = state
+        for i in range(cols.shape[1]):
+            col = cols[:, i]
+            nxt = byte_table[s.clamp(min=0), col.clamp(min=0)]
+            take = (i < lens) & (s >= 0) & (col >= 0)
+            s = torch.where(take, nxt, s)
+        return s
+
+    def forced_tables(self, max_run: int = 24) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Token-level forced runs: greedy re-tokenization of the byte runs."""
+        byte_len, byte_tok, _ = self.dfa.forced_tables(max_run=max_run * self.max_token_bytes)
+        num_states = self.dfa.num_states
+        forced_len = np.zeros((num_states,), np.int32)
+        forced_tokens = np.zeros((num_states, max_run), np.int32)
+        forced_end = np.arange(num_states, dtype=np.int32)
+        table = self.dfa.next_state
+        for s in range(num_states):
+            n = int(byte_len[s])
+            if n == 0:
+                continue
+            run = bytes(int(b) for b in byte_tok[s, :n])
+            tokens = self.tokenizer.encode_bytes(run)[:max_run]
+            cur = s
+            for tok in tokens:
+                for byte in self.tokenizer.token_bytes(tok):
+                    cur = int(table[cur, byte])
+            forced_len[s] = len(tokens)
+            forced_tokens[s, : len(tokens)] = tokens
+            forced_end[s] = cur
+        return forced_len, forced_tokens, forced_end

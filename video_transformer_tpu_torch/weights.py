@@ -1,0 +1,102 @@
+"""The weight bridge: JAX parameter trees -> the port's VideoLM, and seeded
+random weights made directly on the device.
+
+The port's buffer names are the JAX package's parameter paths joined by dots
+(``params/decoder/layer_0/attn/q/kernel`` -> ``decoder.layer_0.attn.q.kernel``;
+``quant/decoder/.../scale`` -> ``...q.scale``), and dense kernels keep flax's
+[in, out] layout, so the bridge is a rename and nothing is transposed.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+
+from .models.config import VLMConfig
+from .models.vlm import VideoLM
+
+__all__ = ["cast_weights", "from_jax_params", "random_params"]
+
+
+def _flatten(tree: dict, prefix: str = "") -> Iterator[tuple[str, Any]]:
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, f"{prefix}{key}.")
+        else:
+            yield prefix + key, value
+
+
+def _to_tensor(array: Any) -> torch.Tensor:
+    array = np.asarray(array)
+    if array.dtype.name == "bfloat16":  # ml_dtypes bfloat16: same bits as torch's
+        return torch.from_numpy(array.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(array, copy=True, order="C"))
+
+
+def _assign(model: torch.nn.Module, name: str, tensor: torch.Tensor) -> None:
+    owner, _, leaf = name.rpartition(".")
+    setattr(model.get_submodule(owner), leaf, tensor)
+
+
+def from_jax_params(
+    variables: dict, config: VLMConfig, device: str | torch.device = "cuda"
+) -> VideoLM:
+    """A VideoLM holding the JAX package's variables (numpy leaves).
+
+    ``variables`` is ``{"params": ..., "quant": ...}`` as the JAX engine
+    serves it (``quant`` present after int8 quantization). Leaves keep their
+    dtypes (f32, bf16 or int8). Raises on a missing or unknown leaf.
+    """
+    with torch.device("meta"):
+        model = VideoLM(config)
+    expected = set(model.state_dict())
+    seen = set()
+    for collection in ("params", "quant"):
+        for name, leaf in _flatten(variables.get(collection, {})):
+            if name not in expected and not name.endswith(".scale"):
+                raise KeyError(f"unknown JAX leaf {collection}.{name}")
+            _assign(model, name, _to_tensor(leaf))
+            seen.add(name)
+    missing = expected - seen
+    if missing:
+        raise KeyError(f"JAX tree lacks {sorted(missing)[:4]}")
+    return model.to(device)
+
+
+@torch.no_grad()
+def random_params(
+    config: VLMConfig,
+    generator: torch.Generator,
+    device: str | torch.device = "cuda",
+    dtype: torch.dtype = torch.float32,
+) -> VideoLM:
+    """A VideoLM with seeded weights at flax's init scales, made on ``device``.
+
+    Dense kernels: lecun normal (truncated at two standard deviations);
+    embedding and lm_head: normal(0.02); norms: ones. ``generator`` must live
+    on ``device``. Weights are stored in ``dtype`` (the serving config's
+    ``param_dtype``).
+    """
+    with torch.device(device):
+        model = VideoLM(config)
+    for name, buf in model.named_buffers():
+        if name.endswith(".kernel"):
+            fan_in = buf.shape[0]
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            torch.nn.init.trunc_normal_(buf, 0.0, std, -2 * std, 2 * std, generator=generator)
+        elif name.endswith("embedding") or name.endswith("lm_head"):
+            buf.normal_(0.0, 0.02, generator=generator)
+    return cast_weights(model, dtype).to(device)
+
+
+def cast_weights(model: VideoLM, dtype: torch.dtype) -> VideoLM:
+    """Cast the float weights (not the int8 kernels, the position or RoPE
+    tables) to ``dtype`` in place: the serving config's ``param_dtype``."""
+    persistent = set(model.state_dict())
+    for name, buf in list(model.named_buffers()):
+        if name in persistent and buf.is_floating_point():
+            _assign(model, name, buf.to(dtype))
+    return model
