@@ -3,29 +3,43 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels from ``video_transformer_tpu_torch/csrc`` (one
-``nvcc`` call), holds each kernel against its plain PyTorch version at the
-serving path's shapes and times both, checks the whole model against the
-plain versions on the CPU at the tiny preset, then serves three requests
-through ``InferenceEngine.generate`` at the full ``base`` width (int8
-weights, int8 KV cache, BPE vocabulary, the note grammar, greedy) with
-seeded random weights, shows that the requests went through every kernel,
-and profiles one short request to show where its time goes (device busy
-share, top device ops). It prints one JSON object per line, flushed; the
-last line is ``{"ok": true, "device": {...}}``. Any failure raises (exit
-code 1). It needs a CUDA device and exits with an error without one.
+``nvcc`` process per source, in parallel), holds each kernel against its
+plain PyTorch version at the shapes of the serving and training paths and
+times both, checks the whole model against the plain versions on the CPU at
+the tiny preset (serving logits, then training gradients), then:
+
+- serves three requests through ``InferenceEngine.generate`` at the full
+  ``base`` width (int8 weights, int8 KV cache, BPE vocabulary, the note
+  grammar, greedy) with seeded random weights, shows that the requests went
+  through K1-K3, and profiles one short request (device busy share, top
+  device ops);
+- trains five steps of ``python -m video_transformer_tpu_torch.train.run``'s
+  code path at the full ``base`` width (seeded random f32 weights, bf16
+  compute, BPE vocabulary, batch 2, 1,024 video + 2,048 text positions),
+  shows that every step ran 36 launches each of K7a, K7b and K7c and no
+  reference backward, profiles one step, and saves and restores a
+  checkpoint in a temporary directory.
+
+It prints one JSON object per line, flushed; the last line is
+``{"ok": true, "device": {...}}``. Any failure raises (exit code 1). It
+needs a CUDA device and exits with an error without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -36,6 +50,7 @@ from video_transformer_tpu_torch.models.bpe import BpeTokenizer
 from video_transformer_tpu_torch.models.config import VLMConfig, get_preset
 from video_transformer_tpu_torch.models.lm import init_kv_cache
 from video_transformer_tpu_torch.ops import _lib
+from video_transformer_tpu_torch.ops import flash_bwd as flash_bwd_module
 from video_transformer_tpu_torch.ops.attention import flash_attention, mha_reference
 from video_transformer_tpu_torch.ops.decode_attention import (
     _scaled_reference,
@@ -43,8 +58,19 @@ from video_transformer_tpu_torch.ops.decode_attention import (
     update_cache_rows,
     write_cache_rows,
 )
+from video_transformer_tpu_torch.ops.flash_bwd import (
+    flash_bwd_dkv,
+    flash_bwd_dkv_reference,
+    flash_bwd_dq,
+    flash_bwd_dq_reference,
+    flash_fwd_lse,
+    flash_fwd_lse_reference,
+)
 from video_transformer_tpu_torch.ops.preprocess import preprocess_frames
 from video_transformer_tpu_torch.parallel.engine import InferenceEngine
+from video_transformer_tpu_torch.train.data import synthetic_batch
+from video_transformer_tpu_torch.train.run import build_parser, make_prompt_sampler, prepare, setup_logging
+from video_transformer_tpu_torch.train.trainer import distillation_loss
 from video_transformer_tpu_torch.weights import random_params
 
 REPO = Path(__file__).resolve().parent
@@ -54,10 +80,36 @@ BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
 MAX_NEW_TOKENS = 256  # capped for the smoke; the shipped config says 4096
 PROMPT = "分析这段视频的内容，写出结构化的知识笔记。"
 KERNELS = (flash_attention, write_cache_rows, decode_attention)
-# K1 and K3 compute in f32 and round their output to bf16 once, as their plain
-# versions do. One rounding step is at most 2**-7 of the value, so the two
-# agree within 1e-2 of the largest output.
+TRAIN_KERNELS = (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv)
+# K1 and K3 compute in f32 and round their output to bf16 once, as their
+# plain versions do. One rounding step is at most 2**-7 of the value, so the
+# two agree within 1e-2 of the largest output.
 REL_TOL = 1e-2
+# K7a-c are held element by element: |got - want| <= rel * |want| + floor *
+# rms(want), so that an error confined to small late-position values fails
+# as surely as one at the large early ones. All three compute in f32 on the
+# CUDA cores. K7a's O and K7b's dQ are rounded to bf16 once, as their plain
+# versions are: the two roundings differ by at most one bf16 step (2**-7 of
+# the value), and the floor covers values that cancel to near zero.
+BF16_TOL = (1e-2, 1e-3)
+# K7c's dK/dV partials stay f32 in both; they differ in summation order and
+# __expf only, about 1e-6 of the value.
+F32_TOL = (1e-3, 1e-4)
+# K7a's LSE is f32 in both; the kernel's __expf/logf and summation order
+# move it by far less than 1e-3 at |LSE| ~ 10.
+LSE_TOL = 1e-3
+# Training gradients of the tiny model, bf16 compute: card against CPU, the
+# largest per-tensor ||g_card - g_cpu|| / ||g_cpu||, on GRAD_SEEDS seeds. On
+# an H100 (seeds 0-3) the card reads 1.2-1.4% against the CPU, the CPU's bf16
+# noise floor (bf16 against f32 compute) 1.4-1.7%, and a flash mask shifted
+# by one position 11.7-15.2%: the limit sits about 3x from either side.
+GRAD_REL_TOL = 4e-2
+GRAD_SEEDS = 4
+TRAIN_STEPS = 5
+TRAIN_ARGS = [  # the training CLI at base width, as a user would call it
+    "--preset", "base", "--tokenizer", str(TOKENIZER), "--batch", "2", "--text-len", "2048",
+    "--steps", str(TRAIN_STEPS), "--device", "cuda",
+]
 
 
 def emit(obj: dict) -> None:
@@ -250,6 +302,155 @@ def mark_decode_edges(q, k_cache, v_cache, lengths, rows, v_scale=None) -> torch
     return expected.expand(b, hq, width, d)
 
 
+def closeness(got: torch.Tensor, want: torch.Tensor, rel: float, floor: float) -> dict:
+    """How far ``got`` is from ``want`` under the element-wise limit
+    ``rel * |want| + floor * rms(want)``: the largest absolute error, and the
+    largest ratio of error to limit (at most 1 passes), over all positions
+    and over the second half of them (rows S/2 and later)."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    ratio = diff / (rel * want.abs() + floor * want.square().mean().sqrt())
+    return {"max_abs_err": diff.max().item(), "ratio": ratio.max().item(),
+            "late_ratio": ratio[..., ratio.shape[-2] // 2:, :].max().item()}
+
+
+@contextlib.contextmanager
+def shifted_causal_mask(shift: int):
+    """The port's plain flash versions with the causal mask moved by
+    ``shift`` positions (each query sees ``shift`` keys more): the fault that
+    the checks of K7a-c must catch."""
+    original = flash_bwd_module._logits
+
+    def shifted(q, k, causal):
+        logits = original(q, k, causal=False)
+        if causal:
+            pos = torch.arange(q.shape[2], device=q.device)
+            logits = logits.masked_fill(pos[None, :] > pos[:, None] + shift, flash_bwd_module._NEG_INF)
+        return logits
+
+    with mock.patch.object(flash_bwd_module, "_logits", shifted):
+        yield
+
+
+def flash_train_errors(q, k, v, dout, causal: bool) -> dict:
+    """K7a, K7b and K7c against their plain versions on the same inputs (the
+    backward kernels and their plain versions both take K7a's O and LSE).
+    Raises past a tolerance; returns the errors and the kernels' outputs.
+    Where causal, it also holds the kernels against plain versions whose
+    mask is shifted by one position, and raises if that passes the check."""
+    shape = f"q {list(q.shape)} kv {list(k.shape)} bf16 causal={causal}"
+    out, lse = flash_fwd_lse(q, k, v, causal)
+    dsum = (dout.float() * out.float()).sum(-1)
+    dq = flash_bwd_dq(q, k, v, dout, lse, dsum, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, dsum, causal)
+
+    def plain() -> tuple[torch.Tensor, ...]:
+        ref_out, ref_lse = flash_fwd_lse_reference(q, k, v, causal)
+        ref_dq = flash_bwd_dq_reference(q, k, v, dout, lse, dsum, causal)
+        return (ref_out, ref_dq, *flash_bwd_dkv_reference(q, k, v, dout, lse, dsum, causal), ref_lse)
+
+    def compare(wants) -> dict[str, dict]:
+        *wants, ref_lse = wants
+        tols = (BF16_TOL, BF16_TOL, F32_TOL, F32_TOL)
+        result = {name: closeness(got, want, *tol)
+                  for name, got, want, tol in zip(("O", "dQ", "dK", "dV"), (out, dq, dk, dv), wants, tols)}
+        result["LSE"] = {"max_abs_err": (lse - ref_lse).abs().max().item()}
+        result["LSE"]["ratio"] = result["LSE"]["max_abs_err"] / LSE_TOL
+        return result
+
+    errors = {"shape": shape, "out": out, "lse": lse, "dsum": dsum, "dq": dq, "dk": dk, "dv": dv,
+              "checks": compare(plain())}
+    for name, check in errors["checks"].items():
+        if not check["ratio"] <= 1:
+            raise AssertionError(f"{name} ({shape}) disagrees with its plain version: {check}")
+    if causal:
+        with shifted_causal_mask(1):
+            errors["shifted_mask"] = compare(plain())
+        caught = [name for name, check in errors["shifted_mask"].items() if check["ratio"] > 1]
+        if caught != list(errors["shifted_mask"]):
+            raise AssertionError(f"a mask shifted by one passes the check of {errors['shifted_mask']}")
+    return errors
+
+
+def check_flash_train(gen: torch.Generator, dev: torch.device, batch: int, heads: int, kv_heads: int,
+                      seq: int, causal: bool) -> dict[str, dict]:
+    """K7a, K7b and K7c against their plain versions at one training shape;
+    times and bounds."""
+    d = 128
+    q, k, v, dout = (
+        torch.randn(batch, h, seq, d, generator=gen, device=dev).to(torch.bfloat16)
+        for h in (heads, kv_heads, kv_heads, heads)
+    )
+    e = flash_train_errors(q, k, v, dout, causal)
+    out, lse, dsum, dq, dk, dv = (e[key] for key in ("out", "lse", "dsum", "dq", "dk", "dv"))
+
+    def check(*names: str) -> dict:
+        """The check's readings for the named outputs, and the shifted mask's."""
+        fields = {"max_abs_err": max(e["checks"][n]["max_abs_err"] for n in names),
+                  "worst_ratio": max(e["checks"][n]["ratio"] for n in names),
+                  "tol": {n: "|d| <= %g |want| + %g rms(want)" % (BF16_TOL if n in ("O", "dQ") else F32_TOL)
+                          for n in names}}
+        if "shifted_mask" in e:
+            fields["shifted_mask_ratio"] = {n: e["shifted_mask"][n]["ratio"] for n in names}
+            fields["shifted_mask_late_ratio"] = {n: e["shifted_mask"][n]["late_ratio"] for n in names}
+        return fields
+
+    pairs = seq * (seq + 1) / 2 if causal else seq * seq
+    flops = batch * heads * d * pairs
+    rows = nbytes(lse, dsum)
+    # The library yardstick: SDPA forward for K7a; its backward for K7b + K7c together.
+    gqa = kv_heads != heads
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=gqa)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dout, retain_graph=True))
+    lse_check = check("O")
+    lse_check.update(lse_max_abs_err=e["checks"]["LSE"]["max_abs_err"], lse_tol=LSE_TOL)
+    if "shifted_mask" in e:
+        lse_check["shifted_mask_lse_err"] = e["shifted_mask"]["LSE"]["max_abs_err"]
+    results = {
+        "flash_fwd_lse": dict(
+            **lse_check,
+            ms=time_ms(lambda: flash_fwd_lse(q, k, v, causal)),
+            plain_ms=time_ms(lambda: flash_fwd_lse_reference(q, k, v, causal), warmup=1, reps=2),
+            bound=bound(nbytes(q, k, v, out) + nbytes(lse), 4 * flops),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=gqa)),
+        ),
+        "flash_bwd_dq": dict(
+            **check("dQ"),
+            ms=time_ms(lambda: flash_bwd_dq(q, k, v, dout, lse, dsum, causal)),
+            plain_ms=time_ms(lambda: flash_bwd_dq_reference(q, k, v, dout, lse, dsum, causal), warmup=1, reps=2),
+            bound=bound(nbytes(q, k, v, dout, dq) + rows, 6 * flops),
+            library_ms=sdpa_bwd_ms,
+        ),
+        "flash_bwd_dkv": dict(
+            **check("dK", "dV"),
+            ms=time_ms(lambda: flash_bwd_dkv(q, k, v, dout, lse, dsum, causal)),
+            plain_ms=time_ms(lambda: flash_bwd_dkv_reference(q, k, v, dout, lse, dsum, causal), warmup=1, reps=2),
+            bound=bound(nbytes(q, k, v, dout, dk, dv) + rows, 8 * flops),
+            library_ms=sdpa_bwd_ms,
+        ),
+    }
+    for result in results.values():
+        result["bound_ms"], result["bound_by"] = result.pop("bound")
+        result["shape"] = e["shape"]
+    return results
+
+
+def train_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig) -> dict[str, dict]:
+    """K7a-c at the training step's two shapes: the causal decoder (video +
+    text positions, GQA) and the non-causal encoder. The decoder shape's
+    numbers lead; the encoder's carry an ``encoder_`` prefix."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    enc, dec = cfg.encoder, cfg.decoder
+    seq = cfg.video_tokens + int(TRAIN_ARGS[TRAIN_ARGS.index("--text-len") + 1])
+    results = check_flash_train(gen, dev, 2, dec.num_heads, dec.num_kv_heads, seq, causal=True)
+    encoder = check_flash_train(gen, dev, 2, enc.num_heads, enc.num_heads, enc.tokens_per_clip, causal=False)
+    for name, result in results.items():
+        for key in ("max_abs_err", "worst_ratio", "ms", "plain_ms", "bound_ms", "library_ms", "shape"):
+            result[f"encoder_{key}"] = encoder[name][key]
+    return results
+
+
 # -- whole-model reference -------------------------------------------------------
 
 
@@ -284,6 +485,178 @@ def reference_phase(seed: int, dev: torch.device, vocab_size: int) -> dict:
     if not torch.isfinite(logits["gpu"]).all() or err > tol:
         raise AssertionError(f"tiny-preset logits: card vs CPU max_abs_err {err} > {tol}")
     return {"phase": "reference", "preset": "tiny", "max_abs_err": err, "tol": tol, "logit_scale": scale}
+
+
+def reset_counts() -> None:
+    for kernel in KERNELS + TRAIN_KERNELS:
+        kernel.launches = 0
+    flash_attention.reference_backwards = 0
+
+
+def counts() -> dict[str, int]:
+    out = {kernel.__name__: kernel.launches for kernel in KERNELS + TRAIN_KERNELS}
+    out["reference_backwards"] = flash_attention.reference_backwards
+    return out
+
+
+def tiny_gradients(cfg: VLMConfig, seed: int, dev: torch.device) -> dict:
+    """The tiny model's distillation loss and gradients for one seed, on the
+    card and on the CPU from the same f32 weights and batch: ``gpu`` and
+    ``cpu`` compute in bf16, ``cpu_f32`` in f32 (the bf16 noise floor), and
+    ``cpu_shifted`` in bf16 with the flash mask shifted by one position (a
+    fault the check must catch). Returns {name: (loss, {tensor: grad},
+    launches)}."""
+    cpu_model = random_params(cfg, torch.Generator(device="cpu").manual_seed(seed), device="cpu")
+    f32_model = copy.deepcopy(cpu_model)
+    f32_model.config = replace(cfg, dtype="float32")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    rng = np.random.default_rng(seed)
+    patches, tokens = synthetic_batch(rng, cfg, 2, 224, prompt=make_prompt_sampler("compact"), prompt_len=64)
+    prompt_lens = torch.tensor([64, 0], dtype=torch.int32)
+    runs = (("cpu", cpu_model, 0), ("cpu_f32", f32_model, 0), ("gpu", gpu_model, 0), ("cpu_shifted", cpu_model, 1))
+    results = {}
+    for name, model, shift in runs:
+        device = next(model.parameters()).device
+        reset_counts()
+        with shifted_causal_mask(shift) if shift else contextlib.nullcontext():
+            loss, _ = distillation_loss(
+                model, torch.from_numpy(patches).to(device), torch.from_numpy(tokens).to(device),
+                prompt_lens=prompt_lens.to(device),
+            )
+            params = dict(model.named_parameters())
+            grads = torch.autograd.grad(loss, list(params.values()))
+        results[name] = (loss.item(), {n: g.float().cpu() for n, g in zip(params, grads)}, counts())
+    return results
+
+
+def worst_grad_error(got: dict, want: dict) -> tuple[float, str]:
+    """The largest per-tensor ||got - want|| / ||want||, and its tensor."""
+    return max(((got[n] - w).norm().item() / max(w.norm().item(), 1e-30), n) for n, w in want.items())
+
+
+def train_reference_phase(seed: int, dev: torch.device, vocab_size: int) -> dict:
+    """Tiny preset, f32 weights, bf16 compute, GRAD_SEEDS seeds: the
+    distillation loss's gradients through the kernels on the card against
+    the plain versions on the CPU. The decoder (32 video + 224 text
+    positions) takes K7a-c; the encoder (32 positions) K1 and the reference
+    backward. Beside each reading, the bf16 noise floor (the CPU's bf16
+    gradients against its f32 ones) and a fault's reading (a flash mask
+    shifted by one position against the CPU's bf16 gradients), which must
+    fail the check."""
+    cfg = get_preset("tiny")
+    cfg = replace(cfg, decoder=replace(cfg.decoder, vocab_size=vocab_size))
+    layers = cfg.decoder.num_layers
+    expected = {"flash_fwd_lse": layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+                "flash_attention": cfg.encoder.num_layers, "reference_backwards": cfg.encoder.num_layers}
+    readings = []
+    for s in range(seed, seed + GRAD_SEEDS):
+        results = tiny_gradients(cfg, s, dev)
+        (cpu_loss, cpu_grads, _), (gpu_loss, gpu_grads, gpu_counts) = results["cpu"], results["gpu"]
+        if any(gpu_counts[key] != n for key, n in expected.items()):
+            raise AssertionError(f"tiny gradient routes: {gpu_counts}, expected {expected}")
+        if not all(torch.isfinite(g).all() for g in gpu_grads.values()) or not math.isfinite(gpu_loss):
+            raise AssertionError(f"seed {s}: tiny loss or gradients are not finite on the card")
+        err, err_name = worst_grad_error(gpu_grads, cpu_grads)
+        floor, floor_name = worst_grad_error(cpu_grads, results["cpu_f32"][1])
+        fault, fault_name = worst_grad_error(results["cpu_shifted"][1], cpu_grads)
+        readings.append({"seed": s, "loss_cpu": cpu_loss, "loss_gpu": gpu_loss,
+                         "worst_grad_rel_err": err, "worst_grad": err_name,
+                         "bf16_noise_floor": floor, "noise_floor_grad": floor_name,
+                         "shifted_mask_rel_err": fault, "shifted_mask_grad": fault_name})
+        if not err <= GRAD_REL_TOL:
+            raise AssertionError(f"tiny gradients, seed {s}: card vs CPU {err_name} off by {err} > {GRAD_REL_TOL}")
+        if not fault > GRAD_REL_TOL:
+            raise AssertionError(f"tiny gradients, seed {s}: a shifted mask passes the check ({fault})")
+    return {"phase": "train_reference", "preset": "tiny", "tol": GRAD_REL_TOL,
+            "metric": "max over tensors of ||g_card - g_cpu|| / ||g_cpu||",
+            "tensors": len(cpu_grads), "gpu_launches": gpu_counts, "seeds": readings}
+
+
+def train_phase(dev: torch.device, workdir: Path) -> tuple[list[dict], dict[str, int]]:
+    """Five steps of the training CLI's code path at base width; then one
+    profiled step and a checkpoint round trip. Returns the lines to print
+    and the launches of the five steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = build_parser().parse_args(TRAIN_ARGS + ["--out", str(workdir / "ckpt"), "--log-dir", str(workdir)])
+    t0 = time.perf_counter()
+    config, trainer, batches = prepare(args, setup_logging(args.log_dir))
+    torch.cuda.synchronize()
+    lines = [{"phase": "train_setup", "seconds": time.perf_counter() - t0, "preset": config.name,
+              "seq": config.video_tokens + args.text_len, "batch": args.batch, "vocab": config.decoder.vocab_size,
+              "params": sum(p.numel() for p in trainer.optimizer.params), "weights": "random f32, seeded",
+              "compute_dtype": config.dtype}]
+    expected = {"flash_fwd_lse": 36, "flash_bwd_dq": 36, "flash_bwd_dkv": 36,
+                "flash_attention": 0, "reference_backwards": 0}
+    step_ms, loss_tokens = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for step in range(1, TRAIN_STEPS + 1):
+        patches, tokens, prompt_lens = next(batches)
+        before = counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        metrics = trainer.step(patches, tokens, prompt_lens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - start) * 1e3
+        launched = {key: n - before[key] for key, n in counts().items()}
+        if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])):
+            raise AssertionError(f"train step {step}: non-finite loss or gradient {metrics}")
+        if any(launched[key] != n for key, n in expected.items()):
+            raise AssertionError(f"train step {step}: launches {launched}, expected {expected}")
+        step_ms.append(ms)
+        loss_tokens.append(metrics["tokens"])
+        lines.append({"phase": "train_step", "step": step, "loss": metrics["loss"], "accuracy": metrics["accuracy"],
+                      "grad_norm": metrics["grad_norm"], "loss_tokens": metrics["tokens"], "step_ms": ms,
+                      "launches": launched})
+    total = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = statistics.median(step_ms[1:])
+    lines.append({"phase": "train", "steps": TRAIN_STEPS, "steady_step_ms": steady, "first_step_ms": step_ms[0],
+                  "loss_tokens_per_s": statistics.median(loss_tokens[1:]) / steady * 1e3,
+                  "positions_per_s": args.batch * (config.video_tokens + args.text_len) / steady * 1e3,
+                  "peak_memory_gib": peak, "launches": total})
+
+    # One step timed alone, then the same under torch.profiler (device activity only).
+    patches, tokens, prompt_lens = next(batches)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    trainer.step(patches, tokens, prompt_lens)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.step(patches, tokens, prompt_lens)
+        torch.cuda.synchronize()
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    ops = sorted((op for op in ops if op[1] > 0), key=lambda op: -op[1])
+    device_ms = sum(op[1] for op in ops)
+    if not ops:
+        raise AssertionError("train profile: no device ops")
+    kinds = {"flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0, "flash_fwd": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, ms, _ in ops:
+        kind = next((k for k in ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd") if k in name), None)
+        kind = kind or ("matmul" if any(m in name for m in ("nvjet", "gemm", "cutlass")) else "other")
+        kinds[kind] += ms
+    lines.append({"phase": "train_profile", "wall_ms": wall_ms, "device_busy_ms": device_ms,
+                  "device_busy_share": device_ms / wall_ms, "device_launches": sum(op[2] for op in ops),
+                  "device_ms_by_kind": kinds,
+                  "top_device_ops_ms": [[name[:60], ms, count] for name, ms, count in ops[:12]]})
+
+    # Checkpoint round trip: save, disturb a weight, restore.
+    start = time.perf_counter()
+    saved = trainer.save_checkpoint(args.out)
+    state = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    with torch.no_grad():
+        trainer.model.decoder.embed.embedding.add_(1.0)
+    trainer.restore_checkpoint(saved)
+    mismatched = [k for k, v in trainer.model.state_dict().items() if not torch.equal(v, state[k])]
+    if mismatched or trainer.step_count != TRAIN_STEPS + 2:
+        raise AssertionError(f"checkpoint round trip: {mismatched[:4]}, step {trainer.step_count}")
+    lines.append({"phase": "train_checkpoint", "path": saved.name, "tensors": len(state),
+                  "seconds": time.perf_counter() - start})
+    return lines, total
 
 
 # -- serving phase ---------------------------------------------------------------
@@ -418,26 +791,42 @@ def main() -> None:
     cache_len = 128 * math.ceil((cfg.video_tokens + prompt_bucket + MAX_NEW_TOKENS + 2 * width + 17) / 128)
     t0 = time.perf_counter()
     kernels = kernel_phase(args.seed, dev, cfg, prompt_bucket, cache_len)
+    kernels.update(train_kernel_phase(args.seed, dev, cfg))
     emit({"phase": "kernels_checked", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     emit(dict(reference_phase(args.seed, dev, tokenizer.vocab_size), seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    emit(dict(train_reference_phase(args.seed, dev, tokenizer.vocab_size), seconds=time.perf_counter() - t0))
 
+    # Main path 1, serving: three requests through K1-K3.
     rng = np.random.default_rng(args.seed)
     clips = rng.integers(0, 256, (3, cfg.encoder.num_frames, 256, 256, 3), dtype=np.uint8)
-    for kernel in KERNELS:
-        kernel.launches = 0
+    reset_counts()
     requests = serve(engine, clips[:2]) + serve(engine, clips[2:])
-    launches = {kernel.__name__: kernel.launches for kernel in KERNELS}
+    served = counts()
     for line in requests:
         emit(dict(line, max_new_tokens_cap=MAX_NEW_TOKENS))
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel was not launched by the requests: {launches}")
+    if not all(served[kernel.__name__] for kernel in KERNELS):
+        raise AssertionError(f"a kernel was not launched by the requests: {served}")
     emit(profile_phase(engine, clips[:2]))
+    del engine
+    torch.cuda.empty_cache()
+
+    # Main path 2, training: five base-width steps through K7a-c.
+    with tempfile.TemporaryDirectory(prefix="vtx_train_") as workdir:
+        train_lines, trained = train_phase(dev, Path(workdir))
+    for line in train_lines:
+        emit(line)
+    launches = {kernel.__name__: served[kernel.__name__] for kernel in KERNELS}
+    launches.update({kernel.__name__: trained[kernel.__name__] for kernel in TRAIN_KERNELS})
 
     sources = {
         "flash_attention": ("csrc/flash_attention.cu", "video_transformer_tpu/ops/attention.py:56"),
         "write_cache_rows": ("csrc/write_cache_rows.cu", "video_transformer_tpu/ops/decode_attention.py:570"),
         "decode_attention": ("csrc/decode_attention.cu", "video_transformer_tpu/ops/decode_attention.py:164"),
+        "flash_fwd_lse": ("csrc/flash_bwd.cu", "video_transformer_tpu/ops/flash_bwd.py:53"),
+        "flash_bwd_dq": ("csrc/flash_bwd.cu", "video_transformer_tpu/ops/flash_bwd.py:156"),
+        "flash_bwd_dkv": ("csrc/flash_bwd.cu", "video_transformer_tpu/ops/flash_bwd.py:204"),
     }
     line = []
     for name, result in kernels.items():

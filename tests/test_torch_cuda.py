@@ -6,16 +6,17 @@ host). On a GPU host run them with
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-Tolerances: the row write is exact. Attention computes in f32 and rounds its
-bf16 output once, as the plain version does, so the two agree within 1e-2 of
-the largest output (one bf16 rounding step is at most 2**-7 of the value).
+Tolerances: the row write is exact. Attention (K1, K3 and the training
+kernels K7a-c) computes in f32 and rounds its bf16 output once, as the plain
+version does, so the two agree within 1e-2 of the largest output (one bf16
+rounding step is at most 2**-7 of the value); K7a's f32 LSE within 1e-3.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import REL_TOL, mark_decode_edges
+from chip_smoke import REL_TOL, TRAIN_KERNELS, flash_train_errors, mark_decode_edges
 from video_transformer_tpu_torch.ops.attention import flash_attention, mha_reference
 from video_transformer_tpu_torch.ops.decode_attention import (
     _scaled_reference,
@@ -147,3 +148,56 @@ def test_tiny_engine_runs_through_every_kernel(cuda):
     texts, ids = engine.generate(frames, ["分析", "hi"], return_tokens=True)
     assert all(0 < len(row) <= 34 for row in ids)
     assert all(k.launches > n for k, n in zip(kernels, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv,s", [(8, 2, 1024), (4, 1, 256), (8, 8, 384), (2, 2, 128)])
+def test_flash_train_kernels_match_plain(cuda, causal, hq, hkv, s):
+    """K7a (O and LSE), K7b and K7c against their plain versions element by
+    element, GQA groups of 4 and 1; where causal, plain versions with a mask
+    shifted by one position fail the same check (flash_train_errors raises
+    past the tolerances, or where the shifted mask passes)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, dout = randn(gen, 2, hq, s, 128, device=cuda), randn(gen, 2, hq, s, 128, device=cuda)
+    k, v = randn(gen, 2, hkv, s, 128, device=cuda), randn(gen, 2, hkv, s, 128, device=cuda)
+    before = [kernel.launches for kernel in TRAIN_KERNELS]
+    errors = flash_train_errors(q, k, v, dout, causal)
+    assert [kernel.launches for kernel in TRAIN_KERNELS] == [n + 1 for n in before]
+    assert all(check["ratio"] <= 1 for check in errors["checks"].values())
+    if causal:
+        assert all(check["ratio"] > 1 for check in errors["shifted_mask"].values())
+
+
+@pytest.mark.cuda
+def test_flash_train_kernels_reject_unsupported_shapes(cuda):
+    from video_transformer_tpu_torch.ops.flash_bwd import flash_fwd_lse
+
+    q = torch.zeros(1, 2, 200, 128, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="Sq == Sk % 128 == 0"):
+        flash_fwd_lse(q, q[:, :1], q[:, :1])
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_fwd_lse(*(torch.zeros(1, 2, 256, 128, device=cuda) for _ in range(3)))
+
+
+@pytest.mark.cuda
+def test_tiny_trainer_step_runs_through_k7(cuda):
+    """One tiny-preset training step on the card: the decoder (32 video + 224
+    text positions) runs K7a-c, the encoder (32 positions) K1 and the
+    reference backward; the loss is finite and the weights move."""
+    from video_transformer_tpu_torch.models.config import get_preset
+    from video_transformer_tpu_torch.ops.attention import flash_attention as attention
+    from video_transformer_tpu_torch.train.data import synthetic_batch
+    from video_transformer_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = get_preset("tiny")
+    trainer = Trainer(cfg, TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4), device=cuda)
+    patches, tokens = synthetic_batch(np.random.default_rng(0), cfg, 2, 224)
+    before = [kernel.launches for kernel in TRAIN_KERNELS] + [attention.launches, attention.reference_backwards]
+    weight = trainer.model.decoder.layer_0.attn.q.kernel.detach().clone()
+    for _ in range(2):  # the first update has learning rate 0
+        metrics = trainer.step(patches, tokens)
+    after = [kernel.launches for kernel in TRAIN_KERNELS] + [attention.launches, attention.reference_backwards]
+    assert [a - b for a, b in zip(after, before)] == [4, 4, 4, 4, 4]
+    assert np.isfinite(metrics["loss"]) and np.isfinite(metrics["grad_norm"])
+    assert not torch.equal(weight, trainer.model.decoder.layer_0.attn.q.kernel)

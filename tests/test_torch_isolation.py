@@ -136,7 +136,12 @@ def test_kernel_sources_are_plain_cuda():
     """Each CUDA source names the TPU kernel it replaces and includes no
     PyTorch headers (the nvcc + ctypes route)."""
     sources = sorted((PACKAGE / "csrc").glob("*.cu"))
-    assert [p.name for p in sources] == ["decode_attention.cu", "flash_attention.cu", "write_cache_rows.cu"]
+    assert [p.name for p in sources] == [
+        "decode_attention.cu", "flash_attention.cu", "flash_bwd.cu", "write_cache_rows.cu",
+    ]
+    for path in sorted((PACKAGE / "csrc").glob("*.cuh")):  # device code shared by sources
+        text = path.read_text(encoding="utf-8")
+        assert "torch/extension.h" not in text and "ATen" not in text, path.name
     for path in sources:
         text = path.read_text(encoding="utf-8")
         assert "torch/extension.h" not in text and "ATen" not in text, path.name

@@ -59,7 +59,7 @@ def inputs(seed: int, b: int = 2, prompt: int = 128):
 
 
 def close(got: torch.Tensor, want, tol: float):
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=tol, rtol=tol)
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32), atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 3e-2)])
@@ -87,7 +87,7 @@ def test_qdense_int8():
             jnp.asarray(x, dtype),
         )
         layer = QDense(128, 256)
-        layer.kernel, layer.scale = q, scale
+        layer.kernel, layer.scale = torch.nn.Parameter(q, requires_grad=False), scale
         got = layer(torch.from_numpy(x).to(getattr(torch, dtype)), getattr(torch, dtype))
         close(got, want.astype(jnp.float32), tol)
 

@@ -5,8 +5,10 @@ The cache is a dict of per-layer k/v lists [B, Hkv, S, D] plus a per-row
 head) f32 scales that the prefill block calibrates. Prefill writes the whole
 block with the plain row write and attends the full-precision k/v through K1;
 each decode step writes its rows through K2 and attends the valid prefix
-through K3 (``ops/decode_attention.py``). Buffer names follow the JAX
-package's parameter paths (``layer_0.attn.q.kernel``).
+through K3 (``ops/decode_attention.py``). Without a cache (training) the
+blocks attend causally through ``ops/attention.py`` (K7a-c under autograd),
+and ``remat`` recomputes each block in the backward pass. Parameter names
+follow the JAX package's parameter paths (``layer_0.attn.q.kernel``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import flash_attention
 from ..ops.decode_attention import decode_attention_update, quantize_kv, update_cache_rows
@@ -60,7 +63,7 @@ def init_kv_cache(
 class RMSNorm(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
-        self.register_buffer("weight", torch.ones(dim))
+        self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.weight)
@@ -153,18 +156,24 @@ class DecoderBlock(nn.Module):
 
 
 class Decoder(nn.Module):
-    """Token- or embedding-input decoder producing f32 logits."""
+    """Token- or embedding-input decoder producing f32 logits.
+
+    Setting ``remat`` rematerializes each block in the backward pass of a
+    cache-free forward (activation memory O(layers) -> O(1) for one extra
+    forward), the JAX package's ``nn.remat(DecoderBlock)``.
+    """
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
         self.cfg = cfg
+        self.remat = False
         self.embed = nn.Module()
-        self.embed.register_buffer("embedding", torch.zeros(cfg.vocab_size, cfg.hidden_dim))
+        self.embed.embedding = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.hidden_dim))
         for i in range(cfg.num_layers):
             setattr(self, f"layer_{i}", DecoderBlock(cfg, i))
         self.final_norm = RMSNorm(cfg.hidden_dim)
         if not cfg.tied_embeddings:
-            self.register_buffer("lm_head", torch.zeros(cfg.vocab_size, cfg.hidden_dim))
+            self.lm_head = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.hidden_dim))
         cos, sin = rope_angles(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, device="cpu")
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
@@ -187,8 +196,13 @@ class Decoder(nn.Module):
         steps = torch.arange(s, device=x.device)
         positions = cache["index"].long()[:, None] + steps if cache is not None else steps.expand(b, s)
         rope = (self.rope_cos, self.rope_sin)
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i in range(cfg.num_layers):
-            x, cache = getattr(self, f"layer_{i}")(x, positions, rope, cache, prefill)
+            block = getattr(self, f"layer_{i}")
+            if remat:
+                x, _ = checkpoint(block, x, positions, rope, None, use_reentrant=False)
+            else:
+                x, cache = block(x, positions, rope, cache, prefill)
         x = self.final_norm(x)
         if logits_at is not None:
             x = x[torch.arange(b, device=x.device), logits_at.long()][:, None, :]

@@ -26,15 +26,18 @@ def quantize_kernel(kernel: torch.Tensor, qmax: int = 127) -> tuple[torch.Tensor
     return q, scale
 
 
+@torch.no_grad()
 def quantize_decoder_int8(model: nn.Module) -> nn.Module:
     """Quantize, in place, every block dense layer of ``model.decoder``.
 
-    Idempotent: layers whose kernel is already int8 are left alone.
+    Idempotent: layers whose kernel is already int8 are left alone. The
+    int8 kernel stays a parameter (without grad) under its name.
     """
     for name, module in model.decoder.named_modules():
         if not isinstance(module, Dense) or name.rsplit(".", 1)[-1] not in QUANTIZED_DENSE_NAMES:
             continue
         if module.kernel.dtype == torch.int8:
             continue
-        module.kernel, module.scale = quantize_kernel(module.kernel)
+        kernel, module.scale = quantize_kernel(module.kernel)
+        module.kernel = nn.Parameter(kernel, requires_grad=False)
     return model

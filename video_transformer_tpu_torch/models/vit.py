@@ -2,10 +2,11 @@
 
 Frames are split into non-overlapping (t, p, p) tubelets (a pure reshape and
 transpose) followed by one matrix product; factorized 3D sincos positions.
-Attention runs through the K1 kernel (``ops/attention.py``), non-causal.
-Buffer names follow the JAX package's parameter paths (``layer_0.q.kernel``
-for ``encoder/layer_0/q/kernel``), so ``weights.from_jax_params`` maps one
-onto the other by name.
+Attention runs through ``ops/attention.py`` non-causally (K1 when serving,
+K7a-c or K1 with the reference backward when training). Parameter names
+follow the JAX package's parameter paths (``layer_0.q.kernel`` for
+``encoder/layer_0/q/kernel``), so ``weights.from_jax_params`` maps one onto
+the other by name.
 """
 
 from __future__ import annotations
@@ -66,13 +67,14 @@ class Dense(nn.Module):
 
     ``dtype`` is the compute type; None promotes the input's type with the
     kernel's (flax ``nn.Dense`` with ``dtype=None``). An int8 kernel carries
-    a per-output-channel ``scale`` that multiplies the product (weight-only
-    quantization, ``models/quant.py``).
+    a per-output-channel ``scale`` buffer that multiplies the product
+    (weight-only quantization, ``models/quant.py``); an int8 kernel is a
+    parameter without grad.
     """
 
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__()
-        self.register_buffer("kernel", torch.zeros(in_dim, out_dim))
+        self.kernel = nn.Parameter(torch.zeros(in_dim, out_dim))
         self.register_buffer("scale", None)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -89,8 +91,8 @@ class EncoderBlock(nn.Module):
         super().__init__()
         self.cfg = cfg
         qkv_dim = cfg.num_heads * cfg.head_dim
-        self.register_buffer("attn_norm", torch.ones(cfg.hidden_dim))
-        self.register_buffer("mlp_norm", torch.ones(cfg.hidden_dim))
+        self.attn_norm = nn.Parameter(torch.ones(cfg.hidden_dim))
+        self.mlp_norm = nn.Parameter(torch.ones(cfg.hidden_dim))
         self.q = Dense(cfg.hidden_dim, qkv_dim)
         self.k = Dense(cfg.hidden_dim, qkv_dim)
         self.v = Dense(cfg.hidden_dim, qkv_dim)
@@ -125,7 +127,7 @@ class VideoEncoder(nn.Module):
         self.patch_embed = Dense(cfg.patch_dim, cfg.hidden_dim)
         for i in range(cfg.num_layers):
             setattr(self, f"layer_{i}", EncoderBlock(cfg))
-        self.register_buffer("final_norm", torch.ones(cfg.hidden_dim))
+        self.final_norm = nn.Parameter(torch.ones(cfg.hidden_dim))
         self.register_buffer(
             "positions", torch.from_numpy(sincos_3d_positions(cfg)), persistent=False
         )

@@ -3,7 +3,8 @@
 Methods map onto the inference engine's phases: ``encode_video`` (patches ->
 projected video embeddings), ``prefill`` (video embeddings + prompt tokens
 -> KV cache + each row's last logits) and ``decode_block_pick`` (a block of
-tokens against the cache, logits at one position per row).
+tokens against the cache, logits at one position per row). ``forward`` is
+the teacher-forced training forward (video + text -> logits).
 """
 
 from __future__ import annotations
@@ -70,3 +71,9 @@ class VideoLM(nn.Module):
         """[B, W] tokens -> (logits [B, V] at column ``pick`` [B], cache)."""
         logits, cache = self.decoder(tokens, cache=cache, dtype=self.compute_dtype, logits_at=pick)
         return logits[:, 0, :], cache
+
+    def forward(self, patches: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """Training forward: logits [B, Nv + St, V] with teacher forcing."""
+        inputs = self._splice(self.encode_video(patches), tokens)
+        logits, _ = self.decoder(inputs, cache=None, dtype=self.compute_dtype)
+        return logits

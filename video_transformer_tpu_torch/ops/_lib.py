@@ -1,9 +1,11 @@
 """Build the hand-written CUDA kernels in ``csrc/`` and bind them with ctypes.
 
-All ``csrc/*.cu`` sources compile in ONE ``nvcc`` call for ``sm_90a`` into a
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds, not minutes). The library lands in ``build/vtx_torch_kernels/``
-under the repository root, named by a hash of the sources and flags, and is
+Each ``csrc/*.cu`` source compiles for ``sm_90a`` in its own ``nvcc``
+process, all started together, and one more ``nvcc`` call links the objects
+into a shared library with a plain C interface (no PyTorch headers, so the
+build takes seconds, not minutes); ``csrc/*.cuh`` holds device code that
+several sources share. The library lands in ``build/vtx_torch_kernels/`` under the
+repository root, named by a hash of the sources, headers and flags, and is
 built at first use only. Each ``extern "C"`` entry takes device pointers,
 int sizes and the CUDA stream, launches on that stream, and returns
 ``cudaGetLastError()``; ``check`` raises on a non-zero return.
@@ -17,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -29,7 +32,7 @@ _CSRC = _PACKAGE / "csrc"
 _BUILD_DIR = _PACKAGE.parent / "build" / "vtx_torch_kernels"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -44,6 +47,12 @@ _SIGNATURES = {
     "vtx_decode_attention": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
+    # q, k, v, out, lse, B, Hq, Hkv, S, D, causal, scale, stream
+    "vtx_flash_fwd_lse": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, dout, lse, dsum, dq, B, Hq, Hkv, S, D, causal, scale, stream
+    "vtx_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, dout, lse, dsum, dk_part, dv_part, B, Hq, Hkv, S, D, causal, scale, stream
+    "vtx_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 build_seconds = 0.0
@@ -68,20 +77,32 @@ def library() -> ctypes.CDLL:
     global build_seconds, build_log
     digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     sources = sorted(_CSRC.glob("*.cu"))
-    for src in sources:
+    for src in sources + sorted(_CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     target = _BUILD_DIR / f"libvtx_kernels_{digest.hexdigest()[:16]}.so"
     if not target.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        nvcc = _nvcc()
         start = time.perf_counter()
-        result = subprocess.run(cmd, capture_output=True, text=True)
-        if result.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({result.returncode}):\n{result.stderr}")
+        with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as objdir:  # removed on failure too
+            objects = [Path(objdir) / f"{src.stem}.o" for src in sources]
+            compiles = [
+                subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(sources, objects)
+            ]
+            logs = [proc.communicate()[0] for proc in compiles]  # wait for every process
+            for src, proc, out in zip(sources, compiles, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
         build_seconds = time.perf_counter() - start
-        build_log = result.stderr
+        build_log = "".join(logs)
         os.replace(tmp, target)
     lib = ctypes.CDLL(str(target))
     for name, argtypes in _SIGNATURES.items():

@@ -5,6 +5,14 @@ Sq != Sk the causal mask aligns queries to the LAST Sq key positions. The
 kernel (``csrc/flash_attention.cu``) replaces the JAX package's Pallas
 ``ops/attention.py::_flash_kernel``; ``mha_reference`` is the plain version,
 which the wrapper takes for CPU tensors only.
+
+``flash_attention`` is differentiable, with the dispatch of the JAX
+package's ``custom_vjp`` (``_flash_diff_fwd`` / ``_flash_diff_bwd``): when
+autograd records and ``supports_flash_bwd`` holds, the forward is K7a and
+the backward K7b + K7c (``ops/flash_bwd.py``) from the saved O and LSE;
+when it records and the shape is not supported, the forward is K1 and the
+backward recomputes through ``mha_reference`` (counted in
+``flash_attention.reference_backwards``); without grad, K1 alone.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ import math
 import torch
 
 from . import _lib
+from .flash_bwd import flash_bwd, flash_fwd_lse, supports_flash_bwd
 
 __all__ = ["flash_attention", "mha_reference"]
 
@@ -35,7 +44,7 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     return out.reshape(b, hq, s_q, d)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True) -> torch.Tensor:
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
     """Attention through the K1 kernel on CUDA tensors; plain on CPU ones."""
     if q.device.type == "cpu":
         return mha_reference(q, k, v, causal)
@@ -62,4 +71,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The JAX package's ``_flash_attention_diff`` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        if supports_flash_bwd(q.shape[2], k.shape[2]):
+            out, lse = flash_fwd_lse(q, k, v, causal)
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            out = _forward(q, k, v, causal)
+            ctx.save_for_backward(q, k, v)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors  # read once: remat's recompute unpacks each tensor once
+        if len(saved) == 5:
+            q, k, v, out, lse = saved
+            dq, dk, dv = flash_bwd(q, k, v, out, lse, grad_out.contiguous(), ctx.causal)
+            return dq, dk, dv, None
+        # Recompute through the plain version (exact, O(S^2) transient memory).
+        flash_attention.reference_backwards += 1
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in saved]
+            out = mha_reference(*inputs, causal=ctx.causal)
+        return (*torch.autograd.grad(out, inputs, grad_out), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """Attention, differentiable; kernels on CUDA tensors, plain versions on CPU ones."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)
+
+
 flash_attention.launches = 0
+flash_attention.reference_backwards = 0

@@ -1,7 +1,7 @@
 """The weight bridge: JAX parameter trees -> the port's VideoLM, and seeded
 random weights made directly on the device.
 
-The port's buffer names are the JAX package's parameter paths joined by dots
+The port's parameter names are the JAX package's parameter paths joined by dots
 (``params/decoder/layer_0/attn/q/kernel`` -> ``decoder.layer_0.attn.q.kernel``;
 ``quant/decoder/.../scale`` -> ``...q.scale``), and dense kernels keep flax's
 [in, out] layout, so the bridge is a rename and nothing is transposed.
@@ -37,8 +37,13 @@ def _to_tensor(array: Any) -> torch.Tensor:
 
 
 def _assign(model: torch.nn.Module, name: str, tensor: torch.Tensor) -> None:
-    owner, _, leaf = name.rpartition(".")
-    setattr(model.get_submodule(owner), leaf, tensor)
+    """Set a parameter or buffer by its dotted name; a float parameter
+    requires grad, an int8 one does not."""
+    owner_name, _, leaf = name.rpartition(".")
+    owner = model.get_submodule(owner_name)
+    if leaf in owner._parameters:
+        tensor = torch.nn.Parameter(tensor, requires_grad=tensor.is_floating_point())
+    setattr(owner, leaf, tensor)
 
 
 def from_jax_params(
@@ -82,21 +87,22 @@ def random_params(
     """
     with torch.device(device):
         model = VideoLM(config)
-    for name, buf in model.named_buffers():
+    for name, param in model.named_parameters():
         if name.endswith(".kernel"):
-            fan_in = buf.shape[0]
+            fan_in = param.shape[0]
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            torch.nn.init.trunc_normal_(buf, 0.0, std, -2 * std, 2 * std, generator=generator)
+            torch.nn.init.trunc_normal_(param, 0.0, std, -2 * std, 2 * std, generator=generator)
         elif name.endswith("embedding") or name.endswith("lm_head"):
-            buf.normal_(0.0, 0.02, generator=generator)
+            param.normal_(0.0, 0.02, generator=generator)
     return cast_weights(model, dtype).to(device)
 
 
+@torch.no_grad()
 def cast_weights(model: VideoLM, dtype: torch.dtype) -> VideoLM:
-    """Cast the float weights (not the int8 kernels, the position or RoPE
-    tables) to ``dtype`` in place: the serving config's ``param_dtype``."""
-    persistent = set(model.state_dict())
-    for name, buf in list(model.named_buffers()):
-        if name in persistent and buf.is_floating_point():
-            _assign(model, name, buf.to(dtype))
+    """Cast the float weights and scales (not the int8 kernels, the position
+    or RoPE tables) to ``dtype`` in place: the serving config's
+    ``param_dtype``."""
+    for name, tensor in list(model.state_dict(keep_vars=True).items()):
+        if tensor.is_floating_point() and tensor.dtype != dtype:
+            _assign(model, name, tensor.detach().to(dtype))
     return model
