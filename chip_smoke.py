@@ -4,8 +4,9 @@
 
 Builds the port's CUDA kernels from ``video_transformer_tpu_torch/csrc`` (one
 ``nvcc`` process per source, in parallel), holds each kernel against its
-plain PyTorch version at the shapes of the serving and training paths and
-times both, checks the whole model against the plain versions on the CPU at
+plain PyTorch version at the shapes of the serving, batcher and training
+paths and times both (K5 also bit for bit against K2 then K3, K3 also at
+20-40 folded query rows per kv head), checks the whole model against the plain versions on the CPU at
 the tiny preset (serving logits, then training gradients), then:
 
 - serves three requests through ``InferenceEngine.generate`` at the full
@@ -13,6 +14,12 @@ the tiny preset (serving logits, then training gradients), then:
   grammar, greedy) with seeded random weights, shows that the requests went
   through K1-K3, and profiles one short request (device busy share, top
   device ops);
+- serves twelve requests through ``ContinuousBatcher`` (8 slots, a ring of
+  16 parked requests, bf16 KV pool, device refill) on the same weights,
+  once through K2 + K3 and once through K5, shows that every stage adopted
+  its prefills through K4 and that both runs give the same tokens, holds the
+  first-token logits against ``engine.generate``'s, and profiles a short
+  sweep;
 - trains five steps of ``python -m video_transformer_tpu_torch.train.run``'s
   code path at the full ``base`` width (seeded random f32 weights, bf16
   compute, BPE vocabulary, batch 2, 1,024 video + 2,048 text positions),
@@ -53,8 +60,12 @@ from video_transformer_tpu_torch.ops import _lib
 from video_transformer_tpu_torch.ops import flash_bwd as flash_bwd_module
 from video_transformer_tpu_torch.ops.attention import flash_attention, mha_reference
 from video_transformer_tpu_torch.ops.decode_attention import (
+    _decode_buffers,
     _scaled_reference,
+    adopt_rows,
+    adopt_rows_reference,
     decode_attention,
+    decode_attention_update,
     update_cache_rows,
     write_cache_rows,
 )
@@ -68,6 +79,7 @@ from video_transformer_tpu_torch.ops.flash_bwd import (
 )
 from video_transformer_tpu_torch.ops.preprocess import preprocess_frames
 from video_transformer_tpu_torch.parallel.engine import InferenceEngine
+from video_transformer_tpu_torch.parallel.serving import ContinuousBatcher, Request
 from video_transformer_tpu_torch.train.data import synthetic_batch
 from video_transformer_tpu_torch.train.run import build_parser, make_prompt_sampler, prepare, setup_logging
 from video_transformer_tpu_torch.train.trainer import distillation_loss
@@ -79,7 +91,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
 MAX_NEW_TOKENS = 256  # capped for the smoke; the shipped config says 4096
 PROMPT = "分析这段视频的内容，写出结构化的知识笔记。"
-KERNELS = (flash_attention, write_cache_rows, decode_attention)
+KERNELS = (flash_attention, write_cache_rows, decode_attention)  # the serving path's
+BATCHER_SLOTS = 8  # the shipped serving_slots_per_chip; queue_depth defaults to 16
+BATCHER_REQUESTS = 12  # two waves through 8 slots
 TRAIN_KERNELS = (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv)
 # K1 and K3 compute in f32 and round their output to bf16 once, as their
 # plain versions do. One rounding step is at most 2**-7 of the value, so the
@@ -270,6 +284,161 @@ def kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, prompt_bucket: in
     return results
 
 
+DECODE_ROW_SHAPES = ((4, 5), (7, 3), (4, 7), (8, 5))  # (group, W): 20, 21, 28 and 40 rows per kv head
+
+
+def decode_rows_reading(gen: torch.Generator, dev: torch.device, cache_len: int, group: int, width: int,
+                        dtype: torch.dtype) -> dict:
+    """K3 at ``group * width`` folded q rows per kv head (more than 16 take
+    several row chunks), against its plain version and at the causal edge.
+    Raises past the tolerance."""
+    hkv, d, batch = 2, 128, 2
+    q = torch.randn(batch, group * hkv, width, d, generator=gen, device=dev).to(torch.bfloat16)
+    if dtype == torch.int8:
+        k_cache, v_cache = (torch.randint(-127, 128, (3, hkv, cache_len, d), generator=gen, device=dev,
+                                          dtype=torch.int8) for _ in range(2))
+        k_scale = torch.rand(hkv, generator=gen, device=dev) * 0.04 + 0.02
+        v_scale = torch.rand(hkv, generator=gen, device=dev) * 0.04 + 0.02
+    else:
+        k_cache, v_cache = (torch.randn(3, hkv, cache_len, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+        k_scale = v_scale = None
+    rows = torch.tensor([2, 0], dtype=torch.int32, device=dev)
+    lengths = torch.tensor([cache_len // 2 + 7, cache_len - width - 3], dtype=torch.int32, device=dev)
+    out = decode_attention(q, k_cache, v_cache, lengths, rows, k_scale, v_scale)
+    ref = _scaled_reference(q, k_cache, v_cache, lengths, rows, k_scale, v_scale)
+    edge_lengths = torch.tensor([64 * 3 - 1, cache_len // 2], dtype=torch.int32, device=dev)
+    expected = mark_decode_edges(q, k_cache, v_cache, edge_lengths, rows, v_scale)
+    edge_out = decode_attention(q, k_cache, v_cache, edge_lengths, rows, k_scale, v_scale)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = REL_TOL * ref.float().abs().max().item()
+    edge_err = (edge_out.float() - expected).abs().max().item()
+    edge_tol = REL_TOL * expected.abs().max().item()
+    if err > tol or edge_err > edge_tol:
+        raise AssertionError(f"decode_attention at {group * width} rows per kv head ({dtype}):"
+                             f" {err} > {tol} or edge {edge_err} > {edge_tol}")
+    return {"rows_per_kv_head": group * width, "group": group, "width": width,
+            "cache": str(dtype).removeprefix("torch."), "max_abs_err": err, "tol": tol,
+            "edge_max_abs_err": edge_err, "edge_tol": edge_tol}
+
+
+def batcher_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, park_len: int, cache_len: int,
+                         slots: int, pool_rows: int) -> dict:
+    """K4 and K5 at the batcher's base shapes (bf16 pool of ``pool_rows``
+    rows, ``slots`` decode lanes, W = 3), each held against its plain
+    version; K5 also against K2 then K3 on copies of the same inputs."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    dec = cfg.decoder
+    hkv, d, width = dec.num_kv_heads, dec.head_dim, 3
+    results = {}
+
+    # K4: 8 valid lanes and one pad lane whose row collides with lane 0's.
+    count, lanes = slots, slots + 1
+    pool_k, pool_v = (torch.randn(pool_rows, hkv, cache_len, d, generator=gen, device=dev).to(torch.bfloat16)
+                      for _ in range(2))
+    src_k, src_v = (torch.randn(lanes, hkv, park_len, d, generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+    perm = torch.randperm(pool_rows, generator=torch.Generator().manual_seed(seed))[:count].tolist()
+    rows = torch.tensor(perm + [perm[0]], dtype=torch.int32, device=dev)
+    ref_k, ref_v = pool_k.clone(), pool_v.clone()
+    orig_k = pool_k.clone()
+    adopt_rows(pool_k, src_k, rows, count, park_len, pool_v, src_v)
+    adopt_rows_reference(ref_k, src_k, rows, count, park_len)
+    adopt_rows_reference(ref_v, src_v, rows, count, park_len)
+    torch.cuda.synchronize()
+    err = max((pool_k.float() - ref_k.float()).abs().max().item(), (pool_v.float() - ref_v.float()).abs().max().item())
+    untargeted = [r for r in range(pool_rows) if r not in perm]
+    if err != 0 or not torch.equal(pool_k[:, :, park_len:], orig_k[:, :, park_len:]) \
+            or not torch.equal(pool_k[untargeted], orig_k[untargeted]) \
+            or not torch.equal(pool_k[perm[0], :, :park_len], src_k[0]):
+        raise AssertionError(f"adopt_rows differs from adopt_rows_reference by {err}, or wrote outside its rows")
+    valid = rows[:count].long()
+
+    def library_adopt():
+        pool_k[valid, :, :park_len] = src_k[:count]
+        pool_v[valid, :, :park_len] = src_v[:count]
+
+    bound_ms, bound_by = bound(2 * 2 * count * hkv * park_len * d * 2 + nbytes(rows), 0)
+    results["adopt_rows"] = {
+        "max_abs_err": err, "tol": 0,
+        "ms": time_ms(lambda: adopt_rows(pool_k, src_k, rows, count, park_len, pool_v, src_v)),
+        "plain_ms": time_ms(lambda: (adopt_rows_reference(ref_k, src_k, rows, count, park_len),
+                                     adopt_rows_reference(ref_v, src_v, rows, count, park_len))),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": time_ms(library_adopt),
+        "library": "two index_put_ (dst[rows[:count], :, :park_len] = src[:count]), k and v",
+        "shape": (f"pools bf16 [{pool_rows},{hkv},{cache_len},{d}] x2, src [{lanes},{hkv},{park_len},{d}],"
+                  f" count {count}, a pad lane on lane 0's row"),
+    }
+
+    # K5: rows a permutation of pool rows; index of slot 0 puts its W new
+    # positions across a split boundary, slot 1's across a tile boundary.
+    q = torch.randn(slots, dec.num_heads, width, d, generator=gen, device=dev).to(torch.bfloat16)
+    k_new, v_new = (torch.randn(slots, hkv, width, d, generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+    _, _, _, splits, tiles_per_split = _decode_buffers(q, hkv, cache_len)
+    split_len = tiles_per_split * 64
+    index = torch.tensor([split_len * (park_len // split_len + 1) - 1, park_len // split_len * split_len + 62]
+                         + [park_len - 128 + 37 * i for i in range(2, slots)], dtype=torch.int32, device=dev)
+    rows = torch.tensor(perm, dtype=torch.int32, device=dev)
+    fused_k, fused_v = pool_k.clone(), pool_v.clone()
+    split_k, split_v = pool_k.clone(), pool_v.clone()
+    plain_k, plain_v = pool_k.clone(), pool_v.clone()
+    out = decode_attention_update(q, fused_k, fused_v, k_new, v_new, index, rows, fused_write=True)
+    write_cache_rows(split_k, split_v, k_new, v_new, index, rows)
+    split_out = decode_attention(q, split_k, split_v, index + 1, rows)
+    update_cache_rows(plain_k, k_new, index, rows)
+    update_cache_rows(plain_v, v_new, index, rows)
+    ref = _scaled_reference(q, plain_k, plain_v, index + 1, rows, None, None)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, split_out) and torch.equal(fused_k, split_k) and torch.equal(fused_v, split_v)):
+        raise AssertionError("decode_attention_update (K5) is not bit-equal to K2 + K3")
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = REL_TOL * ref.float().abs().max().item()
+    if err > tol:
+        raise AssertionError(f"decode_attention_update (K5) disagrees with its plain version: {err} > {tol}")
+    # The causal edge, with the step's new rows carrying the marks.
+    ek, ev = pool_k.clone(), pool_v.clone()
+    eq = q.clone()
+    expected = mark_decode_edges(eq, ek, ev, index + 1, rows)
+    pos = index.long()[:, None] + torch.arange(width, device=dev)
+    ek_new = ek[rows.long()[:, None], :, pos].transpose(1, 2).contiguous()
+    ev_new = ev[rows.long()[:, None], :, pos].transpose(1, 2).contiguous()
+    edge_out = decode_attention_update(eq, ek, ev, ek_new, ev_new, index, rows, fused_write=True)
+    torch.cuda.synchronize()
+    edge_err = (edge_out.float() - expected).abs().max().item()
+    edge_tol = REL_TOL * expected.abs().max().item()
+    if edge_err > edge_tol:
+        raise AssertionError(f"decode_attention_update (K5) at the causal edge: {edge_err} > {edge_tol}")
+    group = dec.num_heads // hkv
+    visible = sum(int(n) + width for n in index.tolist())  # positions read per kv head
+    flops = sum(4 * group * d * (int(n) + 1 + j) for n in index.tolist() for j in range(width)) * hkv
+    nbytes_k5 = 2 * hkv * visible * d * 2 + 2 * nbytes(q) + 2 * nbytes(k_new, v_new) + nbytes(index, rows)
+    bound_ms, bound_by = bound(nbytes_k5, flops)
+
+    def plain_update():
+        update_cache_rows(plain_k, k_new, index, rows)
+        update_cache_rows(plain_v, v_new, index, rows)
+        return _scaled_reference(q, plain_k, plain_v, index + 1, rows, None, None)
+
+    results["decode_attention_update"] = {
+        "max_abs_err": err, "tol": tol, "edge_max_abs_err": edge_err, "edge_tol": edge_tol,
+        "bit_equal_to_k2_k3": True, "splits": splits, "split_positions": split_len,
+        "ms": time_ms(lambda: decode_attention_update(q, fused_k, fused_v, k_new, v_new, index, rows,
+                                                      fused_write=True)),
+        "k2_k3_ms": time_ms(lambda: (write_cache_rows(split_k, split_v, k_new, v_new, index, rows),
+                                     decode_attention(q, split_k, split_v, index + 1, rows))),
+        "plain_ms": time_ms(plain_update),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "library": "none: no single PyTorch call writes the cache rows and attends",
+        "shape": (f"q bf16 [{slots},{dec.num_heads},{width},{d}] pools bf16 [{pool_rows},{hkv},{cache_len},{d}]"
+                  f" index={index.tolist()} rows={perm}"),
+    }
+    results["decode_attention_rows"] = [decode_rows_reading(gen, dev, cache_len, group, width, dtype)
+                                        for group, width in DECODE_ROW_SHAPES
+                                        for dtype in (torch.bfloat16, torch.int8)]
+    return results
+
+
 def mark_decode_edges(q, k_cache, v_cache, lengths, rows, v_scale=None) -> torch.Tensor:
     """Rewrite q and the caches in place so that each row's attention is
     decided by the W + 1 positions around its causal edge, and return the
@@ -286,7 +455,8 @@ def mark_decode_edges(q, k_cache, v_cache, lengths, rows, v_scale=None) -> torch
     b, hq, width, d = q.shape
     hkv = k_cache.shape[1]
     quantized = k_cache.dtype == torch.int8
-    k_hi, step = (127, 25.0) if quantized else (4.0, 1.0)
+    # int8 v must hold (W + 1) * step: 25 up to W = 4, less for wider blocks.
+    k_hi, step = (127, float(min(25, 127 // (width + 1)))) if quantized else (4.0, 1.0)
     sign = torch.ones(d, device=q.device)
     sign[1::2] = -1
     q.fill_(1)
@@ -488,13 +658,15 @@ def reference_phase(seed: int, dev: torch.device, vocab_size: int) -> dict:
 
 
 def reset_counts() -> None:
-    for kernel in KERNELS + TRAIN_KERNELS:
+    for kernel in KERNELS + (adopt_rows,) + TRAIN_KERNELS:
         kernel.launches = 0
+    decode_attention_update.fused_launches = 0
     flash_attention.reference_backwards = 0
 
 
 def counts() -> dict[str, int]:
-    out = {kernel.__name__: kernel.launches for kernel in KERNELS + TRAIN_KERNELS}
+    out = {kernel.__name__: kernel.launches for kernel in KERNELS + (adopt_rows,) + TRAIN_KERNELS}
+    out["decode_attention_update"] = decode_attention_update.fused_launches
     out["reference_backwards"] = flash_attention.reference_backwards
     return out
 
@@ -707,6 +879,145 @@ def serve(engine: InferenceEngine, frames: np.ndarray) -> list[dict]:
     return out
 
 
+def batcher_phase(engine: InferenceEngine, clips: np.ndarray, prompts: list[str], slots: int) -> dict:
+    """The continuous batcher's main path at base width: the same requests
+    swept twice through ``ContinuousBatcher(engine, slots=slots)`` (device
+    refill, bf16 pool), first through K2 + K3 (split) and then through K5
+    (fused). Each run: every request completes once, every token sequence
+    walks the grammar, and the launches are counted from 0; the fused run's
+    tokens equal the split run's. Each staged request's first-token logits
+    are held against ``engine.generate``'s prefill logits for the same clip
+    and prompt, and the share of requests whose tokens equal
+    ``engine.generate``'s is reported, for all requests at once and for the
+    first wave at the batcher's batch (bf16 matmuls at another M may flip
+    near-ties, so neither is required)."""
+    runs = {}
+    for name, fused in (("split", False), ("fused", True)):
+        batcher = ContinuousBatcher(engine, slots=slots, fused_write=fused)
+        stages, first_logits = [], {}
+        stage = batcher._stage
+
+        def counted_stage(stage=stage, batcher=batcher, stages=stages, first_logits=first_logits):
+            """The stage, counted, with its requests' first-token logits kept."""
+            before = batcher._staged_total
+            stage()
+            take = batcher._staged_total - before
+            if take:
+                stages.append(take)
+                reqs = batcher._q_req[:take].tolist()
+                first_logits.update(zip(reqs, batcher._q_logits[:take].to("cpu", torch.float32, copy=True)))
+
+        batcher._stage = counted_stage
+        for i, clip in enumerate(clips):
+            batcher.submit(Request(i, clip, prompts[i]))
+        steps0 = engine.stats.decode_steps
+        reset_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        completions = batcher.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launched = counts()
+        ids = sorted(c.request_id for c in completions)
+        if ids != list(range(len(clips))):
+            raise AssertionError(f"batcher ({name}): completed requests {ids}")
+        for c in completions:
+            end_state = grammar_walk(engine.dfa, c.token_ids)
+            if not 0 < c.tokens <= batcher.max_new + 2 or c.complete != (end_state == engine.dfa.accept):
+                raise AssertionError(f"batcher ({name}) request {c.request_id}: {c.tokens} tokens, complete {c.complete}")
+        steps = engine.stats.decode_steps - steps0
+        runs[name] = {
+            "tokens": {c.request_id: c.token_ids for c in completions},
+            "first_logits": torch.stack([first_logits[i] for i in range(len(clips))]),
+            "line": {"phase": "batcher", "route": name, "requests": len(clips), "slots": slots,
+                     "queue_depth": batcher.queue_depth, "pool_rows": batcher.total_rows,
+                     "cache_len": batcher.cache_len, "park_len": batcher.park_len, "stages": stages,
+                     "refills": batcher._staged_total, "seconds": wall,
+                     "tokens": sum(c.tokens for c in completions),
+                     "tokens_per_s": sum(c.tokens for c in completions) / wall, "decode_steps": steps,
+                     "ms_per_step": wall * 1e3 / steps, "complete": sum(c.complete for c in completions),
+                     "launches": launched},
+        }
+    if runs["fused"]["tokens"] != runs["split"]["tokens"]:
+        differ = [i for i in runs["split"]["tokens"] if runs["split"]["tokens"][i] != runs["fused"]["tokens"][i]]
+        raise AssertionError(f"batcher: fused tokens differ from split tokens for requests {differ}")
+
+    # engine.generate on the same clips and prompts, its prefill logits kept.
+    captured = []
+    prefill = engine.model.prefill
+
+    def recording_prefill(*args):
+        logits, cache = prefill(*args)
+        captured.append(logits.float().cpu())
+        return logits, cache
+
+    engine.model.prefill = recording_prefill
+    try:
+        _, _, want = engine.generate(clips, prompts, return_status=True, return_tokens=True)
+    finally:
+        del engine.model.prefill
+    got = runs["split"]["first_logits"]
+    logit_err = (got - captured[0]).abs().max().item()
+    logit_tol = 2e-2 * captured[0].abs().max().item()
+    if logit_err > logit_tol:
+        raise AssertionError(f"batcher: first-token logits differ from engine.generate's: {logit_err} > {logit_tol}")
+    # The first wave decodes requests 0..slots-1 together: engine.generate on
+    # just those runs its matmuls and K3 at the same batch as the batcher.
+    _, _, want_wave = engine.generate(clips[:slots], prompts[:slots], return_status=True, return_tokens=True)
+
+    def first_difference(wanted: list[list[int]]) -> list[int | None]:
+        """Where each request's tokens first leave ``wanted`` (None: equal)."""
+        out = []
+        for i, want_ids in enumerate(wanted):
+            got_ids = runs["split"]["tokens"][i]
+            out.append(next((j for j, (a, b) in enumerate(zip(got_ids, want_ids)) if a != b),
+                            None if len(got_ids) == len(want_ids) else min(len(got_ids), len(want_ids))))
+        return out
+
+    diverge, diverge_wave = first_difference(want), first_difference(want_wave)
+    return {"runs": {name: run["line"] for name, run in runs.items()},
+            "check": {"phase": "batcher_check", "fused_equals_split": True,
+                      "first_logits_max_abs_err": logit_err, "first_logits_tol": logit_tol,
+                      "requests_equal_to_generate": diverge.count(None), "requests": len(clips),
+                      "first_token_differing_from_generate": diverge,
+                      "first_wave_equal_to_generate_at_its_batch": diverge_wave.count(None),
+                      "first_wave": slots, "first_wave_first_token_differing": diverge_wave}}
+
+
+def batcher_profile(engine: InferenceEngine, clips: np.ndarray, prompts: list[str], slots: int,
+                    max_new: int = 32) -> dict:
+    """Where a batcher sweep's time goes (fused route, ``max_new`` tokens a
+    request): the sweep timed alone, then the same sweep under torch.profiler
+    with device activity only, as ``profile_phase`` does."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def sweep() -> float:
+        batcher = ContinuousBatcher(engine, slots=slots, max_new_tokens=max_new, fused_write=True)
+        for i, clip in enumerate(clips):
+            batcher.submit(Request(i, clip, prompts[i]))
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        batcher.run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) * 1e3
+
+    sweep()  # warm-up at this pool size
+    wall_ms = sweep()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiled_wall_ms = sweep()
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    ops = sorted((op for op in ops if op[1] > 0), key=lambda op: -op[1])
+    if not ops:
+        raise AssertionError("batcher profile: no device ops")
+    device_ms = sum(op[1] for op in ops)
+    return {"phase": "batcher_profile", "route": "fused", "requests": len(clips), "max_new_tokens": max_new,
+            "wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_ms, "device_busy_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms, "device_launches": sum(op[2] for op in ops),
+            "top_device_ops_ms": [[name[:60], ms, count] for name, ms, count in ops[:10]]}
+
+
 def profile_phase(engine: InferenceEngine, frames: np.ndarray, max_new: int = 32) -> dict:
     """Where a batch-2 request's time goes: one short generate call timed
     alone, then the same call under torch.profiler with device activity only.
@@ -770,7 +1081,8 @@ def main() -> None:
     t0 = time.perf_counter()
     _lib.library()
     emit({"phase": "build", "nvcc_seconds": _lib.build_seconds, "load_seconds": time.perf_counter() - t0})
-    ptxas = [line for line in _lib.build_log.splitlines() if "registers" in line or "spill" in line]
+    ptxas = [line for line in _lib.build_log.splitlines()
+             if "Function properties" in line or "registers" in line or "spill" in line]
     emit({"phase": "ptxas", "lines": ptxas})
 
     t0 = time.perf_counter()
@@ -789,8 +1101,13 @@ def main() -> None:
     width = 1 + engine.max_forced_run
     # The engine's cache sizing: live positions plus tail slack.
     cache_len = 128 * math.ceil((cfg.video_tokens + prompt_bucket + MAX_NEW_TOKENS + 2 * width + 17) / 128)
+    # The batcher's (default prompt_len 256): park region and pool rows.
+    park_len = cfg.video_tokens + 256
+    pool_len = 128 * math.ceil((park_len + MAX_NEW_TOKENS + 2 * width + 17) / 128)
     t0 = time.perf_counter()
     kernels = kernel_phase(args.seed, dev, cfg, prompt_bucket, cache_len)
+    kernels.update(batcher_kernel_phase(args.seed, dev, cfg, park_len, pool_len, BATCHER_SLOTS, 3 * BATCHER_SLOTS))
+    emit({"phase": "decode_rows", "checks": kernels.pop("decode_attention_rows")})
     kernels.update(train_kernel_phase(args.seed, dev, cfg))
     emit({"phase": "kernels_checked", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
@@ -809,7 +1126,28 @@ def main() -> None:
     if not all(served[kernel.__name__] for kernel in KERNELS):
         raise AssertionError(f"a kernel was not launched by the requests: {served}")
     emit(profile_phase(engine, clips[:2]))
-    del engine
+
+    # Main path 2, the continuous batcher: 12 requests through 8 slots, split
+    # then fused, on the same int8 weights with a bf16 KV pool.
+    batch_engine = InferenceEngine(cfg, params=engine.model, tokenizer=tokenizer, max_new_tokens=MAX_NEW_TOKENS,
+                                   temperature=0.0, max_forced_run=2, device=dev)
+    batch_engine.dfa = engine.dfa
+    batch_clips = rng.integers(0, 256, (BATCHER_REQUESTS, cfg.encoder.num_frames, 256, 256, 3), dtype=np.uint8)
+    batch_prompts = [f"{PROMPT}（片段 {i + 1}）" + ("请逐条展开每个要点，并给出例子。" * 5 if i % 4 == 3 else "")
+                     for i in range(BATCHER_REQUESTS)]
+    batched = batcher_phase(batch_engine, batch_clips, batch_prompts, BATCHER_SLOTS)
+    layers = cfg.decoder.num_layers
+    for name, line in batched["runs"].items():
+        launched = line["launches"]
+        fused = name == "fused"
+        if launched["adopt_rows"] != layers * len(line["stages"]) or not launched["flash_attention"] \
+                or bool(launched["decode_attention_update"]) != fused \
+                or bool(launched["write_cache_rows"]) == fused or bool(launched["decode_attention"]) == fused:
+            raise AssertionError(f"batcher ({name}) launches {launched} for {len(line['stages'])} stages")
+        emit(line)
+    emit(batched["check"])
+    emit(batcher_profile(batch_engine, batch_clips, batch_prompts, BATCHER_SLOTS))
+    del engine, batch_engine
     torch.cuda.empty_cache()
 
     # Main path 2, training: five base-width steps through K7a-c.
@@ -818,12 +1156,16 @@ def main() -> None:
     for line in train_lines:
         emit(line)
     launches = {kernel.__name__: served[kernel.__name__] for kernel in KERNELS}
+    launches["adopt_rows"] = sum(line["launches"]["adopt_rows"] for line in batched["runs"].values())
+    launches["decode_attention_update"] = batched["runs"]["fused"]["launches"]["decode_attention_update"]
     launches.update({kernel.__name__: trained[kernel.__name__] for kernel in TRAIN_KERNELS})
 
     sources = {
         "flash_attention": ("csrc/flash_attention.cu", "video_transformer_tpu/ops/attention.py:56"),
         "write_cache_rows": ("csrc/write_cache_rows.cu", "video_transformer_tpu/ops/decode_attention.py:570"),
         "decode_attention": ("csrc/decode_attention.cu", "video_transformer_tpu/ops/decode_attention.py:164"),
+        "adopt_rows": ("csrc/adopt_rows.cu", "video_transformer_tpu/ops/decode_attention.py:992"),
+        "decode_attention_update": ("csrc/decode_attention.cu", "video_transformer_tpu/ops/decode_attention.py:396"),
         "flash_fwd_lse": ("csrc/flash_bwd.cu", "video_transformer_tpu/ops/flash_bwd.py:53"),
         "flash_bwd_dq": ("csrc/flash_bwd.cu", "video_transformer_tpu/ops/flash_bwd.py:156"),
         "flash_bwd_dkv": ("csrc/flash_bwd.cu", "video_transformer_tpu/ops/flash_bwd.py:204"),

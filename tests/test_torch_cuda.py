@@ -6,7 +6,8 @@ host). On a GPU host run them with
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-Tolerances: the row write is exact. Attention (K1, K3 and the training
+Tolerances: the row write (K2) and the row adoption (K4) are exact, and
+K5 equals K2 then K3 bit for bit. Attention (K1, K3 and the training
 kernels K7a-c) computes in f32 and rounds its bf16 output once, as the plain
 version does, so the two agree within 1e-2 of the largest output (one bf16
 rounding step is at most 2**-7 of the value); K7a's f32 LSE within 1e-3.
@@ -16,11 +17,21 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import REL_TOL, TRAIN_KERNELS, flash_train_errors, mark_decode_edges
+from chip_smoke import (
+    DECODE_ROW_SHAPES,
+    REL_TOL,
+    TRAIN_KERNELS,
+    decode_rows_reading,
+    flash_train_errors,
+    mark_decode_edges,
+)
 from video_transformer_tpu_torch.ops.attention import flash_attention, mha_reference
 from video_transformer_tpu_torch.ops.decode_attention import (
     _scaled_reference,
+    adopt_rows,
+    adopt_rows_reference,
     decode_attention,
+    decode_attention_update,
     update_cache_rows,
     write_cache_rows,
 )
@@ -118,12 +129,62 @@ def test_decode_attention_matches_plain(cuda, quantized, hq, hkv, w):
 
 
 @pytest.mark.cuda
-def test_decode_attention_rejects_more_than_16_rows_per_kv_head(cuda):
-    q = torch.zeros(1, 12, 3, 128, dtype=torch.bfloat16, device=cuda)  # 6 q heads per kv head x 3
-    cache = torch.zeros(1, 2, 128, 128, dtype=torch.bfloat16, device=cuda)
-    lengths = torch.ones(1, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="at most 16 q rows"):
-        decode_attention(q, cache, cache, lengths)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("group,width", DECODE_ROW_SHAPES)
+def test_decode_attention_beyond_16_rows_per_kv_head(cuda, group, width, dtype):
+    """20, 21, 28 and 40 folded q rows per kv head run in chunks of 16 rows
+    and agree with the plain version, also at the causal edge."""
+    gen = torch.Generator(device=cuda).manual_seed(group * width)
+    before = decode_attention.launches
+    reading = decode_rows_reading(gen, cuda, 1664, group, width, dtype)
+    assert decode_attention.launches == before + 2
+    assert reading["max_abs_err"] <= reading["tol"] and reading["edge_max_abs_err"] <= reading["edge_tol"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("count", [3, 1])
+def test_adopt_rows_is_exact(cuda, dtype, count):
+    """K4 against its plain version: k and v pools in one launch, a pad lane
+    on a valid lane's row, positions past park_len and untargeted rows left
+    as they were."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    pools = [randn(gen, 6, 2, 400, 128, device=cuda, dtype=torch.float32).mul(40).to(dtype) for _ in range(2)]
+    staged = [randn(gen, 4, 2, 320, 128, device=cuda, dtype=torch.float32).mul(40).to(dtype) for _ in range(2)]
+    rows = torch.tensor([5, 0, 3, 5], dtype=torch.int32, device=cuda)  # lane 3 pads onto lane 0's row
+    refs = [pool.clone() for pool in pools]
+    before = adopt_rows.launches
+    adopt_rows(pools[0], staged[0], rows, count, 300, pools[1], staged[1])
+    assert adopt_rows.launches == before + 1
+    for pool, ref, src in zip(pools, refs, staged):
+        orig = ref.clone()
+        adopt_rows_reference(ref, src, rows, count, 300)
+        assert torch.equal(pool, ref)
+        assert torch.equal(pool[5, :, :300], src[0, :, :300]) and torch.equal(pool[:, :, 300:], orig[:, :, 300:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,index", [(None, (0, 1400)), ([3, 0], (127, 1279)), ([1, 2], (62, 700))])
+def test_fused_update_is_bit_equal_to_k2_then_k3(cuda, rows, index):
+    """K5's output and the cache it leaves equal K2 then K3 on copies of the
+    same inputs, bit for bit; with new rows across a 64-position tile edge
+    and a split edge; and within tolerance of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, hkv, w, s = 2, 2, 3, 1536
+    phys = 2 if rows is None else 4
+    q = randn(gen, b, 8, w, 128, device=cuda)
+    k_cache, v_cache = randn(gen, phys, hkv, s, 128, device=cuda), randn(gen, phys, hkv, s, 128, device=cuda)
+    k_new, v_new = randn(gen, b, hkv, w, 128, device=cuda), randn(gen, b, hkv, w, 128, device=cuda)
+    index_t = torch.tensor(index, dtype=torch.int32, device=cuda)
+    rows_t = None if rows is None else torch.tensor(rows, dtype=torch.int32, device=cuda)
+    k2, v2 = k_cache.clone(), v_cache.clone()
+    before = (decode_attention_update.fused_launches, write_cache_rows.launches)
+    out = decode_attention_update(q, k_cache, v_cache, k_new, v_new, index_t, rows_t, fused_write=True)
+    assert (decode_attention_update.fused_launches, write_cache_rows.launches) == (before[0] + 1, before[1])
+    write_cache_rows(k2, v2, k_new, v_new, index_t, rows_t)
+    want = decode_attention(q, k2, v2, index_t + 1, rows_t)
+    assert torch.equal(out, want) and torch.equal(k_cache, k2) and torch.equal(v_cache, v2)
+    assert_close(out, _scaled_reference(q, k2, v2, index_t + 1, rows_t, None, None))
 
 
 @pytest.mark.cuda
@@ -201,3 +262,60 @@ def test_tiny_trainer_step_runs_through_k7(cuda):
     assert [a - b for a, b in zip(after, before)] == [4, 4, 4, 4, 4]
     assert np.isfinite(metrics["loss"]) and np.isfinite(metrics["grad_norm"])
     assert not torch.equal(weight, trainer.model.decoder.layer_0.attn.q.kernel)
+
+
+def tiny_bf16_engine(cuda, **kwargs):
+    from dataclasses import replace
+    from pathlib import Path
+
+    from video_transformer_tpu_torch.analyzer.schema import note_dfa
+    from video_transformer_tpu_torch.models.bpe import BpeTokenizer
+    from video_transformer_tpu_torch.models.config import get_preset
+    from video_transformer_tpu_torch.parallel.engine import InferenceEngine
+
+    tok = BpeTokenizer.load(Path(__file__).resolve().parents[1] / "data" / "tokenizers" / "bpe-zh-2048.json")
+    cfg = get_preset("tiny")
+    cfg = replace(cfg, decoder=replace(cfg.decoder, vocab_size=tok.vocab_size))
+    engine = InferenceEngine(cfg, max_new_tokens=32, temperature=0.0, tokenizer=tok, param_dtype="bfloat16",
+                             quantize="int8", device=cuda, **kwargs)
+    engine.dfa = engine.wrap_grammar(note_dfa(engine.byte_vocab))
+    return engine
+
+
+@pytest.mark.cuda
+def test_tiny_engine_with_fused_write(cuda):
+    """A bf16-KV engine decodes through K5 and no K2 or K3 with
+    ``fused_write=True``, and gives the split engine's tokens."""
+    frames = np.random.default_rng(1).integers(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)
+    split = tiny_bf16_engine(cuda)
+    _, want = split.generate(frames, ["分析", "hi"], return_tokens=True)
+    fused = tiny_bf16_engine(cuda, fused_write=True)  # the same seeded weights
+    before = (decode_attention_update.fused_launches, write_cache_rows.launches, decode_attention.launches)
+    _, got = fused.generate(frames, ["分析", "hi"], return_tokens=True)
+    after = (decode_attention_update.fused_launches, write_cache_rows.launches, decode_attention.launches)
+    assert after[0] > before[0] and after[1:] == before[1:]
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_tiny_batcher_runs_through_k4_and_k5(cuda):
+    """Five requests through two slots on the card: staging adopts through
+    K4, the fused route decodes through K5, and its tokens equal the split
+    route's."""
+    from video_transformer_tpu_torch.parallel.serving import ContinuousBatcher, Request
+
+    engine = tiny_bf16_engine(cuda)
+    rng = np.random.default_rng(2)
+    clips = rng.integers(0, 256, (5, 4, 64, 64, 3), dtype=np.uint8)
+    prompts = ["分析", "hi", "第三段", "summarize " * 30, "x"]
+    tokens = {}
+    for fused in (False, True):
+        batcher = ContinuousBatcher(engine, slots=2, fused_write=fused)
+        for i in range(5):
+            batcher.submit(Request(i, clips[i], prompts[i]))
+        before = (adopt_rows.launches, decode_attention_update.fused_launches)
+        tokens[fused] = {c.request_id: c.token_ids for c in batcher.run()}
+        launched = (adopt_rows.launches - before[0], decode_attention_update.fused_launches - before[1])
+        assert launched[0] == 2 * engine.config.decoder.num_layers  # two stages (ring depth 4)
+        assert bool(launched[1]) == fused
+    assert tokens[True] == tokens[False] and sorted(tokens[True]) == list(range(5))

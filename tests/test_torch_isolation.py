@@ -37,6 +37,7 @@ import video_transformer_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+assert "video_transformer_tpu_torch.parallel.serving" in names, names
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
@@ -137,7 +138,7 @@ def test_kernel_sources_are_plain_cuda():
     PyTorch headers (the nvcc + ctypes route)."""
     sources = sorted((PACKAGE / "csrc").glob("*.cu"))
     assert [p.name for p in sources] == [
-        "decode_attention.cu", "flash_attention.cu", "flash_bwd.cu", "write_cache_rows.cu",
+        "adopt_rows.cu", "decode_attention.cu", "flash_attention.cu", "flash_bwd.cu", "write_cache_rows.cu",
     ]
     for path in sorted((PACKAGE / "csrc").glob("*.cuh")):  # device code shared by sources
         text = path.read_text(encoding="utf-8")

@@ -1,4 +1,5 @@
-// K3: paged, length-aware decode attention over an int8 or bf16 KV cache.
+// K3: paged, length-aware decode attention over an int8 or bf16 KV cache,
+// and K5: the same attention with the step's cache row write fused in.
 //
 // Replaces video_transformer_tpu/ops/decode_attention.py::_kernel_pipelined
 // (and _kernel, the same math), launched by _decode_attention_pallas. For
@@ -31,6 +32,26 @@
 // shared memory four elements at a time. A second kernel, one block per
 // (q row, kv head, batch row), weighs the partials of its row (one split per
 // thread), sums them with independent loads and applies v_scale.
+//
+// Any number of folded rows: the G*W rows of a kv head split into chunks of
+// at most kMaxRows, one block per (chunk, split); every chunk's block reads
+// the same tiles (L2 serves the repeats) and writes its own rows' partials,
+// so the per-row combine is unchanged. Like the TPU kernel, which pads G*W
+// to a multiple of 8, it has no ceiling on the row count.
+//
+// K5 replaces video_transformer_tpu/ops/decode_attention.py::_fused_kernel
+// (launched by _decode_attention_update_pallas): K2's write of the W new k/v
+// rows at positions [index, index + W) of physical row rows[b], then K3's
+// attention with lengths = index + 1, in one launch (bf16 caches only, as in
+// the JAX package). The TPU kernel's 8-aligned read-modify-write DMA region
+// is a Mosaic tiling constraint and is not carried over. Here the block whose
+// split owns a new position's tile takes that row from k_new/v_new instead
+// of the cache, and the chunk-0 block of that split stores it to the cache.
+// Each position has one writer, and no block of the launch reads from the
+// cache a position the launch writes, so no grid-wide ordering is needed.
+// The values and the order of arithmetic are K3's after K2, so the output
+// and the cache equal K2 + K3 bit for bit. What bounds it is what bounds K3;
+// it saves K2's launch (one per layer per decode step).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,7 +62,7 @@ namespace {
 constexpr int kD = 128;
 constexpr int kBK = 64;
 constexpr int kThreads = 128;
-constexpr int kMaxRows = 16;  // G * W: 4 * 3 = 12 on the base preset
+constexpr int kMaxRows = 16;  // folded q rows per block (G * W = 12 on the base preset)
 constexpr int kMaxSplits = kThreads;  // the combine gives each split a thread
 constexpr int kKStride = kD + 4;  // elements per shared k row (padding: banks)
 constexpr int kSStride = kBK + 4;  // f32 per probability row (16-byte rows)
@@ -96,6 +117,36 @@ struct TileRegs {
     }
   }
 
+  // K5: positions [first, first + width) come from the step's new rows
+  // (kn, vn: [width][kD]) instead of the cache, and ``writer`` stores them
+  // into the cache (kc, vc) as it goes.
+  __device__ __forceinline__ void load_fused(T* kc, T* vc, const T* kn, const T* vn,
+                                             int row0, int s_cache, int first,
+                                             int width, bool writer) {
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int c = threadIdx.x + i * kThreads;
+      const int r = c / kRowChunks;
+      const int col = c % kRowChunks;
+      const int pos = row0 + r;
+      k[i] = v[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (pos >= s_cache) continue;
+      uint4* kdst = reinterpret_cast<uint4*>(kc + (size_t)pos * kD) + col;
+      uint4* vdst = reinterpret_cast<uint4*>(vc + (size_t)pos * kD) + col;
+      if (pos >= first && pos < first + width) {
+        k[i] = reinterpret_cast<const uint4*>(kn + (size_t)(pos - first) * kD)[col];
+        v[i] = reinterpret_cast<const uint4*>(vn + (size_t)(pos - first) * kD)[col];
+        if (writer) {
+          *kdst = k[i];
+          *vdst = v[i];
+        }
+      } else {
+        k[i] = *kdst;
+        v[i] = *vdst;
+      }
+    }
+  }
+
   __device__ __forceinline__ void store(T* sk, T* sv) const {
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
@@ -113,17 +164,22 @@ struct TileRegs {
   }
 };
 
-template <typename T>
+// One block per (split, kv head x row chunk, batch row). kFused selects K5:
+// ``lengths`` then holds the cache index before the step (the write offset),
+// and the attention sees index + 1 positions for query column 0.
+template <typename T, bool kFused>
 __global__ void __launch_bounds__(kThreads)
 decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
-                      const T* __restrict__ k_cache,
-                      const T* __restrict__ v_cache,
+                      T* __restrict__ k_cache,
+                      T* __restrict__ v_cache,
+                      const T* __restrict__ k_new,
+                      const T* __restrict__ v_new,
                       const int* __restrict__ lengths,
                       const int* __restrict__ rows,
                       const float* __restrict__ k_scale,
                       float* __restrict__ part_acc, float* __restrict__ part_ml,
                       int hq, int hkv, int s_cache, int width,
-                      int tiles_per_split, float scale) {
+                      int tiles_per_split, int row_chunks, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sq = reinterpret_cast<float*>(smem_raw);  // [kMaxRows][kD]
   float* ss = sq + kMaxRows * kD;                   // [kMaxRows][kSStride]
@@ -135,20 +191,24 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int split = blockIdx.x;
   const int splits = gridDim.x;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / row_chunks;
+  const int chunk = blockIdx.y % row_chunks;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int group = hq / hkv;
-  const int nrows = group * width;
-  const int length = lengths[b];
+  const int nrows = group * width;           // folded rows of this kv head
+  const int r0 = chunk * kMaxRows;           // this block's first row
+  const int nr = min(kMaxRows, nrows - r0);  // and its row count
+  const int first = kFused ? lengths[b] : 0;  // K5: the new rows' position
+  const int length = kFused ? first + 1 : lengths[b];
   const int max_len = min(length + width - 1, s_cache);
   const int tile_begin = split * tiles_per_split;
   const int tile_end = min(tile_begin + tiles_per_split, (max_len + kBK - 1) / kBK);
-  const size_t part = ((size_t)(b * hkv + h) * splits + split) * nrows;
+  const size_t part = ((size_t)(b * hkv + h) * splits + split) * nrows + r0;
 
   if (tile_begin >= tile_end) {  // this chunk lies past the row's extent
-    for (int r = 0; r < nrows; ++r) part_acc[(part + r) * kD + tid] = 0.f;
-    for (int r = tid; r < nrows; r += kThreads) {
+    for (int r = 0; r < nr; ++r) part_acc[(part + r) * kD + tid] = 0.f;
+    for (int r = tid; r < nr; r += kThreads) {
       part_ml[(part + r) * 2] = kNegInf;
       part_ml[(part + r) * 2 + 1] = 0.f;
     }
@@ -156,17 +216,23 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   const int phys = rows ? rows[b] : b;
-  const T* kb = k_cache + (size_t)(phys * hkv + h) * s_cache * kD;
-  const T* vb = v_cache + (size_t)(phys * hkv + h) * s_cache * kD;
+  T* kb = k_cache + (size_t)(phys * hkv + h) * s_cache * kD;
+  T* vb = v_cache + (size_t)(phys * hkv + h) * s_cache * kD;
+  const T* kn = kFused ? k_new + (size_t)(b * hkv + h) * width * kD : nullptr;
+  const T* vn = kFused ? v_new + (size_t)(b * hkv + h) * width * kD : nullptr;
   TileRegs<T> regs;
-  regs.load(kb, vb, tile_begin * kBK, s_cache);
+  if (kFused)
+    regs.load_fused(kb, vb, kn, vn, tile_begin * kBK, s_cache, first, width, chunk == 0);
+  else
+    regs.load(kb, vb, tile_begin * kBK, s_cache);
 
-  // The group's q rows are contiguous: heads h*G .. h*G+G-1, W columns each.
+  // The group's q rows are contiguous: heads h*G .. h*G+G-1, W columns each;
+  // this block takes rows r0 .. r0 + nr - 1 of them.
   const float qk_scale = scale * (k_scale ? k_scale[h] : 1.f);
-  const size_t q_base = (size_t)(b * hq + h * group) * width * kD;
-  for (int i = tid; i < nrows * kD / 8; i += kThreads) {  // 8 bf16 per 16-byte load
-    const uint4 chunk = reinterpret_cast<const uint4*>(q + q_base)[i];
-    const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&chunk);
+  const size_t q_base = ((size_t)(b * hq + h * group) * width + r0) * kD;
+  for (int i = tid; i < nr * kD / 8; i += kThreads) {  // 8 bf16 per 16-byte load
+    const uint4 chunk8 = reinterpret_cast<const uint4*>(q + q_base)[i];
+    const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&chunk8);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float2 f = __bfloat1622float2(pairs[j]);
@@ -174,7 +240,7 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
       sq[i * 8 + 2 * j + 1] = f.y * qk_scale;
     }
   }
-  for (int r = tid; r < nrows; r += kThreads) {
+  for (int r = tid; r < nr; r += kThreads) {
     s_m[r] = kNegInf;
     s_l[r] = 0.f;
   }
@@ -193,7 +259,12 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // q staged; the previous tile's k, v, p consumed
     regs.store(sk, sv);
     __syncthreads();
-    if (t + 1 < tile_end) regs.load(kb, vb, k0 + kBK, s_cache);
+    if (t + 1 < tile_end) {
+      if (kFused)
+        regs.load_fused(kb, vb, kn, vn, k0 + kBK, s_cache, first, width, chunk == 0);
+      else
+        regs.load(kb, vb, k0 + kBK, s_cache);
+    }
 
     float dot[kMaxRows / 2];
 #pragma unroll
@@ -204,21 +275,21 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < kMaxRows / 2; ++i) {
         const int r = row0 + 2 * i;
-        if (r < nrows) dot[i] = dot4(*reinterpret_cast<const float4*>(sq + r * kD + d), kv, dot[i]);
+        if (r < nr) dot[i] = dot4(*reinterpret_cast<const float4*>(sq + r * kD + d), kv, dot[i]);
       }
     }
     const int pos = k0 + col;
 #pragma unroll
     for (int i = 0; i < kMaxRows / 2; ++i) {
       const int r = row0 + 2 * i;
-      if (r < nrows) {
-        const bool valid = pos < length + r % width && pos < s_cache;
+      if (r < nr) {
+        const bool valid = pos < length + (r0 + r) % width && pos < s_cache;
         ss[r * kSStride + col] = valid ? dot[i] : kNegInf;
       }
     }
     __syncthreads();
 
-    for (int r = warp; r < nrows; r += kThreads / 32) {
+    for (int r = warp; r < nr; r += kThreads / 32) {
       const float a = ss[r * kSStride + lane];
       const float c = ss[r * kSStride + lane + 32];
       float mx = fmaxf(a, c);
@@ -246,21 +317,21 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
 
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r)
-      if (r < nrows) acc[r] *= s_alpha[r];
+      if (r < nr) acc[r] *= s_alpha[r];
 #pragma unroll 2
     for (int kk = 0; kk < kBK; kk += 4) {
       const float4 vv = make_float4(to_f32(sv[kk * kD + tid]), to_f32(sv[(kk + 1) * kD + tid]),
                                     to_f32(sv[(kk + 2) * kD + tid]), to_f32(sv[(kk + 3) * kD + tid]));
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r)
-        if (r < nrows) acc[r] = dot4(*reinterpret_cast<const float4*>(ss + r * kSStride + kk), vv, acc[r]);
+        if (r < nr) acc[r] = dot4(*reinterpret_cast<const float4*>(ss + r * kSStride + kk), vv, acc[r]);
     }
   }
 
 #pragma unroll
   for (int r = 0; r < kMaxRows; ++r)
-    if (r < nrows) part_acc[(part + r) * kD + tid] = acc[r];
-  for (int r = tid; r < nrows; r += kThreads) {
+    if (r < nr) part_acc[(part + r) * kD + tid] = acc[r];
+  for (int r = tid; r < nr; r += kThreads) {
     part_ml[(part + r) * 2] = s_m[r];
     part_ml[(part + r) * 2 + 1] = s_l[r];
   }
@@ -320,26 +391,35 @@ decode_combine_kernel(const float* __restrict__ part_acc,
   out[out_base + (size_t)r * kD + tid] = __float2bfloat16(num / fmaxf(den, 1e-30f) * out_scale);
 }
 
-template <typename T>
-int launch(const void* q, const void* k_cache, const void* v_cache,
-           const int* lengths, const int* rows, const float* k_scale,
-           const float* v_scale, void* out, float* part_acc, float* part_ml,
-           int batch, int hq, int hkv, int s_cache, int width, int splits,
-           int tiles_per_split, float scale, cudaStream_t stream) {
+template <typename T, bool kFused>
+int launch(const void* q, void* k_cache, void* v_cache, const void* k_new,
+           const void* v_new, const int* lengths, const int* rows,
+           const float* k_scale, const float* v_scale, void* out,
+           float* part_acc, float* part_ml, int batch, int hq, int hkv,
+           int s_cache, int width, int splits, int tiles_per_split, float scale,
+           cudaStream_t stream) {
   constexpr int smem = smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
-      decode_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  decode_partial_kernel<T><<<dim3(splits, hkv, batch), kThreads, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const T*)k_cache, (const T*)v_cache, lengths,
-      rows, k_scale, part_acc, part_ml, hq, hkv, s_cache, width,
-      tiles_per_split, scale);
-  err = cudaGetLastError();
+      decode_partial_kernel<T, kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int nrows = (hq / hkv) * width;
+  const int row_chunks = (nrows + kMaxRows - 1) / kMaxRows;
+  decode_partial_kernel<T, kFused><<<dim3(splits, hkv * row_chunks, batch), kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (T*)k_cache, (T*)v_cache, (const T*)k_new, (const T*)v_new,
+      lengths, rows, k_scale, part_acc, part_ml, hq, hkv, s_cache, width,
+      tiles_per_split, row_chunks, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   decode_combine_kernel<<<dim3(nrows, hkv, batch), kThreads, 0, stream>>>(
       part_acc, part_ml, v_scale, (__nv_bfloat16*)out, hq, hkv, width, splits);
   return (int)cudaGetLastError();
+}
+
+bool valid_shape(int batch, int hq, int hkv, int width, int d, int splits,
+                 int tiles_per_split) {
+  return batch > 0 && hkv > 0 && d == kD && hq % hkv == 0 && width > 0 &&
+         hkv * ((hq / hkv * width + kMaxRows - 1) / kMaxRows) <= 65535 &&
+         splits > 0 && splits <= kMaxSplits && tiles_per_split > 0;
 }
 
 }  // namespace
@@ -353,19 +433,41 @@ extern "C" int vtx_decode_attention(const void* q, const void* k_cache,
                                     int d, int splits, int tiles_per_split,
                                     int cache_is_int8, float scale,
                                     void* stream) {
-  if (d != kD || hq % hkv != 0 || (hq / hkv) * width > kMaxRows || width <= 0 ||
-      splits <= 0 || splits > kMaxSplits || tiles_per_split <= 0)
+  if (!valid_shape(batch, hq, hkv, width, d, splits, tiles_per_split))
     return (int)cudaErrorInvalidValue;
+  // K3 only reads the caches; the kernel's pointers are non-const for K5.
+  void* kc = const_cast<void*>(k_cache);
+  void* vc = const_cast<void*>(v_cache);
   if (cache_is_int8)
-    return launch<int8_t>(q, k_cache, v_cache, (const int*)lengths,
-                          (const int*)rows, (const float*)k_scale,
-                          (const float*)v_scale, out, (float*)part_acc,
-                          (float*)part_ml, batch, hq, hkv, s_cache, width,
-                          splits, tiles_per_split, scale, (cudaStream_t)stream);
-  return launch<__nv_bfloat16>(q, k_cache, v_cache, (const int*)lengths,
-                               (const int*)rows, (const float*)k_scale,
-                               (const float*)v_scale, out, (float*)part_acc,
-                               (float*)part_ml, batch, hq, hkv, s_cache, width,
-                               splits, tiles_per_split, scale,
-                               (cudaStream_t)stream);
+    return launch<int8_t, false>(q, kc, vc, nullptr, nullptr, (const int*)lengths,
+                                 (const int*)rows, (const float*)k_scale,
+                                 (const float*)v_scale, out, (float*)part_acc,
+                                 (float*)part_ml, batch, hq, hkv, s_cache, width,
+                                 splits, tiles_per_split, scale, (cudaStream_t)stream);
+  return launch<__nv_bfloat16, false>(q, kc, vc, nullptr, nullptr, (const int*)lengths,
+                                      (const int*)rows, (const float*)k_scale,
+                                      (const float*)v_scale, out, (float*)part_acc,
+                                      (float*)part_ml, batch, hq, hkv, s_cache, width,
+                                      splits, tiles_per_split, scale,
+                                      (cudaStream_t)stream);
+}
+
+// K5 on bf16 caches: ``index`` [B] is each row's fill before the step.
+extern "C" int vtx_decode_attention_update(const void* q, void* k_cache,
+                                           void* v_cache, const void* k_new,
+                                           const void* v_new, const void* index,
+                                           const void* rows, void* out,
+                                           void* part_acc, void* part_ml,
+                                           int batch, int hq, int hkv,
+                                           int s_cache, int width, int d,
+                                           int splits, int tiles_per_split,
+                                           float scale, void* stream) {
+  if (!valid_shape(batch, hq, hkv, width, d, splits, tiles_per_split))
+    return (int)cudaErrorInvalidValue;
+  return launch<__nv_bfloat16, true>(q, k_cache, v_cache, k_new, v_new,
+                                     (const int*)index, (const int*)rows,
+                                     nullptr, nullptr, out, (float*)part_acc,
+                                     (float*)part_ml, batch, hq, hkv, s_cache,
+                                     width, splits, tiles_per_split, scale,
+                                     (cudaStream_t)stream);
 }

@@ -47,6 +47,14 @@ _SIGNATURES = {
     "vtx_decode_attention": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
+    # q, k_cache, v_cache, k_new, v_new, index, rows, out, part_acc, part_ml,
+    # B, Hq, Hkv, S, W, D, splits, tiles_per_split, scale, stream
+    "vtx_decode_attention_update": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
+    # dst_k, dst_v, src_k, src_v, rows, lanes, count, pool_rows, Hkv, S, S_park,
+    # park_len, row_bytes, stream
+    "vtx_adopt_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, out, lse, B, Hq, Hkv, S, D, causal, scale, stream
     "vtx_flash_fwd_lse": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # q, k, v, dout, lse, dsum, dq, B, Hq, Hkv, S, D, causal, scale, stream

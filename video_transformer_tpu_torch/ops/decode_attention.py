@@ -1,4 +1,5 @@
-"""Decode-step attention: K2 (cache row write) and K3 (paged decode attention).
+"""Decode-step attention: K2 (cache row write), K3 (paged decode attention),
+K4 (paged row adoption) and K5 (K2 and K3 fused).
 
 Layout: q [B, Hq, W, D] (W = decode block width), caches [R, Hkv, S, D]
 with R >= B, per-row cache offsets ``index`` [B] and optional ``rows`` [B]
@@ -6,13 +7,17 @@ mapping each logical row to its physical cache row. Query column j of row b
 sees cache positions < index[b] + 1 + j.
 
 ``write_cache_rows`` wraps K2 (``csrc/write_cache_rows.cu``, replacing the
-Pallas ``_batch_write_kernel``) and ``decode_attention`` wraps K3
-(``csrc/decode_attention.cu``, replacing ``_kernel_pipelined``). Each takes
-its plain version, ``update_cache_rows`` or ``decode_attention_reference``,
-for CPU tensors only. ``decode_attention_update`` is the dispatch of the JAX
-package's ``decode_attention_update``: for an int8 cache the new rows are
-quantized before the write, and the per-head scales factor out of the
-attention (q scaled by k_scale, the output by v_scale).
+Pallas ``_batch_write_kernel``), ``decode_attention`` wraps K3
+(``csrc/decode_attention.cu``, replacing ``_kernel_pipelined``) and
+``adopt_rows`` wraps K4 (``csrc/adopt_rows.cu``, replacing ``_adopt_kernel``).
+Each takes its plain version, ``update_cache_rows``,
+``decode_attention_reference`` or ``adopt_rows_reference``, for CPU tensors
+only. ``decode_attention_update`` is the dispatch of the JAX package's
+``decode_attention_update``: for an int8 cache the new rows are quantized
+before the write, and the per-head scales factor out of the attention (q
+scaled by k_scale, the output by v_scale). With ``fused_write=True`` on a
+bf16 cache it launches K5 (``csrc/decode_attention.cu``, replacing
+``_fused_kernel``), which the JAX package reaches through ``VTX_FUSED_WRITE``.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import torch
 from . import _lib
 
 __all__ = [
+    "adopt_rows",
+    "adopt_rows_reference",
     "decode_attention",
     "decode_attention_reference",
     "decode_attention_update",
@@ -36,7 +43,7 @@ _NEG_INF = -1e30
 _DECODE_TILE = 64  # cache positions per K3 tile (csrc/decode_attention.cu kBK)
 _DECODE_BLOCKS = 264  # K3 splits the sequence to launch about this many blocks
 _DECODE_MAX_SPLITS = 128  # csrc/decode_attention.cu kMaxSplits
-_DECODE_MAX_ROWS = 16  # folded q rows G * W per kv head (csrc/decode_attention.cu kMaxRows)
+_DECODE_CHUNK_ROWS = 16  # folded q rows per K3 block (csrc/decode_attention.cu kMaxRows)
 
 
 def quantize_kv(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -170,20 +177,9 @@ def decode_attention(
         _check("rows", rows, (torch.int32,), (b,))
     elif b > r:
         raise ValueError(f"batch {b} exceeds the cache's {r} rows")
-    if d != 128 or hq % hkv or (hq // hkv) * w > _DECODE_MAX_ROWS:
-        raise ValueError(
-            f"decode_attention: unsupported q {tuple(q.shape)} for {hkv} kv heads"
-            f" (head_dim 128 and at most {_DECODE_MAX_ROWS} q rows per kv head)"
-        )
-    # Split the sequence so that about two blocks per SM stream the cache.
-    tiles = -(-s // _DECODE_TILE)
-    splits = max(1, min(tiles, -(-_DECODE_BLOCKS // (b * hkv)), _DECODE_MAX_SPLITS))
-    tiles_per_split = -(-tiles // splits)
-    splits = -(-tiles // tiles_per_split)
-    rows_per_head = (hq // hkv) * w
-    part_acc = torch.empty((b, hkv, splits, rows_per_head, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, hkv, splits, rows_per_head, 2), dtype=torch.float32, device=q.device)
-    out = torch.empty_like(q)
+    if d != 128 or hq % hkv:
+        raise ValueError(f"decode_attention: unsupported q {tuple(q.shape)} for {hkv} kv heads (head_dim 128)")
+    out, part_acc, part_ml, splits, tiles_per_split = _decode_buffers(q, hkv, s)
     code = _lib.library().vtx_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
         _lib.ptr(rows), _lib.ptr(k_scale), _lib.ptr(v_scale), out.data_ptr(),
@@ -198,6 +194,21 @@ def decode_attention(
 decode_attention.launches = 0
 
 
+def _decode_buffers(q: torch.Tensor, hkv: int, s: int):
+    """K3's and K5's output, split-K partials and split sizes: the sequence
+    splits so that about two blocks per SM stream the cache."""
+    b, hq, w, d = q.shape
+    rows_per_head = (hq // hkv) * w
+    blocks = b * hkv * -(-rows_per_head // _DECODE_CHUNK_ROWS)
+    tiles = -(-s // _DECODE_TILE)
+    splits = max(1, min(tiles, -(-_DECODE_BLOCKS // blocks), _DECODE_MAX_SPLITS))
+    tiles_per_split = -(-tiles // splits)
+    splits = -(-tiles // tiles_per_split)
+    part_acc = torch.empty((b, hkv, splits, rows_per_head, d), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((b, hkv, splits, rows_per_head, 2), dtype=torch.float32, device=q.device)
+    return torch.empty_like(q), part_acc, part_ml, splits, tiles_per_split
+
+
 def decode_attention_update(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -208,17 +219,111 @@ def decode_attention_update(
     rows: torch.Tensor | None = None,
     k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
+    fused_write: bool = False,
 ) -> torch.Tensor:
     """Write the step's new k/v rows at ``index`` (in place), then attend.
 
     For an int8 cache (``k_scale``/``v_scale`` given) the new rows are
-    quantized under the layer's scales before the write.
+    quantized under the layer's scales before the write. ``fused_write``
+    does both in one launch (K5); it takes bf16 caches only, since an int8
+    cache needs the quantizing split path, as in the JAX package. On that
+    route ``rows`` must name distinct physical rows, as the batcher's do:
+    a block reads the rows it writes from ``k_new``/``v_new``, not from
+    another row's write in the same launch.
     """
+    if fused_write and (k_scale is not None or k_cache.dtype == torch.int8):
+        raise ValueError("fused_write takes a bf16 cache; an int8 cache needs the split path")
     if k_scale is not None:
         k_new = quantize_kv(k_new, k_scale)
         v_new = quantize_kv(v_new, v_scale)
     else:
         k_new = k_new.to(k_cache.dtype)
         v_new = v_new.to(v_cache.dtype)
+    if fused_write and q.device.type != "cpu":
+        return _fused_update(q, k_cache, v_cache, k_new, v_new, index, rows)
     write_cache_rows(k_cache, v_cache, k_new, v_new, index, rows)
     return decode_attention(q, k_cache, v_cache, index + 1, rows, k_scale, v_scale)
+
+
+decode_attention_update.fused_launches = 0
+
+
+def _fused_update(q, k_cache, v_cache, k_new, v_new, index, rows) -> torch.Tensor:
+    """K5: K2's row write and K3's attention (lengths index + 1) in one launch."""
+    b, hq, w, d = q.shape
+    r, hkv, s, _ = k_cache.shape
+    _check("q", q, (torch.bfloat16,))
+    _check("k_cache", k_cache, (torch.bfloat16,))
+    _check("v_cache", v_cache, (torch.bfloat16,), tuple(k_cache.shape))
+    _check("k_new", k_new, (torch.bfloat16,), (b, hkv, w, d))
+    _check("v_new", v_new, (torch.bfloat16,), (b, hkv, w, d))
+    _check("index", index, (torch.int32,), (b,))
+    if rows is not None:
+        _check("rows", rows, (torch.int32,), (b,))
+    elif b > r:
+        raise ValueError(f"batch {b} exceeds the cache's {r} rows")
+    if d != 128 or hq % hkv:
+        raise ValueError(f"decode_attention_update: unsupported q {tuple(q.shape)} for {hkv} kv heads (head_dim 128)")
+    out, part_acc, part_ml, splits, tiles_per_split = _decode_buffers(q, hkv, s)
+    code = _lib.library().vtx_decode_attention_update(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        index.data_ptr(), _lib.ptr(rows), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        b, hq, hkv, s, w, d, splits, tiles_per_split, 1.0 / math.sqrt(d), _lib.stream(q),
+    )
+    _lib.check("vtx_decode_attention_update", code)
+    decode_attention_update.fused_launches += 1
+    return out
+
+
+def adopt_rows_reference(
+    dst: torch.Tensor, src: torch.Tensor, rows: torch.Tensor, count: int, park_len: int
+) -> torch.Tensor:
+    """Plain in-place ``dst[rows[i], :, :park_len] = src[i, :, :park_len]``
+    for each lane i < count, in lane order (the JAX package's scan); lanes at
+    or past ``count`` write nothing."""
+    for lane, row in enumerate(rows[:count].tolist()):
+        dst[row, :, :park_len] = src[lane, :, :park_len]
+    return dst
+
+
+def adopt_rows(
+    dst: torch.Tensor,
+    src: torch.Tensor,
+    rows: torch.Tensor,
+    count: int,
+    park_len: int,
+    dst_v: torch.Tensor | None = None,
+    src_v: torch.Tensor | None = None,
+) -> None:
+    """In place: dst[rows[i], :, :park_len] = src[i, :, :park_len] for each
+    lane i < ``count`` (K4). src [lanes, Hkv, S_park, D], dst [R, Hkv, S, D],
+    rows int32 [lanes]; ``dst_v``/``src_v``, a layer's v pool and its staged
+    rows, are adopted in the same launch."""
+    if (dst_v is None) != (src_v is None):
+        raise ValueError("dst_v and src_v go together")
+    pairs = [(dst, src)] + ([(dst_v, src_v)] if dst_v is not None else [])
+    if dst.device.type == "cpu":
+        for pool, staged in pairs:
+            adopt_rows_reference(pool, staged, rows, count, park_len)
+        return
+    r, hkv, s, d = dst.shape
+    lanes, _, s_park, _ = src.shape
+    for name, pool, staged in (("", dst, src), ("_v", dst_v, src_v)):
+        if pool is None:
+            continue
+        _check("dst" + name, pool, (dst.dtype,), (r, hkv, s, d))
+        _check("src" + name, staged, (dst.dtype,), (lanes, hkv, s_park, d))
+    _check("rows", rows, (torch.int32,), (lanes,))
+    if not (0 <= count <= lanes and 0 <= park_len <= min(s, s_park)):
+        raise ValueError(f"adopt_rows: count {count} of {lanes} lanes, park_len {park_len} of {min(s, s_park)}")
+    if count == 0 or park_len == 0:
+        return
+    code = _lib.library().vtx_adopt_rows(
+        dst.data_ptr(), _lib.ptr(dst_v), src.data_ptr(), _lib.ptr(src_v), rows.data_ptr(),
+        lanes, count, r, hkv, s, s_park, park_len, d * dst.element_size(), _lib.stream(dst),
+    )
+    _lib.check("vtx_adopt_rows", code)
+    adopt_rows.launches += 1
+
+
+adopt_rows.launches = 0

@@ -9,13 +9,18 @@ filler, grammar fast-forward blocks of 1 + max_forced_run tokens, per-row
 ``index_before + advance`` after each block). The loop runs on the host, one
 decoder call per step; the tensors stay on the device.
 
+``fused_write=True`` runs each decode step's cache write and attention as
+one kernel (K5, bf16 KV caches only); the JAX package's ``VTX_FUSED_WRITE``
+switch. ``preprocess`` is the batcher's staging entry (``serving.py``).
+
 Not ported yet (they raise NotImplementedError): continuation ``prefixes``,
-sessions, ``generate_text``, speculative decoding, projection fusion, data
-parallelism and the continuous batcher.
+sessions, ``generate_text``, speculative decoding, projection fusion and data
+parallelism.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass
 from typing import Any
@@ -68,16 +73,20 @@ class InferenceEngine:
         quantize: str | None = None,
         kv_quant: str | None = None,
         device: str | torch.device = "cuda",
+        fused_write: bool = False,
     ):
         """``params`` is a VideoLM (``weights.from_jax_params`` or
         ``weights.random_params``); None makes seeded random weights on
         ``device``. ``param_dtype`` casts the float weights, ``quantize="int8"``
         quantizes the decoder's dense layers and ``kv_quant="int8"`` stores the
-        KV cache in int8."""
+        KV cache in int8. ``fused_write`` decodes through K5 (not with an int8
+        KV cache)."""
         if quantize not in (None, "int8"):
             raise NotImplementedError(f"quantize={quantize!r} is not ported")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
+        if fused_write and kv_quant == "int8":
+            raise ValueError("fused_write takes a bf16 KV cache; kv_quant='int8' needs the split path")
         if tokenizer is not None and tokenizer.vocab_size != config.decoder.vocab_size:
             raise ValueError(
                 f"tokenizer vocab {tokenizer.vocab_size} != decoder vocab {config.decoder.vocab_size}"
@@ -90,6 +99,7 @@ class InferenceEngine:
         self.structure_bias = float(structure_bias)
         self.max_forced_run = int(max_forced_run)
         self.kv_quant = kv_quant
+        self.fused_write = bool(fused_write)
         self.tokenizer = tokenizer or ByteTokenizer(config.decoder.vocab_size)
         self.stats = EngineStats()
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -173,12 +183,24 @@ class InferenceEngine:
         128-multiple bucket) and grammar start states."""
         rows = []
         lengths = np.full((b_real,), prompt_len, np.int32)
+        overflow = 0
         for i, p in enumerate(prompts):
             ids = self.tokenizer.encode(p)
+            overflow += len(ids) + 1 > prompt_len
             rows.append(self.tokenizer.encode_array(p, prompt_len, add_bos=True))
             lengths[i] = min(_round_up(len(ids) + 1, 128), prompt_len)
+        if overflow:
+            logging.getLogger("video_transformer").warning(
+                f"event=prompt_truncated count={overflow} prompt_len={prompt_len}"
+            )
         start = dfa.start if dfa is not None else 0
         return np.stack(rows), lengths, np.full((b_real,), start, np.int64)
+
+    def preprocess(self, frames) -> torch.Tensor:
+        """uint8 [B, T, H, W, 3] frames -> patches on the device, in the
+        compute dtype."""
+        frames_t = torch.as_tensor(np.asarray(frames)).to(self.device)
+        return preprocess_frames(frames_t, self.config.encoder, self.model.compute_dtype)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -219,8 +241,7 @@ class InferenceEngine:
         tokens_in, lengths, states = self._assemble_inputs(prompts, b_real, prompt_len, dfa)
 
         start = time.perf_counter()
-        frames_t = torch.as_tensor(np.asarray(frames)).to(self.device)
-        patches = preprocess_frames(frames_t, self.config.encoder, self.model.compute_dtype)
+        patches = self.preprocess(frames)
         cfg = self.config
         block_width = self._block_width(dfa)
         # Tail slack past the last live position, as in the JAX engine.
@@ -235,6 +256,7 @@ class InferenceEngine:
             cfg.decoder, b_real, cache_len, self.model.compute_dtype,
             quant=self.kv_quant == "int8", device=dev,
         )
+        cache["fused_write"] = self.fused_write
         logits, cache = self.model.prefill(
             patches, torch.from_numpy(tokens_in).to(dev), cache, torch.from_numpy(lengths).to(dev)
         )
