@@ -5,9 +5,10 @@
 Builds the port's CUDA kernels from ``video_transformer_tpu_torch/csrc`` (one
 ``nvcc`` process per source, in parallel), holds each kernel against its
 plain PyTorch version at the shapes of the serving, batcher and training
-paths and times both (K5 also bit for bit against K2 then K3, K3 also at
-20-40 folded query rows per kv head), checks the whole model against the plain versions on the CPU at
-the tiny preset (serving logits, then training gradients), then:
+paths and times both (K5 also bit for bit against K2 then K3; K3 and K5
+also at 20-40 folded query rows per kv head), checks the whole model
+against the plain versions on the CPU at the tiny preset (serving logits,
+then training gradients), then:
 
 - serves three requests through ``InferenceEngine.generate`` at the full
   ``base`` width (int8 weights, int8 KV cache, BPE vocabulary, the note
@@ -16,9 +17,10 @@ the tiny preset (serving logits, then training gradients), then:
   device ops);
 - serves twelve requests through ``ContinuousBatcher`` (8 slots, a ring of
   16 parked requests, bf16 KV pool, device refill) on the same weights,
-  once through K2 + K3 and once through K5, shows that every stage adopted
-  its prefills through K4 and that both runs give the same tokens, holds the
-  first-token logits against ``engine.generate``'s, and profiles a short
+  shows that the one stage adopted its prefills through K4 and every decode
+  step went through K5, holds the first-token logits against
+  ``engine.generate``'s and the first wave's tokens against
+  ``engine.generate`` at the batcher's batch of 8, and profiles a short
   sweep;
 - trains five steps of ``python -m video_transformer_tpu_torch.train.run``'s
   code path at the full ``base`` width (seeded random f32 weights, bf16
@@ -92,8 +94,12 @@ BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
 MAX_NEW_TOKENS = 256  # capped for the smoke; the shipped config says 4096
 PROMPT = "分析这段视频的内容，写出结构化的知识笔记。"
 KERNELS = (flash_attention, write_cache_rows, decode_attention)  # the serving path's
+BATCHER_KERNELS = (adopt_rows, decode_attention_update)  # with K1; the bf16 pool takes no K2 or K3
 BATCHER_SLOTS = 8  # the shipped serving_slots_per_chip; queue_depth defaults to 16
 BATCHER_REQUESTS = 12  # two waves through 8 slots
+# The batcher stages min(queued, queue_depth, free rows) requests at once; the
+# ring (2 * slots) and the free rows (at least queue_depth) hold all twelve.
+BATCHER_STAGE = min(BATCHER_REQUESTS, 2 * BATCHER_SLOTS)
 TRAIN_KERNELS = (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv)
 # K1 and K3 compute in f32 and round their output to bf16 once, as their
 # plain versions do. One rounding step is at most 2**-7 of the value, so the
@@ -201,8 +207,13 @@ def check_flash(gen: torch.Generator, dev: torch.device, batch: int, heads: int,
     }
 
 
-def kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, prompt_bucket: int, cache_len: int) -> dict:
-    """Every kernel at the serving path's shapes, held against its plain version."""
+def kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, prompt_bucket: int, cache_len: int,
+                 park_len: int) -> dict:
+    """K1-K3 at the serving path's shapes, held against their plain
+    versions; K1 also at the batcher's staging prefill (``BATCHER_STAGE``
+    rows of ``park_len`` positions: the video and the whole prompt block,
+    whatever each row's prompt bucket, which sets only its cache index and
+    its logits position)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     enc, dec = cfg.encoder, cfg.decoder
     batch, width = 2, 3
@@ -211,8 +222,10 @@ def kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, prompt_bucket: in
     prefill_seq = cfg.video_tokens + prompt_bucket
     k1 = check_flash(gen, dev, batch, dec.num_heads, dec.num_kv_heads, prefill_seq, causal=True)
     k1_enc = check_flash(gen, dev, batch, enc.num_heads, enc.num_heads, enc.tokens_per_clip, causal=False)
-    for key in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "library_ms", "shape"):
-        k1[f"encoder_{key}"] = k1_enc[key]
+    k1_stage = check_flash(gen, dev, BATCHER_STAGE, dec.num_heads, dec.num_kv_heads, park_len, causal=True)
+    for prefix, other in (("encoder", k1_enc), ("staging", k1_stage)):
+        for key in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "library_ms", "shape"):
+            k1[f"{prefix}_{key}"] = other[key]
     results["flash_attention"] = k1
 
     # K2: int8 rows into int8 caches at per-row offsets, through a row table.
@@ -290,8 +303,11 @@ DECODE_ROW_SHAPES = ((4, 5), (7, 3), (4, 7), (8, 5))  # (group, W): 20, 21, 28 a
 def decode_rows_reading(gen: torch.Generator, dev: torch.device, cache_len: int, group: int, width: int,
                         dtype: torch.dtype) -> dict:
     """K3 at ``group * width`` folded q rows per kv head (more than 16 take
-    several row chunks), against its plain version and at the causal edge.
-    Raises past the tolerance."""
+    several row chunks), against its plain version and at the causal edge;
+    on a bf16 cache also K5, bit for bit against K2 then K3, with row 0's
+    new positions across a split edge (only the chunk-0 blocks store them,
+    the other chunks' blocks read them from k_new/v_new). Raises past the
+    tolerance or on any bit of difference."""
     hkv, d, batch = 2, 128, 2
     q = torch.randn(batch, group * hkv, width, d, generator=gen, device=dev).to(torch.bfloat16)
     if dtype == torch.int8:
@@ -317,23 +333,40 @@ def decode_rows_reading(gen: torch.Generator, dev: torch.device, cache_len: int,
     if err > tol or edge_err > edge_tol:
         raise AssertionError(f"decode_attention at {group * width} rows per kv head ({dtype}):"
                              f" {err} > {tol} or edge {edge_err} > {edge_tol}")
-    return {"rows_per_kv_head": group * width, "group": group, "width": width,
-            "cache": str(dtype).removeprefix("torch."), "max_abs_err": err, "tol": tol,
-            "edge_max_abs_err": edge_err, "edge_tol": edge_tol}
+    reading = {"rows_per_kv_head": group * width, "group": group, "width": width,
+               "cache": str(dtype).removeprefix("torch."), "max_abs_err": err, "tol": tol,
+               "edge_max_abs_err": edge_err, "edge_tol": edge_tol}
+    if dtype != torch.bfloat16:
+        return reading
+    q = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)  # the edge check set q to ones
+    k_new, v_new = (torch.randn(batch, hkv, width, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+    split_len = _decode_buffers(q, hkv, cache_len)[4] * 64
+    index = torch.tensor([split_len - 1, cache_len - width - 5], dtype=torch.int32, device=dev)
+    k2, v2 = k_cache.clone(), v_cache.clone()
+    out = decode_attention_update(q, k_cache, v_cache, k_new, v_new, index, rows)
+    write_cache_rows(k2, v2, k_new, v_new, index, rows)
+    want = decode_attention(q, k2, v2, index + 1, rows)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, want) and torch.equal(k_cache, k2) and torch.equal(v_cache, v2)):
+        raise AssertionError(f"decode_attention_update (K5) at {group * width} rows per kv head"
+                             " is not bit-equal to K2 + K3")
+    return dict(reading, k5_bit_equal_to_k2_k3=True, k5_index=index.tolist())
 
 
 def batcher_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, park_len: int, cache_len: int,
                          slots: int, pool_rows: int) -> dict:
     """K4 and K5 at the batcher's base shapes (bf16 pool of ``pool_rows``
-    rows, ``slots`` decode lanes, W = 3), each held against its plain
-    version; K5 also against K2 then K3 on copies of the same inputs."""
+    rows, ``slots`` decode lanes, W = 3, one stage of ``BATCHER_STAGE``
+    lanes), each held against its plain version; K5 also against K2 then K3
+    on copies of the same inputs."""
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
     dec = cfg.decoder
     hkv, d, width = dec.num_kv_heads, dec.head_dim, 3
     results = {}
 
-    # K4: 8 valid lanes and one pad lane whose row collides with lane 0's.
-    count, lanes = slots, slots + 1
+    # K4: the stage's valid lanes, checked with one pad lane more whose row
+    # collides with lane 0's; timed at the stage's own launch (no pad lane).
+    count, lanes = BATCHER_STAGE, BATCHER_STAGE + 1
     pool_k, pool_v = (torch.randn(pool_rows, hkv, cache_len, d, generator=gen, device=dev).to(torch.bfloat16)
                       for _ in range(2))
     src_k, src_v = (torch.randn(lanes, hkv, park_len, d, generator=gen, device=dev).to(torch.bfloat16)
@@ -353,6 +386,7 @@ def batcher_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, park_len:
             or not torch.equal(pool_k[perm[0], :, :park_len], src_k[0]):
         raise AssertionError(f"adopt_rows differs from adopt_rows_reference by {err}, or wrote outside its rows")
     valid = rows[:count].long()
+    stage_src_k, stage_src_v, stage_rows = src_k[:count], src_v[:count], rows[:count]
 
     def library_adopt():
         pool_k[valid, :, :park_len] = src_k[:count]
@@ -361,13 +395,13 @@ def batcher_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, park_len:
     bound_ms, bound_by = bound(2 * 2 * count * hkv * park_len * d * 2 + nbytes(rows), 0)
     results["adopt_rows"] = {
         "max_abs_err": err, "tol": 0,
-        "ms": time_ms(lambda: adopt_rows(pool_k, src_k, rows, count, park_len, pool_v, src_v)),
-        "plain_ms": time_ms(lambda: (adopt_rows_reference(ref_k, src_k, rows, count, park_len),
-                                     adopt_rows_reference(ref_v, src_v, rows, count, park_len))),
+        "ms": time_ms(lambda: adopt_rows(pool_k, stage_src_k, stage_rows, count, park_len, pool_v, stage_src_v)),
+        "plain_ms": time_ms(lambda: (adopt_rows_reference(ref_k, stage_src_k, stage_rows, count, park_len),
+                                     adopt_rows_reference(ref_v, stage_src_v, stage_rows, count, park_len))),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": time_ms(library_adopt),
         "library": "two index_put_ (dst[rows[:count], :, :park_len] = src[:count]), k and v",
-        "shape": (f"pools bf16 [{pool_rows},{hkv},{cache_len},{d}] x2, src [{lanes},{hkv},{park_len},{d}],"
-                  f" count {count}, a pad lane on lane 0's row"),
+        "shape": (f"pools bf16 [{pool_rows},{hkv},{cache_len},{d}] x2, src [{count},{hkv},{park_len},{d}] x2,"
+                  f" count {count} (checked with a pad lane on lane 0's row)"),
     }
 
     # K5: rows a permutation of pool rows; index of slot 0 puts its W new
@@ -379,11 +413,11 @@ def batcher_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, park_len:
     split_len = tiles_per_split * 64
     index = torch.tensor([split_len * (park_len // split_len + 1) - 1, park_len // split_len * split_len + 62]
                          + [park_len - 128 + 37 * i for i in range(2, slots)], dtype=torch.int32, device=dev)
-    rows = torch.tensor(perm, dtype=torch.int32, device=dev)
+    rows = torch.tensor(perm[:slots], dtype=torch.int32, device=dev)
     fused_k, fused_v = pool_k.clone(), pool_v.clone()
     split_k, split_v = pool_k.clone(), pool_v.clone()
     plain_k, plain_v = pool_k.clone(), pool_v.clone()
-    out = decode_attention_update(q, fused_k, fused_v, k_new, v_new, index, rows, fused_write=True)
+    out = decode_attention_update(q, fused_k, fused_v, k_new, v_new, index, rows)
     write_cache_rows(split_k, split_v, k_new, v_new, index, rows)
     split_out = decode_attention(q, split_k, split_v, index + 1, rows)
     update_cache_rows(plain_k, k_new, index, rows)
@@ -403,7 +437,7 @@ def batcher_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, park_len:
     pos = index.long()[:, None] + torch.arange(width, device=dev)
     ek_new = ek[rows.long()[:, None], :, pos].transpose(1, 2).contiguous()
     ev_new = ev[rows.long()[:, None], :, pos].transpose(1, 2).contiguous()
-    edge_out = decode_attention_update(eq, ek, ev, ek_new, ev_new, index, rows, fused_write=True)
+    edge_out = decode_attention_update(eq, ek, ev, ek_new, ev_new, index, rows)
     torch.cuda.synchronize()
     edge_err = (edge_out.float() - expected).abs().max().item()
     edge_tol = REL_TOL * expected.abs().max().item()
@@ -423,15 +457,14 @@ def batcher_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, park_len:
     results["decode_attention_update"] = {
         "max_abs_err": err, "tol": tol, "edge_max_abs_err": edge_err, "edge_tol": edge_tol,
         "bit_equal_to_k2_k3": True, "splits": splits, "split_positions": split_len,
-        "ms": time_ms(lambda: decode_attention_update(q, fused_k, fused_v, k_new, v_new, index, rows,
-                                                      fused_write=True)),
+        "ms": time_ms(lambda: decode_attention_update(q, fused_k, fused_v, k_new, v_new, index, rows)),
         "k2_k3_ms": time_ms(lambda: (write_cache_rows(split_k, split_v, k_new, v_new, index, rows),
                                      decode_attention(q, split_k, split_v, index + 1, rows))),
         "plain_ms": time_ms(plain_update),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "library": "none: no single PyTorch call writes the cache rows and attends",
         "shape": (f"q bf16 [{slots},{dec.num_heads},{width},{d}] pools bf16 [{pool_rows},{hkv},{cache_len},{d}]"
-                  f" index={index.tolist()} rows={perm}"),
+                  f" index={index.tolist()} rows={perm[:slots]}"),
     }
     results["decode_attention_rows"] = [decode_rows_reading(gen, dev, cache_len, group, width, dtype)
                                         for group, width in DECODE_ROW_SHAPES
@@ -658,15 +691,13 @@ def reference_phase(seed: int, dev: torch.device, vocab_size: int) -> dict:
 
 
 def reset_counts() -> None:
-    for kernel in KERNELS + (adopt_rows,) + TRAIN_KERNELS:
+    for kernel in KERNELS + BATCHER_KERNELS + TRAIN_KERNELS:
         kernel.launches = 0
-    decode_attention_update.fused_launches = 0
     flash_attention.reference_backwards = 0
 
 
 def counts() -> dict[str, int]:
-    out = {kernel.__name__: kernel.launches for kernel in KERNELS + (adopt_rows,) + TRAIN_KERNELS}
-    out["decode_attention_update"] = decode_attention_update.fused_launches
+    out = {kernel.__name__: kernel.launches for kernel in KERNELS + BATCHER_KERNELS + TRAIN_KERNELS}
     out["reference_backwards"] = flash_attention.reference_backwards
     return out
 
@@ -880,69 +911,61 @@ def serve(engine: InferenceEngine, frames: np.ndarray) -> list[dict]:
 
 
 def batcher_phase(engine: InferenceEngine, clips: np.ndarray, prompts: list[str], slots: int) -> dict:
-    """The continuous batcher's main path at base width: the same requests
-    swept twice through ``ContinuousBatcher(engine, slots=slots)`` (device
-    refill, bf16 pool), first through K2 + K3 (split) and then through K5
-    (fused). Each run: every request completes once, every token sequence
-    walks the grammar, and the launches are counted from 0; the fused run's
-    tokens equal the split run's. Each staged request's first-token logits
-    are held against ``engine.generate``'s prefill logits for the same clip
-    and prompt, and the share of requests whose tokens equal
-    ``engine.generate``'s is reported, for all requests at once and for the
-    first wave at the batcher's batch (bf16 matmuls at another M may flip
-    near-ties, so neither is required)."""
-    runs = {}
-    for name, fused in (("split", False), ("fused", True)):
-        batcher = ContinuousBatcher(engine, slots=slots, fused_write=fused)
-        stages, first_logits = [], {}
-        stage = batcher._stage
+    """The continuous batcher's main path at base width: the requests swept
+    once through ``ContinuousBatcher(engine, slots=slots)`` (device refill,
+    bf16 pool), with the launches counted from 0. Every request completes
+    once and its tokens walk the grammar. ``engine.generate`` then serves
+    the same clips and prompts in the batcher's waves (requests 0..slots-1,
+    then the rest) at the batcher's prompt block, so that its prefill
+    sequence and cache length are the batcher's. Each staged request's
+    first-token logits must lie within 2e-2 of the largest of
+    ``engine.generate``'s prefill logits, and the first wave's tokens must
+    equal ``engine.generate``'s at the batcher's batch (the same matmul and
+    K5 shapes); the second wave's equality, at another batch, is reported
+    only (bf16 matmuls at another M may flip near-ties)."""
+    batcher = ContinuousBatcher(engine, slots=slots)
+    stages, first_logits = [], {}
+    stage = batcher._stage
 
-        def counted_stage(stage=stage, batcher=batcher, stages=stages, first_logits=first_logits):
-            """The stage, counted, with its requests' first-token logits kept."""
-            before = batcher._staged_total
-            stage()
-            take = batcher._staged_total - before
-            if take:
-                stages.append(take)
-                reqs = batcher._q_req[:take].tolist()
-                first_logits.update(zip(reqs, batcher._q_logits[:take].to("cpu", torch.float32, copy=True)))
+    def counted_stage():
+        """The stage, counted, with its requests' first-token logits kept."""
+        before = batcher._staged_total
+        stage()
+        take = batcher._staged_total - before
+        if take:
+            stages.append(take)
+            reqs = batcher._q_req[:take].tolist()
+            first_logits.update(zip(reqs, batcher._q_logits[:take].to("cpu", torch.float32, copy=True)))
 
-        batcher._stage = counted_stage
-        for i, clip in enumerate(clips):
-            batcher.submit(Request(i, clip, prompts[i]))
-        steps0 = engine.stats.decode_steps
-        reset_counts()
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        completions = batcher.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start
-        launched = counts()
-        ids = sorted(c.request_id for c in completions)
-        if ids != list(range(len(clips))):
-            raise AssertionError(f"batcher ({name}): completed requests {ids}")
-        for c in completions:
-            end_state = grammar_walk(engine.dfa, c.token_ids)
-            if not 0 < c.tokens <= batcher.max_new + 2 or c.complete != (end_state == engine.dfa.accept):
-                raise AssertionError(f"batcher ({name}) request {c.request_id}: {c.tokens} tokens, complete {c.complete}")
-        steps = engine.stats.decode_steps - steps0
-        runs[name] = {
-            "tokens": {c.request_id: c.token_ids for c in completions},
-            "first_logits": torch.stack([first_logits[i] for i in range(len(clips))]),
-            "line": {"phase": "batcher", "route": name, "requests": len(clips), "slots": slots,
-                     "queue_depth": batcher.queue_depth, "pool_rows": batcher.total_rows,
-                     "cache_len": batcher.cache_len, "park_len": batcher.park_len, "stages": stages,
-                     "refills": batcher._staged_total, "seconds": wall,
-                     "tokens": sum(c.tokens for c in completions),
-                     "tokens_per_s": sum(c.tokens for c in completions) / wall, "decode_steps": steps,
-                     "ms_per_step": wall * 1e3 / steps, "complete": sum(c.complete for c in completions),
-                     "launches": launched},
-        }
-    if runs["fused"]["tokens"] != runs["split"]["tokens"]:
-        differ = [i for i in runs["split"]["tokens"] if runs["split"]["tokens"][i] != runs["fused"]["tokens"][i]]
-        raise AssertionError(f"batcher: fused tokens differ from split tokens for requests {differ}")
+    batcher._stage = counted_stage
+    for i, clip in enumerate(clips):
+        batcher.submit(Request(i, clip, prompts[i]))
+    steps0 = engine.stats.decode_steps
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    completions = batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launched = counts()
+    ids = sorted(c.request_id for c in completions)
+    if ids != list(range(len(clips))):
+        raise AssertionError(f"batcher: completed requests {ids}")
+    for c in completions:
+        end_state = grammar_walk(engine.dfa, c.token_ids)
+        if not 0 < c.tokens <= batcher.max_new + 2 or c.complete != (end_state == engine.dfa.accept):
+            raise AssertionError(f"batcher request {c.request_id}: {c.tokens} tokens, complete {c.complete}")
+    steps = engine.stats.decode_steps - steps0
+    tokens = {c.request_id: c.token_ids for c in completions}
+    line = {"phase": "batcher", "requests": len(clips), "slots": slots, "queue_depth": batcher.queue_depth,
+            "pool_rows": batcher.total_rows, "cache_len": batcher.cache_len, "park_len": batcher.park_len,
+            "stages": stages, "refills": batcher._staged_total, "seconds": wall,
+            "tokens": sum(c.tokens for c in completions),
+            "tokens_per_s": sum(c.tokens for c in completions) / wall, "decode_steps": steps,
+            "ms_per_step": wall * 1e3 / steps, "complete": sum(c.complete for c in completions),
+            "launches": launched}
 
-    # engine.generate on the same clips and prompts, its prefill logits kept.
+    # engine.generate on the same clips and prompts, wave by wave, its prefill logits kept.
     captured = []
     prefill = engine.model.prefill
 
@@ -951,49 +974,49 @@ def batcher_phase(engine: InferenceEngine, clips: np.ndarray, prompts: list[str]
         captured.append(logits.float().cpu())
         return logits, cache
 
+    waves = [range(0, slots), range(slots, len(clips))]
     engine.model.prefill = recording_prefill
     try:
-        _, _, want = engine.generate(clips, prompts, return_status=True, return_tokens=True)
+        wanted = [engine.generate(clips[w.start:w.stop], prompts[w.start:w.stop], prompt_len=batcher.prompt_len,
+                                  return_status=True, return_tokens=True)[2] for w in waves]
     finally:
         del engine.model.prefill
-    got = runs["split"]["first_logits"]
-    logit_err = (got - captured[0]).abs().max().item()
-    logit_tol = 2e-2 * captured[0].abs().max().item()
+    want_logits = torch.cat(captured)
+    got_logits = torch.stack([first_logits[i] for i in range(len(clips))])
+    logit_err = (got_logits - want_logits).abs().max().item()
+    logit_tol = 2e-2 * want_logits.abs().max().item()
     if logit_err > logit_tol:
         raise AssertionError(f"batcher: first-token logits differ from engine.generate's: {logit_err} > {logit_tol}")
-    # The first wave decodes requests 0..slots-1 together: engine.generate on
-    # just those runs its matmuls and K3 at the same batch as the batcher.
-    _, _, want_wave = engine.generate(clips[:slots], prompts[:slots], return_status=True, return_tokens=True)
 
-    def first_difference(wanted: list[list[int]]) -> list[int | None]:
-        """Where each request's tokens first leave ``wanted`` (None: equal)."""
+    def first_difference(wave: range, want: list[list[int]]) -> list[int | None]:
+        """Where each request's tokens first leave ``want`` (None: equal)."""
         out = []
-        for i, want_ids in enumerate(wanted):
-            got_ids = runs["split"]["tokens"][i]
+        for i, want_ids in zip(wave, want):
+            got_ids = tokens[i]
             out.append(next((j for j, (a, b) in enumerate(zip(got_ids, want_ids)) if a != b),
                             None if len(got_ids) == len(want_ids) else min(len(got_ids), len(want_ids))))
         return out
 
-    diverge, diverge_wave = first_difference(want), first_difference(want_wave)
-    return {"runs": {name: run["line"] for name, run in runs.items()},
-            "check": {"phase": "batcher_check", "fused_equals_split": True,
-                      "first_logits_max_abs_err": logit_err, "first_logits_tol": logit_tol,
-                      "requests_equal_to_generate": diverge.count(None), "requests": len(clips),
-                      "first_token_differing_from_generate": diverge,
-                      "first_wave_equal_to_generate_at_its_batch": diverge_wave.count(None),
-                      "first_wave": slots, "first_wave_first_token_differing": diverge_wave}}
+    first_wave, second_wave = (first_difference(w, want) for w, want in zip(waves, wanted))
+    if first_wave.count(None) != slots:
+        raise AssertionError(f"batcher: first-wave tokens leave engine.generate's at positions {first_wave}")
+    return {"line": line,
+            "check": {"phase": "batcher_check", "first_logits_max_abs_err": logit_err, "first_logits_tol": logit_tol,
+                      "first_wave_equal_to_generate": first_wave.count(None), "first_wave": slots,
+                      "second_wave_equal_to_generate": second_wave.count(None),
+                      "second_wave": len(clips) - slots, "second_wave_first_token_differing": second_wave}}
 
 
 def batcher_profile(engine: InferenceEngine, clips: np.ndarray, prompts: list[str], slots: int,
                     max_new: int = 32) -> dict:
-    """Where a batcher sweep's time goes (fused route, ``max_new`` tokens a
-    request): the sweep timed alone, then the same sweep under torch.profiler
+    """Where a batcher sweep's time goes (``max_new`` tokens a request):
+    the sweep timed alone, then the same sweep under torch.profiler
     with device activity only, as ``profile_phase`` does."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def sweep() -> float:
-        batcher = ContinuousBatcher(engine, slots=slots, max_new_tokens=max_new, fused_write=True)
+        batcher = ContinuousBatcher(engine, slots=slots, max_new_tokens=max_new)
         for i, clip in enumerate(clips):
             batcher.submit(Request(i, clip, prompts[i]))
         torch.cuda.synchronize()
@@ -1012,7 +1035,7 @@ def batcher_profile(engine: InferenceEngine, clips: np.ndarray, prompts: list[st
     if not ops:
         raise AssertionError("batcher profile: no device ops")
     device_ms = sum(op[1] for op in ops)
-    return {"phase": "batcher_profile", "route": "fused", "requests": len(clips), "max_new_tokens": max_new,
+    return {"phase": "batcher_profile", "requests": len(clips), "max_new_tokens": max_new,
             "wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_ms, "device_busy_ms": device_ms,
             "device_busy_share": device_ms / wall_ms, "device_launches": sum(op[2] for op in ops),
             "top_device_ops_ms": [[name[:60], ms, count] for name, ms, count in ops[:10]]}
@@ -1105,7 +1128,7 @@ def main() -> None:
     park_len = cfg.video_tokens + 256
     pool_len = 128 * math.ceil((park_len + MAX_NEW_TOKENS + 2 * width + 17) / 128)
     t0 = time.perf_counter()
-    kernels = kernel_phase(args.seed, dev, cfg, prompt_bucket, cache_len)
+    kernels = kernel_phase(args.seed, dev, cfg, prompt_bucket, cache_len, park_len)
     kernels.update(batcher_kernel_phase(args.seed, dev, cfg, park_len, pool_len, BATCHER_SLOTS, 3 * BATCHER_SLOTS))
     emit({"phase": "decode_rows", "checks": kernels.pop("decode_attention_rows")})
     kernels.update(train_kernel_phase(args.seed, dev, cfg))
@@ -1127,8 +1150,8 @@ def main() -> None:
         raise AssertionError(f"a kernel was not launched by the requests: {served}")
     emit(profile_phase(engine, clips[:2]))
 
-    # Main path 2, the continuous batcher: 12 requests through 8 slots, split
-    # then fused, on the same int8 weights with a bf16 KV pool.
+    # Main path 2, the continuous batcher: 12 requests through 8 slots on the
+    # same int8 weights with a bf16 KV pool (K1, K4, K5; no K2 or K3).
     batch_engine = InferenceEngine(cfg, params=engine.model, tokenizer=tokenizer, max_new_tokens=MAX_NEW_TOKENS,
                                    temperature=0.0, max_forced_run=2, device=dev)
     batch_engine.dfa = engine.dfa
@@ -1136,29 +1159,26 @@ def main() -> None:
     batch_prompts = [f"{PROMPT}（片段 {i + 1}）" + ("请逐条展开每个要点，并给出例子。" * 5 if i % 4 == 3 else "")
                      for i in range(BATCHER_REQUESTS)]
     batched = batcher_phase(batch_engine, batch_clips, batch_prompts, BATCHER_SLOTS)
-    layers = cfg.decoder.num_layers
-    for name, line in batched["runs"].items():
-        launched = line["launches"]
-        fused = name == "fused"
-        if launched["adopt_rows"] != layers * len(line["stages"]) or not launched["flash_attention"] \
-                or bool(launched["decode_attention_update"]) != fused \
-                or bool(launched["write_cache_rows"]) == fused or bool(launched["decode_attention"]) == fused:
-            raise AssertionError(f"batcher ({name}) launches {launched} for {len(line['stages'])} stages")
-        emit(line)
+    line, batch_launched = batched["line"], batched["line"]["launches"]
+    emit(line)
+    if line["stages"] != [BATCHER_STAGE]:  # the shape K4 and K1 were held at above
+        raise AssertionError(f"batcher stages {line['stages']}, the kernel checks assumed [{BATCHER_STAGE}]")
+    if batch_launched["adopt_rows"] != cfg.decoder.num_layers or not batch_launched["flash_attention"] \
+            or batch_launched["decode_attention_update"] != cfg.decoder.num_layers * line["decode_steps"] \
+            or batch_launched["write_cache_rows"] or batch_launched["decode_attention"]:
+        raise AssertionError(f"batcher launches {batch_launched} for {line['decode_steps']} decode steps")
     emit(batched["check"])
     emit(batcher_profile(batch_engine, batch_clips, batch_prompts, BATCHER_SLOTS))
     del engine, batch_engine
     torch.cuda.empty_cache()
 
-    # Main path 2, training: five base-width steps through K7a-c.
+    # Main path 3, training: five base-width steps through K7a-c.
     with tempfile.TemporaryDirectory(prefix="vtx_train_") as workdir:
         train_lines, trained = train_phase(dev, Path(workdir))
     for line in train_lines:
         emit(line)
-    launches = {kernel.__name__: served[kernel.__name__] for kernel in KERNELS}
-    launches["adopt_rows"] = sum(line["launches"]["adopt_rows"] for line in batched["runs"].values())
-    launches["decode_attention_update"] = batched["runs"]["fused"]["launches"]["decode_attention_update"]
-    launches.update({kernel.__name__: trained[kernel.__name__] for kernel in TRAIN_KERNELS})
+    # Each kernel's launches summed over the main paths' runs (K1 runs in two).
+    launches = {name: served[name] + batch_launched[name] + trained[name] for name in served}
 
     sources = {
         "flash_attention": ("csrc/flash_attention.cu", "video_transformer_tpu/ops/attention.py:56"),

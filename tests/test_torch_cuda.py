@@ -7,7 +7,8 @@ host). On a GPU host run them with
     python -m pytest tests/test_torch_cuda.py -m cuda
 
 Tolerances: the row write (K2) and the row adoption (K4) are exact, and
-K5 equals K2 then K3 bit for bit. Attention (K1, K3 and the training
+K5 (``decode_attention_update`` on a bf16 cache) equals K2 then K3 bit for
+bit. Attention (K1, K3 and the training
 kernels K7a-c) computes in f32 and rounds its bf16 output once, as the plain
 version does, so the two agree within 1e-2 of the largest output (one bf16
 rounding step is at most 2**-7 of the value); K7a's f32 LSE within 1e-3.
@@ -25,6 +26,7 @@ from chip_smoke import (
     flash_train_errors,
     mark_decode_edges,
 )
+from video_transformer_tpu_torch.ops import decode_attention as decode_module
 from video_transformer_tpu_torch.ops.attention import flash_attention, mha_reference
 from video_transformer_tpu_torch.ops.decode_attention import (
     _scaled_reference,
@@ -133,12 +135,15 @@ def test_decode_attention_matches_plain(cuda, quantized, hq, hkv, w):
 @pytest.mark.parametrize("group,width", DECODE_ROW_SHAPES)
 def test_decode_attention_beyond_16_rows_per_kv_head(cuda, group, width, dtype):
     """20, 21, 28 and 40 folded q rows per kv head run in chunks of 16 rows
-    and agree with the plain version, also at the causal edge."""
+    and agree with the plain version, also at the causal edge; on a bf16
+    cache K5 is bit-equal to K2 then K3 (decode_rows_reading raises)."""
     gen = torch.Generator(device=cuda).manual_seed(group * width)
-    before = decode_attention.launches
+    before = (decode_attention.launches, decode_attention_update.launches)
     reading = decode_rows_reading(gen, cuda, 1664, group, width, dtype)
-    assert decode_attention.launches == before + 2
+    fused = dtype == torch.bfloat16
+    assert (decode_attention.launches, decode_attention_update.launches) == (before[0] + 2 + fused, before[1] + fused)
     assert reading["max_abs_err"] <= reading["tol"] and reading["edge_max_abs_err"] <= reading["edge_tol"]
+    assert reading.get("k5_bit_equal_to_k2_k3", False) == fused
 
 
 @pytest.mark.cuda
@@ -163,24 +168,33 @@ def test_adopt_rows_is_exact(cuda, dtype, count):
         assert torch.equal(pool[5, :, :300], src[0, :, :300]) and torch.equal(pool[:, :, 300:], orig[:, :, 300:])
 
 
+def k2_then_k3(q, k_cache, v_cache, k_new, v_new, index, rows):
+    """The split route in K5's place: K2's row write, then K3."""
+    write_cache_rows(k_cache, v_cache, k_new, v_new, index, rows)
+    return decode_attention(q, k_cache, v_cache, index + 1, rows)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("group,w", ((4, 3),) + DECODE_ROW_SHAPES)
 @pytest.mark.parametrize("rows,index", [(None, (0, 1400)), ([3, 0], (127, 1279)), ([1, 2], (62, 700))])
-def test_fused_update_is_bit_equal_to_k2_then_k3(cuda, rows, index):
+def test_fused_update_is_bit_equal_to_k2_then_k3(cuda, rows, index, group, w):
     """K5's output and the cache it leaves equal K2 then K3 on copies of the
     same inputs, bit for bit; with new rows across a 64-position tile edge
-    and a split edge; and within tolerance of the plain version."""
+    and a split edge, at 12 folded q rows per kv head (one row chunk) and at
+    20-40 (several: only chunk 0 stores the rows); and within tolerance of
+    the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(5)
-    b, hkv, w, s = 2, 2, 3, 1536
+    b, hkv, s = 2, 2, 1536
     phys = 2 if rows is None else 4
-    q = randn(gen, b, 8, w, 128, device=cuda)
+    q = randn(gen, b, group * hkv, w, 128, device=cuda)
     k_cache, v_cache = randn(gen, phys, hkv, s, 128, device=cuda), randn(gen, phys, hkv, s, 128, device=cuda)
     k_new, v_new = randn(gen, b, hkv, w, 128, device=cuda), randn(gen, b, hkv, w, 128, device=cuda)
     index_t = torch.tensor(index, dtype=torch.int32, device=cuda)
     rows_t = None if rows is None else torch.tensor(rows, dtype=torch.int32, device=cuda)
     k2, v2 = k_cache.clone(), v_cache.clone()
-    before = (decode_attention_update.fused_launches, write_cache_rows.launches)
-    out = decode_attention_update(q, k_cache, v_cache, k_new, v_new, index_t, rows_t, fused_write=True)
-    assert (decode_attention_update.fused_launches, write_cache_rows.launches) == (before[0] + 1, before[1])
+    before = (decode_attention_update.launches, write_cache_rows.launches)
+    out = decode_attention_update(q, k_cache, v_cache, k_new, v_new, index_t, rows_t)
+    assert (decode_attention_update.launches, write_cache_rows.launches) == (before[0] + 1, before[1])
     write_cache_rows(k2, v2, k_new, v_new, index_t, rows_t)
     want = decode_attention(q, k2, v2, index_t + 1, rows_t)
     assert torch.equal(out, want) and torch.equal(k_cache, k2) and torch.equal(v_cache, v2)
@@ -283,39 +297,43 @@ def tiny_bf16_engine(cuda, **kwargs):
 
 
 @pytest.mark.cuda
-def test_tiny_engine_with_fused_write(cuda):
-    """A bf16-KV engine decodes through K5 and no K2 or K3 with
-    ``fused_write=True``, and gives the split engine's tokens."""
+def test_tiny_bf16_engine_decodes_through_k5(cuda, monkeypatch):
+    """A bf16-KV engine decodes through K5 and no K2 or K3, and gives the
+    tokens of the same engine with K2 then K3 in K5's place."""
     frames = np.random.default_rng(1).integers(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)
-    split = tiny_bf16_engine(cuda)
-    _, want = split.generate(frames, ["分析", "hi"], return_tokens=True)
-    fused = tiny_bf16_engine(cuda, fused_write=True)  # the same seeded weights
-    before = (decode_attention_update.fused_launches, write_cache_rows.launches, decode_attention.launches)
-    _, got = fused.generate(frames, ["分析", "hi"], return_tokens=True)
-    after = (decode_attention_update.fused_launches, write_cache_rows.launches, decode_attention.launches)
+    engine = tiny_bf16_engine(cuda)
+    before = (decode_attention_update.launches, write_cache_rows.launches, decode_attention.launches)
+    _, got = engine.generate(frames, ["分析", "hi"], return_tokens=True)
+    after = (decode_attention_update.launches, write_cache_rows.launches, decode_attention.launches)
     assert after[0] > before[0] and after[1:] == before[1:]
+    monkeypatch.setattr(decode_module, "_fused_update", k2_then_k3)
+    _, want = engine.generate(frames, ["分析", "hi"], return_tokens=True)
     assert got == want
 
 
 @pytest.mark.cuda
-def test_tiny_batcher_runs_through_k4_and_k5(cuda):
+def test_tiny_batcher_runs_through_k4_and_k5(cuda, monkeypatch):
     """Five requests through two slots on the card: staging adopts through
-    K4, the fused route decodes through K5, and its tokens equal the split
-    route's."""
+    K4, every decode step goes through K5, and the tokens equal those of the
+    same sweep with K2 then K3 in K5's place."""
     from video_transformer_tpu_torch.parallel.serving import ContinuousBatcher, Request
 
     engine = tiny_bf16_engine(cuda)
     rng = np.random.default_rng(2)
     clips = rng.integers(0, 256, (5, 4, 64, 64, 3), dtype=np.uint8)
     prompts = ["分析", "hi", "第三段", "summarize " * 30, "x"]
-    tokens = {}
-    for fused in (False, True):
-        batcher = ContinuousBatcher(engine, slots=2, fused_write=fused)
+
+    def sweep() -> dict[int, list[int]]:
+        batcher = ContinuousBatcher(engine, slots=2)
         for i in range(5):
             batcher.submit(Request(i, clips[i], prompts[i]))
-        before = (adopt_rows.launches, decode_attention_update.fused_launches)
-        tokens[fused] = {c.request_id: c.token_ids for c in batcher.run()}
-        launched = (adopt_rows.launches - before[0], decode_attention_update.fused_launches - before[1])
-        assert launched[0] == 2 * engine.config.decoder.num_layers  # two stages (ring depth 4)
-        assert bool(launched[1]) == fused
-    assert tokens[True] == tokens[False] and sorted(tokens[True]) == list(range(5))
+        return {c.request_id: c.token_ids for c in batcher.run()}
+
+    before = (adopt_rows.launches, decode_attention_update.launches, write_cache_rows.launches)
+    got = sweep()
+    launched = [n - b for n, b in zip((adopt_rows.launches, decode_attention_update.launches,
+                                       write_cache_rows.launches), before)]
+    assert launched[0] == 2 * engine.config.decoder.num_layers  # two stages (ring depth 4)
+    assert launched[1] > 0 and launched[2] == 0
+    monkeypatch.setattr(decode_module, "_fused_update", k2_then_k3)
+    assert sweep() == got and sorted(got) == list(range(5))

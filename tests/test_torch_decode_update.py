@@ -1,7 +1,7 @@
 """The batcher slice's kernels and the engine's prompt log, against the JAX
 package on the CPU.
 
-K4 (``adopt_rows``) and K5 (``decode_attention_update(fused_write=True)``)
+K4 (``adopt_rows``) and K5 (``decode_attention_update`` on a bf16 cache)
 take their plain versions here, because the tensors lie on the CPU. They
 are held against the JAX functions: ``adopt_rows`` (its scan fallback) and
 the Pallas kernels ``_adopt_rows_pallas`` and
@@ -26,10 +26,13 @@ from video_transformer_tpu.ops import decode_attention as j_dec
 from video_transformer_tpu.parallel.engine import InferenceEngine as JEngine
 from video_transformer_tpu_torch.models.bpe import BpeTokenizer
 from video_transformer_tpu_torch.models.config import get_preset
+from video_transformer_tpu_torch.ops import decode_attention as dec
 from video_transformer_tpu_torch.ops.decode_attention import (
     adopt_rows,
     adopt_rows_reference,
+    decode_attention,
     decode_attention_update,
+    write_cache_rows,
 )
 from video_transformer_tpu_torch.parallel.engine import InferenceEngine
 
@@ -120,7 +123,7 @@ class TestFusedUpdate:
         k_t, v_t = torch.from_numpy(k_cache.copy()), torch.from_numpy(v_cache.copy())
         got = decode_attention_update(
             torch.from_numpy(q), k_t, v_t, torch.from_numpy(k_new), torch.from_numpy(v_new),
-            torch.from_numpy(index), None if rows is None else torch.from_numpy(rows_np), fused_write=True,
+            torch.from_numpy(index), None if rows is None else torch.from_numpy(rows_np),
         )
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL, rtol=F32_TOL)
         phys = range(len(index)) if rows is None else rows_np
@@ -133,29 +136,43 @@ class TestFusedUpdate:
             np.testing.assert_array_equal(got_cache.numpy(), expected)
 
     def test_fused_equals_split_path(self):
-        """On the CPU both routes are the plain version: same output, same caches."""
-        q, k_cache, v_cache, k_new, v_new = fused_inputs(3, r=3)
+        """On a bf16 cache (K5's route on the card) the update gives the row
+        write followed by the attention at lengths index + 1, K2 then K3's
+        route: the same output and the same caches."""
+        q, k_cache, v_cache, k_new, v_new = (torch.from_numpy(a).to(torch.bfloat16) for a in fused_inputs(3, r=3))
         index, rows = torch.tensor([10, 200], dtype=torch.int32), torch.tensor([2, 0], dtype=torch.int32)
-        outs = []
-        for fused in (False, True):
-            k_t, v_t = torch.from_numpy(k_cache.copy()), torch.from_numpy(v_cache.copy())
-            out = decode_attention_update(torch.from_numpy(q), k_t, v_t, torch.from_numpy(k_new),
-                                          torch.from_numpy(v_new), index, rows, fused_write=fused)
-            outs.append((out, k_t, v_t))
-        for a, b in zip(*outs):
-            assert torch.equal(a, b)
+        k_fused, v_fused, k_split, v_split = k_cache.clone(), v_cache.clone(), k_cache.clone(), v_cache.clone()
+        out = decode_attention_update(q, k_fused, v_fused, k_new, v_new, index, rows)
+        write_cache_rows(k_split, v_split, k_new, v_new, index, rows)
+        want = decode_attention(q, k_split, v_split, index + 1, rows)
+        assert torch.equal(out, want) and torch.equal(k_fused, k_split) and torch.equal(v_fused, v_split)
 
-    def test_int8_cache_refuses_the_fused_route(self):
-        """An int8 cache needs the quantizing split path, as in the JAX package."""
-        q, _, _, k_new, v_new = fused_inputs(4)
-        cache = torch.zeros(2, 2, 512, 128, dtype=torch.int8)
+    @staticmethod
+    def routes(monkeypatch, cache_dtype, **scales) -> list[str]:
+        """The kernels ``decode_attention_update`` would launch for a cache
+        of ``cache_dtype`` off the CPU (meta tensors; the launches recorded)."""
+        launched = []
+        monkeypatch.setattr(dec, "_fused_update", lambda *a: launched.append("K5"))
+        monkeypatch.setattr(dec, "write_cache_rows", lambda *a: launched.append("K2"))
+        monkeypatch.setattr(dec, "decode_attention", lambda *a: launched.append("K3"))
+        meta = {"device": "meta"}
+        q = torch.empty(2, 4, 3, 128, dtype=torch.bfloat16, **meta)
+        cache = torch.empty(2, 2, 512, 128, dtype=cache_dtype, **meta)
+        new = torch.empty(2, 2, 3, 128, dtype=torch.bfloat16, **meta)
+        index = torch.empty(2, dtype=torch.int32, **meta)
+        scales = {k: v.to("meta") for k, v in scales.items()}
+        decode_attention_update(q, cache, cache.clone(), new, new.clone(), index, **scales)
+        return launched
+
+    def test_int8_cache_refuses_the_fused_route(self, monkeypatch):
+        """An int8 cache needs the quantizing split path, as in the JAX
+        package: K2 then K3, never K5."""
         scale = torch.full((2,), 0.02)
-        with pytest.raises(ValueError, match="bf16 cache"):
-            decode_attention_update(torch.from_numpy(q), cache, cache.clone(), torch.from_numpy(k_new),
-                                    torch.from_numpy(v_new), torch.tensor([5, 9], dtype=torch.int32),
-                                    k_scale=scale, v_scale=scale, fused_write=True)
-        with pytest.raises(ValueError, match="bf16 KV cache"):
-            InferenceEngine(get_preset("tiny"), kv_quant="int8", fused_write=True, device="cpu")
+        assert self.routes(monkeypatch, torch.int8, k_scale=scale, v_scale=scale) == ["K2", "K3"]
+
+    def test_bf16_cache_takes_the_fused_route(self, monkeypatch):
+        """A bf16 cache off the CPU writes and attends in one K5 launch."""
+        assert self.routes(monkeypatch, torch.bfloat16) == ["K5"]
 
 
 def test_prompt_truncation_is_logged_as_in_jax(caplog):

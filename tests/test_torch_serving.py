@@ -106,14 +106,13 @@ def jax_results(engines):
     }
 
 
-@pytest.mark.parametrize("device_refill,fused_write", [(True, False), (False, False), (True, True)],
-                         ids=["device_refill", "host_driven", "fused_write"])
-def test_tokens_equal_jax_batcher(engines, jax_results, device_refill, fused_write):
+@pytest.mark.parametrize("device_refill", [True, False], ids=["device_refill", "host_driven"])
+def test_tokens_equal_jax_batcher(engines, jax_results, device_refill):
     """Per request: the same token ids, token count and complete flag as the
     JAX batcher in the same refill mode."""
     use_grammar(engines, short_note)
     got, _ = serve(ContinuousBatcher, Request, engines[1], clips(5), PROMPTS, slots=2, prompt_len=256,
-                   chunk_steps=8, device_refill=device_refill, fused_write=fused_write)
+                   chunk_steps=8, device_refill=device_refill)
     want = jax_results[device_refill]
     assert got == want
     assert len({n for _, n, _ in want.values()}) > 1, "rows should finish at different steps"
@@ -219,4 +218,4 @@ def test_cache_sizing_and_pool(engines):
                              param_dtype="bfloat16", quantize="int8", kv_quant="int8", device="cpu")
     pool = ContinuousBatcher(engine, slots=3, queue_depth=5).cache
     assert pool["k"][0].dtype == torch.bfloat16 and pool["k"][0].shape[0] == 8
-    assert pool["rows"].tolist() == [0, 1, 2] and pool["fused_write"] is False
+    assert pool["rows"].tolist() == [0, 1, 2]

@@ -6,7 +6,7 @@ head) f32 scales that the prefill block calibrates. Prefill writes the whole
 block with the plain row write and attends the full-precision k/v through K1;
 each decode step writes its rows through K2 and attends the valid prefix
 through K3 (``ops/decode_attention.py``), or does both through K5 when the
-cache dict says ``fused_write`` (bf16 caches). A ``rows`` entry [B] int32
+cache is bf16. A ``rows`` entry [B] int32
 maps each logical row to its physical cache row (the batcher's paged pool). Without a cache (training) the
 blocks attend causally through ``ops/attention.py`` (K7a-c under autograd),
 and ``remat`` recomputes each block in the backward pass. Parameter names
@@ -103,7 +103,6 @@ class Attention(nn.Module):
             i = self.layer_idx
             index = cache["index"]
             rows = cache.get("rows")
-            fused_write = cache.get("fused_write", False)
             k_layer, v_layer = cache["k"][i], cache["v"][i]
             quantized = k_layer.dtype == torch.int8
             k_scale = cache["k_scale"][i] if quantized else None
@@ -125,10 +124,7 @@ class Attention(nn.Module):
                 update_cache_rows(v_layer, v_store, index, rows)
                 out = flash_attention(q, k, v, causal=True)
             else:
-                out = decode_attention_update(
-                    q, k_layer, v_layer, k, v, index, rows, k_scale=k_scale, v_scale=v_scale,
-                    fused_write=fused_write,
-                )
+                out = decode_attention_update(q, k_layer, v_layer, k, v, index, rows, k_scale, v_scale)
         out = out.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
         return self.out(out, dtype), cache
 

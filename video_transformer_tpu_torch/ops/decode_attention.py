@@ -15,9 +15,11 @@ Each takes its plain version, ``update_cache_rows``,
 only. ``decode_attention_update`` is the dispatch of the JAX package's
 ``decode_attention_update``: for an int8 cache the new rows are quantized
 before the write, and the per-head scales factor out of the attention (q
-scaled by k_scale, the output by v_scale). With ``fused_write=True`` on a
-bf16 cache it launches K5 (``csrc/decode_attention.cu``, replacing
-``_fused_kernel``), which the JAX package reaches through ``VTX_FUSED_WRITE``.
+scaled by k_scale, the output by v_scale), and it takes K2 then K3; for a
+bf16 cache on the card it launches K5 (``csrc/decode_attention.cu``,
+replacing ``_fused_kernel``), which gives K2 then K3's output and cache bit
+for bit in one launch. The JAX package reaches its fused kernel only
+through ``VTX_FUSED_WRITE``; here the cache's dtype decides.
 """
 
 from __future__ import annotations
@@ -219,33 +221,30 @@ def decode_attention_update(
     rows: torch.Tensor | None = None,
     k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
-    fused_write: bool = False,
 ) -> torch.Tensor:
     """Write the step's new k/v rows at ``index`` (in place), then attend.
 
     For an int8 cache (``k_scale``/``v_scale`` given) the new rows are
-    quantized under the layer's scales before the write. ``fused_write``
-    does both in one launch (K5); it takes bf16 caches only, since an int8
-    cache needs the quantizing split path, as in the JAX package. On that
-    route ``rows`` must name distinct physical rows, as the batcher's do:
-    a block reads the rows it writes from ``k_new``/``v_new``, not from
-    another row's write in the same launch.
+    quantized under the layer's scales before the write, through K2 then
+    K3, as in the JAX package (its fused kernel has no quantize step). A
+    bf16 cache on the card takes K5, both in one launch; there ``rows``
+    must name distinct physical rows, as the batcher's do: a block reads
+    the rows it writes from ``k_new``/``v_new``, not from another row's
+    write in the same launch.
     """
-    if fused_write and (k_scale is not None or k_cache.dtype == torch.int8):
-        raise ValueError("fused_write takes a bf16 cache; an int8 cache needs the split path")
     if k_scale is not None:
         k_new = quantize_kv(k_new, k_scale)
         v_new = quantize_kv(v_new, v_scale)
     else:
         k_new = k_new.to(k_cache.dtype)
         v_new = v_new.to(v_cache.dtype)
-    if fused_write and q.device.type != "cpu":
+    if q.device.type != "cpu" and k_scale is None and k_cache.dtype == torch.bfloat16:
         return _fused_update(q, k_cache, v_cache, k_new, v_new, index, rows)
     write_cache_rows(k_cache, v_cache, k_new, v_new, index, rows)
     return decode_attention(q, k_cache, v_cache, index + 1, rows, k_scale, v_scale)
 
 
-decode_attention_update.fused_launches = 0
+decode_attention_update.launches = 0
 
 
 def _fused_update(q, k_cache, v_cache, k_new, v_new, index, rows) -> torch.Tensor:
@@ -271,7 +270,7 @@ def _fused_update(q, k_cache, v_cache, k_new, v_new, index, rows) -> torch.Tenso
         b, hq, hkv, s, w, d, splits, tiles_per_split, 1.0 / math.sqrt(d), _lib.stream(q),
     )
     _lib.check("vtx_decode_attention_update", code)
-    decode_attention_update.fused_launches += 1
+    decode_attention_update.launches += 1
     return out
 
 

@@ -9,9 +9,9 @@ filler, grammar fast-forward blocks of 1 + max_forced_run tokens, per-row
 ``index_before + advance`` after each block). The loop runs on the host, one
 decoder call per step; the tensors stay on the device.
 
-``fused_write=True`` runs each decode step's cache write and attention as
-one kernel (K5, bf16 KV caches only); the JAX package's ``VTX_FUSED_WRITE``
-switch. ``preprocess`` is the batcher's staging entry (``serving.py``).
+A bf16 KV cache decodes through K5 (each step's cache write and attention
+in one kernel), an int8 one through K2 then K3. ``preprocess`` is the
+batcher's staging entry (``serving.py``).
 
 Not ported yet (they raise NotImplementedError): continuation ``prefixes``,
 sessions, ``generate_text``, speculative decoding, projection fusion and data
@@ -73,20 +73,16 @@ class InferenceEngine:
         quantize: str | None = None,
         kv_quant: str | None = None,
         device: str | torch.device = "cuda",
-        fused_write: bool = False,
     ):
         """``params`` is a VideoLM (``weights.from_jax_params`` or
         ``weights.random_params``); None makes seeded random weights on
         ``device``. ``param_dtype`` casts the float weights, ``quantize="int8"``
         quantizes the decoder's dense layers and ``kv_quant="int8"`` stores the
-        KV cache in int8. ``fused_write`` decodes through K5 (not with an int8
-        KV cache)."""
+        KV cache in int8."""
         if quantize not in (None, "int8"):
             raise NotImplementedError(f"quantize={quantize!r} is not ported")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
-        if fused_write and kv_quant == "int8":
-            raise ValueError("fused_write takes a bf16 KV cache; kv_quant='int8' needs the split path")
         if tokenizer is not None and tokenizer.vocab_size != config.decoder.vocab_size:
             raise ValueError(
                 f"tokenizer vocab {tokenizer.vocab_size} != decoder vocab {config.decoder.vocab_size}"
@@ -99,7 +95,6 @@ class InferenceEngine:
         self.structure_bias = float(structure_bias)
         self.max_forced_run = int(max_forced_run)
         self.kv_quant = kv_quant
-        self.fused_write = bool(fused_write)
         self.tokenizer = tokenizer or ByteTokenizer(config.decoder.vocab_size)
         self.stats = EngineStats()
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -256,7 +251,6 @@ class InferenceEngine:
             cfg.decoder, b_real, cache_len, self.model.compute_dtype,
             quant=self.kv_quant == "int8", device=dev,
         )
-        cache["fused_write"] = self.fused_write
         logits, cache = self.model.prefill(
             patches, torch.from_numpy(tokens_in).to(dev), cache, torch.from_numpy(lengths).to(dev)
         )

@@ -28,10 +28,11 @@ Two refill modes:
   spliced into the pool between fixed decode chunks, with adaptive chunk
   sizing and an early exit. It is the parity oracle.
 
-``fused_write=True`` decodes through K5 (the row write fused into the
-attention) instead of K2 + K3. One device: no mesh, no sharding, no data-axis
-grouping, so a stage's width is its request count and no stage has pad lanes
-(the JAX batcher pads a stage only to divide its data axis). Not ported:
+The pool is in the compute dtype, so on the card each decode step writes
+and attends through K5 (``decode_attention_update`` on a bf16 cache). One
+device: no mesh, no sharding, no data-axis grouping, so a stage's width is
+its request count and no stage has pad lanes (the JAX batcher pads a stage
+only to divide its data axis). Not ported:
 speculative decoding in the batcher (the port's engine has no draft model, so
 ``spec`` is always False).
 """
@@ -103,8 +104,6 @@ class ContinuousBatcher:
     """Parked-request ring capacity (device refill); 0 = 2 * slots."""
     refill_period: int = 8
     """Decode steps between refill checks in the device-refill chunk."""
-    fused_write: bool = False
-    """Decode through K5 (row write fused into the attention) instead of K2 + K3."""
 
     _slots: list[_Slot] = field(default_factory=list)
     _queue: list[tuple[int, int, Request]] = field(default_factory=list)
@@ -158,7 +157,6 @@ class ContinuousBatcher:
             "v": pool["v"],
             # Logical per-slot fill counts (the rows table owns physical addressing).
             "index": torch.zeros((self.slots,), dtype=torch.int32, device=dev),
-            "fused_write": self.fused_write,
         }
         self._rows_host = np.arange(self.slots, dtype=np.int32)
         if self.device_refill:
