@@ -6,9 +6,11 @@ Builds the port's CUDA kernels from ``video_transformer_tpu_torch/csrc`` (one
 ``nvcc`` process per source, in parallel), holds each kernel against its
 plain PyTorch version at the shapes of the serving, batcher and training
 paths and times both (K5 also bit for bit against K2 then K3; K3 and K5
-also at 20-40 folded query rows per kv head), checks the whole model
-against the plain versions on the CPU at the tiny preset (serving logits,
-then training gradients), then:
+also at 20-40 folded query rows per kv head; K6, the packed-int4 matmul, at
+the 7b decoder's four product shapes, bit for bit on integer inputs), checks
+the whole model against the plain versions on the CPU at the tiny preset
+(serving logits, the same with a narrow int4 decoder whose every projection
+takes K6, then training gradients), then:
 
 - serves three requests through ``InferenceEngine.generate`` at the full
   ``base`` width (int8 weights, int8 KV cache, BPE vocabulary, the note
@@ -27,7 +29,13 @@ then training gradients), then:
   compute, BPE vocabulary, batch 2, 1,024 video + 2,048 text positions),
   shows that every step ran 36 launches each of K7a, K7b and K7c and no
   reference backward, profiles one step, and saves and restores a
-  checkpoint in a temporary directory.
+  checkpoint in a temporary directory;
+- serves one batch of two 16-frame clips through ``InferenceEngine.generate``
+  at the full ``7b`` width (seeded random weights, bf16, int4 weights, int8
+  KV cache, the same vocabulary and grammar, greedy), after holding K1-K3 at
+  its shapes, shows that every decode step ran K6 for each of the 7
+  projections of each of the 28 layers and prefill none, and profiles a
+  32-token call.
 
 It prints one JSON object per line, flushed; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1). It
@@ -58,6 +66,7 @@ from video_transformer_tpu_torch.analyzer.schema import note_dfa
 from video_transformer_tpu_torch.models.bpe import BpeTokenizer
 from video_transformer_tpu_torch.models.config import VLMConfig, get_preset
 from video_transformer_tpu_torch.models.lm import init_kv_cache
+from video_transformer_tpu_torch.models.quant import quantize_decoder
 from video_transformer_tpu_torch.ops import _lib
 from video_transformer_tpu_torch.ops import flash_bwd as flash_bwd_module
 from video_transformer_tpu_torch.ops.attention import flash_attention, mha_reference
@@ -79,6 +88,7 @@ from video_transformer_tpu_torch.ops.flash_bwd import (
     flash_fwd_lse,
     flash_fwd_lse_reference,
 )
+from video_transformer_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_reference, unpack_int4
 from video_transformer_tpu_torch.ops.preprocess import preprocess_frames
 from video_transformer_tpu_torch.parallel.engine import InferenceEngine
 from video_transformer_tpu_torch.parallel.serving import ContinuousBatcher, Request
@@ -101,6 +111,16 @@ BATCHER_REQUESTS = 12  # two waves through 8 slots
 # ring (2 * slots) and the free rows (at least queue_depth) hold all twelve.
 BATCHER_STAGE = min(BATCHER_REQUESTS, 2 * BATCHER_SLOTS)
 TRAIN_KERNELS = (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv)
+INT4_KERNELS = (int4_matmul,)  # with K1-K3 on the int4 serving path
+ALL_KERNELS = KERNELS + BATCHER_KERNELS + TRAIN_KERNELS + INT4_KERNELS
+# The 7b decoder's packed-int4 products (K/2, N), each run at decode M = batch
+# 2 x block width 3: q and out, k and v, gate and up, down.
+INT4_SHAPES = {"q_out": (1792, 3584), "k_v": (1792, 512), "gate_up": (1792, 18944), "down": (9472, 3584)}
+INT4_DECODE_ROWS = 6
+INT4_WIDE_ROWS = (24, 256)  # the batcher's 8 slots x 3, and the top of K6's dispatch (gate shape)
+# A decoder narrow enough to run on the CPU whose every projection takes K6
+# (N and K/2 multiples of 128): the int4 whole-model reference.
+INT4_NARROW = dict(hidden_dim=256, num_layers=2, num_heads=2, num_kv_heads=1, head_dim=128, mlp_dim=512)
 # K1 and K3 compute in f32 and round their output to bf16 once, as their
 # plain versions do. One rounding step is at most 2**-7 of the value, so the
 # two agree within 1e-2 of the largest output.
@@ -156,6 +176,26 @@ def time_ms(fn, warmup: int = 3, reps: int = 10, rounds: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time of one call of ``fn`` in ms: the self device time of the
+    kernels it launches, summed by torch.profiler over ``calls`` calls, after
+    one warm-up call. Unlike ``time_ms`` it leaves out the host's time between
+    launches, which sets ``time_ms`` where a call's kernels are short."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    if not total:
+        raise AssertionError("device_ms: the profiler saw no device time")
+    return total / 1e3 / calls
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """The least time in ms for the work, and which resource sets it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -167,8 +207,8 @@ def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def base_config(vocab_size: int) -> VLMConfig:
-    cfg = get_preset("base")
+def base_config(vocab_size: int, preset: str = "base") -> VLMConfig:
+    cfg = get_preset(preset)
     return replace(cfg, decoder=replace(cfg.decoder, vocab_size=vocab_size))
 
 
@@ -208,12 +248,12 @@ def check_flash(gen: torch.Generator, dev: torch.device, batch: int, heads: int,
 
 
 def kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, prompt_bucket: int, cache_len: int,
-                 park_len: int) -> dict:
+                 park_len: int | None) -> dict:
     """K1-K3 at the serving path's shapes, held against their plain
     versions; K1 also at the batcher's staging prefill (``BATCHER_STAGE``
     rows of ``park_len`` positions: the video and the whole prompt block,
     whatever each row's prompt bucket, which sets only its cache index and
-    its logits position)."""
+    its logits position) unless ``park_len`` is None."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     enc, dec = cfg.encoder, cfg.decoder
     batch, width = 2, 3
@@ -222,8 +262,11 @@ def kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, prompt_bucket: in
     prefill_seq = cfg.video_tokens + prompt_bucket
     k1 = check_flash(gen, dev, batch, dec.num_heads, dec.num_kv_heads, prefill_seq, causal=True)
     k1_enc = check_flash(gen, dev, batch, enc.num_heads, enc.num_heads, enc.tokens_per_clip, causal=False)
-    k1_stage = check_flash(gen, dev, BATCHER_STAGE, dec.num_heads, dec.num_kv_heads, park_len, causal=True)
-    for prefix, other in (("encoder", k1_enc), ("staging", k1_stage)):
+    others = {"encoder": k1_enc}
+    if park_len is not None:
+        others["staging"] = check_flash(gen, dev, BATCHER_STAGE, dec.num_heads, dec.num_kv_heads, park_len,
+                                        causal=True)
+    for prefix, other in others.items():
         for key in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "library_ms", "shape"):
             k1[f"{prefix}_{key}"] = other[key]
     results["flash_attention"] = k1
@@ -654,18 +697,85 @@ def train_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig) -> dict[str
     return results
 
 
+def int4_faults(x: torch.Tensor, packed: torch.Tensor) -> dict[str, torch.Tensor]:
+    """K6's plain version with a fault that the element-wise check must
+    catch: the two nibbles of a byte swapped, or read without sign."""
+    lo, hi = (t.float() for t in unpack_int4(packed))
+    xf = x.float()
+    return {"swapped_nibbles": (xf[:, 0::2] @ hi + xf[:, 1::2] @ lo).to(torch.bfloat16),
+            "unsigned_nibbles": (xf[:, 0::2] @ (packed & 0xF).float()
+                                 + xf[:, 1::2] @ (packed >> 4).float()).to(torch.bfloat16)}
+
+
+def check_int4(gen: torch.Generator, dev: torch.device, m: int, k2: int, n: int, timed: bool = True) -> dict:
+    """K6 against ``int4_matmul_reference`` at x [m, 2 k2] and packed [k2, n]
+    (uniform random bytes, so every nibble value in both positions): bit-equal
+    on integer x in [-4, 4] (every partial sum an integer below 2**24, exact
+    in f32 in any order), and element by element under ``BF16_TOL`` on
+    normal x, where references with swapped or unsigned nibbles must fail.
+    Raises otherwise; returns the readings and, if ``timed``, the times."""
+    packed = torch.randint(0, 256, (k2, n), generator=gen, device=dev, dtype=torch.uint8)
+    x_int = torch.randint(-4, 5, (m, 2 * k2), generator=gen, device=dev).to(torch.bfloat16)
+    got, want = int4_matmul(x_int, packed), int4_matmul_reference(x_int, packed)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        differ = (got != want).sum().item()
+        raise AssertionError(f"int4_matmul at [{m},{2 * k2}] @ [{k2},{n}]: {differ} elements differ on integer x")
+    x = torch.randn(m, 2 * k2, generator=gen, device=dev).to(torch.bfloat16)
+    got, want = int4_matmul(x, packed), int4_matmul_reference(x, packed)
+    check = closeness(got, want, *BF16_TOL)
+    faults = {name: closeness(got, fault, *BF16_TOL)["ratio"] for name, fault in int4_faults(x, packed).items()}
+    if not check["ratio"] <= 1:
+        raise AssertionError(f"int4_matmul at [{m},{2 * k2}] @ [{k2},{n}] disagrees with its plain version: {check}")
+    if not all(ratio > 1 for ratio in faults.values()):
+        raise AssertionError(f"int4_matmul: a faulty plain version passes the check: {faults}")
+    reading = {"shape": f"x bf16 [{m},{2 * k2}] @ packed uint8 [{k2},{n}]", "integer_x_bit_equal": True,
+               "max_abs_err": check["max_abs_err"], "worst_ratio": check["ratio"],
+               "tol": "|d| <= %g |want| + %g rms(want)" % BF16_TOL, "fault_ratios": faults}
+    if not timed:
+        return reading
+    w = torch.empty(2 * k2, n, dtype=torch.bfloat16, device=dev)  # the unpacked weight, for the library call
+    w[0::2], w[1::2] = unpack_int4(packed)
+    bound_ms, bound_by = bound(nbytes(packed) + 2 * m * 2 * k2 + 2 * m * n, 2 * m * 2 * k2 * n)
+    return dict(reading, ms=time_ms(lambda: int4_matmul(x, packed)),
+                plain_ms=time_ms(lambda: int4_matmul_reference(x, packed)),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=time_ms(lambda: torch.matmul(x, w)),
+                device_ms=device_ms(lambda: int4_matmul(x, packed)),
+                library_device_ms=device_ms(lambda: torch.matmul(x, w)))
+
+
+def int4_kernel_phase(seed: int, dev: torch.device) -> dict:
+    """K6 at the 7b decoder's four product shapes at decode M, and at the
+    gate shape at the batcher's M and the dispatch's top. The gate shape at
+    decode M leads; every shape's readings are in ``shapes``."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    shapes = {f"{name}_m{INT4_DECODE_ROWS}": check_int4(gen, dev, INT4_DECODE_ROWS, k2, n)
+              for name, (k2, n) in INT4_SHAPES.items()}
+    for m in INT4_WIDE_ROWS:
+        shapes[f"gate_up_m{m}"] = check_int4(gen, dev, m, *INT4_SHAPES["gate_up"])
+    lead = shapes[f"gate_up_m{INT4_DECODE_ROWS}"]
+    return dict(lead, library="torch.matmul(x, w) with w the unpacked bf16 weight [K, N] (4x the weight bytes)",
+                shapes=shapes)
+
+
 # -- whole-model reference -------------------------------------------------------
 
 
-def reference_phase(seed: int, dev: torch.device, vocab_size: int) -> dict:
+def reference_phase(seed: int, dev: torch.device, vocab_size: int, int4: bool = False) -> dict:
     """Tiny preset, bf16, int8 KV: prefill and decode logits through the
-    kernels on the card against the plain versions on the CPU, same weights."""
+    kernels on the card against the plain versions on the CPU, same weights.
+    With ``int4`` the decoder is ``INT4_NARROW`` with packed int4 weights
+    (quantized on the CPU, then copied): the three decode blocks must launch
+    K6 for each of the 7 projections of each layer, and prefill (M > 256)
+    never."""
     cfg = get_preset("tiny")
-    cfg = replace(cfg, decoder=replace(cfg.decoder, vocab_size=vocab_size))
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    cpu_model = random_params(cfg, gen, device="cpu", dtype=torch.bfloat16)
-    gpu_model = random_params(cfg, torch.Generator(device="cpu").manual_seed(seed), device="cpu",
-                              dtype=torch.bfloat16).to(dev)
+    decoder = replace(cfg.decoder, vocab_size=vocab_size, **(INT4_NARROW if int4 else {}))
+    cfg = replace(cfg, decoder=decoder)
+    cpu_model = random_params(cfg, torch.Generator(device="cpu").manual_seed(seed), device="cpu",
+                              dtype=torch.bfloat16)
+    if int4:
+        quantize_decoder(cpu_model, "int4")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
     rng = np.random.default_rng(seed)
     frames = torch.from_numpy(rng.integers(0, 256, (2, cfg.encoder.num_frames, 64, 64, 3), dtype=np.uint8))
     prompt = torch.from_numpy(rng.integers(0, 256, (2, 128)).astype(np.int64))
@@ -673,10 +783,12 @@ def reference_phase(seed: int, dev: torch.device, vocab_size: int) -> dict:
     lengths = torch.tensor([128, 100], dtype=torch.int32)
     logits = {}
     for name, model, device in (("cpu", cpu_model, torch.device("cpu")), ("gpu", gpu_model, dev)):
+        reset_counts()
         with torch.no_grad():
             patches = preprocess_frames(frames.to(device), cfg.encoder, torch.bfloat16)
             cache = init_kv_cache(cfg.decoder, 2, 512, torch.bfloat16, quant=True, device=device)
             last, cache = model.prefill(patches, prompt.to(device), cache, lengths.to(device))
+            prefill_k6 = int4_matmul.launches
             outs = [last.float().cpu()]
             for block in blocks:
                 step, cache = model.decode_block_pick(block.to(device), cache, torch.tensor([2, 1], device=device))
@@ -687,17 +799,26 @@ def reference_phase(seed: int, dev: torch.device, vocab_size: int) -> dict:
     tol = 2e-2 * max(scale, 1.0)
     if not torch.isfinite(logits["gpu"]).all() or err > tol:
         raise AssertionError(f"tiny-preset logits: card vs CPU max_abs_err {err} > {tol}")
-    return {"phase": "reference", "preset": "tiny", "max_abs_err": err, "tol": tol, "logit_scale": scale}
+    line = {"phase": "reference_int4" if int4 else "reference", "preset": "tiny", "max_abs_err": err, "tol": tol,
+            "logit_scale": scale}
+    if int4:
+        want = 7 * decoder.num_layers * len(blocks)
+        if prefill_k6 or int4_matmul.launches != want:
+            raise AssertionError(f"int4 reference: K6 launched {prefill_k6} times in prefill and"
+                                 f" {int4_matmul.launches} in all, expected 0 and {want}")
+        line.update(decoder={k: getattr(decoder, k) for k in INT4_NARROW}, weights="packed int4",
+                    k6_launches=int4_matmul.launches, k6_prefill_launches=prefill_k6)
+    return line
 
 
 def reset_counts() -> None:
-    for kernel in KERNELS + BATCHER_KERNELS + TRAIN_KERNELS:
+    for kernel in ALL_KERNELS:
         kernel.launches = 0
     flash_attention.reference_backwards = 0
 
 
 def counts() -> dict[str, int]:
-    out = {kernel.__name__: kernel.launches for kernel in KERNELS + BATCHER_KERNELS + TRAIN_KERNELS}
+    out = {kernel.__name__: kernel.launches for kernel in ALL_KERNELS}
     out["reference_backwards"] = flash_attention.reference_backwards
     return out
 
@@ -877,6 +998,15 @@ def grammar_walk(grammar, ids: list[int]) -> int:
     return state
 
 
+def check_complete(grammar, row: int, ids: list[int]) -> None:
+    """A row reported complete sampled EOS into the accepting state, and the
+    engine does not emit that EOS: its tokens must walk to a state whose EOS
+    transition is the accepting one."""
+    state = grammar_walk(grammar, ids)
+    if int(grammar.dfa.next_state[state, grammar.tokenizer.EOS]) != grammar.accept:
+        raise AssertionError(f"row {row} reports complete but its tokens end in state {state}, short of accept")
+
+
 def serve(engine: InferenceEngine, frames: np.ndarray) -> list[dict]:
     """One generate call; per-row results checked against the grammar."""
     stats = engine.stats
@@ -893,10 +1023,9 @@ def serve(engine: InferenceEngine, frames: np.ndarray) -> list[dict]:
     for row, (text, done, row_ids) in enumerate(zip(texts, status, ids)):
         if not 0 < len(row_ids) <= MAX_NEW_TOKENS + 2:
             raise AssertionError(f"row {row}: {len(row_ids)} tokens")
-        end_state = grammar_walk(engine.dfa, row_ids)
+        grammar_walk(engine.dfa, row_ids)
         if done:
-            if end_state != engine.dfa.accept:
-                raise AssertionError(f"row {row} reports complete but the grammar did not accept")
+            check_complete(engine.dfa, row, row_ids)
             json.loads(text)
         out.append({
             "phase": "request", "batch": len(frames), "row": row, "tokens": len(row_ids),
@@ -952,9 +1081,11 @@ def batcher_phase(engine: InferenceEngine, clips: np.ndarray, prompts: list[str]
     if ids != list(range(len(clips))):
         raise AssertionError(f"batcher: completed requests {ids}")
     for c in completions:
-        end_state = grammar_walk(engine.dfa, c.token_ids)
-        if not 0 < c.tokens <= batcher.max_new + 2 or c.complete != (end_state == engine.dfa.accept):
+        grammar_walk(engine.dfa, c.token_ids)
+        if not 0 < c.tokens <= batcher.max_new + 2:
             raise AssertionError(f"batcher request {c.request_id}: {c.tokens} tokens, complete {c.complete}")
+        if c.complete:
+            check_complete(engine.dfa, c.request_id, c.token_ids)
     steps = engine.stats.decode_steps - steps0
     tokens = {c.request_id: c.token_ids for c in completions}
     line = {"phase": "batcher", "requests": len(clips), "slots": slots, "queue_depth": batcher.queue_depth,
@@ -1084,6 +1215,72 @@ def profile_phase(engine: InferenceEngine, frames: np.ndarray, max_new: int = 32
     }
 
 
+def int4_serving_phase(seed: int, dev: torch.device, tokenizer, grammar) -> tuple[dict, dict]:
+    """Main path 4: int4 serving at the full ``7b`` width. Builds the engine
+    (seeded random f32 weights, cast to bf16, decoder quantized to packed
+    int4; int8 KV cache, the note grammar, greedy), holds K1-K3 at this
+    path's shapes against their plain versions, then serves one batch of two
+    16-frame clips with the launches counted from 0: K6 exactly 7 x layers
+    x decode steps and never in prefill (M > 256 takes the unpacked route),
+    K1-K3 at least once. Prints its lines; returns the kernel readings and
+    the launches."""
+    cfg = base_config(tokenizer.vocab_size, "7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(
+        cfg, max_new_tokens=MAX_NEW_TOKENS, temperature=0.0, seed=seed, tokenizer=tokenizer,
+        param_dtype="bfloat16", quantize="int4", kv_quant="int8", max_forced_run=2, device=dev,
+    )
+    torch.cuda.synchronize()
+    engine.dfa = grammar
+    weights = list(engine.model.parameters())
+    packed = [w for w in weights if w.dtype == torch.uint8]
+    emit({"phase": "setup_7b", "engine_seconds": time.perf_counter() - t0, "preset": cfg.name,
+              "weights": "random, seeded", "quantize": "int4", "kv_quant": "int8",
+              "params": sum(w.numel() for w in weights) + sum(w.numel() for w in packed),
+              "int4_kernels": len(packed), "int4_gib": nbytes(*packed) / 2**30,
+              "resident_gib": torch.cuda.memory_allocated() / 2**30,
+              "init_peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+    prompt_bucket = engine._prompt_bucket([PROMPT], with_video=True)
+    width = 1 + engine.max_forced_run
+    cache_len = 128 * math.ceil((cfg.video_tokens + prompt_bucket + MAX_NEW_TOKENS + 2 * width + 17) / 128)
+    t0 = time.perf_counter()
+    kernels = kernel_phase(seed + 5, dev, cfg, prompt_bucket, cache_len, None)
+    emit({"phase": "kernels_checked_7b", "seconds": time.perf_counter() - t0})
+
+    side = cfg.encoder.image_size
+    clips = np.random.default_rng(seed + 4).integers(0, 256, (2, cfg.encoder.num_frames, side, side, 3),
+                                                     dtype=np.uint8)
+    prefill = engine.model.prefill
+    prefill_k6 = []
+
+    def counted_prefill(*args):
+        before = int4_matmul.launches
+        out = prefill(*args)
+        prefill_k6.append(int4_matmul.launches - before)
+        return out
+
+    engine.model.prefill = counted_prefill
+    reset_counts()
+    try:
+        requests = serve(engine, clips)
+    finally:
+        del engine.model.prefill
+    served = counts()
+    steps = requests[0]["decode_steps"]
+    want = 7 * cfg.decoder.num_layers * steps
+    if served["int4_matmul"] != want or prefill_k6 != [0] or not all(served[k.__name__] for k in KERNELS):
+        raise AssertionError(f"7b int4 launches {served} (prefill K6 {prefill_k6}), expected K6 {want}")
+    for line in requests:
+        decode_s = line["call_seconds"] - line["prefill_ms"] / 1e3
+        emit(dict(line, preset=cfg.name, quantize="int4", ms_per_step=decode_s * 1e3 / steps,
+                  k6_launches=served["int4_matmul"], k6_prefill_launches=prefill_k6[0],
+                  max_new_tokens_cap=MAX_NEW_TOKENS))
+    emit(dict(profile_phase(engine, clips), preset=cfg.name))
+    return kernels, served
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
@@ -1132,9 +1329,12 @@ def main() -> None:
     kernels.update(batcher_kernel_phase(args.seed, dev, cfg, park_len, pool_len, BATCHER_SLOTS, 3 * BATCHER_SLOTS))
     emit({"phase": "decode_rows", "checks": kernels.pop("decode_attention_rows")})
     kernels.update(train_kernel_phase(args.seed, dev, cfg))
+    kernels["int4_matmul"] = int4_kernel_phase(args.seed, dev)
     emit({"phase": "kernels_checked", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     emit(dict(reference_phase(args.seed, dev, tokenizer.vocab_size), seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    emit(dict(reference_phase(args.seed, dev, tokenizer.vocab_size, int4=True), seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
     emit(dict(train_reference_phase(args.seed, dev, tokenizer.vocab_size), seconds=time.perf_counter() - t0))
 
@@ -1169,6 +1369,7 @@ def main() -> None:
         raise AssertionError(f"batcher launches {batch_launched} for {line['decode_steps']} decode steps")
     emit(batched["check"])
     emit(batcher_profile(batch_engine, batch_clips, batch_prompts, BATCHER_SLOTS))
+    grammar = engine.dfa
     del engine, batch_engine
     torch.cuda.empty_cache()
 
@@ -1177,8 +1378,18 @@ def main() -> None:
         train_lines, trained = train_phase(dev, Path(workdir))
     for line in train_lines:
         emit(line)
-    # Each kernel's launches summed over the main paths' runs (K1 runs in two).
-    launches = {name: served[name] + batch_launched[name] + trained[name] for name in served}
+
+    # Main path 4, int4 serving at 7b width: K6 at every decode step, K1-K3.
+    torch.cuda.empty_cache()
+    int4_kernels, int4_served = int4_serving_phase(args.seed, dev, tokenizer, grammar)
+    for name, result in int4_kernels.items():  # K1-K3 at the 7b shapes, beside the base ones
+        for key in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "library_ms", "shape",
+                    "encoder_max_abs_err", "encoder_ms", "encoder_plain_ms", "encoder_bound_ms",
+                    "encoder_library_ms", "encoder_shape"):
+            if key in result:
+                kernels[name][f"7b_{key}"] = result[key]
+    # Each kernel's launches summed over the main paths' runs (K1-K3 run in two).
+    launches = {name: served[name] + batch_launched[name] + trained[name] + int4_served[name] for name in served}
 
     sources = {
         "flash_attention": ("csrc/flash_attention.cu", "video_transformer_tpu/ops/attention.py:56"),
@@ -1189,6 +1400,7 @@ def main() -> None:
         "flash_fwd_lse": ("csrc/flash_bwd.cu", "video_transformer_tpu/ops/flash_bwd.py:53"),
         "flash_bwd_dq": ("csrc/flash_bwd.cu", "video_transformer_tpu/ops/flash_bwd.py:156"),
         "flash_bwd_dkv": ("csrc/flash_bwd.cu", "video_transformer_tpu/ops/flash_bwd.py:204"),
+        "int4_matmul": ("csrc/int4_matmul.cu", "video_transformer_tpu/ops/int4_matmul.py:46"),
     }
     line = []
     for name, result in kernels.items():

@@ -12,6 +12,10 @@ bit. Attention (K1, K3 and the training
 kernels K7a-c) computes in f32 and rounds its bf16 output once, as the plain
 version does, so the two agree within 1e-2 of the largest output (one bf16
 rounding step is at most 2**-7 of the value); K7a's f32 LSE within 1e-3.
+The packed-int4 matmul (K6) equals its plain version bit for bit on
+integer-valued x (every partial sum exact in f32), and on normal x lies
+within (1e-2, 1e-3) element by element, where plain versions that swap the
+nibbles or read them unsigned must fail.
 """
 
 import numpy as np
@@ -20,14 +24,18 @@ import torch
 
 from chip_smoke import (
     DECODE_ROW_SHAPES,
+    INT4_SHAPES,
     REL_TOL,
     TRAIN_KERNELS,
+    check_int4,
     decode_rows_reading,
     flash_train_errors,
     mark_decode_edges,
+    reference_phase,
 )
 from video_transformer_tpu_torch.ops import decode_attention as decode_module
 from video_transformer_tpu_torch.ops.attention import flash_attention, mha_reference
+from video_transformer_tpu_torch.ops.int4_matmul import int4_matmul
 from video_transformer_tpu_torch.ops.decode_attention import (
     _scaled_reference,
     adopt_rows,
@@ -337,3 +345,61 @@ def test_tiny_batcher_runs_through_k4_and_k5(cuda, monkeypatch):
     assert launched[1] > 0 and launched[2] == 0
     monkeypatch.setattr(decode_module, "_fused_update", k2_then_k3)
     assert sweep() == got and sorted(got) == list(range(5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [3, 6, 24, 256])
+@pytest.mark.parametrize("shape", sorted(INT4_SHAPES))
+def test_int4_matmul_matches_plain_at_7b_shapes(cuda, m, shape):
+    """K6 at the 7b decoder's four product shapes: bit-equal on integer x,
+    within tolerance on normal x, and the swapped- and unsigned-nibble plain
+    versions fail the same check (check_int4 raises otherwise)."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    before = int4_matmul.launches
+    reading = check_int4(gen, cuda, m, *INT4_SHAPES[shape], timed=False)
+    assert int4_matmul.launches == before + 2
+    assert reading["integer_x_bit_equal"] and reading["worst_ratio"] <= 1
+    assert all(ratio > 1 for ratio in reading["fault_ratios"].values())
+
+
+@pytest.mark.cuda
+def test_int4_matmul_launch_is_counted_once(cuda):
+    """A qualifying call (M = 2 x 3 rows, N and K/2 multiples of 128)
+    launches K6 once; 257 rows take the unpacked route and launch nothing."""
+    packed = torch.randint(0, 256, (256, 384), device=cuda, dtype=torch.uint8)
+    before = int4_matmul.launches
+    y = int4_matmul(torch.randn(2, 3, 512, device=cuda).to(torch.bfloat16), packed)
+    assert y.shape == (2, 3, 384) and int4_matmul.launches == before + 1
+    int4_matmul(torch.randn(257, 512, device=cuda).to(torch.bfloat16), packed)
+    assert int4_matmul.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_tiny_int4_engine_decodes_through_k6(cuda):
+    """The whole-model int4 reference (a decoder whose every projection
+    takes K6): card logits within 2e-2 x max|logit| of the CPU's over
+    prefill and three decode blocks, K6 launched 7 x 2 x 3 times and never
+    in prefill (reference_phase raises otherwise); then an int4 engine with
+    that decoder generates on the card through K6."""
+    from dataclasses import replace
+    from pathlib import Path
+
+    from chip_smoke import INT4_NARROW
+    from video_transformer_tpu_torch.analyzer.schema import note_dfa
+    from video_transformer_tpu_torch.models.bpe import BpeTokenizer
+    from video_transformer_tpu_torch.models.config import get_preset
+    from video_transformer_tpu_torch.parallel.engine import InferenceEngine
+
+    tok = BpeTokenizer.load(Path(__file__).resolve().parents[1] / "data" / "tokenizers" / "bpe-zh-2048.json")
+    line = reference_phase(0, cuda, tok.vocab_size, int4=True)
+    assert line["max_abs_err"] <= line["tol"] and line["k6_launches"] == 42
+    cfg = get_preset("tiny")
+    cfg = replace(cfg, decoder=replace(cfg.decoder, vocab_size=tok.vocab_size, **INT4_NARROW))
+    engine = InferenceEngine(cfg, max_new_tokens=32, temperature=0.0, tokenizer=tok, param_dtype="bfloat16",
+                             quantize="int4", kv_quant="int8", device=cuda)
+    engine.dfa = engine.wrap_grammar(note_dfa(engine.byte_vocab))
+    before = int4_matmul.launches
+    frames = np.random.default_rng(0).integers(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)
+    _, ids = engine.generate(frames, ["分析", "hi"], return_tokens=True)
+    assert all(0 < len(row) <= 34 for row in ids)
+    assert int4_matmul.launches - before == 7 * cfg.decoder.num_layers * engine.stats.decode_steps

@@ -64,18 +64,20 @@ def short_note(builder_cls):
 
 @pytest.mark.parametrize(
     "quant,bias,grammar",
-    [(None, 0.0, "note"), ("int8", 0.0, "note"), ("int8", 1.5, "short")],
+    [(None, 0.0, "note"), ("int8", 0.0, "note"), ("int8", 1.5, "short"), ("int4", 0.0, "note")],
 )
 def test_greedy_tokens_equal_jax(tokenizer, quant, bias, grammar):
     """Same tokens and completion flags. The short grammar with the closer
     bias completes rows at different steps, so frozen rows, the EOS filler
-    and the per-row index rewind are exercised too."""
+    and the per-row index rewind are exercised too. Quantized weights come
+    with an int8 KV cache (int4 weights: packed nibble pairs)."""
     j_tok = JBpe.load(TOKENIZER)
     j_cfg = j_get_preset("tiny")
     j_cfg = replace(j_cfg, dtype="float32", decoder=replace(j_cfg.decoder, vocab_size=j_tok.vocab_size))
+    kv_quant = "int8" if quant else None
     j_engine = JEngine(
         j_cfg, max_new_tokens=MAX_NEW, temperature=0.0, tokenizer=j_tok, quantize=quant,
-        kv_quant=quant, structure_bias=bias, compilation_cache_dir=None,
+        kv_quant=kv_quant, structure_bias=bias, compilation_cache_dir=None,
     )
     j_engine.dfa = j_engine.wrap_grammar(
         j_note_dfa(j_engine.byte_vocab) if grammar == "note" else short_note(JDfaBuilder)
@@ -83,7 +85,9 @@ def test_greedy_tokens_equal_jax(tokenizer, quant, bias, grammar):
     want = j_engine.generate(frames(), PROMPTS, return_status=True, return_tokens=True)
 
     variables = jax.tree_util.tree_map(np.asarray, j_engine.params)
-    engine = port_engine(tokenizer, variables, kv_quant=quant, structure_bias=bias)
+    if quant == "int4":
+        assert variables["params"]["decoder"]["layer_0"]["mlp"]["down"]["kernel"].dtype == np.uint8
+    engine = port_engine(tokenizer, variables, kv_quant=kv_quant, structure_bias=bias)
     if grammar == "short":
         engine.dfa = engine.wrap_grammar(short_note(DfaBuilder))
     got = engine.generate(frames(), PROMPTS, return_status=True, return_tokens=True)
@@ -93,6 +97,27 @@ def test_greedy_tokens_equal_jax(tokenizer, quant, bias, grammar):
     assert engine.stats.prefill_tokens == 2 * (engine.config.video_tokens + 128)
     if grammar == "short":
         assert any(got[1]), "the short grammar should complete a row"
+
+
+def test_complete_rows_stop_one_eos_short_of_accept(tokenizer):
+    """A row completes by sampling EOS into the accepting state, and the EOS
+    is not emitted (the loop advances such a row by 0, as the JAX loop
+    does): a complete row's tokens walk to a state whose EOS transition is
+    the accepting one, never to the accepting state itself."""
+    engine = port_engine(tokenizer, structure_bias=1.5)
+    engine.dfa = engine.wrap_grammar(short_note(DfaBuilder))
+    _, status, ids = engine.generate(frames(), PROMPTS, return_status=True, return_tokens=True)
+    assert any(status), "the short grammar should complete a row"
+    grammar = engine.dfa
+    for done, row in zip(status, ids):
+        assert tokenizer.EOS not in row
+        state = grammar.start
+        for token in row:
+            for byte in tokenizer.token_bytes(token):
+                state = int(grammar.dfa.next_state[state, byte])
+        assert state != grammar.accept
+        if done:
+            assert grammar.dfa.next_state[state, tokenizer.EOS] == grammar.accept
 
 
 def test_sampled_output_stays_in_grammar(tokenizer):
@@ -122,7 +147,7 @@ def test_unported_surface_raises(tokenizer):
         engine.generate(frames(), PROMPTS, prefixes=[[1], [2]])
     with pytest.raises(NotImplementedError):
         engine.generate(frames(), PROMPTS, session_rounds=1, return_session=True)
-    with pytest.raises(NotImplementedError):
-        port_engine(tokenizer, quantize="int4")
+    with pytest.raises(ValueError, match="quantize mode"):
+        port_engine(tokenizer, quantize="int2")
     with pytest.raises(ValueError, match="one prompt per clip"):
         engine.generate(frames(), PROMPTS[:1])

@@ -138,7 +138,8 @@ def test_kernel_sources_are_plain_cuda():
     PyTorch headers (the nvcc + ctypes route)."""
     sources = sorted((PACKAGE / "csrc").glob("*.cu"))
     assert [p.name for p in sources] == [
-        "adopt_rows.cu", "decode_attention.cu", "flash_attention.cu", "flash_bwd.cu", "write_cache_rows.cu",
+        "adopt_rows.cu", "decode_attention.cu", "flash_attention.cu", "flash_bwd.cu", "int4_matmul.cu",
+        "write_cache_rows.cu",
     ]
     for path in sorted((PACKAGE / "csrc").glob("*.cuh")):  # device code shared by sources
         text = path.read_text(encoding="utf-8")

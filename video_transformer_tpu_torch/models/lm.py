@@ -33,7 +33,7 @@ __all__ = ["Decoder", "init_kv_cache", "quantize_kv", "QDense"]
 
 Cache = dict[str, Any]
 
-# The dense layers of a decoder block; weight-only int8 applies to these.
+# The dense layers of a decoder block; weight-only int8 or int4 applies to these.
 QDense = Dense
 
 

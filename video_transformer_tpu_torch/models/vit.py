@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import flash_attention
+from ..ops.int4_matmul import int4_matmul
 from ..ops.norms import rms_norm
 from .config import EncoderConfig
 
@@ -66,10 +67,12 @@ class Dense(nn.Module):
     """x @ kernel with the kernel kept in flax's [in, out] layout.
 
     ``dtype`` is the compute type; None promotes the input's type with the
-    kernel's (flax ``nn.Dense`` with ``dtype=None``). An int8 kernel carries
-    a per-output-channel ``scale`` buffer that multiplies the product
-    (weight-only quantization, ``models/quant.py``); an int8 kernel is a
-    parameter without grad.
+    kernel's (flax ``nn.Dense`` with ``dtype=None``). A quantized kernel
+    carries a per-output-channel ``scale`` buffer that multiplies the
+    product (weight-only quantization, ``models/quant.py``): an int8 kernel
+    [in, out], or a uint8 carrier [in/2, out] of packed int4 pairs, which
+    ``ops/int4_matmul.py`` multiplies in the compute type (K6 at decode
+    row counts on the card). A quantized kernel is a parameter without grad.
     """
 
     def __init__(self, in_dim: int, out_dim: int):
@@ -78,9 +81,12 @@ class Dense(nn.Module):
         self.register_buffer("scale", None)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
-        if dtype is None:
-            dtype = torch.promote_types(x.dtype, self.kernel.dtype)
-        y = x.to(dtype) @ self.kernel.to(dtype)
+        if self.kernel.dtype == torch.uint8:  # packed int4
+            dtype = dtype or x.dtype
+            y = int4_matmul(x.to(dtype), self.kernel).to(dtype)
+        else:
+            dtype = dtype or torch.promote_types(x.dtype, self.kernel.dtype)
+            y = x.to(dtype) @ self.kernel.to(dtype)
         if self.scale is not None:
             y = y * self.scale.to(dtype)
         return y

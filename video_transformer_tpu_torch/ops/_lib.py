@@ -61,6 +61,8 @@ _SIGNATURES = {
     "vtx_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # q, k, v, dout, lse, dsum, dk_part, dv_part, B, Hq, Hkv, S, D, causal, scale, stream
     "vtx_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # x, packed, out, partial, M, K2, N, rows_per_block, split_rows, splits, stream
+    "vtx_int4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 build_seconds = 0.0

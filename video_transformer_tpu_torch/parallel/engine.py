@@ -10,8 +10,11 @@ filler, grammar fast-forward blocks of 1 + max_forced_run tokens, per-row
 decoder call per step; the tensors stay on the device.
 
 A bf16 KV cache decodes through K5 (each step's cache write and attention
-in one kernel), an int8 one through K2 then K3. ``preprocess`` is the
-batcher's staging entry (``serving.py``).
+in one kernel), an int8 one through K2 then K3. ``quantize="int4"`` stores
+the decoder's dense kernels as packed int4, which each decode step
+multiplies through K6 (``ops/int4_matmul.py``); prefill's larger row counts
+take the unpacked route. ``preprocess`` is the batcher's staging entry
+(``serving.py``).
 
 Not ported yet (they raise NotImplementedError): continuation ``prefixes``,
 sessions, ``generate_text``, speculative decoding, projection fusion and data
@@ -30,7 +33,7 @@ import torch
 
 from ..models.config import VLMConfig
 from ..models.lm import init_kv_cache
-from ..models.quant import quantize_decoder_int8
+from ..models.quant import quantize_decoder
 from ..models.tokenizer import ByteTokenizer
 from ..models.vlm import VideoLM
 from ..ops.preprocess import preprocess_frames
@@ -76,11 +79,11 @@ class InferenceEngine:
     ):
         """``params`` is a VideoLM (``weights.from_jax_params`` or
         ``weights.random_params``); None makes seeded random weights on
-        ``device``. ``param_dtype`` casts the float weights, ``quantize="int8"``
-        quantizes the decoder's dense layers and ``kv_quant="int8"`` stores the
-        KV cache in int8."""
-        if quantize not in (None, "int8"):
-            raise NotImplementedError(f"quantize={quantize!r} is not ported")
+        ``device``. ``param_dtype`` casts the float weights, ``quantize``
+        ("int8" or "int4") then quantizes the decoder's dense layers, and
+        ``kv_quant="int8"`` stores the KV cache in int8."""
+        if quantize not in (None, "int8", "int4"):
+            raise ValueError(f"unsupported quantize mode: {quantize!r}")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
         if tokenizer is not None and tokenizer.vocab_size != config.decoder.vocab_size:
@@ -103,8 +106,8 @@ class InferenceEngine:
             params = random_params(config, self._generator, self.device, dtype)
         elif param_dtype:
             cast_weights(params, dtype)
-        if quantize == "int8":
-            quantize_decoder_int8(params)
+        if quantize:
+            quantize_decoder(params, quantize)
         self.model = params.to(self.device).eval()
         self._tables: dict[int, Any] = {}
         self._forced: dict[int, tuple[torch.Tensor, ...]] = {}

@@ -38,12 +38,28 @@ def _to_tensor(array: Any) -> torch.Tensor:
 
 def _assign(model: torch.nn.Module, name: str, tensor: torch.Tensor) -> None:
     """Set a parameter or buffer by its dotted name; a float parameter
-    requires grad, an int8 one does not."""
+    requires grad, an int8 or uint8 one does not."""
     owner_name, _, leaf = name.rpartition(".")
     owner = model.get_submodule(owner_name)
     if leaf in owner._parameters:
         tensor = torch.nn.Parameter(tensor, requires_grad=tensor.is_floating_point())
     setattr(owner, leaf, tensor)
+
+
+def _check_shape(model: torch.nn.Module, name: str, tensor: torch.Tensor) -> None:
+    """Raise unless ``tensor`` fits the meta model's leaf ``name``: its shape,
+    a packed int4 kernel's uint8 [in/2, out] for an [in, out] kernel, or a
+    quantization scale's [out]."""
+    owner_name, _, leaf = name.rpartition(".")
+    owner = model.get_submodule(owner_name)
+    if leaf == "scale":
+        want = (owner.kernel.shape[1],)
+    else:
+        want = tuple(getattr(owner, leaf).shape)
+        if leaf == "kernel" and tensor.dtype == torch.uint8 and len(want) == 2 and want[0] % 2 == 0:
+            want = (want[0] // 2, want[1])
+    if tuple(tensor.shape) != want:
+        raise ValueError(f"JAX leaf {name} has shape {tuple(tensor.shape)} ({tensor.dtype}), expected {want}")
 
 
 def from_jax_params(
@@ -52,8 +68,10 @@ def from_jax_params(
     """A VideoLM holding the JAX package's variables (numpy leaves).
 
     ``variables`` is ``{"params": ..., "quant": ...}`` as the JAX engine
-    serves it (``quant`` present after int8 quantization). Leaves keep their
-    dtypes (f32, bf16 or int8). Raises on a missing or unknown leaf.
+    serves it (``quant`` present after int8 or int4 quantization). Leaves
+    keep their dtypes (f32, bf16, int8, or uint8 for packed int4 kernels
+    [in/2, out]). Raises on a missing or unknown leaf, or on one whose shape
+    does not fit the model.
     """
     with torch.device("meta"):
         model = VideoLM(config)
@@ -63,7 +81,9 @@ def from_jax_params(
         for name, leaf in _flatten(variables.get(collection, {})):
             if name not in expected and not name.endswith(".scale"):
                 raise KeyError(f"unknown JAX leaf {collection}.{name}")
-            _assign(model, name, _to_tensor(leaf))
+            tensor = _to_tensor(leaf)
+            _check_shape(model, name, tensor)
+            _assign(model, name, tensor)
             seen.add(name)
     missing = expected - seen
     if missing:
@@ -99,10 +119,16 @@ def random_params(
 
 @torch.no_grad()
 def cast_weights(model: VideoLM, dtype: torch.dtype) -> VideoLM:
-    """Cast the float weights and scales (not the int8 kernels, the position
-    or RoPE tables) to ``dtype`` in place: the serving config's
-    ``param_dtype``."""
-    for name, tensor in list(model.state_dict(keep_vars=True).items()):
-        if tensor.is_floating_point() and tensor.dtype != dtype:
-            _assign(model, name, tensor.detach().to(dtype))
+    """Cast the float weights and scales (not the int8 or packed int4
+    kernels, the position or RoPE tables) to ``dtype`` in place: the serving
+    config's ``param_dtype``. Each tensor is looked up by name as it is
+    cast, so that the old copy is freed before the next cast: the peak is the
+    uncast model plus one tensor (27 GiB at ``7b`` from f32), not both
+    copies of the model."""
+    names = [name for name, t in model.state_dict(keep_vars=True).items()
+             if t.is_floating_point() and t.dtype != dtype]
+    for name in names:
+        owner_name, _, leaf = name.rpartition(".")
+        tensor = getattr(model.get_submodule(owner_name), leaf)
+        _assign(model, name, tensor.detach().to(dtype))
     return model
