@@ -3,11 +3,14 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels from ``video_transformer_tpu_torch/csrc`` (one
-``nvcc`` process per source, in parallel), holds each kernel against its
-plain PyTorch version at the shapes of the serving, batcher and training
-paths and times both (K5 also bit for bit against K2 then K3; K3 and K5
-also at 20-40 folded query rows per kv head; K6, the packed-int4 matmul, at
-the 7b decoder's four product shapes, bit for bit on integer inputs), checks
+``nvcc`` process per source, in parallel), counts the tensor-core
+instructions of the flash forward (K1, K7a) in the built library's SASS,
+holds each kernel against its plain PyTorch version at the shapes of the
+serving, batcher and training paths and times both (K1 also element by
+element against f32-weight attention and at ragged lengths; K5 also bit for
+bit against K2 then K3; K3 and K5 also at 20-40 folded query rows per kv
+head; K6, the packed-int4 matmul, at the 7b decoder's four product shapes,
+bit for bit on integer inputs), checks
 the whole model against the plain versions on the CPU at the tiny preset
 (serving logits, the same with a narrow int4 decoder whose every projection
 takes K6, then training gradients), then:
@@ -49,6 +52,7 @@ import contextlib
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -121,21 +125,26 @@ INT4_WIDE_ROWS = (24, 256)  # the batcher's 8 slots x 3, and the top of K6's dis
 # A decoder narrow enough to run on the CPU whose every projection takes K6
 # (N and K/2 multiples of 128): the int4 whole-model reference.
 INT4_NARROW = dict(hidden_dim=256, num_layers=2, num_heads=2, num_kv_heads=1, head_dim=128, mlp_dim=512)
-# K1 and K3 compute in f32 and round their output to bf16 once, as their
-# plain versions do. One rounding step is at most 2**-7 of the value, so the
-# two agree within 1e-2 of the largest output.
+# K1 and K3 accumulate in f32 and round their output to bf16 once, as their
+# plain versions do (K1 multiplies bf16 tiles on the tensor cores and carries
+# P as bf16 P_hi + P_lo, within 2**-16 of P from f32). One rounding step is at
+# most 2**-7 of the value, so the two agree within 1e-2 of the largest output.
 REL_TOL = 1e-2
-# K7a-c are held element by element: |got - want| <= rel * |want| + floor *
-# rms(want), so that an error confined to small late-position values fails
-# as surely as one at the large early ones. All three compute in f32 on the
-# CUDA cores. K7a's O and K7b's dQ are rounded to bf16 once, as their plain
+# K1 and K7a-c are also held element by element: |got - want| <= rel *
+# |want| + floor * rms(want), so that an error confined to small
+# late-position values fails as surely as one at the large early ones (K1
+# against plain attention with f32 weights: mha_reference's own bf16 weights
+# sit several times outside this limit, as bf16 P alone does in
+# tests/test_torch_flash_numerics.py). K1 and K7a run bf16 products with f32
+# accumulation on the tensor cores, P split as above; K7b and K7c compute in
+# f32 on the CUDA cores. O and dQ are rounded to bf16 once, as their plain
 # versions are: the two roundings differ by at most one bf16 step (2**-7 of
 # the value), and the floor covers values that cancel to near zero.
 BF16_TOL = (1e-2, 1e-3)
 # K7c's dK/dV partials stay f32 in both; they differ in summation order and
 # __expf only, about 1e-6 of the value.
 F32_TOL = (1e-3, 1e-4)
-# K7a's LSE is f32 in both; the kernel's __expf/logf and summation order
+# K7a's LSE is f32 in both; the kernel's exp2/logf and summation order
 # move it by far less than 1e-3 at |LSE| ~ 10.
 LSE_TOL = 1e-3
 # Training gradients of the tiny model, bf16 compute: card against CPU, the
@@ -207,6 +216,30 @@ def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def flash_sass() -> dict[str, dict[str, int]]:
+    """Tensor-core instructions in each flash-forward instantiation of the
+    built library (K1 is flash_fwd_kernel<false>, K7a <true>), counted in
+    ``cuobjdump -sass``: HGMMA (wgmma) and HMMA (mma.sync). Raises if either
+    kernel is missing or has neither."""
+    cuobjdump = Path(_lib._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", _lib.library()._name], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            function = line.split("Function : ", 1)[1].strip()
+            name = None
+            if "flash_fwd_kernel" in function:
+                name = "K1 flash_fwd_kernel<false>" if "ILb0E" in function else "K7a flash_fwd_kernel<true>"
+                counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name:
+            for op in counts[name]:
+                counts[name][op] += bool(re.search(rf"\b{op}\b", line))
+    if len(counts) != 2 or not all(c["HGMMA"] + c["HMMA"] for c in counts.values()):
+        raise AssertionError(f"a flash-forward kernel runs no tensor-core instruction: {counts}")
+    return counts
+
+
 def base_config(vocab_size: int, preset: str = "base") -> VLMConfig:
     cfg = get_preset(preset)
     return replace(cfg, decoder=replace(cfg.decoder, vocab_size=vocab_size))
@@ -215,36 +248,95 @@ def base_config(vocab_size: int, preset: str = "base") -> VLMConfig:
 # -- kernel phase ----------------------------------------------------------------
 
 
-def check_flash(gen: torch.Generator, dev: torch.device, batch: int, heads: int, kv_heads: int,
-                seq: int, causal: bool) -> dict:
-    """K1 against mha_reference at one attention shape; times and bound."""
-    d = 128
-    q = torch.randn(batch, heads, seq, d, generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn(batch, kv_heads, seq, d, generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn(batch, kv_heads, seq, d, generator=gen, device=dev).to(torch.bfloat16)
+def attention_f32_weights(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                          shift: int = 0) -> torch.Tensor:
+    """Plain attention with f32 softmax weights: mha_reference's formula
+    without its bf16 cast of the weights, the output rounded once to q's
+    dtype (as K7a's plain version rounds it). The causal edge is aligned to
+    the last Sq keys and moved ``shift`` keys later: a query sees ``shift``
+    keys more, the fault K1's check must catch."""
+    b, hq, s_q, d = q.shape
+    hkv, s_k = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, hkv, hq // hkv, s_q, d)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * (1.0 / math.sqrt(d))
+    if causal:
+        q_pos = torch.arange(s_q, device=q.device)[:, None] + (s_k - s_q) + shift
+        k_pos = torch.arange(s_k, device=q.device)[None, :]
+        logits = logits.masked_fill(k_pos > q_pos, -1e30)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(logits, dim=-1), v.float())
+    return out.reshape(b, hq, s_q, d).to(q.dtype)
+
+
+def flash_errors(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> dict:
+    """K1 on (q, k, v): within REL_TOL of the largest output of
+    mha_reference, and element by element within BF16_TOL of plain attention
+    with f32 weights; where causal, that plain version with its mask shifted
+    by one key must fail the element-wise check. Raises otherwise; returns
+    the readings and K1's output."""
+    shape = f"q {list(q.shape)} kv {list(k.shape)} bf16 causal={causal}"
     out = flash_attention(q, k, v, causal=causal)
     ref = mha_reference(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     tol = REL_TOL * ref.float().abs().max().item()
-    if err > tol:
-        raise AssertionError(f"flash_attention (causal={causal}) disagrees with mha_reference: {err} > {tol}")
+    if not bool(out.isfinite().all()) or err > tol:
+        raise AssertionError(f"flash_attention ({shape}) disagrees with mha_reference: {err} > {tol}")
+    close = closeness(out, attention_f32_weights(q, k, v, causal), *BF16_TOL)
+    if not close["ratio"] <= 1:
+        raise AssertionError(f"flash_attention ({shape}) disagrees with f32-weight attention: {close}")
+    result = {"out": out, "max_abs_err": err, "tol": tol, "worst_ratio": close["ratio"],
+              "elementwise_max_abs_err": close["max_abs_err"], "shape": shape}
+    if causal:
+        shifted = closeness(out, attention_f32_weights(q, k, v, causal, shift=1), *BF16_TOL)
+        if shifted["ratio"] <= 1:
+            raise AssertionError(f"a mask shifted by one passes K1's check ({shape}): {shifted}")
+        result["shifted_mask_ratio"] = shifted["ratio"]
+    return result
+
+
+def check_flash(gen: torch.Generator, dev: torch.device, batch: int, heads: int, kv_heads: int,
+                seq: int, causal: bool) -> dict:
+    """K1 at one attention shape (``flash_errors``); times and bound."""
+    d = 128
+    q = torch.randn(batch, heads, seq, d, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(batch, kv_heads, seq, d, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(batch, kv_heads, seq, d, generator=gen, device=dev).to(torch.bfloat16)
+    result = flash_errors(q, k, v, causal)
+    out = result.pop("out")
     pairs = seq * (seq + 1) / 2 if causal else seq * seq
     flops = 4 * batch * heads * d * pairs
     bound_ms, bound_by = bound(nbytes(q, k, v, out), flops)
     library_ms = time_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=kv_heads != heads)
     )
-    return {
-        "max_abs_err": err,
-        "tol": tol,
-        "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal)),
-        "plain_ms": time_ms(lambda: mha_reference(q, k, v, causal=causal), warmup=1, reps=2),
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
-        "shape": f"q [{batch},{heads},{seq},{d}] kv [{batch},{kv_heads},{seq},{d}] bf16 causal={causal}",
-    }
+    return dict(
+        result,
+        ms=time_ms(lambda: flash_attention(q, k, v, causal=causal)),
+        plain_ms=time_ms(lambda: mha_reference(q, k, v, causal=causal), warmup=1, reps=2),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+    )
+
+
+# Ragged (Sq, Sk) for K1 beside the main paths' shapes: neither a multiple
+# of the 128-row tile; Sq < Sk (the causal edge at q_offset = Sk - Sq, which
+# is 1152 for (3, 1155): not a multiple of the tile); one row past a tile.
+FLASH_RAGGED_SHAPES = ((100, 100), (64, 200), (3, 1155), (129, 129))
+
+
+def flash_ragged_reading(gen: torch.Generator, dev: torch.device, heads: int, kv_heads: int) -> dict:
+    """K1 at every ``FLASH_RAGGED_SHAPES`` entry, causal and not, batch 2;
+    the worst element-wise ratio and the smallest shifted-mask ratio."""
+    readings = []
+    for s_q, s_k in FLASH_RAGGED_SHAPES:
+        for causal in (True, False):
+            q = torch.randn(2, heads, s_q, 128, generator=gen, device=dev).to(torch.bfloat16)
+            k, v = (torch.randn(2, kv_heads, s_k, 128, generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+            result = flash_errors(q, k, v, causal)
+            result.pop("out")
+            readings.append(result)
+    return {"checks": readings, "worst_ratio": max(r["worst_ratio"] for r in readings),
+            "min_shifted_mask_ratio": min(r["shifted_mask_ratio"] for r in readings if "shifted_mask_ratio" in r)}
 
 
 def kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, prompt_bucket: int, cache_len: int,
@@ -267,8 +359,14 @@ def kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, prompt_bucket: in
         others["staging"] = check_flash(gen, dev, BATCHER_STAGE, dec.num_heads, dec.num_kv_heads, park_len,
                                         causal=True)
     for prefix, other in others.items():
-        for key in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "library_ms", "shape"):
-            k1[f"{prefix}_{key}"] = other[key]
+        for key in ("max_abs_err", "tol", "worst_ratio", "shifted_mask_ratio", "ms", "plain_ms", "bound_ms",
+                    "library_ms", "shape"):
+            if key in other:
+                k1[f"{prefix}_{key}"] = other[key]
+    ragged = flash_ragged_reading(gen, dev, dec.num_heads, dec.num_kv_heads)
+    emit({"phase": "flash_ragged", "preset": cfg.name, **ragged})
+    k1["ragged_worst_ratio"] = ragged["worst_ratio"]
+    k1["ragged_min_shifted_mask_ratio"] = ragged["min_shifted_mask_ratio"]
     results["flash_attention"] = k1
 
     # K2: int8 rows into int8 caches at per-row offsets, through a row table.
@@ -1302,8 +1400,9 @@ def main() -> None:
     _lib.library()
     emit({"phase": "build", "nvcc_seconds": _lib.build_seconds, "load_seconds": time.perf_counter() - t0})
     ptxas = [line for line in _lib.build_log.splitlines()
-             if "Function properties" in line or "registers" in line or "spill" in line]
+             if any(word in line for word in ("Function properties", "registers", "spill", "setmaxnreg", "wgmma"))]
     emit({"phase": "ptxas", "lines": ptxas})
+    emit({"phase": "sass", "flash_fwd": flash_sass()})
 
     t0 = time.perf_counter()
     tokenizer = BpeTokenizer.load(TOKENIZER)
@@ -1383,21 +1482,22 @@ def main() -> None:
     torch.cuda.empty_cache()
     int4_kernels, int4_served = int4_serving_phase(args.seed, dev, tokenizer, grammar)
     for name, result in int4_kernels.items():  # K1-K3 at the 7b shapes, beside the base ones
-        for key in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "library_ms", "shape",
-                    "encoder_max_abs_err", "encoder_ms", "encoder_plain_ms", "encoder_bound_ms",
-                    "encoder_library_ms", "encoder_shape"):
+        for key in ("max_abs_err", "tol", "worst_ratio", "shifted_mask_ratio", "ms", "plain_ms", "bound_ms",
+                    "library_ms", "shape", "encoder_max_abs_err", "encoder_worst_ratio", "encoder_ms",
+                    "encoder_plain_ms", "encoder_bound_ms", "encoder_library_ms", "encoder_shape",
+                    "ragged_worst_ratio"):
             if key in result:
                 kernels[name][f"7b_{key}"] = result[key]
     # Each kernel's launches summed over the main paths' runs (K1-K3 run in two).
     launches = {name: served[name] + batch_launched[name] + trained[name] + int4_served[name] for name in served}
 
     sources = {
-        "flash_attention": ("csrc/flash_attention.cu", "video_transformer_tpu/ops/attention.py:56"),
+        "flash_attention": ("csrc/flash_fwd.cuh", "video_transformer_tpu/ops/attention.py:56"),
         "write_cache_rows": ("csrc/write_cache_rows.cu", "video_transformer_tpu/ops/decode_attention.py:570"),
         "decode_attention": ("csrc/decode_attention.cu", "video_transformer_tpu/ops/decode_attention.py:164"),
         "adopt_rows": ("csrc/adopt_rows.cu", "video_transformer_tpu/ops/decode_attention.py:992"),
         "decode_attention_update": ("csrc/decode_attention.cu", "video_transformer_tpu/ops/decode_attention.py:396"),
-        "flash_fwd_lse": ("csrc/flash_bwd.cu", "video_transformer_tpu/ops/flash_bwd.py:53"),
+        "flash_fwd_lse": ("csrc/flash_fwd.cuh", "video_transformer_tpu/ops/flash_bwd.py:53"),
         "flash_bwd_dq": ("csrc/flash_bwd.cu", "video_transformer_tpu/ops/flash_bwd.py:156"),
         "flash_bwd_dkv": ("csrc/flash_bwd.cu", "video_transformer_tpu/ops/flash_bwd.py:204"),
         "int4_matmul": ("csrc/int4_matmul.cu", "video_transformer_tpu/ops/int4_matmul.py:46"),

@@ -1,4 +1,4 @@
-// K7a-c: the flash-attention training kernels, bf16 in, f32 arithmetic.
+// K7a-c: the flash-attention training kernels, bf16 in, f32 accumulation.
 //
 // Replaces video_transformer_tpu/ops/flash_bwd.py: _fwd_lse_kernel (K7a),
 // _bwd_dq_kernel (K7b) and _bwd_dkv_kernel (K7c), the FlashAttention-2
@@ -18,13 +18,14 @@
 // What bounds them on an H100: at the training shapes (S = 1024 and 3072,
 // D = 128) they are compute-bound, like K1: per (batch, head) and visible
 // (query, key) pair K7a does 4*D operations, K7b 6*D and K7c 8*D, against
-// O(S*D) bytes. These first versions run the products on the f32 FMA units
-// (67 TF/s peak), not the tensor cores; wgmma is the later step.
-//
-// Design: 256 threads per block, 64 x 64 tiles staged in shared memory with
-// padded rows, and each thread owning a 4 x 4 patch of the score tile and a
-// 4 x 8 patch of each 64 x 128 accumulator, kept in registers.
-// - K7a is K1's kernel (flash_fwd.cuh) with the LSE store switched on.
+// O(S*D) bytes.
+// - K7a is K1's kernel (flash_fwd.cuh) with the LSE store switched on: wgmma
+//   products on the tensor cores fed by TMA, P V as bf16 P_hi + P_lo.
+// - K7b and K7c still run their products on the f32 FMA units (67 TF/s
+//   peak), not the tensor cores; wgmma is their later step. They use 256
+//   threads a block, 64 x 64 tiles staged in shared memory with padded rows
+//   (flash_tiles.cuh), and each thread owns a 4 x 4 patch of the score tile
+//   and a 4 x 8 patch of each 64 x 128 accumulator, kept in registers.
 // - K7b: one block per (q tile, q head, batch). The q and dO tiles stay in
 //   shared memory; k and v tiles stream. S and dP come from one pass over D,
 //   dS goes through shared memory, dQ += dS K accumulates in f32 registers
@@ -40,6 +41,7 @@
 // so each entry opts in with cudaFuncSetAttribute.
 
 #include "flash_fwd.cuh"
+#include "flash_tiles.cuh"
 
 namespace {
 
@@ -308,7 +310,7 @@ extern "C" int vtx_flash_fwd_lse(const void* q, const void* k, const void* v,
                                  int hkv, int s, int d, int causal,
                                  float scale, void* stream) {
   if (bad_shape(hq, hkv, s, d)) return (int)cudaErrorInvalidValue;
-  return launch_flash_fwd<true>(q, k, v, out, (float*)lse, batch, hq, hkv, s,
+  return flash_fwd::launch_flash_fwd<true>(q, k, v, out, (float*)lse, batch, hq, hkv, s,
                                 s, causal, scale, stream);
 }
 
