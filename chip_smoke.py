@@ -4,11 +4,12 @@
 
 Builds the port's CUDA kernels from ``video_transformer_tpu_torch/csrc`` (one
 ``nvcc`` process per source, in parallel), counts the tensor-core
-instructions of the flash forward (K1, K7a) in the built library's SASS,
+instructions of the flash kernels (K1, K7a-c) in the built library's SASS,
 holds each kernel against its plain PyTorch version at the shapes of the
 serving, batcher and training paths and times both (K1 also element by
-element against f32-weight attention and at ragged lengths; K5 also bit for
-bit against K2 then K3; K3 and K5 also at 20-40 folded query rows per kv
+element against f32-weight attention and at ragged lengths; K7b and K7c
+also twice on the same inputs, bit for bit; K5 also bit for bit against K2
+then K3; K3 and K5 also at 20-40 folded query rows per kv
 head; K6, the packed-int4 matmul, at the 7b decoder's four product shapes,
 bit for bit on integer inputs), checks
 the whole model against the plain versions on the CPU at the tiny preset
@@ -135,14 +136,17 @@ REL_TOL = 1e-2
 # late-position values fails as surely as one at the large early ones (K1
 # against plain attention with f32 weights: mha_reference's own bf16 weights
 # sit several times outside this limit, as bf16 P alone does in
-# tests/test_torch_flash_numerics.py). K1 and K7a run bf16 products with f32
-# accumulation on the tensor cores, P split as above; K7b and K7c compute in
-# f32 on the CUDA cores. O and dQ are rounded to bf16 once, as their plain
-# versions are: the two roundings differ by at most one bf16 step (2**-7 of
-# the value), and the floor covers values that cancel to near zero.
+# tests/test_torch_flash_numerics.py). K1 and K7a-c run bf16 products with
+# f32 accumulation on the tensor cores, P split as above, and K7b and K7c
+# dS as well (bf16 dS and P alone miss these limits several to hundreds of
+# times over, tests/test_torch_flash_bwd_numerics.py). O and dQ are rounded
+# to bf16 once, as their plain versions are: the two roundings differ by at
+# most one bf16 step (2**-7 of the value), and the floor covers values that
+# cancel to near zero.
 BF16_TOL = (1e-2, 1e-3)
-# K7c's dK/dV partials stay f32 in both; they differ in summation order and
-# __expf only, about 1e-6 of the value.
+# K7c's dK/dV partials stay f32 in both; with dS and P split they differ by
+# about 2**-16 of each product's terms and in summation order (0.1-0.3 of
+# this limit in the CPU model of the kernels' arithmetic).
 F32_TOL = (1e-3, 1e-4)
 # K7a's LSE is f32 in both; the kernel's exp2/logf and summation order
 # move it by far less than 1e-3 at |LSE| ~ 10.
@@ -185,24 +189,27 @@ def time_ms(fn, warmup: int = 3, reps: int = 10, rounds: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 20) -> float:
+def device_ms(fn, calls: int = 20, tries: int = 3) -> float:
     """Device time of one call of ``fn`` in ms: the self device time of the
     kernels it launches, summed by torch.profiler over ``calls`` calls, after
     one warm-up call. Unlike ``time_ms`` it leaves out the host's time between
-    launches, which sets ``time_ms`` where a call's kernels are short."""
+    launches, which sets ``time_ms`` where a call's kernels are short. A
+    profile that records no device activity at all (CUPTI has dropped a
+    short window's records) is taken again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    if not total:
-        raise AssertionError("device_ms: the profiler saw no device time")
-    return total / 1e3 / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        if total:
+            return total / 1e3 / calls
+    raise AssertionError(f"device_ms: the profiler saw no device time in {tries} tries")
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -217,10 +224,10 @@ def nbytes(*tensors: torch.Tensor) -> int:
 
 
 def flash_sass() -> dict[str, dict[str, int]]:
-    """Tensor-core instructions in each flash-forward instantiation of the
-    built library (K1 is flash_fwd_kernel<false>, K7a <true>), counted in
-    ``cuobjdump -sass``: HGMMA (wgmma) and HMMA (mma.sync). Raises if either
-    kernel is missing or has neither."""
+    """Tensor-core instructions in each flash kernel of the built library
+    (K1 is flash_fwd_kernel<false>, K7a <true>; K7b flash_bwd_dq_kernel, K7c
+    flash_bwd_dkv_kernel), counted in ``cuobjdump -sass``: HGMMA (wgmma) and
+    HMMA (mma.sync). Raises if a kernel is missing or has no HGMMA."""
     cuobjdump = Path(_lib._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", _lib.library()._name], capture_output=True, text=True,
                           timeout=120, check=True).stdout
@@ -231,12 +238,17 @@ def flash_sass() -> dict[str, dict[str, int]]:
             name = None
             if "flash_fwd_kernel" in function:
                 name = "K1 flash_fwd_kernel<false>" if "ILb0E" in function else "K7a flash_fwd_kernel<true>"
+            elif "flash_bwd_dq_kernel" in function:
+                name = "K7b flash_bwd_dq_kernel"
+            elif "flash_bwd_dkv_kernel" in function:
+                name = "K7c flash_bwd_dkv_kernel"
+            if name:
                 counts[name] = {"HGMMA": 0, "HMMA": 0}
         elif name:
             for op in counts[name]:
                 counts[name][op] += bool(re.search(rf"\b{op}\b", line))
-    if len(counts) != 2 or not all(c["HGMMA"] + c["HMMA"] for c in counts.values()):
-        raise AssertionError(f"a flash-forward kernel runs no tensor-core instruction: {counts}")
+    if len(counts) != 4 or not all(c["HGMMA"] for c in counts.values()):
+        raise AssertionError(f"a flash kernel runs no wgmma instruction: {counts}")
     return counts
 
 
@@ -716,6 +728,14 @@ def flash_train_errors(q, k, v, dout, causal: bool) -> dict:
     return errors
 
 
+def flash_bwd_repeatable(q, k, v, dout, lse, dsum, causal: bool) -> dict[str, bool]:
+    """Whether two launches each of K7b and K7c on the same inputs give
+    bit-identical dQ, dK and dV (they use no atomics)."""
+    runs = [(flash_bwd_dq(q, k, v, dout, lse, dsum, causal), *flash_bwd_dkv(q, k, v, dout, lse, dsum, causal))
+            for _ in range(2)]
+    return {name: torch.equal(a, b) for name, a, b in zip(("dQ", "dK", "dV"), *runs)}
+
+
 def check_flash_train(gen: torch.Generator, dev: torch.device, batch: int, heads: int, kv_heads: int,
                       seq: int, causal: bool) -> dict[str, dict]:
     """K7a, K7b and K7c against their plain versions at one training shape;
@@ -727,6 +747,9 @@ def check_flash_train(gen: torch.Generator, dev: torch.device, batch: int, heads
     )
     e = flash_train_errors(q, k, v, dout, causal)
     out, lse, dsum, dq, dk, dv = (e[key] for key in ("out", "lse", "dsum", "dq", "dk", "dv"))
+    repeatable = flash_bwd_repeatable(q, k, v, dout, lse, dsum, causal)
+    if not all(repeatable.values()):
+        raise AssertionError(f"K7b/K7c ({e['shape']}): a second launch gives other bits: {repeatable}")
 
     def check(*names: str) -> dict:
         """The check's readings for the named outputs, and the shifted mask's."""
@@ -761,6 +784,7 @@ def check_flash_train(gen: torch.Generator, dev: torch.device, batch: int, heads
         ),
         "flash_bwd_dq": dict(
             **check("dQ"),
+            bit_identical_runs=repeatable["dQ"],
             ms=time_ms(lambda: flash_bwd_dq(q, k, v, dout, lse, dsum, causal)),
             plain_ms=time_ms(lambda: flash_bwd_dq_reference(q, k, v, dout, lse, dsum, causal), warmup=1, reps=2),
             bound=bound(nbytes(q, k, v, dout, dq) + rows, 6 * flops),
@@ -768,6 +792,7 @@ def check_flash_train(gen: torch.Generator, dev: torch.device, batch: int, heads
         ),
         "flash_bwd_dkv": dict(
             **check("dK", "dV"),
+            bit_identical_runs=repeatable["dK"] and repeatable["dV"],
             ms=time_ms(lambda: flash_bwd_dkv(q, k, v, dout, lse, dsum, causal)),
             plain_ms=time_ms(lambda: flash_bwd_dkv_reference(q, k, v, dout, lse, dsum, causal), warmup=1, reps=2),
             bound=bound(nbytes(q, k, v, dout, dk, dv) + rows, 8 * flops),
@@ -790,8 +815,10 @@ def train_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig) -> dict[str
     results = check_flash_train(gen, dev, 2, dec.num_heads, dec.num_kv_heads, seq, causal=True)
     encoder = check_flash_train(gen, dev, 2, enc.num_heads, enc.num_heads, enc.tokens_per_clip, causal=False)
     for name, result in results.items():
-        for key in ("max_abs_err", "worst_ratio", "ms", "plain_ms", "bound_ms", "library_ms", "shape"):
-            result[f"encoder_{key}"] = encoder[name][key]
+        for key in ("max_abs_err", "worst_ratio", "bit_identical_runs", "ms", "plain_ms", "bound_ms", "library_ms",
+                    "shape"):
+            if key in encoder[name]:
+                result[f"encoder_{key}"] = encoder[name][key]
     return results
 
 
@@ -1402,7 +1429,7 @@ def main() -> None:
     ptxas = [line for line in _lib.build_log.splitlines()
              if any(word in line for word in ("Function properties", "registers", "spill", "setmaxnreg", "wgmma"))]
     emit({"phase": "ptxas", "lines": ptxas})
-    emit({"phase": "sass", "flash_fwd": flash_sass()})
+    emit({"phase": "sass", "flash": flash_sass()})
 
     t0 = time.perf_counter()
     tokenizer = BpeTokenizer.load(TOKENIZER)

@@ -12,9 +12,12 @@ bit. Attention (K1, K3 and the training
 kernels K7a-c) accumulates in f32 and rounds its bf16 output once, as the
 plain version does, so the two agree within 1e-2 of the largest output (one
 bf16 rounding step is at most 2**-7 of the value); K7a's f32 LSE within
-1e-3. K1 and K7a multiply bf16 on the tensor cores with P split into two
-bf16 parts, and are also held element by element at (1e-2, 1e-3): K1
-against attention with f32 weights, K7a against its f32 plain version.
+1e-3. K1 and K7a-c multiply bf16 on the tensor cores with P (and in K7b
+and K7c dS) split into two bf16 parts, and are also held element by
+element: K1 against attention with f32 weights at (1e-2, 1e-3), K7a's O
+and K7b's dQ at (1e-2, 1e-3) and K7c's f32 partials at (1e-3, 1e-4)
+against their f32 plain versions. K7b and K7c use no atomics: two launches
+give the same bits.
 The packed-int4 matmul (K6) equals its plain version bit for bit on
 integer-valued x (every partial sum exact in f32), and on normal x lies
 within (1e-2, 1e-3) element by element, where plain versions that swap the
@@ -32,6 +35,7 @@ from chip_smoke import (
     TRAIN_KERNELS,
     check_int4,
     decode_rows_reading,
+    flash_bwd_repeatable,
     flash_errors,
     flash_train_errors,
     mark_decode_edges,
@@ -262,6 +266,20 @@ def test_flash_train_kernels_match_plain(cuda, causal, hq, hkv, s):
     assert all(check["ratio"] <= 1 for check in errors["checks"].values())
     if causal:
         assert all(check["ratio"] > 1 for check in errors["shifted_mask"].values())
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_are_bit_identical_across_launches(cuda):
+    """K7b's dQ and K7c's dK/dV partials: two launches on the same inputs
+    give the same bits ([2, 8, 1024, 128], causal, GQA 8/2)."""
+    from video_transformer_tpu_torch.ops.flash_bwd import flash_fwd_lse
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, dout = randn(gen, 2, 8, 1024, 128, device=cuda), randn(gen, 2, 8, 1024, 128, device=cuda)
+    k, v = randn(gen, 2, 2, 1024, 128, device=cuda), randn(gen, 2, 2, 1024, 128, device=cuda)
+    out, lse = flash_fwd_lse(q, k, v, True)
+    dsum = (dout.float() * out.float()).sum(-1)
+    assert flash_bwd_repeatable(q, k, v, dout, lse, dsum, True) == {"dQ": True, "dK": True, "dV": True}
 
 
 @pytest.mark.cuda

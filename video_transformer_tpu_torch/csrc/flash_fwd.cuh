@@ -13,7 +13,8 @@
 // (causal or not, more with GQA), so the tensor cores (989 TF/s in bf16)
 // set the bound at every one of them, not the 3.35 TB/s of HBM.
 //
-// Design, for Hopper's tensor cores and copy engine:
+// Design, for Hopper's tensor cores and copy engine (the building blocks are in
+// hopper.cuh):
 // - One block per (q head, batch, 128-row q tile): two consumer warpgroups
 //   of 64 q rows each and one producer warpgroup, 384 threads, ~161 KB of
 //   dynamic shared memory, so one block per SM. The producer hands its
@@ -53,24 +54,15 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums (header only; no -lcuda)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 namespace flash_fwd {
+using namespace hopper;
 
-constexpr int kD = 128;                    // head_dim
 constexpr int kBM = 128;                   // q rows a block (2 warpgroups x 64)
 constexpr int kBN = 128;                   // keys a tile
 constexpr int kStages = 2;                 // k/v ring depth
-constexpr int kHalf = 64;                  // bf16 columns a 128-byte swizzle row holds
-constexpr int kConsumers = 256;            // two consumer warpgroups
-constexpr int kThreads = kConsumers + 128; // and one producer warpgroup
-constexpr int kProducerRegs = 24;          // setmaxnreg: the producer gives registers
-constexpr int kConsumerRegs = 240;         // to the consumers (24 + 2 x 240 <= 3 x 168)
 constexpr int kTileBytes = kBN * kD * 2;   // a q, k or v tile: 32 KB
 constexpr int kHalfBytes = kTileBytes / 2; // one 64-column box
 static_assert(kBM == kBN, "q, k and v tiles share one size and one box");
@@ -87,131 +79,6 @@ struct Smem {  // each tile sits on a 1024-byte boundary (the swizzle atom)
 };
 constexpr int kSmemBytes = (int)sizeof(Smem) + 1024;  // slack to align the base
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// -- mbarriers and TMA ---------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-// Arrive once and expect `bytes` from TMA before the phase completes.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One box [1, rows, 64] at (column c0, row c1, head c2) into shared `dst`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// -- wgmma -----------------------------------------------------------------------
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// byte offset (K-major: unused; MN-major: between 64-column halves) and a
-// stride of 1024 bytes between groups of 8 rows.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-// Wait until at most N committed groups of this warpgroup are still running.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Pin registers in place across the wgmma fences: the compiler may not move
-// their reads or writes past this point.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define VTX_ACC8(i)                                                                                      \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
-      "+f"(d[i + 7])
-#define VTX_ACC64 \
-  VTX_ACC8(0), VTX_ACC8(8), VTX_ACC8(16), VTX_ACC8(24), VTX_ACC8(32), VTX_ACC8(40), VTX_ACC8(48), VTX_ACC8(56)
-#define VTX_REGS64                                                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, " \
-  "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-
-// d (+)= A B for a 64 x 128 f32 tile, k = 16; A and B K-major in shared
-// memory. scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VTX_REGS64
-      ", %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : VTX_ACC64
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d += A B for a 64 x 128 f32 tile, k = 16; A (bf16x2) in registers, B
-// MN-major in shared memory (transpose-B).
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                            uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VTX_REGS64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : VTX_ACC64
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
-}
-
-#undef VTX_ACC8
-#undef VTX_ACC64
-#undef VTX_REGS64
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) { return *reinterpret_cast<uint32_t*>(&h); }
-
 // -- the consumer's steps ----------------------------------------------------------
 
 // S = Q K^T for the warpgroup's 64 rows against one key tile: 8 k-steps of
@@ -219,23 +86,8 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) { return *rein
 // as one group; the caller fences and waits.
 __device__ __forceinline__ void issue_scores(float (&sc)[64], uint32_t q_addr, uint32_t k_addr) {
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
-    wgmma_ss(sc, sw128_desc(q_addr + off, 16), sw128_desc(k_addr + off, 16), kk > 0);
-  }
-  wgmma_commit();
-}
-
-// O += P_hi V + P_lo V over one tile of 128 keys, 16 keys (16 rows of 128
-// bytes) a step. Issued and committed as one group.
-__device__ __forceinline__ void issue_pv(float (&acc)[64], const uint32_t (&p_hi)[32], const uint32_t (&p_lo)[32],
-                                         uint32_t v_addr) {
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-    const uint64_t b = sw128_desc(v_addr + kk * 16 * 128, kHalfBytes);
-    wgmma_rs_tb(acc, p_hi[4 * kk], p_hi[4 * kk + 1], p_hi[4 * kk + 2], p_hi[4 * kk + 3], b);
-    wgmma_rs_tb(acc, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2], p_lo[4 * kk + 3], b);
-  }
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss(sc, kmajor_desc(q_addr, kk, kHalfBytes), kmajor_desc(k_addr, kk, kHalfBytes), kk > 0);
   wgmma_commit();
 }
 
@@ -273,17 +125,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2], flo
   for (int i = 0; i < 64; ++i) {
     sc[i] = ex2(fmaf(sc[i], scale_log2, -m_use[(i / 2) % 2]));
     l[(i / 2) % 2] += sc[i];
-  }
-}
-
-// P as the A fragments of the P V products: P_hi = bf16(P) and
-// P_lo = bf16(P - P_hi), pairs of neighbouring columns in each register.
-__device__ __forceinline__ void split_p(const float (&p)[64], uint32_t (&p_hi)[32], uint32_t (&p_lo)[32]) {
-#pragma unroll
-  for (int i = 0; i < 64; i += 2) {
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(p[i], p[i + 1]);
-    p_hi[i / 2] = bf16x2_bits(hi);
-    p_lo[i / 2] = bf16x2_bits(__floats2bfloat162_rn(p[i] - __low2float(hi), p[i + 1] - __high2float(hi)));
   }
 }
 
@@ -375,7 +216,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   fence_regs(sc);
   mbar_arrive(&sm.k_empty[0]);
   softmax_tile(sc, m, l, alpha, crosses(0), 0, sk, causal, q_pos0, col0, scale_log2);
-  split_p(sc, p_hi, p_lo);
+  split_hi_lo(sc, p_hi, p_lo);
   for (int t = 1; t < num_tiles; ++t) {
     const int s = t % kStages;
     const int prev = (t - 1) % kStages;
@@ -386,7 +227,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
     issue_scores(sc, q_addr, smem_u32(sm.k[s]));
     mbar_wait(&sm.v_full[prev], ((t - 1) / kStages) & 1);
-    issue_pv(acc, p_hi, p_lo, smem_u32(sm.v[prev]));
+    issue_split_product<kBN / 16>(acc, p_hi, p_lo, smem_u32(sm.v[prev]), kHalfBytes);  // O += P V
     wgmma_wait<1>();  // S_t has landed; P_{t-1} V_{t-1} may still run
     fence_regs(sc);
     mbar_arrive(&sm.k_empty[s]);
@@ -396,7 +237,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_arrive(&sm.v_empty[prev]);
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i / 2) % 2];
-    split_p(sc, p_hi, p_lo);
+    split_hi_lo(sc, p_hi, p_lo);
   }
   const int last = (num_tiles - 1) % kStages;
   mbar_wait(&sm.v_full[last], ((num_tiles - 1) / kStages) & 1);
@@ -404,7 +245,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   fence_regs(p_hi);
   fence_regs(p_lo);
   wgmma_fence();
-  issue_pv(acc, p_hi, p_lo, smem_u32(sm.v[last]));
+  issue_split_product<kBN / 16>(acc, p_hi, p_lo, smem_u32(sm.v[last]), kHalfBytes);
   wgmma_wait<0>();
   fence_regs(acc);
 
@@ -429,38 +270,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // -- host side -------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up once per process through the runtime's
-// entry-point query (libcuda is already loaded; no -lcuda at link time).
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A 3-D map over [heads, s, 128] bf16 (heads = B * H), box [1, kBN, 64],
-// 128-byte swizzle; rows past s read as zeros.
-inline bool encode_map(CUtensorMap* map, const void* base, int heads, int s) {
-  const cuuint64_t dims[3] = {(cuuint64_t)kD, (cuuint64_t)s, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)kD * 2, (cuuint64_t)s * kD * 2};  // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {(cuuint32_t)kHalf, (cuuint32_t)kBN, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // Launch the forward on `stream`; `lse` is written only when kLse is true.
 // The shared-memory opt-in is set once per process and instantiation.
 template <bool kLse>
@@ -471,8 +280,8 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, void* out, flo
   if (opt_in != cudaSuccess) return (int)opt_in;
   if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_map(&q_map, q, batch * hq, sq) || !encode_map(&k_map, k, batch * hkv, sk) ||
-      !encode_map(&v_map, v, batch * hkv, sk))
+  if (!encode_map(&q_map, q, batch * hq, sq, kBM) || !encode_map(&k_map, k, batch * hkv, sk, kBN) ||
+      !encode_map(&v_map, v, batch * hkv, sk, kBN))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(hq, batch, (sq + kBM - 1) / kBM);
   flash_fwd_kernel<kLse><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(

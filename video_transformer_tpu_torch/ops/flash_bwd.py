@@ -46,6 +46,7 @@ __all__ = [
 
 _NEG_INF = -1e30
 _ALIGN = 128  # the JAX package's smallest flash-backward block
+_LOG2E = math.log2(math.e)
 
 
 def supports_flash_bwd(s_q: int, s_k: int) -> bool:
@@ -65,6 +66,16 @@ def _logits(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
     return logits
 
 
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """exp(x) as exp2(x log2(e)), one extra rounding (about |x| 2^-24 of the
+    result). On CPU tensors torch.exp and torch.logsumexp of float32 run
+    MKL's vector exp, which has returned values off by up to 1e-4 of
+    themselves on the second OpenMP thread, in the first call after an MKL
+    matrix product in a loaded process; torch.exp2 runs ATen's own
+    vectorized code."""
+    return torch.exp2(x * _LOG2E)
+
+
 def _grouped(t: torch.Tensor, hkv: int) -> torch.Tensor:
     """[B, Hq, S, ...] -> [B, Hkv, G, S, ...] in f32."""
     return t.float().reshape(t.shape[0], hkv, t.shape[1] // hkv, *t.shape[2:])
@@ -76,15 +87,16 @@ def flash_fwd_lse_reference(
     """Plain K7a: (O in q's dtype, LSE f32 [B, Hq, S]), all arithmetic in f32."""
     b, hq, s, d = q.shape
     logits = _logits(q, k, causal)
-    lse = torch.logsumexp(logits, dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", torch.exp(logits - lse[..., None]), v.float())
+    row_max = logits.amax(dim=-1, keepdim=True)
+    lse = row_max + torch.log(_exp(logits - row_max).sum(dim=-1, keepdim=True))
+    out = torch.einsum("bhgqk,bhkd->bhgqd", _exp(logits - lse), v.float())
     return out.reshape(b, hq, s, d).to(q.dtype), lse.reshape(b, hq, s)
 
 
 def _grad_scores(q, k, v, dout, lse, dsum, causal):
     """f32 (P, dS) [B, Hkv, G, S, S], recomputed from LSE and D."""
     hkv = k.shape[1]
-    p = torch.exp(_logits(q, k, causal) - _grouped(lse, hkv)[..., None])
+    p = _exp(_logits(q, k, causal) - _grouped(lse, hkv)[..., None])
     dp = torch.einsum("bhgqd,bhkd->bhgqk", _grouped(dout, hkv), v.float())
     ds = p * (dp - _grouped(dsum, hkv)[..., None]) * (1.0 / math.sqrt(q.shape[-1]))
     return p, ds
