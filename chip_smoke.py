@@ -4,14 +4,15 @@
 
 Builds the port's CUDA kernels from ``video_transformer_tpu_torch/csrc`` (one
 ``nvcc`` process per source, in parallel), counts the tensor-core
-instructions of the flash kernels (K1, K7a-c) in the built library's SASS,
-holds each kernel against its plain PyTorch version at the shapes of the
-serving, batcher and training paths and times both (K1 also element by
-element against f32-weight attention and at ragged lengths; K7b and K7c
-also twice on the same inputs, bit for bit; K5 also bit for bit against K2
-then K3; K3 and K5 also at 20-40 folded query rows per kv
-head; K6, the packed-int4 matmul, at the 7b decoder's four product shapes,
-bit for bit on integer inputs), checks
+instructions of the wgmma kernels (K1, K7a-c and each width of K6) in the
+built library's SASS, holds each kernel against its plain PyTorch version at
+the shapes of the serving, batcher and training paths and times both (K1
+also element by element against f32-weight attention and at ragged lengths;
+K7b and K7c also twice on the same inputs, bit for bit; K5 also bit for bit
+against K2 then K3; K3 and K5 also at 20-40 folded query rows per kv head;
+K6, the packed-int4 matmul, at the 7b decoder's four product shapes and at
+1-256 rows, bit for bit on integer inputs and twice on the same inputs, with
+the host's cost of a call beside torch.matmul's), checks
 the whole model against the plain versions on the CPU at the tiny preset
 (serving logits, the same with a narrow int4 decoder whose every projection
 takes K6, then training gradients), then:
@@ -51,6 +52,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import functools
+import itertools
 import json
 import math
 import re
@@ -93,7 +96,7 @@ from video_transformer_tpu_torch.ops.flash_bwd import (
     flash_fwd_lse,
     flash_fwd_lse_reference,
 )
-from video_transformer_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_reference, unpack_int4
+from video_transformer_tpu_torch.ops.int4_matmul import INT4_WIDTHS, int4_matmul, int4_matmul_reference, unpack_int4
 from video_transformer_tpu_torch.ops.preprocess import preprocess_frames
 from video_transformer_tpu_torch.parallel.engine import InferenceEngine
 from video_transformer_tpu_torch.parallel.serving import ContinuousBatcher, Request
@@ -122,7 +125,11 @@ ALL_KERNELS = KERNELS + BATCHER_KERNELS + TRAIN_KERNELS + INT4_KERNELS
 # 2 x block width 3: q and out, k and v, gate and up, down.
 INT4_SHAPES = {"q_out": (1792, 3584), "k_v": (1792, 512), "gate_up": (1792, 18944), "down": (9472, 3584)}
 INT4_DECODE_ROWS = 6
-INT4_WIDE_ROWS = (24, 256)  # the batcher's 8 slots x 3, and the top of K6's dispatch (gate shape)
+# Other row counts at the gate shape: 1 and 130 (x padded to wgmma widths 8
+# and 256), the batcher's 8 slots x 3, and the top of K6's dispatch.
+INT4_WIDE_ROWS = (1, 24, 130, 256)
+HOST_CALLS = 1000  # calls enqueued back to back, unsynchronised, for a wrapper's host cost
+COLD_BYTES = 100e6  # weight copies timed in turn, twice the H100's 50 MB L2 cache
 # A decoder narrow enough to run on the CPU whose every projection takes K6
 # (N and K/2 multiples of 128): the int4 whole-model reference.
 INT4_NARROW = dict(hidden_dim=256, num_layers=2, num_heads=2, num_kv_heads=1, head_dim=128, mlp_dim=512)
@@ -223,11 +230,12 @@ def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def flash_sass() -> dict[str, dict[str, int]]:
-    """Tensor-core instructions in each flash kernel of the built library
+def kernel_sass() -> dict[str, dict[str, int]]:
+    """Tensor-core instructions in each wgmma kernel of the built library
     (K1 is flash_fwd_kernel<false>, K7a <true>; K7b flash_bwd_dq_kernel, K7c
-    flash_bwd_dkv_kernel), counted in ``cuobjdump -sass``: HGMMA (wgmma) and
-    HMMA (mma.sync). Raises if a kernel is missing or has no HGMMA."""
+    flash_bwd_dkv_kernel; K6 int4_matmul_kernel<width> for each wgmma width),
+    counted in ``cuobjdump -sass``: HGMMA (wgmma) and HMMA (mma.sync). Raises
+    if a kernel is missing or has no HGMMA."""
     cuobjdump = Path(_lib._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", _lib.library()._name], capture_output=True, text=True,
                           timeout=120, check=True).stdout
@@ -242,14 +250,49 @@ def flash_sass() -> dict[str, dict[str, int]]:
                 name = "K7b flash_bwd_dq_kernel"
             elif "flash_bwd_dkv_kernel" in function:
                 name = "K7c flash_bwd_dkv_kernel"
+            elif "int4_matmul_kernel" in function:
+                name = f"K6 int4_matmul_kernel<{re.search(r'ILi(\d+)E', function).group(1)}>"
             if name:
                 counts[name] = {"HGMMA": 0, "HMMA": 0}
         elif name:
             for op in counts[name]:
                 counts[name][op] += bool(re.search(rf"\b{op}\b", line))
-    if len(counts) != 4 or not all(c["HGMMA"] for c in counts.values()):
-        raise AssertionError(f"a flash kernel runs no wgmma instruction: {counts}")
+    k6 = [name for name in counts if name.startswith("K6")]
+    if len(counts) - len(k6) != 4 or len(k6) != len(INT4_WIDTHS) or not all(c["HGMMA"] for c in counts.values()):
+        raise AssertionError(f"a wgmma kernel is missing or runs no wgmma instruction: {counts}")
     return counts
+
+
+def k6_ptxas(log: str) -> dict[str, dict]:
+    """ptxas's registers and spills for each K6 width, from the build log."""
+    out, width = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(r"int4_matmul_kernelILi(\d+)E", line)
+            width = found.group(1) if found else None
+            if width:
+                out[width] = {}
+        elif width and "spill stores" in line:
+            out[width]["spill_store_bytes"] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif width and "Used" in line and "registers" in line:
+            out[width]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host time to enqueue one call of ``fn``, in microseconds: ``calls``
+    calls back to back with no synchronize between them, after warm-up.
+    Where the card takes longer per call than the host, the launch queue
+    fills and this reads the card's rate instead."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
 
 
 def base_config(vocab_size: int, preset: str = "base") -> VLMConfig:
@@ -402,6 +445,7 @@ def kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, prompt_bucket: in
     results["write_cache_rows"] = {
         "max_abs_err": err, "tol": 0,
         "ms": time_ms(lambda: write_cache_rows(k_cache, v_cache, k_new, v_new, index, rows)),
+        "device_ms": device_ms(lambda: write_cache_rows(k_cache, v_cache, k_new, v_new, index, rows)),
         "plain_ms": time_ms(lambda: (update_cache_rows(k_ref, k_new, index, rows),
                                      update_cache_rows(v_ref, v_new, index, rows))),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -442,6 +486,7 @@ def kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, prompt_bucket: in
     results["decode_attention"] = {
         "max_abs_err": err, "tol": tol, "edge_max_abs_err": edge_err, "edge_tol": edge_tol,
         "ms": time_ms(lambda: decode_attention(q, k_cache, v_cache, lengths, rows, k_scale, v_scale)),
+        "device_ms": device_ms(lambda: decode_attention(q, k_cache, v_cache, lengths, rows, k_scale, v_scale)),
         "plain_ms": time_ms(lambda: _scaled_reference(q, k_cache, v_cache, lengths, rows, k_scale, v_scale)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "shape": (f"q bf16 [{batch},{dec.num_heads},{width},{d}] caches int8 [{phys_rows},{hkv},{cache_len},{d}]"
@@ -549,6 +594,8 @@ def batcher_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, park_len:
     results["adopt_rows"] = {
         "max_abs_err": err, "tol": 0,
         "ms": time_ms(lambda: adopt_rows(pool_k, stage_src_k, stage_rows, count, park_len, pool_v, stage_src_v)),
+        "device_ms": device_ms(
+            lambda: adopt_rows(pool_k, stage_src_k, stage_rows, count, park_len, pool_v, stage_src_v)),
         "plain_ms": time_ms(lambda: (adopt_rows_reference(ref_k, stage_src_k, stage_rows, count, park_len),
                                      adopt_rows_reference(ref_v, stage_src_v, stage_rows, count, park_len))),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": time_ms(library_adopt),
@@ -611,6 +658,7 @@ def batcher_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, park_len:
         "max_abs_err": err, "tol": tol, "edge_max_abs_err": edge_err, "edge_tol": edge_tol,
         "bit_equal_to_k2_k3": True, "splits": splits, "split_positions": split_len,
         "ms": time_ms(lambda: decode_attention_update(q, fused_k, fused_v, k_new, v_new, index, rows)),
+        "device_ms": device_ms(lambda: decode_attention_update(q, fused_k, fused_v, k_new, v_new, index, rows)),
         "k2_k3_ms": time_ms(lambda: (write_cache_rows(split_k, split_v, k_new, v_new, index, rows),
                                      decode_attention(q, split_k, split_v, index + 1, rows))),
         "plain_ms": time_ms(plain_update),
@@ -837,8 +885,11 @@ def check_int4(gen: torch.Generator, dev: torch.device, m: int, k2: int, n: int,
     (uniform random bytes, so every nibble value in both positions): bit-equal
     on integer x in [-4, 4] (every partial sum an integer below 2**24, exact
     in f32 in any order), and element by element under ``BF16_TOL`` on
-    normal x, where references with swapped or unsigned nibbles must fail.
-    Raises otherwise; returns the readings and, if ``timed``, the times."""
+    normal x, where references with swapped or unsigned nibbles must fail;
+    two launches on normal x give the same bits. Raises otherwise; returns
+    the readings and, if ``timed``, the times: CUDA-event ms, the profiler's
+    device ms, and the host's enqueue µs a call (``host_us``), each beside
+    ``torch.matmul`` on the unpacked weight, both with the weight cold in L2."""
     packed = torch.randint(0, 256, (k2, n), generator=gen, device=dev, dtype=torch.uint8)
     x_int = torch.randint(-4, 5, (m, 2 * k2), generator=gen, device=dev).to(torch.bfloat16)
     got, want = int4_matmul(x_int, packed), int4_matmul_reference(x_int, packed)
@@ -848,6 +899,8 @@ def check_int4(gen: torch.Generator, dev: torch.device, m: int, k2: int, n: int,
         raise AssertionError(f"int4_matmul at [{m},{2 * k2}] @ [{k2},{n}]: {differ} elements differ on integer x")
     x = torch.randn(m, 2 * k2, generator=gen, device=dev).to(torch.bfloat16)
     got, want = int4_matmul(x, packed), int4_matmul_reference(x, packed)
+    if not torch.equal(got, int4_matmul(x, packed)):
+        raise AssertionError(f"int4_matmul at [{m},{2 * k2}] @ [{k2},{n}]: two launches give different bits")
     check = closeness(got, want, *BF16_TOL)
     faults = {name: closeness(got, fault, *BF16_TOL)["ratio"] for name, fault in int4_faults(x, packed).items()}
     if not check["ratio"] <= 1:
@@ -855,18 +908,34 @@ def check_int4(gen: torch.Generator, dev: torch.device, m: int, k2: int, n: int,
     if not all(ratio > 1 for ratio in faults.values()):
         raise AssertionError(f"int4_matmul: a faulty plain version passes the check: {faults}")
     reading = {"shape": f"x bf16 [{m},{2 * k2}] @ packed uint8 [{k2},{n}]", "integer_x_bit_equal": True,
+               "bit_identical_runs": True,
                "max_abs_err": check["max_abs_err"], "worst_ratio": check["ratio"],
                "tol": "|d| <= %g |want| + %g rms(want)" % BF16_TOL, "fault_ratios": faults}
     if not timed:
         return reading
-    w = torch.empty(2 * k2, n, dtype=torch.bfloat16, device=dev)  # the unpacked weight, for the library call
-    w[0::2], w[1::2] = unpack_int4(packed)
+    # A decode step reads each weight once, from HBM: K6 and the library call
+    # are timed over copies of their weights that together exceed the 50 MB
+    # L2 cache, one copy a call.
+    packs = [packed] + [torch.randint(0, 256, (k2, n), generator=gen, device=dev, dtype=torch.uint8)
+                        for _ in range(math.ceil(COLD_BYTES / nbytes(packed)) - 1)]
+    unpacked = []
+    for weight in packs[:math.ceil(COLD_BYTES / (4 * nbytes(packed)))]:
+        w = torch.empty(2 * k2, n, dtype=torch.bfloat16, device=dev)  # the unpacked weight, for the library call
+        w[0::2], w[1::2] = unpack_int4(weight)
+        unpacked.append(w)
+    k6 = rotating([functools.partial(int4_matmul, x, p) for p in packs])
+    library = rotating([functools.partial(torch.matmul, x, w) for w in unpacked])
     bound_ms, bound_by = bound(nbytes(packed) + 2 * m * 2 * k2 + 2 * m * n, 2 * m * 2 * k2 * n)
-    return dict(reading, ms=time_ms(lambda: int4_matmul(x, packed)),
-                plain_ms=time_ms(lambda: int4_matmul_reference(x, packed)),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=time_ms(lambda: torch.matmul(x, w)),
-                device_ms=device_ms(lambda: int4_matmul(x, packed)),
-                library_device_ms=device_ms(lambda: torch.matmul(x, w)))
+    return dict(reading, ms=time_ms(k6), plain_ms=time_ms(lambda: int4_matmul_reference(x, packed)),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=time_ms(library),
+                device_ms=device_ms(k6), library_device_ms=device_ms(library),
+                host_us=host_us(k6), library_host_us=host_us(library), weight_copies=[len(packs), len(unpacked)])
+
+
+def rotating(calls: list):
+    """One callable that makes the next of ``calls`` each time, in turn."""
+    turn = itertools.cycle(calls)
+    return lambda: next(turn)()
 
 
 def int4_kernel_phase(seed: int, dev: torch.device) -> dict:
@@ -1425,11 +1494,12 @@ def main() -> None:
 
     t0 = time.perf_counter()
     _lib.library()
-    emit({"phase": "build", "nvcc_seconds": _lib.build_seconds, "load_seconds": time.perf_counter() - t0})
+    emit({"phase": "build", "nvcc_seconds": _lib.build_seconds, "load_seconds": time.perf_counter() - t0,
+          "k6_ptxas": k6_ptxas(_lib.build_log)})
     ptxas = [line for line in _lib.build_log.splitlines()
              if any(word in line for word in ("Function properties", "registers", "spill", "setmaxnreg", "wgmma"))]
     emit({"phase": "ptxas", "lines": ptxas})
-    emit({"phase": "sass", "flash": flash_sass()})
+    emit({"phase": "sass", "kernels": kernel_sass()})
 
     t0 = time.perf_counter()
     tokenizer = BpeTokenizer.load(TOKENIZER)
@@ -1509,8 +1579,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     int4_kernels, int4_served = int4_serving_phase(args.seed, dev, tokenizer, grammar)
     for name, result in int4_kernels.items():  # K1-K3 at the 7b shapes, beside the base ones
-        for key in ("max_abs_err", "tol", "worst_ratio", "shifted_mask_ratio", "ms", "plain_ms", "bound_ms",
-                    "library_ms", "shape", "encoder_max_abs_err", "encoder_worst_ratio", "encoder_ms",
+        for key in ("max_abs_err", "tol", "worst_ratio", "shifted_mask_ratio", "ms", "device_ms", "plain_ms",
+                    "bound_ms", "library_ms", "shape", "encoder_max_abs_err", "encoder_worst_ratio", "encoder_ms",
                     "encoder_plain_ms", "encoder_bound_ms", "encoder_library_ms", "encoder_shape",
                     "ragged_worst_ratio"):
             if key in result:

@@ -21,7 +21,8 @@ give the same bits.
 The packed-int4 matmul (K6) equals its plain version bit for bit on
 integer-valued x (every partial sum exact in f32), and on normal x lies
 within (1e-2, 1e-3) element by element, where plain versions that swap the
-nibbles or read them unsigned must fail.
+nibbles or read them unsigned must fail; it uses no atomics either (two
+launches give the same bits).
 """
 
 import numpy as np
@@ -378,18 +379,32 @@ def test_tiny_batcher_runs_through_k4_and_k5(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [3, 6, 24, 256])
+@pytest.mark.parametrize("m", [1, 3, 6, 9, 24, 130, 256])
 @pytest.mark.parametrize("shape", sorted(INT4_SHAPES))
 def test_int4_matmul_matches_plain_at_7b_shapes(cuda, m, shape):
     """K6 at the 7b decoder's four product shapes: bit-equal on integer x,
     within tolerance on normal x, and the swapped- and unsigned-nibble plain
-    versions fail the same check (check_int4 raises otherwise)."""
+    versions fail the same check, and two launches on normal x give the same
+    bits (check_int4 raises otherwise). M = 1, 9 and 130 pad x's rows to
+    wgmma widths 8, 16 and 256 (TMA's zero rows)."""
     gen = torch.Generator(device=cuda).manual_seed(m)
     before = int4_matmul.launches
     reading = check_int4(gen, cuda, m, *INT4_SHAPES[shape], timed=False)
-    assert int4_matmul.launches == before + 2
-    assert reading["integer_x_bit_equal"] and reading["worst_ratio"] <= 1
+    assert int4_matmul.launches == before + 3  # integer x, then normal x twice
+    assert reading["integer_x_bit_equal"] and reading["bit_identical_runs"] and reading["worst_ratio"] <= 1
     assert all(ratio > 1 for ratio in reading["fault_ratios"].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,shape", [(6, "k_v"), (256, "gate_up")])
+def test_int4_matmul_is_bit_identical_across_launches(cuda, m, shape):
+    """K6 folds its K/2 splits in rank order through shared memory, with no
+    atomics: two launches on the same normal inputs give the same bits."""
+    k2, n = INT4_SHAPES[shape]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    packed = torch.randint(0, 256, (k2, n), generator=gen, device=cuda, dtype=torch.uint8)
+    x = torch.randn(m, 2 * k2, generator=gen, device=cuda).to(torch.bfloat16)
+    assert torch.equal(int4_matmul(x, packed), int4_matmul(x, packed))
 
 
 @pytest.mark.cuda

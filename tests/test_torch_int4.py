@@ -34,7 +34,7 @@ from video_transformer_tpu_torch.models.config import get_preset
 from video_transformer_tpu_torch.models.lm import QDense, init_kv_cache
 from video_transformer_tpu_torch.models.quant import pack_int4, quantize_decoder, quantize_kernel, unpack_int4
 from video_transformer_tpu_torch.ops import int4_matmul as int4_module
-from video_transformer_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_reference, int4_splits
+from video_transformer_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_reference, int4_plan, int4_split_units
 from video_transformer_tpu_torch.weights import from_jax_params
 
 torch.set_num_threads(2)
@@ -231,7 +231,7 @@ def routes(monkeypatch, m: int, k2: int, n: int, device: str = "meta", lead: tup
 
     def record(x, packed):
         launched.append("K6")
-        return torch.empty(x.shape[0], packed.shape[1], dtype=torch.bfloat16, device=x.device)
+        return torch.empty(*x.shape[:-1], packed.shape[1], dtype=torch.bfloat16, device=x.device)
 
     monkeypatch.setattr(int4_module, "_int4_matmul_cuda", record)
     x = torch.empty(*lead, m, 2 * k2, dtype=torch.bfloat16, device=device)
@@ -265,11 +265,12 @@ def test_cpu_never_takes_the_kernel(monkeypatch):
 @pytest.mark.parametrize("m", [1, 3, 6, 24, 256])
 @pytest.mark.parametrize("k2,n", SHAPES_7B)
 def test_kernel_grid_covers_the_product(m, k2, n):
-    """K6's grid: at most 8 rows a block, splits that are multiples of 16
-    rows and cover K/2 exactly once, and enough blocks for 132 SMs where
-    K/2 allows a split of 64 rows or more."""
-    rows, split_rows, splits = int4_splits(m, k2, n)
-    assert 1 <= rows <= 8 and math.ceil(m / rows) == math.ceil(m / 8)
-    assert split_rows % 16 == 0 and split_rows * (splits - 1) < k2 <= split_rows * splits
-    blocks = math.ceil(m / rows) * (n // 128) * splits
-    assert blocks >= 132 or split_rows == 64
+    """K6's plan: one tile of x rows (a wgmma width that holds all M rows, so
+    the weight is read once), splits that cover K/2 exactly once in stages
+    of 64 rows, and enough blocks for 132 SMs where the cluster's 8 splits
+    and K/2 allow it."""
+    width, splits = int4_plan(m, k2, n)
+    assert width == min(w for w in (8, 16, 24, 32, 64, 128, 256) if w >= m)
+    rows = int4_split_units(k2, splits)
+    assert [j for r in rows for j in r] == list(range(k2)) and all(len(r) % 64 == 0 and len(r) for r in rows)
+    assert 1 <= splits <= 8 and (n // 128) * splits >= min(132, (n // 128) * min(8, k2 // 64))

@@ -1,7 +1,8 @@
 // Hopper building blocks of the flash kernels (flash_fwd.cuh for K1 and
-// K7a, flash_bwd.cu for K7b and K7c): the warpgroup layout, TMA copies with
-// mbarriers, 128-byte-swizzled shared-memory descriptors, the wgmma forms
-// the kernels use, and the bf16 hi + lo split of an f32 register tile.
+// K7a, flash_bwd.cu for K7b and K7c) and of K6 (int4_matmul.cu): the
+// warpgroup layout, TMA copies with mbarriers, 128-byte-swizzled
+// shared-memory descriptors, the wgmma forms the flash kernels use, and the
+// bf16 hi + lo split of an f32 register tile.
 //
 // Every tile is [rows, 128] bf16 (head_dim 128), stored as two boxes of 64
 // columns: one row of a box is 128 bytes, the span of the 128-byte swizzle.
@@ -69,6 +70,15 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One box of a 2-D map at (column c0, row c1) into shared `dst`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -252,6 +262,20 @@ inline bool encode_map(CUtensorMap* map, const void* base, int heads, int s, int
   return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D map over a row-major [rows, cols] array of `elem_bytes`-byte elements,
+// box [box_rows, box_cols] (box_cols * elem_bytes = 128, the swizzle span),
+// 128-byte swizzle; rows past `rows` read as zeros.
+inline bool encode_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem_bytes, int rows,
+                          int cols, int box_rows, int box_cols) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode_tiled()(map, type, 2, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

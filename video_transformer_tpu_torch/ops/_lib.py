@@ -61,8 +61,8 @@ _SIGNATURES = {
     "vtx_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # q, k, v, dout, lse, dsum, dk_part, dv_part, B, Hq, Hkv, S, D, causal, scale, stream
     "vtx_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    # x, packed, out, partial, M, K2, N, rows_per_block, split_rows, splits, stream
-    "vtx_int4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, packed, out, M, K2, N, n_pad, splits, stream
+    "vtx_int4_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 build_seconds = 0.0
@@ -134,5 +134,6 @@ def ptr(t: torch.Tensor | None) -> int | None:
 
 
 def stream(t: torch.Tensor) -> int:
-    """The current CUDA stream of ``t``'s device, as a raw handle."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as a raw handle (the
+    handle alone, without building a ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

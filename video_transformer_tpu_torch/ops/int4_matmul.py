@@ -24,20 +24,22 @@ arithmetic: f32 accumulation, one rounding to bf16.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from . import _lib
 
-__all__ = ["int4_matmul", "int4_matmul_reference", "int4_splits", "unpack_int4"]
+__all__ = ["INT4_WIDTHS", "int4_matmul", "int4_matmul_reference", "int4_plan", "int4_split_units", "unpack_int4"]
 
 _MAX_M = 256  # beyond this row count the product is compute-bound (JAX _MAX_M)
-_BLOCK_N = 128  # output columns per K6 block (csrc/int4_matmul.cu kBlockN)
-_MAX_ROWS = 8  # x rows per K6 block (kMaxRows)
-_SPLIT_ALIGN = 16  # K/2 rows per split are a multiple of this (kWarps * kGroup)
-_MIN_SPLIT_ROWS = 64
-_TARGET_BLOCKS = 528  # four 128-thread blocks per SM on 132 SMs
+_BLOCK_N = 128  # output channels per K6 block (csrc/int4_matmul.cu kBlockN)
+_UNIT_ROWS = 64  # K/2 rows per stage of the weight ring (kUnitRows)
+INT4_WIDTHS = (8, 16, 24, 32, 64, 128, 256)  # the wgmma widths K6 is built for: rows of x, padded
+_MAX_SPLITS = 8  # blocks of one cluster that split K/2 (kMaxSplits)
+_SMS = 132  # H100 SXM
+_FILL_UNITS = 4  # a block's fixed cost (ring fill, fold) in stages, for the plan
 
 
 def unpack_int4(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -59,36 +61,56 @@ def int4_matmul_reference(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor
     return (xf[:, 0::2] @ lo.float() + xf[:, 1::2] @ hi.float()).to(torch.bfloat16)
 
 
-def int4_splits(m: int, k2: int, n: int) -> tuple[int, int, int]:
-    """K6's grid: (rows per block, K/2 rows per split, splits). The K/2 range
-    splits until about ``_TARGET_BLOCKS`` blocks fill the card, no split
-    shorter than ``_MIN_SPLIT_ROWS`` rows; the last split may be shorter."""
-    m_tiles = math.ceil(m / _MAX_ROWS)
-    rows = math.ceil(m / m_tiles)
-    wanted = max(1, math.ceil(_TARGET_BLOCKS / (m_tiles * (n // _BLOCK_N))))
-    split_rows = math.ceil(math.ceil(k2 / wanted) / _SPLIT_ALIGN) * _SPLIT_ALIGN
-    split_rows = min(max(split_rows, _MIN_SPLIT_ROWS), k2)
-    return rows, split_rows, math.ceil(k2 / split_rows)
+@functools.lru_cache(maxsize=None)
+def int4_plan(m: int, k2: int, n: int) -> tuple[int, int]:
+    """K6's grid for x [m, 2 k2] @ packed [k2, n]: (width, splits).
+
+    ``width`` is the wgmma N that holds all m rows of x (one tile of rows,
+    so each weight byte is read once). A block owns 128 output channels, and
+    ``splits`` blocks of one cluster share its K/2 rows (``int4_split_units``).
+    Where no count gives a block per SM, the plan takes the most splits;
+    otherwise, among the counts that do, the one that minimises waves x
+    (stages per block + a fixed cost), where a wave is 132 SMs times the
+    blocks an SM holds (three up to width 32, two at 64, one above:
+    ``kBlocksPerSm``); ties go to fewer splits."""
+    width = next(w for w in INT4_WIDTHS if w >= m)
+    tiles, units = n // _BLOCK_N, k2 // _UNIT_ROWS
+    slots = _SMS * (3 if width <= 32 else 2 if width <= 64 else 1)
+    counts = [s for s in range(1, min(_MAX_SPLITS, units) + 1) if tiles * s >= _SMS]
+    if not counts:
+        return width, min(_MAX_SPLITS, units)
+
+    def cost(splits: int) -> int:
+        return math.ceil(tiles * splits / slots) * (math.ceil(units / splits) + _FILL_UNITS)
+
+    return width, min(counts, key=cost)
+
+
+def int4_split_units(k2: int, splits: int) -> list[range]:
+    """The K/2 rows each of ``splits`` blocks multiplies, in rank order
+    (the kernel's ``first`` and ``count``): stages of 64 rows, shared out as
+    evenly as integers allow."""
+    units = k2 // _UNIT_ROWS
+    return [range(_UNIT_ROWS * (r * units // splits), _UNIT_ROWS * ((r + 1) * units // splits))
+            for r in range(splits)]
 
 
 def _int4_matmul_cuda(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
-    """K6: x bf16 [M, K] @ packed uint8 [K/2, N] -> bf16 [M, N]."""
-    m, k = x.shape
+    """K6: x bf16 [..., K] @ packed uint8 [K/2, N] -> bf16 [..., N]. The
+    leading dims of x are its M rows; no Python work beyond the checks."""
     k2, n = packed.shape
-    for name, t, dtype in (("x", x, torch.bfloat16), ("packed", packed, torch.uint8)):
-        if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"int4_matmul: {name} must be a contiguous {dtype} CUDA tensor")
-        if t.data_ptr() % 16:
-            raise ValueError(f"int4_matmul: {name} must be 16-byte aligned")
-    if k != 2 * k2 or m > _MAX_M or n % 128 or k2 % 128:
+    k = x.shape[-1]
+    m = x.numel() // k if k else 0
+    if (x.dtype != torch.bfloat16 or packed.dtype != torch.uint8 or x.get_device() != packed.get_device()
+            or not (x.is_contiguous() and packed.is_contiguous()) or (x.data_ptr() | packed.data_ptr()) % 16):
+        raise ValueError("int4_matmul: x and packed must be contiguous, 16-byte aligned bfloat16 and uint8"
+                         " tensors on one CUDA device")
+    if k != 2 * k2 or not 0 < m <= _MAX_M or n % 128 or k2 % 128:
         raise ValueError(f"int4_matmul: x {tuple(x.shape)} @ packed {tuple(packed.shape)} unsupported")
-    rows, split_rows, splits = int4_splits(m, k2, n)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
+    width, splits = int4_plan(m, k2, n)
+    out = torch.empty((*x.shape[:-1], n), dtype=torch.bfloat16, device=x.device)
     code = _lib.library().vtx_int4_matmul(
-        x.data_ptr(), packed.data_ptr(), out.data_ptr(), _lib.ptr(partial),
-        m, k2, n, rows, split_rows, splits, _lib.stream(x),
-    )
+        x.data_ptr(), packed.data_ptr(), out.data_ptr(), m, k2, n, width, splits, _lib.stream(x))
     _lib.check("vtx_int4_matmul", code)
     int4_matmul.launches += 1
     return out
@@ -96,16 +118,16 @@ def _int4_matmul_cuda(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ packed int4 [K/2, N] -> [..., N] in x's dtype (unscaled)."""
-    lead = x.shape[:-1]
-    m = math.prod(lead)
     k2, n = packed.shape
-    xf = x.reshape(m, x.shape[-1])
     # The JAX dispatch's conditions (its ``_pick`` of N and K/2 tiles), off the CPU.
-    if x.device.type != "cpu" and m <= _MAX_M and n % 128 == 0 and k2 % 128 == 0:
-        y = _int4_matmul_cuda(xf.to(torch.bfloat16).contiguous(), packed)
-    else:
-        w_even, w_odd = unpack_int4(packed)
-        y = xf[:, 0::2] @ w_even.to(x.dtype) + xf[:, 1::2] @ w_odd.to(x.dtype)
+    if x.device.type != "cpu" and x.numel() <= _MAX_M * x.shape[-1] and n % 128 == 0 and k2 % 128 == 0:
+        xb = x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
+        y = _int4_matmul_cuda(xb if xb.is_contiguous() else xb.contiguous(), packed)
+        return y if x.dtype == torch.bfloat16 else y.to(x.dtype)
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, x.shape[-1])
+    w_even, w_odd = unpack_int4(packed)
+    y = xf[:, 0::2] @ w_even.to(x.dtype) + xf[:, 1::2] @ w_odd.to(x.dtype)
     return y.reshape(*lead, n).to(x.dtype)
 
 
