@@ -4,15 +4,19 @@
 
 Builds the port's CUDA kernels from ``video_transformer_tpu_torch/csrc`` (one
 ``nvcc`` process per source, in parallel), counts the tensor-core
-instructions of the wgmma kernels (K1, K7a-c and each width of K6) in the
-built library's SASS, holds each kernel against its plain PyTorch version at
-the shapes of the serving, batcher and training paths and times both (K1
-also element by element against f32-weight attention and at ragged lengths;
-K7b and K7c also twice on the same inputs, bit for bit; K5 also bit for bit
-against K2 then K3; K3 and K5 also at 20-40 folded query rows per kv head;
-K6, the packed-int4 matmul, at the 7b decoder's four product shapes and at
-1-256 rows, bit for bit on integer inputs and twice on the same inputs, with
-the host's cost of a call beside torch.matmul's), checks
+instructions of the wgmma kernels (K1, K7a-c and each width of K6) and of
+each instantiation of K3 and K5 (mma.sync) in the built library's SASS,
+holds each kernel against its plain PyTorch version at the shapes of the
+serving, batcher and training paths and times both (K1 also element by
+element against f32-weight attention and at ragged lengths; K7b and K7c
+also twice on the same inputs, bit for bit; K5 also bit for bit against K2
+then K3, with new positions across a split edge; K3 and K5 also at 20-80
+folded query rows per kv head, twice on the same inputs, one kernel a call,
+and with the host's cost of a call; K3 on the batcher's bf16 pool beside
+scaled_dot_product_attention with a length mask; K6, the packed-int4
+matmul, at the 7b decoder's four product shapes and at 1-256 rows, bit for
+bit on integer inputs and twice on the same inputs, with the host's cost of
+a call beside torch.matmul's), checks
 the whole model against the plain versions on the CPU at the tiny preset
 (serving logits, the same with a narrow int4 decoder whose every projection
 takes K6, then training gradients), then:
@@ -79,12 +83,13 @@ from video_transformer_tpu_torch.ops import _lib
 from video_transformer_tpu_torch.ops import flash_bwd as flash_bwd_module
 from video_transformer_tpu_torch.ops.attention import flash_attention, mha_reference
 from video_transformer_tpu_torch.ops.decode_attention import (
-    _decode_buffers,
     _scaled_reference,
     adopt_rows,
     adopt_rows_reference,
     decode_attention,
     decode_attention_update,
+    decode_plan,
+    decode_splits,
     update_cache_rows,
     write_cache_rows,
 )
@@ -196,27 +201,51 @@ def time_ms(fn, warmup: int = 3, reps: int = 10, rounds: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 20, tries: int = 3) -> float:
-    """Device time of one call of ``fn`` in ms: the self device time of the
-    kernels it launches, summed by torch.profiler over ``calls`` calls, after
-    one warm-up call. Unlike ``time_ms`` it leaves out the host's time between
-    launches, which sets ``time_ms`` where a call's kernels are short. A
-    profile that records no device activity at all (CUPTI has dropped a
-    short window's records) is taken again, up to ``tries`` times."""
+def device_profile(fn, calls: int = 20, tries: int = 5) -> tuple[float, float]:
+    """Device time of one call of ``fn`` in ms, and the device kernels a
+    call launches: the self device time and the count of the kernels it
+    launches, summed by torch.profiler over ``calls`` calls, after one
+    warm-up call. Unlike ``time_ms`` it leaves out the host's time between
+    launches, which sets ``time_ms`` where a call's kernels are short.
+    CUPTI sometimes drops records of a short window: a profile that records
+    no device activity, or a count of kernels that is no multiple of
+    ``calls``, is taken again, up to ``tries`` times; after that the last
+    profile with device time stands."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    reading = None
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        total, count = sum(e.self_device_time_total for e in events), sum(e.count for e in events)
         if total:
-            return total / 1e3 / calls
-    raise AssertionError(f"device_ms: the profiler saw no device time in {tries} tries")
+            reading = (total / 1e3 / calls, count / calls)
+            if count % calls == 0:
+                return reading
+    if reading is None:
+        raise AssertionError(f"device_ms: the profiler saw no device time in {tries} tries")
+    return reading
+
+
+def device_ms(fn, calls: int = 20, tries: int = 5) -> float:
+    """Device time of one call of ``fn`` in ms (``device_profile``)."""
+    return device_profile(fn, calls, tries)[0]
+
+
+def one_kernel_readings(fn) -> dict:
+    """K3's and K5's timings at one shape: CUDA-event ms, the profiler's
+    device ms, and the host's enqueue µs a call; raises unless the profiler
+    sees exactly one kernel a call."""
+    ms, kernels = device_profile(fn)
+    if kernels != 1:
+        raise AssertionError(f"{kernels} device kernels a call, expected one")
+    return {"ms": time_ms(fn), "device_ms": ms, "kernels_per_call": kernels, "host_us": host_us(fn)}
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -230,12 +259,25 @@ def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+DECODE_INSTANTIATIONS = 9  # K3 int8 and bf16, K5 bf16; each with 4, 2 and 1 warps a 16-row group
+
+
+def decode_name(function: str) -> str:
+    """K3/K5's name for a mangled decode_kernel<T, kFused, kParts>."""
+    kind = "K5" if "Lb1E" in function else "K3"
+    cache = "int8" if "decode_kernelIa" in function else "bf16"
+    parts = re.search(r"Lb[01]ELi(\d+)E", function).group(1)
+    return f"{kind} decode_kernel<{cache}, parts {parts}>"
+
+
 def kernel_sass() -> dict[str, dict[str, int]]:
     """Tensor-core instructions in each wgmma kernel of the built library
     (K1 is flash_fwd_kernel<false>, K7a <true>; K7b flash_bwd_dq_kernel, K7c
-    flash_bwd_dkv_kernel; K6 int4_matmul_kernel<width> for each wgmma width),
-    counted in ``cuobjdump -sass``: HGMMA (wgmma) and HMMA (mma.sync). Raises
-    if a kernel is missing or has no HGMMA."""
+    flash_bwd_dkv_kernel; K6 int4_matmul_kernel<width> for each wgmma width)
+    and in each instantiation of K3 and K5 (decode_kernel<cache, fused,
+    warps a group>), counted in ``cuobjdump -sass``: HGMMA (wgmma) and HMMA
+    (mma.sync). Raises if a kernel is missing, a wgmma kernel has no HGMMA
+    or a K3/K5 instantiation no HMMA."""
     cuobjdump = Path(_lib._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", _lib.library()._name], capture_output=True, text=True,
                           timeout=120, check=True).stdout
@@ -252,31 +294,48 @@ def kernel_sass() -> dict[str, dict[str, int]]:
                 name = "K7c flash_bwd_dkv_kernel"
             elif "int4_matmul_kernel" in function:
                 name = f"K6 int4_matmul_kernel<{re.search(r'ILi(\d+)E', function).group(1)}>"
+            elif "decode_kernel" in function:
+                name = decode_name(function)
             if name:
                 counts[name] = {"HGMMA": 0, "HMMA": 0}
         elif name:
             for op in counts[name]:
                 counts[name][op] += bool(re.search(rf"\b{op}\b", line))
     k6 = [name for name in counts if name.startswith("K6")]
-    if len(counts) - len(k6) != 4 or len(k6) != len(INT4_WIDTHS) or not all(c["HGMMA"] for c in counts.values()):
+    decode = [name for name in counts if name.startswith(("K3", "K5"))]
+    wgmma = [c for name, c in counts.items() if name not in decode]
+    if len(wgmma) - len(k6) != 4 or len(k6) != len(INT4_WIDTHS) or not all(c["HGMMA"] for c in wgmma):
         raise AssertionError(f"a wgmma kernel is missing or runs no wgmma instruction: {counts}")
+    if len(decode) != DECODE_INSTANTIATIONS or not all(counts[name]["HMMA"] for name in decode):
+        raise AssertionError(f"a K3/K5 instantiation is missing or runs no mma instruction: {counts}")
     return counts
+
+
+def ptxas_usage(log: str, kernel: str, name) -> dict[str, dict]:
+    """ptxas's registers and spills for each entry function whose mangled
+    name contains ``kernel``, from the build log, keyed by ``name(mangled)``."""
+    out, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(r"'(\S+)'", line.split("Compiling entry function", 1)[1])
+            key = name(found.group(1)) if found and kernel in found.group(1) else None
+            if key:
+                out[key] = {}
+        elif key and "spill stores" in line:
+            out[key]["spill_store_bytes"] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif key and "Used" in line and "registers" in line:
+            out[key]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
 
 
 def k6_ptxas(log: str) -> dict[str, dict]:
     """ptxas's registers and spills for each K6 width, from the build log."""
-    out, width = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            found = re.search(r"int4_matmul_kernelILi(\d+)E", line)
-            width = found.group(1) if found else None
-            if width:
-                out[width] = {}
-        elif width and "spill stores" in line:
-            out[width]["spill_store_bytes"] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
-        elif width and "Used" in line and "registers" in line:
-            out[width]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
-    return out
+    return ptxas_usage(log, "int4_matmul_kernel", lambda f: re.search(r"int4_matmul_kernelILi(\d+)E", f).group(1))
+
+
+def decode_ptxas(log: str) -> dict[str, dict]:
+    """ptxas's registers and spills for each K3/K5 instantiation."""
+    return ptxas_usage(log, "decode_kernel", decode_name)
 
 
 def host_us(fn, calls: int = HOST_CALLS) -> float:
@@ -478,6 +537,8 @@ def kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, prompt_bucket: in
     edge_ref_err = (edge_ref.float() - expected).abs().max().item()
     if max(edge_err, edge_ref_err) > edge_tol:
         raise AssertionError(f"decode_attention at the causal edge: kernel {edge_err}, plain {edge_ref_err} > {edge_tol}")
+    if not torch.equal(out, decode_attention(q, k_cache, v_cache, lengths, rows, k_scale, v_scale)):
+        raise AssertionError("decode_attention: two launches on the same inputs give different bits")
     group = dec.num_heads // hkv
     visible = sum(int(n) + width - 1 for n in lengths.tolist())  # positions read per kv head
     cache_bytes = 2 * hkv * visible * d  # int8 k and v
@@ -485,27 +546,49 @@ def kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, prompt_bucket: in
     bound_ms, bound_by = bound(cache_bytes + 2 * nbytes(q) + nbytes(lengths, rows, k_scale, v_scale), flops)
     results["decode_attention"] = {
         "max_abs_err": err, "tol": tol, "edge_max_abs_err": edge_err, "edge_tol": edge_tol,
-        "ms": time_ms(lambda: decode_attention(q, k_cache, v_cache, lengths, rows, k_scale, v_scale)),
-        "device_ms": device_ms(lambda: decode_attention(q, k_cache, v_cache, lengths, rows, k_scale, v_scale)),
+        "bit_identical_runs": True, "splits": decode_splits(batch, hkv, cache_len),
+        **one_kernel_readings(lambda: decode_attention(q, k_cache, v_cache, lengths, rows, k_scale, v_scale)),
         "plain_ms": time_ms(lambda: _scaled_reference(q, k_cache, v_cache, lengths, rows, k_scale, v_scale)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "library": "none for an int8 cache: no PyTorch call attends over int8 k/v with per-head scales"
+                   " (a bf16 pool beside SDPA: the bf16_ keys)",
         "shape": (f"q bf16 [{batch},{dec.num_heads},{width},{d}] caches int8 [{phys_rows},{hkv},{cache_len},{d}]"
                   f" lengths={lengths.tolist()} rows=[2,0]"),
     }
     return results
 
 
-DECODE_ROW_SHAPES = ((4, 5), (7, 3), (4, 7), (8, 5))  # (group, W): 20, 21, 28 and 40 rows per kv head
+# (group, W): 20, 21, 28, 40 and 49 folded rows per kv head (49: speculative
+# verify blocks of 7 at the 7b preset's group of 7), and 80, past the 64 rows
+# a block keeps in registers (a second pass over its tiles).
+DECODE_ROW_SHAPES = ((4, 5), (7, 3), (4, 7), (8, 5), (7, 7), (16, 5))
+
+
+def split_edge_index(width: int, s_cache: int, splits: int, start: int = 0) -> int:
+    """The first cache index at or after ``start`` whose ``width`` new
+    positions (K5, which attends with lengths index + 1) fall in the tiles
+    of two blocks of ``decode_plan``: one block writes the first of them,
+    another the rest. The new positions end the valid extent, and the last
+    block of a plan holds more than one tile once the extent has more tiles
+    than the cluster has blocks, so such an index lies in the first
+    ``splits`` tiles."""
+    for index in range(start, s_cache - width + 1):
+        plan = decode_plan(index + 1, width, s_cache, splits)
+        owner = {tile: rank for rank, tiles in enumerate(plan) for tile in tiles}
+        if owner[index // 64] != owner[(index + width - 1) // 64]:
+            return index
+    raise ValueError(f"no split edge for {width} positions after {start} in a cache of {s_cache}")
 
 
 def decode_rows_reading(gen: torch.Generator, dev: torch.device, cache_len: int, group: int, width: int,
                         dtype: torch.dtype) -> dict:
-    """K3 at ``group * width`` folded q rows per kv head (more than 16 take
-    several row chunks), against its plain version and at the causal edge;
-    on a bf16 cache also K5, bit for bit against K2 then K3, with row 0's
-    new positions across a split edge (only the chunk-0 blocks store them,
-    the other chunks' blocks read them from k_new/v_new). Raises past the
-    tolerance or on any bit of difference."""
+    """K3 at ``group * width`` folded q rows per kv head (16-row groups: four
+    warps a group up to 16 rows, two up to 32, one up to 64, a second pass
+    past 64), against its plain version and at the causal edge; on a bf16
+    cache also K5, bit for bit against K2 then K3, with row 0's new
+    positions across the edge between two blocks of ``decode_plan`` (each
+    block stores the positions in its own tiles). Raises past the tolerance
+    or on any bit of difference."""
     hkv, d, batch = 2, 128, 2
     q = torch.randn(batch, group * hkv, width, d, generator=gen, device=dev).to(torch.bfloat16)
     if dtype == torch.int8:
@@ -538,8 +621,8 @@ def decode_rows_reading(gen: torch.Generator, dev: torch.device, cache_len: int,
         return reading
     q = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)  # the edge check set q to ones
     k_new, v_new = (torch.randn(batch, hkv, width, d, generator=gen, device=dev).to(dtype) for _ in range(2))
-    split_len = _decode_buffers(q, hkv, cache_len)[4] * 64
-    index = torch.tensor([split_len - 1, cache_len - width - 5], dtype=torch.int32, device=dev)
+    edge = split_edge_index(width, cache_len, decode_splits(batch, hkv, cache_len))
+    index = torch.tensor([edge, cache_len - width - 5], dtype=torch.int32, device=dev)
     k2, v2 = k_cache.clone(), v_cache.clone()
     out = decode_attention_update(q, k_cache, v_cache, k_new, v_new, index, rows)
     write_cache_rows(k2, v2, k_new, v_new, index, rows)
@@ -604,15 +687,17 @@ def batcher_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, park_len:
                   f" count {count} (checked with a pad lane on lane 0's row)"),
     }
 
-    # K5: rows a permutation of pool rows; index of slot 0 puts its W new
-    # positions across a split boundary, slot 1's across a tile boundary.
+    # K5: rows a permutation of pool rows; the index set of the earlier
+    # smokes (slot 1's W new positions across a tile edge) is checked and
+    # timed, then checked again with slot 0's across the edge between two
+    # blocks of decode_plan.
     q = torch.randn(slots, dec.num_heads, width, d, generator=gen, device=dev).to(torch.bfloat16)
     k_new, v_new = (torch.randn(slots, hkv, width, d, generator=gen, device=dev).to(torch.bfloat16)
                     for _ in range(2))
-    _, _, _, splits, tiles_per_split = _decode_buffers(q, hkv, cache_len)
-    split_len = tiles_per_split * 64
-    index = torch.tensor([split_len * (park_len // split_len + 1) - 1, park_len // split_len * split_len + 62]
-                         + [park_len - 128 + 37 * i for i in range(2, slots)], dtype=torch.int32, device=dev)
+    splits = decode_splits(slots, hkv, cache_len)
+    tile0 = 64 * (park_len // 64)
+    index = torch.tensor([tile0 + 127, tile0 + 62] + [park_len - 128 + 37 * i for i in range(2, slots)],
+                         dtype=torch.int32, device=dev)
     rows = torch.tensor(perm[:slots], dtype=torch.int32, device=dev)
     fused_k, fused_v = pool_k.clone(), pool_v.clone()
     split_k, split_v = pool_k.clone(), pool_v.clone()
@@ -630,6 +715,11 @@ def batcher_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, park_len:
     tol = REL_TOL * ref.float().abs().max().item()
     if err > tol:
         raise AssertionError(f"decode_attention_update (K5) disagrees with its plain version: {err} > {tol}")
+    edge_index = index.clone()
+    edge_index[0] = split_edge_index(width, cache_len, splits)
+    repeated = k5_repeatable(q, pool_k, pool_v, k_new, v_new, edge_index, rows)
+    if not all(repeated.values()):
+        raise AssertionError(f"K5 with new positions across a split edge: {repeated}")
     # The causal edge, with the step's new rows carrying the marks.
     ek, ev = pool_k.clone(), pool_v.clone()
     eq = q.clone()
@@ -656,9 +746,9 @@ def batcher_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, park_len:
 
     results["decode_attention_update"] = {
         "max_abs_err": err, "tol": tol, "edge_max_abs_err": edge_err, "edge_tol": edge_tol,
-        "bit_equal_to_k2_k3": True, "splits": splits, "split_positions": split_len,
-        "ms": time_ms(lambda: decode_attention_update(q, fused_k, fused_v, k_new, v_new, index, rows)),
-        "device_ms": device_ms(lambda: decode_attention_update(q, fused_k, fused_v, k_new, v_new, index, rows)),
+        "bit_equal_to_k2_k3": True, "bit_identical_runs": True, "splits": splits,
+        "split_edge_index": edge_index.tolist(),
+        **one_kernel_readings(lambda: decode_attention_update(q, fused_k, fused_v, k_new, v_new, index, rows)),
         "k2_k3_ms": time_ms(lambda: (write_cache_rows(split_k, split_v, k_new, v_new, index, rows),
                                      decode_attention(q, split_k, split_v, index + 1, rows))),
         "plain_ms": time_ms(plain_update),
@@ -667,10 +757,63 @@ def batcher_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, park_len:
         "shape": (f"q bf16 [{slots},{dec.num_heads},{width},{d}] pools bf16 [{pool_rows},{hkv},{cache_len},{d}]"
                   f" index={index.tolist()} rows={perm[:slots]}"),
     }
+    results["decode_attention_bf16"] = k3_bf16_reading(q, pool_k, pool_v, index + 1)
     results["decode_attention_rows"] = [decode_rows_reading(gen, dev, cache_len, group, width, dtype)
                                         for group, width in DECODE_ROW_SHAPES
                                         for dtype in (torch.bfloat16, torch.int8)]
     return results
+
+
+def k5_repeatable(q, k_cache, v_cache, k_new, v_new, index, rows) -> dict[str, bool]:
+    """K5 twice on copies of the same inputs, and K2 then K3 on a third:
+    whether the outputs and caches of the two K5 launches are bit-identical,
+    and the first equals K2 then K3 bit for bit."""
+    copies = [(k_cache.clone(), v_cache.clone()) for _ in range(3)]
+    runs = [decode_attention_update(q, k, v, k_new, v_new, index, rows) for k, v in copies[:2]]
+    write_cache_rows(*copies[2], k_new, v_new, index, rows)
+    want = decode_attention(q, *copies[2], index + 1, rows)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(copies[0], copies[1])]
+    wrote = [torch.equal(a, b) for a, b in zip(copies[0], copies[2])]
+    return {"bit_identical_runs": torch.equal(runs[0], runs[1]) and all(same),
+            "bit_equal_to_k2_k3": torch.equal(runs[0], want) and all(wrote)}
+
+
+def k3_bf16_reading(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor) -> dict:
+    """K3 on a bf16 cache (the batcher's pool) with identity rows (row b of
+    the batch is pool row b) at ``lengths``, held against its plain version
+    and timed beside one PyTorch call of the same function:
+    scaled_dot_product_attention over the same rows with a length mask
+    (query column j sees positions < lengths + j) and GQA."""
+    b, hq, width, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    rows = torch.arange(b, dtype=torch.int32, device=q.device)
+    k_rows, v_rows = k_cache[:b], v_cache[:b]
+    mask = (torch.arange(s, device=q.device)[None, None, None, :]
+            < lengths[:, None, None, None] + torch.arange(width, device=q.device)[None, None, :, None])
+
+    def library():
+        return F.scaled_dot_product_attention(q, k_rows, v_rows, attn_mask=mask, enable_gqa=True)
+
+    out = decode_attention(q, k_cache, v_cache, lengths, rows)
+    ref = _scaled_reference(q, k_cache, v_cache, lengths, rows, None, None)
+    lib_err = (library().float() - ref.float()).abs().max().item()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = REL_TOL * ref.float().abs().max().item()
+    if err > tol or lib_err > tol:
+        raise AssertionError(f"K3 on a bf16 pool: kernel {err}, SDPA {lib_err} > {tol}")
+    visible = sum(int(n) + width - 1 for n in lengths.tolist())
+    flops = sum(4 * hq // hkv * d * (int(n) + j) for n in lengths.tolist() for j in range(width)) * hkv
+    bound_ms, bound_by = bound(2 * hkv * visible * d * 2 + 2 * nbytes(q) + nbytes(lengths, rows), flops)
+    return {"max_abs_err": err, "tol": tol, "library_max_abs_err": lib_err,
+            **one_kernel_readings(lambda: decode_attention(q, k_cache, v_cache, lengths, rows)),
+            "plain_ms": time_ms(lambda: _scaled_reference(q, k_cache, v_cache, lengths, rows, None, None)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": time_ms(library),
+            "library_device_ms": device_ms(library), "library_host_us": host_us(library),
+            "library": "F.scaled_dot_product_attention(q, k, v, attn_mask=<length mask>, enable_gqa=True)",
+            "shape": (f"q bf16 [{b},{hq},{width},{d}] pool bf16 [{k_cache.shape[0]},{hkv},{s},{d}] rows 0-{b - 1}"
+                      f" lengths={lengths.tolist()}")}
 
 
 def mark_decode_edges(q, k_cache, v_cache, lengths, rows, v_scale=None) -> torch.Tensor:
@@ -1495,7 +1638,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _lib.library()
     emit({"phase": "build", "nvcc_seconds": _lib.build_seconds, "load_seconds": time.perf_counter() - t0,
-          "k6_ptxas": k6_ptxas(_lib.build_log)})
+          "k6_ptxas": k6_ptxas(_lib.build_log), "k3_k5_ptxas": decode_ptxas(_lib.build_log)})
     ptxas = [line for line in _lib.build_log.splitlines()
              if any(word in line for word in ("Function properties", "registers", "spill", "setmaxnreg", "wgmma"))]
     emit({"phase": "ptxas", "lines": ptxas})
@@ -1524,6 +1667,8 @@ def main() -> None:
     kernels = kernel_phase(args.seed, dev, cfg, prompt_bucket, cache_len, park_len)
     kernels.update(batcher_kernel_phase(args.seed, dev, cfg, park_len, pool_len, BATCHER_SLOTS, 3 * BATCHER_SLOTS))
     emit({"phase": "decode_rows", "checks": kernels.pop("decode_attention_rows")})
+    bf16_k3 = kernels.pop("decode_attention_bf16")  # K3 on the batcher's bf16 pool, beside SDPA
+    kernels["decode_attention"].update({f"bf16_{key}": value for key, value in bf16_k3.items()})
     kernels.update(train_kernel_phase(args.seed, dev, cfg))
     kernels["int4_matmul"] = int4_kernel_phase(args.seed, dev)
     emit({"phase": "kernels_checked", "seconds": time.perf_counter() - t0})
@@ -1579,7 +1724,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     int4_kernels, int4_served = int4_serving_phase(args.seed, dev, tokenizer, grammar)
     for name, result in int4_kernels.items():  # K1-K3 at the 7b shapes, beside the base ones
-        for key in ("max_abs_err", "tol", "worst_ratio", "shifted_mask_ratio", "ms", "device_ms", "plain_ms",
+        for key in ("max_abs_err", "tol", "worst_ratio", "shifted_mask_ratio", "ms", "device_ms", "host_us",
+                    "kernels_per_call", "bit_identical_runs", "splits", "plain_ms",
                     "bound_ms", "library_ms", "shape", "encoder_max_abs_err", "encoder_worst_ratio", "encoder_ms",
                     "encoder_plain_ms", "encoder_bound_ms", "encoder_library_ms", "encoder_shape",
                     "ragged_worst_ratio"):

@@ -8,7 +8,8 @@ host). On a GPU host run them with
 
 Tolerances: the row write (K2) and the row adoption (K4) are exact, and
 K5 (``decode_attention_update`` on a bf16 cache) equals K2 then K3 bit for
-bit. Attention (K1, K3 and the training
+bit; K3 and K5 fold their splits in rank order with no atomics, so two
+launches give the same bits. Attention (K1, K3 and the training
 kernels K7a-c) accumulates in f32 and rounds its bf16 output once, as the
 plain version does, so the two agree within 1e-2 of the largest output (one
 bf16 rounding step is at most 2**-7 of the value); K7a's f32 LSE within
@@ -36,11 +37,14 @@ from chip_smoke import (
     TRAIN_KERNELS,
     check_int4,
     decode_rows_reading,
+    device_profile,
     flash_bwd_repeatable,
     flash_errors,
     flash_train_errors,
+    k5_repeatable,
     mark_decode_edges,
     reference_phase,
+    split_edge_index,
 )
 from video_transformer_tpu_torch.ops import decode_attention as decode_module
 from video_transformer_tpu_torch.ops.attention import flash_attention
@@ -51,6 +55,8 @@ from video_transformer_tpu_torch.ops.decode_attention import (
     adopt_rows_reference,
     decode_attention,
     decode_attention_update,
+    decode_plan,
+    decode_splits,
     update_cache_rows,
     write_cache_rows,
 )
@@ -159,9 +165,11 @@ def test_decode_attention_matches_plain(cuda, quantized, hq, hkv, w):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("group,width", DECODE_ROW_SHAPES)
 def test_decode_attention_beyond_16_rows_per_kv_head(cuda, group, width, dtype):
-    """20, 21, 28 and 40 folded q rows per kv head run in chunks of 16 rows
-    and agree with the plain version, also at the causal edge; on a bf16
-    cache K5 is bit-equal to K2 then K3 (decode_rows_reading raises)."""
+    """20, 21, 28, 40, 49 and 80 folded q rows per kv head (16-row groups:
+    two, one or a quarter of the warps a group, a second pass past 64 rows)
+    agree with the plain version, also at the causal edge; on a bf16 cache
+    K5 is bit-equal to K2 then K3 with new positions across a split edge
+    (decode_rows_reading raises)."""
     gen = torch.Generator(device=cuda).manual_seed(group * width)
     before = (decode_attention.launches, decode_attention_update.launches)
     reading = decode_rows_reading(gen, cuda, 1664, group, width, dtype)
@@ -204,10 +212,9 @@ def k2_then_k3(q, k_cache, v_cache, k_new, v_new, index, rows):
 @pytest.mark.parametrize("rows,index", [(None, (0, 1400)), ([3, 0], (127, 1279)), ([1, 2], (62, 700))])
 def test_fused_update_is_bit_equal_to_k2_then_k3(cuda, rows, index, group, w):
     """K5's output and the cache it leaves equal K2 then K3 on copies of the
-    same inputs, bit for bit; with new rows across a 64-position tile edge
-    and a split edge, at 12 folded q rows per kv head (one row chunk) and at
-    20-40 (several: only chunk 0 stores the rows); and within tolerance of
-    the plain version."""
+    same inputs, bit for bit; with new rows across a 64-position tile edge,
+    at 12 folded q rows per kv head (four warps a group) and at 20-80 (two,
+    one, and two passes); and within tolerance of the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     b, hkv, s = 2, 2, 1536
     phys = 2 if rows is None else 4
@@ -224,6 +231,87 @@ def test_fused_update_is_bit_equal_to_k2_then_k3(cuda, rows, index, group, w):
     want = decode_attention(q, k2, v2, index_t + 1, rows_t)
     assert torch.equal(out, want) and torch.equal(k_cache, k2) and torch.equal(v_cache, v2)
     assert_close(out, _scaled_reference(q, k2, v2, index_t + 1, rows_t, None, None))
+
+
+def decode_inputs(gen, cuda, b, hq, hkv, w, s, int8, phys=3):
+    q = randn(gen, b, hq, w, 128, device=cuda)
+    if int8:
+        k, v = (torch.randint(-127, 128, (phys, hkv, s, 128), generator=gen, device=cuda, dtype=torch.int8)
+                for _ in range(2))
+        scales = [torch.rand(hkv, generator=gen, device=cuda) * 0.04 + 0.02 for _ in range(2)]
+    else:
+        k, v = randn(gen, phys, hkv, s, 128, device=cuda), randn(gen, phys, hkv, s, 128, device=cuda)
+        scales = [None, None]
+    return q, k, v, *scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("hq,w", [(8, 3), (14, 3), (8, 7)])
+def test_decode_attention_at_length_one_and_a_full_cache(cuda, quantized, hq, w):
+    """Row 0 sees one position; row 1's extent, lengths + W - 1, is the
+    whole cache; on a bf16 cache K5 writes at index 0 and at the cache's
+    last W positions, bit-equal to K2 then K3."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    s = 384
+    q, k, v, k_scale, v_scale = decode_inputs(gen, cuda, 2, hq, 2, w, s, quantized)
+    rows = torch.tensor([2, 0], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([1, s - w + 1], dtype=torch.int32, device=cuda)
+    out = decode_attention(q, k, v, lengths, rows, k_scale, v_scale)
+    assert out.isfinite().all()
+    assert_close(out, _scaled_reference(q, k, v, lengths, rows, k_scale, v_scale))
+    if not quantized:
+        k_new, v_new = randn(gen, 2, 2, w, 128, device=cuda), randn(gen, 2, 2, w, 128, device=cuda)
+        index = torch.tensor([0, s - w], dtype=torch.int32, device=cuda)
+        assert k5_repeatable(q, k, v, k_new, v_new, index, rows) == {"bit_identical_runs": True,
+                                                                    "bit_equal_to_k2_k3": True}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized,b,hq,hkv,s,lengths", [
+    (True, 2, 8, 2, 1536, (1200, 1351)),  # base serving
+    (True, 2, 28, 4, 2560, (2200, 2251)),  # 7b serving: 21 rows per kv head
+    (False, 8, 8, 2, 1664, (1408, 1343, 1227, 1264, 1301, 1338, 1375, 1412)),  # the batcher's pool
+])
+def test_decode_kernels_are_bit_identical_and_one_kernel_a_call(cuda, quantized, b, hq, hkv, s, lengths):
+    """K3 (and on the bf16 pool K5) at the main paths' shapes: two launches
+    on the same inputs give the same bits (no atomics; the fold runs in rank
+    order), and the profiler sees one kernel a call (no combine pass)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, k_scale, v_scale = decode_inputs(gen, cuda, b, hq, hkv, 3, s, quantized, phys=b + 1)
+    rows = torch.randperm(b + 1, generator=torch.Generator().manual_seed(0))[:b].to(cuda, torch.int32)
+    lengths_t = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    run = lambda: decode_attention(q, k, v, lengths_t, rows, k_scale, v_scale)  # noqa: E731
+    assert torch.equal(run(), run())
+    assert device_profile(run)[1] == 1
+    if not quantized:
+        k_new, v_new = randn(gen, b, hkv, 3, 128, device=cuda), randn(gen, b, hkv, 3, 128, device=cuda)
+        index = lengths_t - 1
+        assert k5_repeatable(q, k, v, k_new, v_new, index, rows) == {"bit_identical_runs": True,
+                                                                    "bit_equal_to_k2_k3": True}
+        k5 = lambda: decode_attention_update(q, k, v, k_new, v_new, index, rows)  # noqa: E731
+        assert device_profile(k5)[1] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,w", [(4, 3), (7, 3), (4, 7), (7, 7)])
+def test_fused_update_across_a_split_edge(cuda, group, w):
+    """K5 with a row's new positions in the tiles of two blocks of
+    decode_plan (each block stores its own): bit-equal to K2 then K3, twice
+    the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    s, hkv = 1536, 2
+    splits = decode_splits(2, hkv, s)
+    q, k, v, _, _ = decode_inputs(gen, cuda, 2, group * hkv, hkv, w, s, False)
+    k_new, v_new = randn(gen, 2, hkv, w, 128, device=cuda), randn(gen, 2, hkv, w, 128, device=cuda)
+    edge = split_edge_index(w, s, splits)
+    plan = decode_plan(edge + 1, w, s, splits)
+    owner = {tile: rank for rank, tiles in enumerate(plan) for tile in tiles}
+    assert owner[edge // 64] != owner[(edge + w - 1) // 64]
+    index = torch.tensor([edge, 1000], dtype=torch.int32, device=cuda)
+    rows = torch.tensor([2, 0], dtype=torch.int32, device=cuda)
+    assert k5_repeatable(q, k, v, k_new, v_new, index, rows) == {"bit_identical_runs": True,
+                                                                "bit_equal_to_k2_k3": True}
 
 
 @pytest.mark.cuda

@@ -42,16 +42,11 @@ _SIGNATURES = {
     "vtx_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # k_cache, v_cache, k_new, v_new, index, rows, B, Hkv, S, W, D, elem_bytes, stream
     "vtx_write_cache_rows": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # q, k_cache, v_cache, lengths, rows, k_scale, v_scale, out, part_acc, part_ml,
-    # B, Hq, Hkv, S, W, D, splits, tiles_per_split, cache_is_int8, scale, stream
-    "vtx_decode_attention": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
-    ),
-    # q, k_cache, v_cache, k_new, v_new, index, rows, out, part_acc, part_ml,
-    # B, Hq, Hkv, S, W, D, splits, tiles_per_split, scale, stream
-    "vtx_decode_attention_update": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
-    ),
+    # q, k_cache, v_cache, lengths, rows, k_scale, v_scale, out,
+    # B, Hq, Hkv, S, W, D, splits, cache_is_int8, scale, stream
+    "vtx_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k_cache, v_cache, k_new, v_new, index, rows, out, B, Hq, Hkv, S, W, D, splits, scale, stream
+    "vtx_decode_attention_update": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # dst_k, dst_v, src_k, src_v, rows, lanes, count, pool_rows, Hkv, S, S_park,
     # park_len, row_bytes, stream
     "vtx_adopt_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),

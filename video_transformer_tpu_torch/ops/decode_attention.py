@@ -36,16 +36,17 @@ __all__ = [
     "decode_attention",
     "decode_attention_reference",
     "decode_attention_update",
+    "decode_plan",
+    "decode_splits",
     "quantize_kv",
     "update_cache_rows",
     "write_cache_rows",
 ]
 
 _NEG_INF = -1e30
-_DECODE_TILE = 64  # cache positions per K3 tile (csrc/decode_attention.cu kBK)
-_DECODE_BLOCKS = 264  # K3 splits the sequence to launch about this many blocks
-_DECODE_MAX_SPLITS = 128  # csrc/decode_attention.cu kMaxSplits
-_DECODE_CHUNK_ROWS = 16  # folded q rows per K3 block (csrc/decode_attention.cu kMaxRows)
+_DECODE_TILE = 64  # cache positions a K3/K5 tile (csrc/decode_attention.cu kBK)
+_DECODE_CLUSTER = 8  # splits a (kv head, batch row) at most: the portable cluster size (kMaxSplits)
+_DECODE_SLOTS = 264  # K3/K5 blocks the card holds at once: two on each of the H100's 132 SMs
 
 
 def quantize_kv(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -179,14 +180,12 @@ def decode_attention(
         _check("rows", rows, (torch.int32,), (b,))
     elif b > r:
         raise ValueError(f"batch {b} exceeds the cache's {r} rows")
-    if d != 128 or hq % hkv:
-        raise ValueError(f"decode_attention: unsupported q {tuple(q.shape)} for {hkv} kv heads (head_dim 128)")
-    out, part_acc, part_ml, splits, tiles_per_split = _decode_buffers(q, hkv, s)
+    _check_decode_shape("decode_attention", q, hkv, s)
+    out = torch.empty_like(q)
     code = _lib.library().vtx_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
         _lib.ptr(rows), _lib.ptr(k_scale), _lib.ptr(v_scale), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), b, hq, hkv, s, w, d, splits,
-        tiles_per_split, int(quantized), 1.0 / math.sqrt(d), _lib.stream(q),
+        b, hq, hkv, s, w, d, decode_splits(b, hkv, s), int(quantized), 1.0 / math.sqrt(d), _lib.stream(q),
     )
     _lib.check("vtx_decode_attention", code)
     decode_attention.launches += 1
@@ -196,19 +195,34 @@ def decode_attention(
 decode_attention.launches = 0
 
 
-def _decode_buffers(q: torch.Tensor, hkv: int, s: int):
-    """K3's and K5's output, split-K partials and split sizes: the sequence
-    splits so that about two blocks per SM stream the cache."""
-    b, hq, w, d = q.shape
-    rows_per_head = (hq // hkv) * w
-    blocks = b * hkv * -(-rows_per_head // _DECODE_CHUNK_ROWS)
-    tiles = -(-s // _DECODE_TILE)
-    splits = max(1, min(tiles, -(-_DECODE_BLOCKS // blocks), _DECODE_MAX_SPLITS))
-    tiles_per_split = -(-tiles // splits)
-    splits = -(-tiles // tiles_per_split)
-    part_acc = torch.empty((b, hkv, splits, rows_per_head, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, hkv, splits, rows_per_head, 2), dtype=torch.float32, device=q.device)
-    return torch.empty_like(q), part_acc, part_ml, splits, tiles_per_split
+def _check_decode_shape(name: str, q: torch.Tensor, hkv: int, s: int) -> None:
+    b, hq, _, d = q.shape
+    if d != 128 or hq % hkv or s % _DECODE_TILE or not 0 < b <= 65535:
+        raise ValueError(f"{name}: unsupported q {tuple(q.shape)} for {hkv} kv heads and a cache of {s}"
+                         f" positions (head_dim 128, a multiple of {_DECODE_TILE} positions)")
+
+
+def decode_splits(batch: int, hkv: int, s_cache: int) -> int:
+    """K3's and K5's blocks for each (kv head, batch row), one thread-block
+    cluster, from the shapes alone (never from the lengths, which stay on
+    the card): the largest power of two up to 8 that the cache's tiles
+    cover and that keeps the grid within two blocks an SM."""
+    splits = 1
+    while (2 * splits <= min(_DECODE_CLUSTER, s_cache // _DECODE_TILE)
+           and batch * hkv * 2 * splits <= _DECODE_SLOTS):
+        splits *= 2
+    return splits
+
+
+def decode_plan(length: int, width: int, s_cache: int, splits: int) -> list[range]:
+    """The cache tiles (64 positions each) that each of a cluster's
+    ``splits`` blocks reads, in rank order, for a row whose column 0 sees
+    ``length`` positions (K5: index + 1): an equal share of the tiles that
+    hold a valid position, up to ``length + width - 1``. The kernel computes
+    the same (``plan`` in ``csrc/decode_attention.cu``)."""
+    extent = max(0, min(length + width - 1, s_cache))
+    tiles = -(-extent // _DECODE_TILE)
+    return [range(c * tiles // splits, (c + 1) * tiles // splits) for c in range(splits)]
 
 
 def decode_attention_update(
@@ -261,13 +275,12 @@ def _fused_update(q, k_cache, v_cache, k_new, v_new, index, rows) -> torch.Tenso
         _check("rows", rows, (torch.int32,), (b,))
     elif b > r:
         raise ValueError(f"batch {b} exceeds the cache's {r} rows")
-    if d != 128 or hq % hkv:
-        raise ValueError(f"decode_attention_update: unsupported q {tuple(q.shape)} for {hkv} kv heads (head_dim 128)")
-    out, part_acc, part_ml, splits, tiles_per_split = _decode_buffers(q, hkv, s)
+    _check_decode_shape("decode_attention_update", q, hkv, s)
+    out = torch.empty_like(q)
     code = _lib.library().vtx_decode_attention_update(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        index.data_ptr(), _lib.ptr(rows), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        b, hq, hkv, s, w, d, splits, tiles_per_split, 1.0 / math.sqrt(d), _lib.stream(q),
+        index.data_ptr(), _lib.ptr(rows), out.data_ptr(), b, hq, hkv, s, w, d, decode_splits(b, hkv, s),
+        1.0 / math.sqrt(d), _lib.stream(q),
     )
     _lib.check("vtx_decode_attention_update", code)
     decode_attention_update.launches += 1
