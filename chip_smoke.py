@@ -16,23 +16,31 @@ and with the host's cost of a call; K3 on the batcher's bf16 pool beside
 scaled_dot_product_attention with a length mask; K6, the packed-int4
 matmul, at the 7b decoder's four product shapes and at 1-256 rows, bit for
 bit on integer inputs and twice on the same inputs, with the host's cost of
-a call beside torch.matmul's), checks
-the whole model against the plain versions on the CPU at the tiny preset
-(serving logits, the same with a narrow int4 decoder whose every projection
-takes K6, then training gradients), then:
+a call beside torch.matmul's; K2, the cache row write, bit for bit against
+its plain version on the card and on the CPU, quantizing bf16 rows into
+int8 caches at the decode step's and the prefill's shapes, copying at the
+batcher stage's, and at constructed rounding cases: exact halves, the
+clamp, and quotients that a multiplication by the reciprocal rounds
+otherwise; one kernel a call, beside the parent's route of quantize_kv
+then K2), checks the whole model against the plain versions on the CPU at
+the tiny preset (serving logits, the same with a narrow int4 decoder whose
+every projection takes K6, then training gradients), then:
 
 - serves three requests through ``InferenceEngine.generate`` at the full
   ``base`` width (int8 weights, int8 KV cache, BPE vocabulary, the note
   grammar, greedy) with seeded random weights, shows that the requests went
-  through K1-K3, and profiles one short request (device busy share, top
-  device ops);
+  through K1-K3 (K2 exactly once a layer for each prefill call and each
+  decode step, K3 once a layer a step, and no plain cache write or
+  quantize on the card), profiles one short request (device busy share,
+  top device ops), and counts the device kernels of one decode step beside
+  the parent route's (quantize_kv for k and v, then K2);
 - serves twelve requests through ``ContinuousBatcher`` (8 slots, a ring of
   16 parked requests, bf16 KV pool, device refill) on the same weights,
-  shows that the one stage adopted its prefills through K4 and every decode
-  step went through K5, holds the first-token logits against
-  ``engine.generate``'s and the first wave's tokens against
-  ``engine.generate`` at the batcher's batch of 8, and profiles a short
-  sweep;
+  shows that the one stage wrote its prefill through K2 once a layer and
+  adopted it through K4, and every decode step went through K5, holds the
+  first-token logits against ``engine.generate``'s and the first wave's
+  tokens against ``engine.generate`` at the batcher's batch of 8, and
+  profiles a short sweep;
 - trains five steps of ``python -m video_transformer_tpu_torch.train.run``'s
   code path at the full ``base`` width (seeded random f32 weights, bf16
   compute, BPE vocabulary, batch 2, 1,024 video + 2,048 text positions),
@@ -43,8 +51,9 @@ takes K6, then training gradients), then:
   at the full ``7b`` width (seeded random weights, bf16, int4 weights, int8
   KV cache, the same vocabulary and grammar, greedy), after holding K1-K3 at
   its shapes, shows that every decode step ran K6 for each of the 7
-  projections of each of the 28 layers and prefill none, and profiles a
-  32-token call.
+  projections of each of the 28 layers and prefill none, and K2 and K3 as
+  on the base path, profiles a 32-token call, and counts a decode step's
+  device kernels beside the parent route's.
 
 It prints one JSON object per line, flushed; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1). It
@@ -76,10 +85,12 @@ import torch.nn.functional as F
 
 from video_transformer_tpu_torch.analyzer.schema import note_dfa
 from video_transformer_tpu_torch.models.bpe import BpeTokenizer
+from video_transformer_tpu_torch.models import lm as lm_module
 from video_transformer_tpu_torch.models.config import VLMConfig, get_preset
 from video_transformer_tpu_torch.models.lm import init_kv_cache
 from video_transformer_tpu_torch.models.quant import quantize_decoder
 from video_transformer_tpu_torch.ops import _lib
+from video_transformer_tpu_torch.ops import decode_attention as decode_module
 from video_transformer_tpu_torch.ops import flash_bwd as flash_bwd_module
 from video_transformer_tpu_torch.ops.attention import flash_attention, mha_reference
 from video_transformer_tpu_torch.ops.decode_attention import (
@@ -90,6 +101,7 @@ from video_transformer_tpu_torch.ops.decode_attention import (
     decode_attention_update,
     decode_plan,
     decode_splits,
+    quantize_kv,
     update_cache_rows,
     write_cache_rows,
 )
@@ -117,7 +129,7 @@ BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
 MAX_NEW_TOKENS = 256  # capped for the smoke; the shipped config says 4096
 PROMPT = "分析这段视频的内容，写出结构化的知识笔记。"
 KERNELS = (flash_attention, write_cache_rows, decode_attention)  # the serving path's
-BATCHER_KERNELS = (adopt_rows, decode_attention_update)  # with K1; the bf16 pool takes no K2 or K3
+BATCHER_KERNELS = (adopt_rows, decode_attention_update)  # with K1 and K2 (the stage); the bf16 pool takes no K3
 BATCHER_SLOTS = 8  # the shipped serving_slots_per_chip; queue_depth defaults to 16
 BATCHER_REQUESTS = 12  # two waves through 8 slots
 # The batcher stages min(queued, queue_depth, free rows) requests at once; the
@@ -201,7 +213,7 @@ def time_ms(fn, warmup: int = 3, reps: int = 10, rounds: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn, calls: int = 20, tries: int = 5) -> tuple[float, float]:
+def device_profile(fn, calls: int = 20, tries: int = 10) -> tuple[float, float]:
     """Device time of one call of ``fn`` in ms, and the device kernels a
     call launches: the self device time and the count of the kernels it
     launches, summed by torch.profiler over ``calls`` calls, after one
@@ -233,15 +245,15 @@ def device_profile(fn, calls: int = 20, tries: int = 5) -> tuple[float, float]:
     return reading
 
 
-def device_ms(fn, calls: int = 20, tries: int = 5) -> float:
+def device_ms(fn, calls: int = 20, tries: int = 10) -> float:
     """Device time of one call of ``fn`` in ms (``device_profile``)."""
     return device_profile(fn, calls, tries)[0]
 
 
 def one_kernel_readings(fn) -> dict:
-    """K3's and K5's timings at one shape: CUDA-event ms, the profiler's
-    device ms, and the host's enqueue µs a call; raises unless the profiler
-    sees exactly one kernel a call."""
+    """A kernel's timings at one shape (K2, K3, K5): CUDA-event ms, the
+    profiler's device ms, and the host's enqueue µs a call; raises unless
+    the profiler sees exactly one kernel a call."""
     ms, kernels = device_profile(fn)
     if kernels != 1:
         raise AssertionError(f"{kernels} device kernels a call, expected one")
@@ -336,6 +348,16 @@ def k6_ptxas(log: str) -> dict[str, dict]:
 def decode_ptxas(log: str) -> dict[str, dict]:
     """ptxas's registers and spills for each K3/K5 instantiation."""
     return ptxas_usage(log, "decode_kernel", decode_name)
+
+
+def k2_ptxas(log: str) -> dict[str, dict]:
+    """ptxas's registers and spills for each K2 instantiation."""
+    def name(function: str) -> str:
+        found = re.search(r"write_rows_kernelI([at])Lb([01])E", function)
+        rows = "int8" if found.group(1) == "a" else "bf16"
+        return f"K2 write_rows_kernel<{rows} rows, {'quantize' if found.group(2) == '1' else 'copy'}>"
+
+    return ptxas_usage(log, "write_rows_kernel", name)
 
 
 def host_us(fn, calls: int = HOST_CALLS) -> float:
@@ -453,6 +475,153 @@ def flash_ragged_reading(gen: torch.Generator, dev: torch.device, heads: int, kv
             "min_shifted_mask_ratio": min(r["shifted_mask_ratio"] for r in readings if "shifted_mask_ratio" in r)}
 
 
+def quantize_edge_rows(d: int = 128) -> tuple[np.ndarray, np.ndarray]:
+    """Rows and per-head scales at which quantize_kv's arithmetic is decided
+    at its edges, found in numpy f32: (x f32 [2, d] of bf16-exact values,
+    scales f32 [2]). Head 0, scale 0.5: exact halves x / s = n + 0.5 (round
+    half to even), +-127.5 and values past it (clamp), +-inf, +-0. Head 1:
+    the scale in 0.0100, 0.0101, ..., 0.1000 with the most positive bf16 x
+    where quantize_kv's int8 differs from the one that x * (1 / s) gives,
+    and those x with both signs: a kernel that multiplied by the reciprocal
+    fails there."""
+    one = np.float32(1)
+    grid = (np.arange(1, 0x4380, dtype=np.uint32) << 16).view(np.float32)  # positive finite bf16 < 256
+
+    def reciprocal_misses(s: np.float32) -> np.ndarray:
+        xs = grid[grid <= 128 * s]
+        return xs[np.minimum(np.rint(xs / s), 127) != np.minimum(np.rint(xs * (one / s)), 127)]
+
+    scales = (np.arange(100, 1001) / 10000).astype(np.float32)
+    s1 = scales[int(np.argmax([len(reciprocal_misses(s)) for s in scales]))]
+    misses = reciprocal_misses(s1)
+    halves = (np.arange(-8, 8, dtype=np.float32) + 0.5) * np.float32(0.5)
+    clamps = np.array([63.75, -63.75, 63.25, -63.25, 64, -64, 100, -1000, np.inf, -np.inf, 0, -0.0], np.float32)
+    head0 = np.resize(np.concatenate([halves, clamps]), d)
+    head1 = np.resize(np.concatenate([misses, -misses]), d)
+    return np.stack([head0, head1]), np.array([0.5, s1], np.float32)
+
+
+def edge_rows(batch: int, width: int, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_edge_rows`` as bf16 new rows [batch, 2, width, 128], each
+    position's rows rolled by one lane more, and the scales on ``dev``."""
+    rows, scales = quantize_edge_rows()
+    new = np.stack([[np.roll(rows, b * width + j, axis=-1) for j in range(width)] for b in range(batch)])
+    new = torch.from_numpy(np.ascontiguousarray(new.transpose(0, 2, 1, 3)))
+    return new.to(dev, torch.bfloat16), torch.from_numpy(scales).to(dev)
+
+
+def plain_write(k_cache, v_cache, k_new, v_new, index, rows=None, k_scale=None, v_scale=None) -> None:
+    """K2's plain version on any device: quantize_kv under the scales where
+    given, then update_cache_rows, k and v."""
+    if k_scale is not None:
+        k_new, v_new = quantize_kv(k_new, k_scale), quantize_kv(v_new, v_scale)
+    update_cache_rows(k_cache, k_new, index, rows)
+    update_cache_rows(v_cache, v_new, index, rows)
+
+
+def parent_write(k_cache, v_cache, k_new, v_new, index, rows=None, k_scale=None, v_scale=None) -> None:
+    """The route before K2 quantized: quantize_kv for k and v (about five
+    elementwise kernels each), then K2 on the int8 rows."""
+    if k_scale is not None:
+        k_new, v_new = quantize_kv(k_new, k_scale), quantize_kv(v_new, v_scale)
+    write_cache_rows(k_cache, v_cache, k_new, v_new, index, rows)
+
+
+def check_write(k_cache, v_cache, k_new, v_new, index, rows=None, k_scale=None, v_scale=None,
+                timed: bool = True) -> dict:
+    """K2 (into ``k_cache``/``v_cache``, in place) against its plain version
+    on copies of the same inputs on the card and on the CPU: both caches bit
+    for bit. Raises otherwise. If ``timed``, the readings: one kernel a call
+    (``one_kernel_readings``), the bound, the plain version's time and, for
+    the quantizing route, the parent route's (``parent_write``), for the
+    copy two index_put_ as the library call."""
+    b, hkv, w, d = k_new.shape
+    scaled = k_scale is not None
+    on_card = [t.clone() for t in (k_cache, v_cache)]
+    on_cpu = [t.cpu() for t in (k_cache, v_cache)]
+    args = (k_new, v_new, index, rows, k_scale, v_scale)
+    write_cache_rows(k_cache, v_cache, *args[:4], k_scale=k_scale, v_scale=v_scale)
+    plain_write(*on_card, *args)
+    cpu_args = [None if t is None else t.cpu() for t in args]
+    write_cache_rows(*on_cpu, *cpu_args[:4], k_scale=cpu_args[4], v_scale=cpu_args[5])
+    torch.cuda.synchronize()
+    shape = (f"caches {str(k_cache.dtype).removeprefix('torch.')} {list(k_cache.shape)} new"
+             f" {str(k_new.dtype).removeprefix('torch.')} {list(k_new.shape)} index {index.tolist()[:4]}"
+             f" rows {None if rows is None else rows.tolist()[:4]}" + (" scaled" if scaled else ""))
+    for got, card, cpu in zip((k_cache, v_cache), on_card, on_cpu):
+        if not (torch.equal(got, card) and torch.equal(got.cpu(), cpu)):
+            differ = max(int((got != card).sum()), int((got.cpu() != cpu).sum()))
+            raise AssertionError(f"write_cache_rows ({shape}): {differ} elements differ from its plain version")
+    reading = {"shape": shape, "bit_equal_card_and_cpu": True, "max_abs_err": 0, "tol": 0}
+    if not timed:
+        return reading
+    call = functools.partial(write_cache_rows, k_cache, v_cache, *args[:4], k_scale=k_scale, v_scale=v_scale)
+    written = 2 * b * hkv * w * d * k_cache.element_size()
+    bound_ms, bound_by = bound(nbytes(k_new, v_new) + written + nbytes(*(t for t in args[2:] if t is not None)), 0)
+    reading.update(one_kernel_readings(call), plain_ms=time_ms(lambda: plain_write(*on_card, *args)),
+                   bound_ms=bound_ms, bound_by=bound_by)
+    if scaled:
+        parent = functools.partial(parent_write, *on_card, *args)
+        parent_device_ms, parent_kernels = device_profile(parent)
+        reading.update(parent_ms=time_ms(parent), parent_device_ms=parent_device_ms,
+                       parent_kernels_per_call=parent_kernels, parent_host_us=host_us(parent),
+                       library_ms=None, library="none: no PyTorch call quantizes and scatters")
+    else:
+        phys = (rows if rows is not None else torch.arange(b, device=index.device)).long()[:, None]
+        pos = index.long()[:, None] + torch.arange(w, device=index.device)
+        k_rows, v_rows = k_new.transpose(1, 2), v_new.transpose(1, 2)
+
+        def library():
+            on_card[0][phys, :, pos] = k_rows
+            on_card[1][phys, :, pos] = v_rows
+
+        reading.update(library_ms=time_ms(library),
+                       library="two index_put_ (cache[rows[:, None], :, index[:, None] + j] = new), k and v")
+    return reading
+
+
+def write_readings(gen: torch.Generator, dev: torch.device, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                   index: torch.Tensor, rows: torch.Tensor, prefill_seq: int, park_len: int | None) -> dict:
+    """K2 at the main paths' shapes (``check_write``): the int8 decode step
+    (bf16 rows quantized under per-head scales into ``k_cache``/``v_cache``
+    at ``index`` through ``rows``, W = 3), int8 rows copied at the same
+    shape, the int8 prefill block (``prefill_seq`` positions from 0), the
+    batcher's bf16 stage (``BATCHER_STAGE`` rows of ``park_len`` positions)
+    unless ``park_len`` is None, and ``quantize_edge_rows`` at decode and
+    prefill widths. The decode step leads; every shape is in ``shapes``."""
+    batch, width = index.shape[0], 3
+    _, hkv, cache_len, d = k_cache.shape
+    k_scale, v_scale = (torch.rand(hkv, generator=gen, device=dev) * 0.04 + 0.02 for _ in range(2))
+
+    def rows_of(n: int, w: int, dtype=torch.bfloat16) -> torch.Tensor:
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, (n, hkv, w, d), generator=gen, device=dev, dtype=torch.int8)
+        return torch.randn(n, hkv, w, d, generator=gen, device=dev).to(dtype)
+
+    def zero_caches(n: int, s: int, dtype) -> list[torch.Tensor]:
+        return [torch.zeros(n, hkv, s, d, device=dev, dtype=dtype) for _ in range(2)]
+
+    shapes = {}
+    shapes["decode"] = check_write(k_cache, v_cache, rows_of(batch, width), rows_of(batch, width), index, rows,
+                                   k_scale, v_scale)
+    shapes["decode_int8_rows"] = check_write(k_cache, v_cache, rows_of(batch, width, torch.int8),
+                                             rows_of(batch, width, torch.int8), index, rows)
+    start = torch.zeros(batch, dtype=torch.int32, device=dev)
+    shapes["prefill"] = check_write(*zero_caches(batch, cache_len, torch.int8), rows_of(batch, prefill_seq),
+                                    rows_of(batch, prefill_seq), start, None, k_scale, v_scale)
+    if park_len is not None:
+        stage = torch.zeros(BATCHER_STAGE, dtype=torch.int32, device=dev)
+        shapes["stage"] = check_write(*zero_caches(BATCHER_STAGE, park_len, torch.bfloat16),
+                                      rows_of(BATCHER_STAGE, park_len), rows_of(BATCHER_STAGE, park_len), stage)
+    for name, w, at in (("edge_decode", width, index), ("edge_prefill", prefill_seq, start)):
+        edges, scales = edge_rows(batch, w, dev)
+        caches = [torch.randint(-127, 128, (batch + 1, 2, cache_len, d), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(2)]
+        shapes[name] = check_write(*caches, edges, -edges, at, rows if name == "edge_decode" else None,
+                                   scales, scales.clone(), timed=False)
+    return dict(shapes["decode"], shapes=shapes)
+
+
 def kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, prompt_bucket: int, cache_len: int,
                  park_len: int | None) -> dict:
     """K1-K3 at the serving path's shapes, held against their plain
@@ -483,33 +652,15 @@ def kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig, prompt_bucket: in
     k1["ragged_min_shifted_mask_ratio"] = ragged["min_shifted_mask_ratio"]
     results["flash_attention"] = k1
 
-    # K2: int8 rows into int8 caches at per-row offsets, through a row table.
+    # K2 at every shape of the paths; its decode step writes the int8
+    # caches that K3 reads next, at per-row offsets through a row table.
     hkv, d = dec.num_kv_heads, dec.head_dim
     phys_rows = batch + 1
     k_cache = torch.randint(-127, 128, (phys_rows, hkv, cache_len, d), generator=gen, device=dev, dtype=torch.int8)
     v_cache = torch.randint(-127, 128, (phys_rows, hkv, cache_len, d), generator=gen, device=dev, dtype=torch.int8)
-    k_new = torch.randint(-127, 128, (batch, hkv, width, d), generator=gen, device=dev, dtype=torch.int8)
-    v_new = torch.randint(-127, 128, (batch, hkv, width, d), generator=gen, device=dev, dtype=torch.int8)
     index = torch.tensor([prefill_seq + 47, prefill_seq + 198], dtype=torch.int32, device=dev)
     rows = torch.tensor([2, 0], dtype=torch.int32, device=dev)
-    k_ref, v_ref = k_cache.clone(), v_cache.clone()
-    write_cache_rows(k_cache, v_cache, k_new, v_new, index, rows)
-    update_cache_rows(k_ref, k_new, index, rows)
-    update_cache_rows(v_ref, v_new, index, rows)
-    torch.cuda.synchronize()
-    err = max((k_cache.int() - k_ref.int()).abs().max().item(), (v_cache.int() - v_ref.int()).abs().max().item())
-    if err != 0:
-        raise AssertionError(f"write_cache_rows differs from update_cache_rows by {err}")
-    bound_ms, bound_by = bound(2 * nbytes(k_new, v_new) + nbytes(index, rows), 0)
-    results["write_cache_rows"] = {
-        "max_abs_err": err, "tol": 0,
-        "ms": time_ms(lambda: write_cache_rows(k_cache, v_cache, k_new, v_new, index, rows)),
-        "device_ms": device_ms(lambda: write_cache_rows(k_cache, v_cache, k_new, v_new, index, rows)),
-        "plain_ms": time_ms(lambda: (update_cache_rows(k_ref, k_new, index, rows),
-                                     update_cache_rows(v_ref, v_new, index, rows))),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "shape": f"caches int8 [{phys_rows},{hkv},{cache_len},{d}] new int8 [{batch},{hkv},{width},{d}] rows=[2,0]",
-    }
+    results["write_cache_rows"] = write_readings(gen, dev, k_cache, v_cache, index, rows, prefill_seq, park_len)
 
     # K3: int8 caches, W = 3, ragged lengths, a row permutation. k_scale is
     # that of a cache whose k values reach about 5 (x 1.5 / 127), so that the
@@ -1148,16 +1299,53 @@ def reference_phase(seed: int, dev: torch.device, vocab_size: int, int4: bool = 
     return line
 
 
+# Calls of K2's plain versions on a CUDA tensor made by the port's modules
+# (``watch_plain_writes``): the card's routes take K2 for every cache write.
+PLAIN_ON_CARD = {"quantize_kv": 0, "update_cache_rows": 0}
+
+
+@contextlib.contextmanager
+def watch_plain_writes():
+    """Count in ``PLAIN_ON_CARD`` each call of ``quantize_kv`` or
+    ``update_cache_rows`` on a CUDA tensor that goes through
+    ``ops/decode_attention.py``'s names (the port's own calls; the smoke's
+    comparisons call the functions it imported)."""
+    def watched(name, fn):
+        def call(x, *args, **kwargs):
+            PLAIN_ON_CARD[name] += x.device.type == "cuda"
+            return fn(x, *args, **kwargs)
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name in PLAIN_ON_CARD:
+            stack.enter_context(mock.patch.object(decode_module, name, watched(name, getattr(decode_module, name))))
+        yield
+
+
 def reset_counts() -> None:
     for kernel in ALL_KERNELS:
         kernel.launches = 0
     flash_attention.reference_backwards = 0
+    for name in PLAIN_ON_CARD:
+        PLAIN_ON_CARD[name] = 0
 
 
 def counts() -> dict[str, int]:
     out = {kernel.__name__: kernel.launches for kernel in ALL_KERNELS}
     out["reference_backwards"] = flash_attention.reference_backwards
+    out.update({f"{name}_on_card": n for name, n in PLAIN_ON_CARD.items()})
     return out
+
+
+def check_write_routes(launched: dict[str, int], layers: int, prefills: int, decode_steps: int, path: str) -> None:
+    """An int8-KV serving run's cache writes: K2 once a layer for each
+    prefill call and each decode step, K3 once a layer a decode step, and
+    no plain write or quantize on the card. Raises otherwise."""
+    want = {"write_cache_rows": layers * (prefills + decode_steps), "decode_attention": layers * decode_steps,
+            "quantize_kv_on_card": 0, "update_cache_rows_on_card": 0}
+    got = {key: launched[key] for key in want}
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, expected {want}")
 
 
 def tiny_gradients(cfg: VLMConfig, seed: int, dev: torch.device) -> dict:
@@ -1552,6 +1740,58 @@ def profile_phase(engine: InferenceEngine, frames: np.ndarray, max_new: int = 32
     }
 
 
+def parent_update(q, k_cache, v_cache, k_new, v_new, index, rows, k_scale, v_scale):
+    """``decode_attention_update`` on an int8 cache as it was before K2
+    quantized: ``parent_write``, then K3."""
+    parent_write(k_cache, v_cache, k_new, v_new, index, rows, k_scale, v_scale)
+    return decode_attention(q, k_cache, v_cache, index + 1, rows, k_scale, v_scale)
+
+
+def decode_step_launches(engine: InferenceEngine, seed: int, cache_len: int, steps: int = 5) -> dict:
+    """What one batch-2 int8-KV decode step (W = 3) of ``engine``'s decoder
+    launches, through this route (K2 quantizes the new rows as it writes
+    them) and through the parent's (``parent_update``: quantize_kv for k
+    and v, then K2 on int8 rows, then K3), on the same weights and cache:
+    K2 and K3 once a layer each (the wrappers' counts; raises otherwise), the device
+    kernels and device ms a step (``device_profile`` over ``steps`` steps,
+    each from the cache index after a 256-token prefill), and the ms a step
+    (CUDA events; host-bound) in the order this, parent, parent, this."""
+    model, dec = engine.model, engine.config.decoder
+    dev = engine.device
+    rng = np.random.default_rng(seed)
+    cache = init_kv_cache(dec, 2, cache_len, model.compute_dtype, quant=True, device=dev)
+    with torch.no_grad():
+        tokens = torch.from_numpy(rng.integers(0, dec.vocab_size, (2, 256))).to(dev)
+        _, cache = model.decoder(tokens, cache=cache, dtype=model.compute_dtype, prefill=True)
+    start = cache["index"]
+    block = torch.from_numpy(rng.integers(0, dec.vocab_size, (2, 3))).to(dev)
+    pick = torch.tensor([2, 1], device=dev)
+
+    def step():
+        cache["index"] = start
+        with torch.no_grad():
+            model.decode_block_pick(block, cache, pick)
+
+    before = (write_cache_rows.launches, decode_attention.launches)
+    step()
+    per_step = (write_cache_rows.launches - before[0], decode_attention.launches - before[1])
+    if per_step != (dec.num_layers, dec.num_layers):
+        raise AssertionError(f"an int8 decode step launched K2 and K3 {per_step} times, {dec.num_layers} layers")
+    parent = mock.patch.object(lm_module, "decode_attention_update", parent_update)
+    device_ms, kernels = device_profile(step, calls=steps)
+    with parent:
+        parent_device_ms, parent_kernels = device_profile(step, calls=steps)
+    step_ms = [time_ms(step, reps=5, rounds=5)]
+    with parent:
+        step_ms += [time_ms(step, reps=5, rounds=5), time_ms(step, reps=5, rounds=5)]
+    step_ms.append(time_ms(step, reps=5, rounds=5))
+    return {"layers": dec.num_layers, "k2_per_step": per_step[0], "k3_per_step": per_step[1],
+            "device_launches_per_step": kernels, "parent_device_launches_per_step": parent_kernels,
+            "launches_removed_per_step": parent_kernels - kernels,
+            "device_ms_per_step": device_ms, "parent_device_ms_per_step": parent_device_ms,
+            "step_ms": [step_ms[0], step_ms[3]], "parent_step_ms": step_ms[1:3]}
+
+
 def int4_serving_phase(seed: int, dev: torch.device, tokenizer, grammar) -> tuple[dict, dict]:
     """Main path 4: int4 serving at the full ``7b`` width. Builds the engine
     (seeded random f32 weights, cast to bf16, decoder quantized to packed
@@ -1609,12 +1849,14 @@ def int4_serving_phase(seed: int, dev: torch.device, tokenizer, grammar) -> tupl
     want = 7 * cfg.decoder.num_layers * steps
     if served["int4_matmul"] != want or prefill_k6 != [0] or not all(served[k.__name__] for k in KERNELS):
         raise AssertionError(f"7b int4 launches {served} (prefill K6 {prefill_k6}), expected K6 {want}")
+    check_write_routes(served, cfg.decoder.num_layers, 1, steps, "7b int4 serving")
     for line in requests:
         decode_s = line["call_seconds"] - line["prefill_ms"] / 1e3
         emit(dict(line, preset=cfg.name, quantize="int4", ms_per_step=decode_s * 1e3 / steps,
                   k6_launches=served["int4_matmul"], k6_prefill_launches=prefill_k6[0],
                   max_new_tokens_cap=MAX_NEW_TOKENS))
     emit(dict(profile_phase(engine, clips), preset=cfg.name))
+    emit({"phase": "decode_step_launches", "preset": cfg.name, **decode_step_launches(engine, seed, cache_len)})
     return kernels, served
 
 
@@ -1624,6 +1866,12 @@ def main() -> None:
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU only")
+    with watch_plain_writes():
+        run(args.seed)
+
+
+def run(seed: int) -> None:
+    """The smoke's phases in order (``main``)."""
     start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1638,7 +1886,8 @@ def main() -> None:
     t0 = time.perf_counter()
     _lib.library()
     emit({"phase": "build", "nvcc_seconds": _lib.build_seconds, "load_seconds": time.perf_counter() - t0,
-          "k6_ptxas": k6_ptxas(_lib.build_log), "k3_k5_ptxas": decode_ptxas(_lib.build_log)})
+          "k6_ptxas": k6_ptxas(_lib.build_log), "k3_k5_ptxas": decode_ptxas(_lib.build_log),
+          "k2_ptxas": k2_ptxas(_lib.build_log)})
     ptxas = [line for line in _lib.build_log.splitlines()
              if any(word in line for word in ("Function properties", "registers", "spill", "setmaxnreg", "wgmma"))]
     emit({"phase": "ptxas", "lines": ptxas})
@@ -1648,7 +1897,7 @@ def main() -> None:
     tokenizer = BpeTokenizer.load(TOKENIZER)
     cfg = base_config(tokenizer.vocab_size)
     engine = InferenceEngine(
-        cfg, max_new_tokens=MAX_NEW_TOKENS, temperature=0.0, seed=args.seed, tokenizer=tokenizer,
+        cfg, max_new_tokens=MAX_NEW_TOKENS, temperature=0.0, seed=seed, tokenizer=tokenizer,
         param_dtype="bfloat16", quantize="int8", kv_quant="int8", max_forced_run=2, device=dev,
     )
     torch.cuda.synchronize()
@@ -1664,23 +1913,23 @@ def main() -> None:
     park_len = cfg.video_tokens + 256
     pool_len = 128 * math.ceil((park_len + MAX_NEW_TOKENS + 2 * width + 17) / 128)
     t0 = time.perf_counter()
-    kernels = kernel_phase(args.seed, dev, cfg, prompt_bucket, cache_len, park_len)
-    kernels.update(batcher_kernel_phase(args.seed, dev, cfg, park_len, pool_len, BATCHER_SLOTS, 3 * BATCHER_SLOTS))
+    kernels = kernel_phase(seed, dev, cfg, prompt_bucket, cache_len, park_len)
+    kernels.update(batcher_kernel_phase(seed, dev, cfg, park_len, pool_len, BATCHER_SLOTS, 3 * BATCHER_SLOTS))
     emit({"phase": "decode_rows", "checks": kernels.pop("decode_attention_rows")})
     bf16_k3 = kernels.pop("decode_attention_bf16")  # K3 on the batcher's bf16 pool, beside SDPA
     kernels["decode_attention"].update({f"bf16_{key}": value for key, value in bf16_k3.items()})
-    kernels.update(train_kernel_phase(args.seed, dev, cfg))
-    kernels["int4_matmul"] = int4_kernel_phase(args.seed, dev)
+    kernels.update(train_kernel_phase(seed, dev, cfg))
+    kernels["int4_matmul"] = int4_kernel_phase(seed, dev)
     emit({"phase": "kernels_checked", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    emit(dict(reference_phase(args.seed, dev, tokenizer.vocab_size), seconds=time.perf_counter() - t0))
+    emit(dict(reference_phase(seed, dev, tokenizer.vocab_size), seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
-    emit(dict(reference_phase(args.seed, dev, tokenizer.vocab_size, int4=True), seconds=time.perf_counter() - t0))
+    emit(dict(reference_phase(seed, dev, tokenizer.vocab_size, int4=True), seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
-    emit(dict(train_reference_phase(args.seed, dev, tokenizer.vocab_size), seconds=time.perf_counter() - t0))
+    emit(dict(train_reference_phase(seed, dev, tokenizer.vocab_size), seconds=time.perf_counter() - t0))
 
     # Main path 1, serving: three requests through K1-K3.
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(seed)
     clips = rng.integers(0, 256, (3, cfg.encoder.num_frames, 256, 256, 3), dtype=np.uint8)
     reset_counts()
     requests = serve(engine, clips[:2]) + serve(engine, clips[2:])
@@ -1689,10 +1938,14 @@ def main() -> None:
         emit(dict(line, max_new_tokens_cap=MAX_NEW_TOKENS))
     if not all(served[kernel.__name__] for kernel in KERNELS):
         raise AssertionError(f"a kernel was not launched by the requests: {served}")
+    check_write_routes(served, cfg.decoder.num_layers, 2, requests[0]["decode_steps"] + requests[2]["decode_steps"],
+                       "serving")
     emit(profile_phase(engine, clips[:2]))
+    emit({"phase": "decode_step_launches", "preset": cfg.name, **decode_step_launches(engine, seed, cache_len)})
 
     # Main path 2, the continuous batcher: 12 requests through 8 slots on the
-    # same int8 weights with a bf16 KV pool (K1, K4, K5; no K2 or K3).
+    # same int8 weights with a bf16 KV pool (K1, K2 and K4 in the stage, K5
+    # at every decode step; no K3).
     batch_engine = InferenceEngine(cfg, params=engine.model, tokenizer=tokenizer, max_new_tokens=MAX_NEW_TOKENS,
                                    temperature=0.0, max_forced_run=2, device=dev)
     batch_engine.dfa = engine.dfa
@@ -1706,7 +1959,8 @@ def main() -> None:
         raise AssertionError(f"batcher stages {line['stages']}, the kernel checks assumed [{BATCHER_STAGE}]")
     if batch_launched["adopt_rows"] != cfg.decoder.num_layers or not batch_launched["flash_attention"] \
             or batch_launched["decode_attention_update"] != cfg.decoder.num_layers * line["decode_steps"] \
-            or batch_launched["write_cache_rows"] or batch_launched["decode_attention"]:
+            or batch_launched["write_cache_rows"] != cfg.decoder.num_layers * len(line["stages"]) \
+            or batch_launched["decode_attention"] or batch_launched["update_cache_rows_on_card"]:
         raise AssertionError(f"batcher launches {batch_launched} for {line['decode_steps']} decode steps")
     emit(batched["check"])
     emit(batcher_profile(batch_engine, batch_clips, batch_prompts, BATCHER_SLOTS))
@@ -1722,10 +1976,11 @@ def main() -> None:
 
     # Main path 4, int4 serving at 7b width: K6 at every decode step, K1-K3.
     torch.cuda.empty_cache()
-    int4_kernels, int4_served = int4_serving_phase(args.seed, dev, tokenizer, grammar)
+    int4_kernels, int4_served = int4_serving_phase(seed, dev, tokenizer, grammar)
     for name, result in int4_kernels.items():  # K1-K3 at the 7b shapes, beside the base ones
         for key in ("max_abs_err", "tol", "worst_ratio", "shifted_mask_ratio", "ms", "device_ms", "host_us",
-                    "kernels_per_call", "bit_identical_runs", "splits", "plain_ms",
+                    "kernels_per_call", "bit_identical_runs", "splits", "plain_ms", "parent_ms", "parent_device_ms",
+                    "parent_kernels_per_call", "parent_host_us", "shapes",
                     "bound_ms", "library_ms", "shape", "encoder_max_abs_err", "encoder_worst_ratio", "encoder_ms",
                     "encoder_plain_ms", "encoder_bound_ms", "encoder_library_ms", "encoder_shape",
                     "ragged_worst_ratio"):

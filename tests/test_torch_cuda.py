@@ -6,7 +6,9 @@ host). On a GPU host run them with
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-Tolerances: the row write (K2) and the row adoption (K4) are exact, and
+Tolerances: the row write (K2) and the row adoption (K4) are exact (K2
+with per-head scales equals quantize_kv then update_cache_rows bit for bit,
+on the card and on the CPU, also at rounding edges), and
 K5 (``decode_attention_update`` on a bf16 cache) equals K2 then K3 bit for
 bit; K3 and K5 fold their splits in rank order with no atomics, so two
 launches give the same bits. Attention (K1, K3 and the training
@@ -36,8 +38,10 @@ from chip_smoke import (
     REL_TOL,
     TRAIN_KERNELS,
     check_int4,
+    check_write,
     decode_rows_reading,
     device_profile,
+    edge_rows,
     flash_bwd_repeatable,
     flash_errors,
     flash_train_errors,
@@ -57,6 +61,7 @@ from video_transformer_tpu_torch.ops.decode_attention import (
     decode_attention_update,
     decode_plan,
     decode_splits,
+    quantize_kv,
     update_cache_rows,
     write_cache_rows,
 )
@@ -126,6 +131,87 @@ def test_write_cache_rows_is_exact(cuda, dtype, rows):
     update_cache_rows(k_ref, k_new, index, rows_t)
     update_cache_rows(v_ref, v_new, index, rows_t)
     assert torch.equal(k_cache, k_ref) and torch.equal(v_cache, v_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["random", "edges"])
+@pytest.mark.parametrize("rows", [None, [2, 0]])
+@pytest.mark.parametrize("width,hkv", [(1, 2), (3, 2), (3, 4), (7, 2), (1152, 2), (2176, 4), (1280, 2)])
+def test_quantizing_write_is_bit_equal_to_plain(cuda, width, hkv, rows, source):
+    """K2 with per-head scales (bf16 rows into int8 caches) at decode and
+    prefill widths (base 1,152, 7b 2,176, the batcher stage's 1,280) equals
+    quantize_kv then update_cache_rows on the card and on the CPU, bit for
+    bit, in one launch and one kernel a call; also on rows at quantize_kv's
+    edges (exact halves, the clamp, quotients that a reciprocal rounds
+    otherwise)."""
+    gen = torch.Generator(device=cuda).manual_seed(width + hkv)
+    if source == "edges":  # two heads of edge rows, each repeated to hkv heads in all
+        k_new, k_scale = edge_rows(2, width, cuda)
+        k_new, k_scale = k_new.repeat_interleave(hkv // 2, dim=1), k_scale.repeat_interleave(hkv // 2)
+        v_new, v_scale = -k_new, k_scale.clone()
+    else:
+        k_new, v_new = randn(gen, 2, hkv, width, 128, device=cuda), randn(gen, 2, hkv, width, 128, device=cuda)
+        k_scale, v_scale = (torch.rand(hkv, generator=gen, device=cuda) * 0.04 + 0.02 for _ in range(2))
+    s = 128 * (width // 128 + 3)
+    caches = [torch.randint(-127, 128, (3, hkv, s, 128), generator=gen, device=cuda, dtype=torch.int8)
+              for _ in range(2)]
+    index = torch.tensor([0, s - width - 5], dtype=torch.int32, device=cuda)
+    rows_t = None if rows is None else torch.tensor(rows, dtype=torch.int32, device=cuda)
+    before = write_cache_rows.launches
+    reading = check_write(*caches, k_new, v_new, index, rows_t, k_scale, v_scale, timed=False)
+    assert reading["bit_equal_card_and_cpu"] and write_cache_rows.launches == before + 1
+
+    def call():
+        write_cache_rows(*caches, k_new, v_new, index, rows_t, k_scale=k_scale, v_scale=v_scale)
+
+    assert device_profile(call)[1] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [True, False])
+def test_write_cache_rows_drops_positions_past_the_end(cuda, scaled):
+    """Positions at or past the cache's end are dropped: a row whose three
+    new positions start two before the end writes two, as the plain
+    version does with those two."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    s = 256
+    dtype = torch.int8 if scaled else torch.bfloat16
+    caches = [randn(gen, 2, 2, s, 128, device=cuda, dtype=torch.float32).mul(40).to(dtype) for _ in range(2)]
+    new = [randn(gen, 2, 2, 3, 128, device=cuda) for _ in range(2)]
+    scales = [torch.full((2,), 0.03, device=cuda), torch.full((2,), 0.05, device=cuda)] if scaled else [None, None]
+    if not scaled:
+        new = [n.to(dtype) for n in new]
+    index = torch.tensor([s - 2, 7], dtype=torch.int32, device=cuda)
+    plain = [c.clone() for c in caches]
+    write_cache_rows(*caches, *new, index, k_scale=scales[0], v_scale=scales[1])
+    for cache, rows, scale in zip(plain, new, scales):
+        rows = quantize_kv(rows, scale) if scaled else rows
+        update_cache_rows(cache[:1], rows[:1, :, :2].contiguous(), index[:1])
+        update_cache_rows(cache[1:], rows[1:], index[1:])
+    assert torch.equal(caches[0], plain[0]) and torch.equal(caches[1], plain[1])
+
+
+@pytest.mark.cuda
+def test_write_cache_rows_raises_on_unsupported_inputs(cuda):
+    """K2 has no fallback: an f32 cache, int8 rows with scales, scales with
+    a bf16 cache or a tensor off 16-byte alignment raise before any
+    launch."""
+    caches = [torch.zeros(2, 2, 64, 128, device=cuda, dtype=torch.int8) for _ in range(2)]
+    rows = torch.zeros(2, 2, 3, 128, device=cuda, dtype=torch.bfloat16)
+    index = torch.zeros(2, dtype=torch.int32, device=cuda)
+    scale = torch.ones(2, device=cuda)
+    f32 = [torch.zeros(2, 2, 64, 128, device=cuda) for _ in range(2)]
+    bf16 = [c.to(torch.bfloat16) for c in caches]
+    shifted = torch.zeros(rows.numel() + 8, device=cuda, dtype=torch.bfloat16)[1:rows.numel() + 1].view(rows.shape)
+    before = write_cache_rows.launches
+    for args, kwargs in (((*f32, rows.float(), rows.float(), index), {}),
+                         ((*caches, rows.to(torch.int8), rows.to(torch.int8), index), {"k_scale": scale,
+                                                                                       "v_scale": scale}),
+                         ((*bf16, rows, rows, index), {"k_scale": scale, "v_scale": scale}),
+                         ((*caches, shifted, rows, index), {"k_scale": scale, "v_scale": scale})):
+        with pytest.raises(ValueError):
+            write_cache_rows(*args, **kwargs)
+    assert write_cache_rows.launches == before
 
 
 @pytest.mark.cuda
@@ -332,10 +418,14 @@ def test_tiny_engine_runs_through_every_kernel(cuda):
     engine.dfa = engine.wrap_grammar(note_dfa(engine.byte_vocab))
     kernels = (flash_attention, write_cache_rows, decode_attention)
     before = [k.launches for k in kernels]
+    steps = engine.stats.decode_steps
     frames = np.random.default_rng(0).integers(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)
     texts, ids = engine.generate(frames, ["分析", "hi"], return_tokens=True)
     assert all(0 < len(row) <= 34 for row in ids)
     assert all(k.launches > n for k, n in zip(kernels, before))
+    # K2 once a layer for the prefill and for each decode step, K3 once a layer a step.
+    layers, steps = cfg.decoder.num_layers, engine.stats.decode_steps - steps
+    assert [k.launches - n for k, n in zip(kernels[1:], before[1:])] == [layers * (1 + steps), layers * steps]
 
 
 @pytest.mark.cuda
@@ -425,14 +515,16 @@ def tiny_bf16_engine(cuda, **kwargs):
 
 @pytest.mark.cuda
 def test_tiny_bf16_engine_decodes_through_k5(cuda, monkeypatch):
-    """A bf16-KV engine decodes through K5 and no K2 or K3, and gives the
-    tokens of the same engine with K2 then K3 in K5's place."""
+    """A bf16-KV engine decodes through K5 and no K3, writes its prefill
+    through K2 once a layer, and gives the tokens of the same engine with K2
+    then K3 in K5's place."""
     frames = np.random.default_rng(1).integers(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)
     engine = tiny_bf16_engine(cuda)
     before = (decode_attention_update.launches, write_cache_rows.launches, decode_attention.launches)
     _, got = engine.generate(frames, ["分析", "hi"], return_tokens=True)
     after = (decode_attention_update.launches, write_cache_rows.launches, decode_attention.launches)
-    assert after[0] > before[0] and after[1:] == before[1:]
+    assert after[0] > before[0] and after[1] - before[1] == engine.config.decoder.num_layers
+    assert after[2] == before[2]
     monkeypatch.setattr(decode_module, "_fused_update", k2_then_k3)
     _, want = engine.generate(frames, ["分析", "hi"], return_tokens=True)
     assert got == want
@@ -440,9 +532,10 @@ def test_tiny_bf16_engine_decodes_through_k5(cuda, monkeypatch):
 
 @pytest.mark.cuda
 def test_tiny_batcher_runs_through_k4_and_k5(cuda, monkeypatch):
-    """Five requests through two slots on the card: staging adopts through
-    K4, every decode step goes through K5, and the tokens equal those of the
-    same sweep with K2 then K3 in K5's place."""
+    """Five requests through two slots on the card: each stage writes its
+    prefill through K2 once a layer and adopts it through K4, every decode
+    step goes through K5 (no K3), and the tokens equal those of the same
+    sweep with K2 then K3 in K5's place."""
     from video_transformer_tpu_torch.parallel.serving import ContinuousBatcher, Request
 
     engine = tiny_bf16_engine(cuda)
@@ -456,12 +549,13 @@ def test_tiny_batcher_runs_through_k4_and_k5(cuda, monkeypatch):
             batcher.submit(Request(i, clips[i], prompts[i]))
         return {c.request_id: c.token_ids for c in batcher.run()}
 
-    before = (adopt_rows.launches, decode_attention_update.launches, write_cache_rows.launches)
+    kernels = (adopt_rows, decode_attention_update, write_cache_rows, decode_attention)
+    before = [k.launches for k in kernels]
     got = sweep()
-    launched = [n - b for n, b in zip((adopt_rows.launches, decode_attention_update.launches,
-                                       write_cache_rows.launches), before)]
-    assert launched[0] == 2 * engine.config.decoder.num_layers  # two stages (ring depth 4)
-    assert launched[1] > 0 and launched[2] == 0
+    launched = [k.launches - n for k, n in zip(kernels, before)]
+    layers = engine.config.decoder.num_layers
+    assert launched[0] == 2 * layers and launched[2] == 2 * layers  # two stages (ring depth 4)
+    assert launched[1] > 0 and launched[3] == 0
     monkeypatch.setattr(decode_module, "_fused_update", k2_then_k3)
     assert sweep() == got and sorted(got) == list(range(5))
 

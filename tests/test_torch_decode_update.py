@@ -153,7 +153,7 @@ class TestFusedUpdate:
         of ``cache_dtype`` off the CPU (meta tensors; the launches recorded)."""
         launched = []
         monkeypatch.setattr(dec, "_fused_update", lambda *a: launched.append("K5"))
-        monkeypatch.setattr(dec, "write_cache_rows", lambda *a: launched.append("K2"))
+        monkeypatch.setattr(dec, "write_cache_rows", lambda *a, **scales: launched.append("K2"))
         monkeypatch.setattr(dec, "decode_attention", lambda *a: launched.append("K3"))
         meta = {"device": "meta"}
         q = torch.empty(2, 4, 3, 128, dtype=torch.bfloat16, **meta)

@@ -3,10 +3,10 @@
 The cache is a dict of per-layer k/v lists [B, Hkv, S, D] plus a per-row
 ``index`` [B] (int32); with ``quant=True`` k/v are int8 with per-(layer,
 head) f32 scales that the prefill block calibrates. Prefill writes the whole
-block with the plain row write and attends the full-precision k/v through K1;
-each decode step writes its rows through K2 and attends the valid prefix
-through K3 (``ops/decode_attention.py``), or does both through K5 when the
-cache is bf16. A ``rows`` entry [B] int32
+block through K2 (quantizing it for an int8 cache) and attends the
+full-precision k/v through K1; each decode step writes its rows through K2
+and attends the valid prefix through K3 (``ops/decode_attention.py``), or
+does both through K5 when the cache is bf16. A ``rows`` entry [B] int32
 maps each logical row to its physical cache row (the batcher's paged pool). Without a cache (training) the
 blocks attend causally through ``ops/attention.py`` (K7a-c under autograd),
 and ``remat`` recomputes each block in the backward pass. Parameter names
@@ -23,13 +23,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import flash_attention
-from ..ops.decode_attention import decode_attention_update, quantize_kv, update_cache_rows
+from ..ops.decode_attention import decode_attention_update, write_cache_rows
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_angles
 from .config import DecoderConfig
 from .vit import Dense
 
-__all__ = ["Decoder", "init_kv_cache", "quantize_kv", "QDense"]
+__all__ = ["Decoder", "init_kv_cache", "QDense"]
 
 Cache = dict[str, Any]
 
@@ -117,11 +117,9 @@ class Attention(nn.Module):
                     v_scale = torch.maximum(v_scale, 1.5 * v.abs().amax(dim=(0, 2, 3)) / 127.0)
                     cache["k_scale"][i] = k_scale
                     cache["v_scale"][i] = v_scale
-                    k_store, v_store = quantize_kv(k, k_scale), quantize_kv(v, v_scale)
-                else:
-                    k_store, v_store = k, v
-                update_cache_rows(k_layer, k_store, index, rows)
-                update_cache_rows(v_layer, v_store, index, rows)
+                # K2 writes the block in one launch (on the CPU its plain
+                # version), quantized under the new scales for an int8 cache.
+                write_cache_rows(k_layer, v_layer, k, v, index, rows, k_scale=k_scale, v_scale=v_scale)
                 out = flash_attention(q, k, v, causal=True)
             else:
                 out = decode_attention_update(q, k_layer, v_layer, k, v, index, rows, k_scale, v_scale)

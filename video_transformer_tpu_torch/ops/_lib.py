@@ -40,8 +40,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal, scale, stream
     "vtx_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    # k_cache, v_cache, k_new, v_new, index, rows, B, Hkv, S, W, D, elem_bytes, stream
-    "vtx_write_cache_rows": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # k_cache, v_cache, k_new, v_new, index, rows, k_scale, v_scale,
+    # B, Hkv, S, W, D, cache_bytes, new_bytes, stream
+    "vtx_write_cache_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k_cache, v_cache, lengths, rows, k_scale, v_scale, out,
     # B, Hq, Hkv, S, W, D, splits, cache_is_int8, scale, stream
     "vtx_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),

@@ -7,19 +7,22 @@ mapping each logical row to its physical cache row. Query column j of row b
 sees cache positions < index[b] + 1 + j.
 
 ``write_cache_rows`` wraps K2 (``csrc/write_cache_rows.cu``, replacing the
-Pallas ``_batch_write_kernel``), ``decode_attention`` wraps K3
-(``csrc/decode_attention.cu``, replacing ``_kernel_pipelined``) and
-``adopt_rows`` wraps K4 (``csrc/adopt_rows.cu``, replacing ``_adopt_kernel``).
-Each takes its plain version, ``update_cache_rows``,
+Pallas ``_batch_write_kernel`` and, for an int8 cache, the ``quantize_kv``
+before it), ``decode_attention`` wraps K3 (``csrc/decode_attention.cu``,
+replacing ``_kernel_pipelined``) and ``adopt_rows`` wraps K4
+(``csrc/adopt_rows.cu``, replacing ``_adopt_kernel``). Each takes its plain
+version, ``quantize_kv`` then ``update_cache_rows``,
 ``decode_attention_reference`` or ``adopt_rows_reference``, for CPU tensors
-only. ``decode_attention_update`` is the dispatch of the JAX package's
-``decode_attention_update``: for an int8 cache the new rows are quantized
-before the write, and the per-head scales factor out of the attention (q
-scaled by k_scale, the output by v_scale), and it takes K2 then K3; for a
-bf16 cache on the card it launches K5 (``csrc/decode_attention.cu``,
-replacing ``_fused_kernel``), which gives K2 then K3's output and cache bit
-for bit in one launch. The JAX package reaches its fused kernel only
-through ``VTX_FUSED_WRITE``; here the cache's dtype decides.
+only. K2 takes every cache write on the card: a decode step's rows and a
+prefill's block (``models/lm.py``). ``decode_attention_update`` is the
+dispatch of the JAX package's ``decode_attention_update``: for an int8
+cache K2 quantizes the new rows under the layer's scales as it writes them,
+the per-head scales factor out of the attention (q scaled by k_scale, the
+output by v_scale), and it takes K2 then K3; for a bf16 cache on the card
+it launches K5 (``csrc/decode_attention.cu``, replacing ``_fused_kernel``),
+which gives K2 then K3's output and cache bit for bit in one launch. The
+JAX package reaches its fused kernel only through ``VTX_FUSED_WRITE``; here
+the cache's dtype decides.
 """
 
 from __future__ import annotations
@@ -84,28 +87,45 @@ def write_cache_rows(
     v_new: torch.Tensor,
     index: torch.Tensor,
     rows: torch.Tensor | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
 ) -> None:
-    """In place: k/v_cache[rows[b], h, index[b] + j] = k/v_new[b, h, j] (K2)."""
+    """In place: k/v_cache[rows[b], h, index[b] + j] = k/v_new[b, h, j] for
+    every j < W (K2), k and v in one launch. With ``k_scale``/``v_scale``
+    [Hkv] f32 the caches are int8 and the rows are quantized as they are
+    written, bit for bit as ``quantize_kv`` does; without them the rows are
+    already in the caches' dtype. On the card positions at or past the
+    cache's end are dropped."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale go together")
     if k_cache.device.type == "cpu":
+        if k_scale is not None:
+            k_new, v_new = quantize_kv(k_new, k_scale), quantize_kv(v_new, v_scale)
         update_cache_rows(k_cache, k_new, index, rows)
         update_cache_rows(v_cache, v_new, index, rows)
         return
     r, hkv, s, d = k_cache.shape
     b, _, w, _ = k_new.shape
-    dtypes = (torch.int8, torch.bfloat16)
-    _check("k_cache", k_cache, dtypes)
+    quantized = k_scale is not None
+    _check("k_cache", k_cache, (torch.int8,) if quantized else (torch.int8, torch.bfloat16))
     _check("v_cache", v_cache, (k_cache.dtype,), tuple(k_cache.shape))
-    _check("k_new", k_new, (k_cache.dtype,), (b, hkv, w, d))
-    _check("v_new", v_new, (k_cache.dtype,), (b, hkv, w, d))
+    row_dtype = torch.bfloat16 if quantized else k_cache.dtype
+    _check("k_new", k_new, (row_dtype,), (b, hkv, w, d))
+    _check("v_new", v_new, (row_dtype,), (b, hkv, w, d))
     _check("index", index, (torch.int32,), (b,))
+    if quantized:
+        _check("k_scale", k_scale, (torch.float32,), (hkv,))
+        _check("v_scale", v_scale, (torch.float32,), (hkv,))
     if rows is not None:
         _check("rows", rows, (torch.int32,), (b,))
     elif b > r:
         raise ValueError(f"batch {b} exceeds the cache's {r} rows")
+    if d % 16 or not 0 < b <= 32767:
+        raise ValueError(f"write_cache_rows: head_dim {d} must be a multiple of 16 and batch {b} in 1..32767")
     code = _lib.library().vtx_write_cache_rows(
-        k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        index.data_ptr(), _lib.ptr(rows), b, hkv, s, w, d, k_cache.element_size(),
-        _lib.stream(k_cache),
+        k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), index.data_ptr(),
+        _lib.ptr(rows), _lib.ptr(k_scale), _lib.ptr(v_scale), b, hkv, s, w, d, k_cache.element_size(),
+        k_new.element_size(), _lib.stream(k_cache),
     )
     _lib.check("vtx_write_cache_rows", code)
     write_cache_rows.launches += 1
@@ -238,23 +258,20 @@ def decode_attention_update(
 ) -> torch.Tensor:
     """Write the step's new k/v rows at ``index`` (in place), then attend.
 
-    For an int8 cache (``k_scale``/``v_scale`` given) the new rows are
-    quantized under the layer's scales before the write, through K2 then
-    K3, as in the JAX package (its fused kernel has no quantize step). A
-    bf16 cache on the card takes K5, both in one launch; there ``rows``
-    must name distinct physical rows, as the batcher's do: a block reads
-    the rows it writes from ``k_new``/``v_new``, not from another row's
-    write in the same launch.
+    For an int8 cache (``k_scale``/``v_scale`` given) K2 quantizes the new
+    rows under the layer's scales as it writes them, then K3 attends, as
+    in the JAX package (its fused kernel has no quantize step). A bf16
+    cache on the card takes K5, both in one launch; there ``rows`` must
+    name distinct physical rows, as the batcher's do: a block reads the
+    rows it writes from ``k_new``/``v_new``, not from another row's write
+    in the same launch.
     """
-    if k_scale is not None:
-        k_new = quantize_kv(k_new, k_scale)
-        v_new = quantize_kv(v_new, v_scale)
-    else:
+    if k_scale is None:
         k_new = k_new.to(k_cache.dtype)
         v_new = v_new.to(v_cache.dtype)
-    if q.device.type != "cpu" and k_scale is None and k_cache.dtype == torch.bfloat16:
-        return _fused_update(q, k_cache, v_cache, k_new, v_new, index, rows)
-    write_cache_rows(k_cache, v_cache, k_new, v_new, index, rows)
+        if q.device.type != "cpu" and k_cache.dtype == torch.bfloat16:
+            return _fused_update(q, k_cache, v_cache, k_new, v_new, index, rows)
+    write_cache_rows(k_cache, v_cache, k_new, v_new, index, rows, k_scale=k_scale, v_scale=v_scale)
     return decode_attention(q, k_cache, v_cache, index + 1, rows, k_scale, v_scale)
 
 
