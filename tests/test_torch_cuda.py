@@ -630,3 +630,95 @@ def test_tiny_int4_engine_decodes_through_k6(cuda):
     _, ids = engine.generate(frames, ["分析", "hi"], return_tokens=True)
     assert all(0 < len(row) <= 34 for row in ids)
     assert int4_matmul.launches - before == 7 * cfg.decoder.num_layers * engine.stats.decode_steps
+
+
+def tiny_api_engines(cuda, max_new: int = 32):
+    """The trained tiny checkpoint served on the card and on the CPU (int8
+    weights, int8 KV cache: K1, K2 and K3 on the card), the same weights."""
+    from chip_smoke import TOKENIZER, base_config, grounding_engine
+    from video_transformer_tpu_torch.models.bpe import BpeTokenizer
+
+    tok = BpeTokenizer.load(TOKENIZER)
+    cfg = base_config(tok.vocab_size, "tiny")
+    kwargs = dict(temperature=0.0, quantize="int8", kv_quant="int8", max_new_tokens=max_new)
+    card = grounding_engine(cfg, tok, cuda, **kwargs)
+    return card, grounding_engine(cfg, tok, "cpu", card.dfa, **kwargs)
+
+
+def assert_first_logits_close(card, cpu, method: str, *args, **kwargs):
+    """The entry logits of each decode loop (prefill's last logits) on the
+    card within 2e-2 x max|logit| of the CPU's; returns the card's outputs."""
+    from chip_smoke import GROUNDING_LOGIT_TOL, decode_carries
+
+    got, want = [], []
+    with decode_carries(card, got):
+        out = getattr(card, method)(*args, **kwargs)
+    with decode_carries(cpu, want):
+        getattr(cpu, method)(*args, **dict(kwargs, return_session=False, session_rounds=0))
+    for (logits, _), (ref, _) in zip(got, want, strict=True):
+        err = (logits - ref).abs().max().item()
+        assert err <= GROUNDING_LOGIT_TOL * max(ref.abs().max().item(), 1.0), err
+    return out
+
+
+@pytest.mark.cuda
+def test_tiny_generate_text_on_card(cuda):
+    """``generate_text`` with the validator grammar: K1 in the text prefill,
+    K2 and K3 in every decode step; first-token logits held to the CPU's."""
+    from chip_smoke import API_PROMPTS, check_write_routes, counts, reset_counts, walk_rows
+    from video_transformer_tpu_torch.analyzer.schema import validator_dfa
+
+    card, cpu = tiny_api_engines(cuda)
+    validator = card.wrap_grammar(validator_dfa(card.byte_vocab))
+    steps = card.stats.decode_steps
+    reset_counts()
+    _, status, ids = assert_first_logits_close(card, cpu, "generate_text", API_PROMPTS, dfa=validator,
+                                               return_status=True, return_tokens=True)
+    launched = counts()
+    walk_rows(validator, status, ids, card.max_new_tokens + 2, "generate_text")
+    assert launched["flash_attention"] > 0
+    check_write_routes(launched, card.config.decoder.num_layers, 1, card.stats.decode_steps - steps, "text")
+
+
+@pytest.mark.cuda
+def test_tiny_id_prefix_on_card(cuda):
+    """A capped generation continued by id prefixes of ragged lengths: the
+    continuation's first-token logits (K1 at ragged lengths) held to the
+    CPU's, and every row makes progress within the grammar."""
+    from chip_smoke import PROMPT, walk_rows
+
+    card, cpu = tiny_api_engines(cuda)
+    clips = np.random.default_rng(3).integers(0, 256, (3, 4, 64, 64, 3), dtype=np.uint8)
+    prompts = [PROMPT, "hi", "第三段"]
+    _, _, ids = assert_first_logits_close(card, cpu, "generate", clips, prompts, return_status=True,
+                                          return_tokens=True)
+    prefixes = [row[: len(row) - i] for i, row in enumerate(ids)]
+    _, status, more = assert_first_logits_close(card, cpu, "generate", clips, prompts, prefixes=prefixes,
+                                                return_status=True, return_tokens=True)
+    assert all(more)
+    walk_rows(card.dfa, status, [p + m for p, m in zip(prefixes, more)], 3 * card.max_new_tokens, "prefix")
+
+
+@pytest.mark.cuda
+def test_tiny_session_on_card_equals_the_long_call(cuda):
+    """The smoke's engine-API path on the tiny engine: a validator session
+    resumed with no prefill equals the call with the same cache length, a
+    batch bucket leaves the real rows unchanged, and K1-K3 carry it all
+    (``engine_api_phase`` raises otherwise); the session's first call is
+    held to the CPU's first-token logits, and K2 + K3 at each decode shape
+    of the path to their plain versions."""
+    from chip_smoke import API_PROMPTS, API_SESSION_CAP, engine_api_phase, path_decode_inputs, path_decode_readings
+    from video_transformer_tpu_torch.analyzer.schema import validator_dfa
+
+    card, cpu = tiny_api_engines(cuda, max_new=API_SESSION_CAP)
+    validator = card.wrap_grammar(validator_dfa(card.byte_vocab))
+    clips = np.random.default_rng(4).integers(0, 256, (3, 4, 64, 64, 3), dtype=np.uint8)
+    assert_first_logits_close(card, cpu, "generate", clips[:2], API_PROMPTS, dfa=validator, session_rounds=4,
+                              return_session=True)
+    found: dict = {}
+    with path_decode_inputs(found):
+        lines, launched = engine_api_phase(card, clips)
+    assert path_decode_readings(0, found, "engine_api")["worst_ratio"] <= 1  # K2 + K3 at the path's shapes
+    session = next(line for line in lines if line["phase"] == "api_session")
+    assert session["equals_long_call"] and session["rounds_resumed"] > 0
+    assert launched["decode_attention"] > 0

@@ -614,3 +614,44 @@ def test_fused_stage_equals_the_written_cache():
         k2[index:index + 3], v2[index:index + 3] = k_new[h], v_new[h]
         split, _ = model_head(q_rows, k2, v2, index + 1, 3, splits, qk, 1.0, False)
         np.testing.assert_array_equal(fused, split)
+
+
+def path_step(quantized: bool, b: int = 2, s: int = 1024, seed: int = 0) -> tuple:
+    """A decode step's inputs as ``chip_smoke.path_decode_inputs`` keeps
+    them: q [B, 2, 3, 128], one kv head, caches of ``s`` positions."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, 2, 3, KD, generator=gen).bfloat16()
+    if quantized:
+        caches = [torch.randint(-127, 128, (b, 1, s, KD), generator=gen, dtype=torch.int8) for _ in range(2)]
+        scales = [torch.full((1,), 0.03), torch.full((1,), 0.05)]
+    else:
+        caches = [torch.randn(b, 1, s, KD, generator=gen).bfloat16() for _ in range(2)]
+        scales = [None, None]
+    new = [torch.randn(b, 1, 3, KD, generator=gen).bfloat16() for _ in range(2)]
+    index = torch.tensor([300 + i for i in range(b)], dtype=torch.int32)
+    return (q, *caches, *new, index, None, *scales)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16_k5", "int8_k2_k3"])
+def test_path_decode_check_passes_the_plain_step_and_fails_a_shifted_one(quantized, monkeypatch):
+    """The smoke's check of a main path's decode step at its own shape
+    (``chip_smoke.path_decode_reading``) passes the plain versions standing
+    in for the kernels and fails a step whose causal extent is one position
+    short (on the path's inputs, the full extent and the causal edge)."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    reading = chip_smoke.path_decode_reading(torch.Generator().manual_seed(1), path_step(quantized))
+    assert reading["kernel"] == ("K2 + K3" if quantized else "K5") and reading["cache_writes_bit_equal"]
+    for key in ("path_inputs", "full_extent", "edge"):
+        assert reading[f"{key}_max_abs_err"] <= reading[f"{key}_tol"], key
+    assert reading["full_extent_index"][0] == 1024 - 3
+
+    update, attend = chip_smoke.decode_attention_update, chip_smoke.decode_attention
+    monkeypatch.setattr(chip_smoke, "decode_attention_update",
+                        lambda q, k, v, kn, vn, index, *rest: update(q, k, v, kn, vn, index, *rest) * 0
+                        + attend(q, k, v, index, *rest))
+    monkeypatch.setattr(chip_smoke, "decode_attention",
+                        lambda q, k, v, lengths, *rest: attend(q, k, v, lengths - 1, *rest))
+    with pytest.raises(AssertionError, match="path decode step"):
+        chip_smoke.path_decode_reading(torch.Generator().manual_seed(1), path_step(quantized))

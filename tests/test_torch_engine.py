@@ -141,12 +141,14 @@ def test_sampled_output_stays_in_grammar(tokenizer):
         assert 0 < len(row) <= 64 + 2
 
 
-def test_unported_surface_raises(tokenizer):
+def test_unported_surface_raises(tokenizer, tmp_path):
+    """What stays unported raises: HF safetensors checkpoints and the
+    speculative draft; bad arguments raise as in the JAX engine."""
     engine = port_engine(tokenizer)
-    with pytest.raises(NotImplementedError):
-        engine.generate(frames(), PROMPTS, prefixes=[[1], [2]])
-    with pytest.raises(NotImplementedError):
-        engine.generate(frames(), PROMPTS, session_rounds=1, return_session=True)
+    (tmp_path / "model.safetensors.index.json").write_text("{}")
+    with pytest.raises(NotImplementedError, match="safetensors"):
+        engine.restore(tmp_path)
+    assert not hasattr(engine, "attach_draft")
     with pytest.raises(ValueError, match="quantize mode"):
         port_engine(tokenizer, quantize="int2")
     with pytest.raises(ValueError, match="one prompt per clip"):

@@ -1,6 +1,7 @@
 """Parity of the port's tokenizers and grammar with the JAX package's (CPU).
 
-The BPE codec and the note grammar are the port's own copies; their tables
+The BPE codec and the analyzer grammars (note, segment note, schema,
+validator and audit) are the port's own copies; their tables
 must equal the JAX package's exactly, and the torch ``constrain``,
 ``advance`` and ``forced_tables`` must give the JAX functions' results on
 the same states, tokens and logits.
@@ -13,13 +14,17 @@ import numpy as np
 import pytest
 import torch
 
+from video_transformer_tpu.analyzer import schema as j_schema
 from video_transformer_tpu.analyzer.schema import note_dfa as j_note_dfa
 from video_transformer_tpu.models.bpe import BpeTokenizer as JBpe
 from video_transformer_tpu.models.tokenizer import ByteTokenizer as JByte
+from video_transformer_tpu.ops.constrained import DfaBuilder as JDfaBuilder
 from video_transformer_tpu.ops.token_grammar import TokenGrammar as JTokenGrammar
+from video_transformer_tpu_torch.analyzer import schema
 from video_transformer_tpu_torch.analyzer.schema import note_dfa
 from video_transformer_tpu_torch.models.bpe import BpeTokenizer
 from video_transformer_tpu_torch.models.tokenizer import ByteTokenizer
+from video_transformer_tpu_torch.ops.constrained import DfaBuilder
 from video_transformer_tpu_torch.ops.token_grammar import TokenGrammar
 
 torch.set_num_threads(2)
@@ -68,6 +73,28 @@ def test_note_dfa_tables_match(scale, unicode_text):
     assert (dfa.start, dfa.accept) == (j_dfa.start, j_dfa.accept)
     for a, b in zip(dfa.forced_tables(24), j_dfa.forced_tables(24)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name,args", [
+    ("segment_note_dfa", (512, 1.0)), ("segment_note_dfa", (512, 0.25)), ("schema_dfa", (512,)),
+    ("validator_dfa", (512,)), ("audit_dfa", (512,)), ("validator_dfa", (2048,)),
+])
+def test_analyzer_grammar_tables_match(name, args):
+    """The other analyzer grammars: tables, start, accept and forced runs
+    equal JAX's exactly."""
+    dfa, j_dfa = getattr(schema, name)(*args), getattr(j_schema, name)(*args)
+    np.testing.assert_array_equal(dfa.next_state, j_dfa.next_state)
+    assert (dfa.start, dfa.accept) == (j_dfa.start, j_dfa.accept)
+    for a, b in zip(dfa.forced_tables(24), j_dfa.forced_tables(24)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_choice_matches_and_rejects_shared_first_bytes():
+    got = DfaBuilder().literal("x").choice(["true", "false", "null"]).finish()
+    want = JDfaBuilder().literal("x").choice(["true", "false", "null"]).finish()
+    np.testing.assert_array_equal(got.next_state, want.next_state)
+    with pytest.raises(ValueError, match="first byte"):
+        DfaBuilder().choice(["no", "nope"])
 
 
 def test_byte_dfa_constrain_and_advance():

@@ -37,7 +37,11 @@ import video_transformer_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert "video_transformer_tpu_torch.parallel.serving" in names, names
+for want in ("parallel.serving", "train.grounded", "train.shifts", "train.eval_grounding"):
+    assert "video_transformer_tpu_torch." + want in names, names
+from video_transformer_tpu_torch.parallel.engine import InferenceEngine
+for method in ("generate_text", "continue_session", "restore"):
+    assert callable(getattr(InferenceEngine, method)), method
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
@@ -131,6 +135,24 @@ def test_no_print_in_library_code():
         if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) and node.func.id == "print"
     ]
     assert not offenders, f"print() in library code: {offenders}"
+
+
+def test_only_the_conversion_tool_imports_orbax():
+    """Of the port's files and its checkpoint converter, only the converter
+    (a host tool that runs beside JAX) reads orbax."""
+    outside = [REPO / "chip_smoke.py", *PACKAGE.rglob("*.py"), REPO / "tools" / "orbax_to_npz.py"]
+    importers = []
+    for path in outside:
+        for node in ast.walk(_module_ast(path)):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            if any(name.split(".")[0] == "orbax" for name in names):
+                importers.append(path.relative_to(REPO).as_posix())
+    assert sorted(set(importers)) == ["tools/orbax_to_npz.py"]
 
 
 def test_kernel_sources_are_plain_cuda():

@@ -1,8 +1,8 @@
 """The knowledge-note output schema, compiled to a decoding DFA.
 
-This package's own copy of the ``note_dfa`` builder of the JAX package's
-``analyzer/schema.py``: every generation under it is valid JSON with exactly
-the note's required fields. Field budgets are in bytes.
+This package's own copy of the grammars of the JAX package's
+``analyzer/schema.py``: every generation under one is valid JSON with exactly
+its schema's fields. Field budgets are in bytes.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import functools
 from ..models.tokenizer import ByteTokenizer
 from ..ops.constrained import DfaBuilder, JsonDfa
 
-__all__ = ["note_dfa"]
+__all__ = ["note_dfa", "segment_note_dfa", "schema_dfa", "validator_dfa", "audit_dfa"]
 
 
 def _scaled(scale: float, min_len: int, max_len: int) -> tuple[int, int]:
@@ -68,4 +68,44 @@ def note_dfa(vocab_size: int = 512, scale: float = 1.0, unicode_text: bool = Tru
     b.literal(', "glossary": ').string_dict(*_scaled(scale, 2, 24), *_scaled(scale, 5, 80))
     b.literal(', "visual_schemas": ').loop_list(lambda bb: _visual_schema_item(bb, scale))
     b.literal("}")
+    return b.finish()
+
+
+@functools.lru_cache(maxsize=8)
+def segment_note_dfa(vocab_size: int = 512, scale: float = 1.0) -> JsonDfa:
+    """Per-segment grammar: the note's shape, kept apart from ``note_dfa``
+    so that segment and consolidation budgets can diverge."""
+    return note_dfa(vocab_size, scale)
+
+
+@functools.lru_cache(maxsize=8)
+def schema_dfa(vocab_size: int = 512) -> JsonDfa:
+    """Standalone visual-schema generation (the fallback pass)."""
+    b = DfaBuilder(ByteTokenizer(vocab_size))
+    b.literal('{"visual_schemas": ').loop_list(lambda bb: _visual_schema_item(bb, 1.0)).literal("}")
+    return b.finish()
+
+
+_TWO_DIGITS = [tuple(range(0x30, 0x3A))] * 2
+
+
+@functools.lru_cache(maxsize=8)
+def validator_dfa(vocab_size: int = 512) -> JsonDfa:
+    """Consistency-validator scoring grammar (rubric 40/30/20/10)."""
+    b = DfaBuilder(ByteTokenizer(vocab_size))
+    b.literal('{"accuracy": ').quoted_pattern(_TWO_DIGITS)
+    b.literal(', "completeness": ').quoted_pattern(_TWO_DIGITS)
+    b.literal(', "visualization": ').quoted_pattern(_TWO_DIGITS)
+    b.literal(', "logic": ').quoted_pattern(_TWO_DIGITS)
+    b.literal(', "feedback": ').free_string(5, 160).literal("}")
+    return b.finish()
+
+
+@functools.lru_cache(maxsize=8)
+def audit_dfa(vocab_size: int = 512) -> JsonDfa:
+    """Image-audit grammar: score, pass flag and feedback."""
+    b = DfaBuilder(ByteTokenizer(vocab_size))
+    b.literal('{"score": ').quoted_pattern(_TWO_DIGITS)
+    b.literal(', "passed": ').choice(["true", "false"])
+    b.literal(', "feedback": ').free_string(5, 160).literal("}")
     return b.finish()

@@ -7,7 +7,9 @@ block through K2 (quantizing it for an int8 cache) and attends the
 full-precision k/v through K1; each decode step writes its rows through K2
 and attends the valid prefix through K3 (``ops/decode_attention.py``), or
 does both through K5 when the cache is bf16. A ``rows`` entry [B] int32
-maps each logical row to its physical cache row (the batcher's paged pool). Without a cache (training) the
+maps each logical row to its physical cache row (the batcher's paged pool);
+an ``active`` entry [B] bool leaves padding rows out of the int8 scales'
+calibration. Without a cache (training) the
 blocks attend causally through ``ops/attention.py`` (K7a-c under autograd),
 and ``remat`` recomputes each block in the backward pass. Parameter names
 follow the JAX package's parameter paths (``layer_0.attn.q.kernel``).
@@ -112,9 +114,16 @@ class Attention(nn.Module):
                     # In-program calibration: the prefill block's batch-wide
                     # amax per head, with a 1.5x margin, max'ed with the
                     # running scale (arithmetic in the compute dtype, as the
-                    # JAX package does it).
-                    k_scale = torch.maximum(k_scale, 1.5 * k.abs().amax(dim=(0, 2, 3)) / 127.0)
-                    v_scale = torch.maximum(v_scale, 1.5 * v.abs().amax(dim=(0, 2, 3)) / 127.0)
+                    # JAX package does it). Rows marked inactive (batch
+                    # padding) take no part, so that padding a batch does
+                    # not move the real rows' scales.
+                    k_abs, v_abs = k.abs(), v.abs()
+                    active = cache.get("active")
+                    if active is not None:
+                        k_abs = torch.where(active[:, None, None, None], k_abs, 0)
+                        v_abs = torch.where(active[:, None, None, None], v_abs, 0)
+                    k_scale = torch.maximum(k_scale, 1.5 * k_abs.amax(dim=(0, 2, 3)) / 127.0)
+                    v_scale = torch.maximum(v_scale, 1.5 * v_abs.amax(dim=(0, 2, 3)) / 127.0)
                     cache["k_scale"][i] = k_scale
                     cache["v_scale"][i] = v_scale
                 # K2 writes the block in one launch (on the CPU its plain

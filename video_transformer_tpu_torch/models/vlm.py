@@ -2,7 +2,8 @@
 
 Methods map onto the inference engine's phases: ``encode_video`` (patches ->
 projected video embeddings), ``prefill`` (video embeddings + prompt tokens
--> KV cache + each row's last logits) and ``decode_block_pick`` (a block of
+-> KV cache + each row's last logits), ``prefill_text`` (the same without
+video: validator, consolidation and rewrite passes) and ``decode_block_pick`` (a block of
 tokens against the cache, logits at one position per row). ``forward`` is
 the teacher-forced training forward (video + text -> logits).
 """
@@ -66,6 +67,12 @@ class VideoLM(nn.Module):
         inputs = self._splice(video_embeds, prompt_tokens)
         logits, cache = self.decoder(inputs, cache=cache, dtype=self.compute_dtype, prefill=True)
         return self._ragged_last(logits, cache, lengths, video_embeds.shape[1])
+
+    def prefill_text(self, prompt_tokens, cache: Cache, lengths):
+        """Text-only prefill -> (last_logits, cache); ``lengths`` [B] counts
+        each row's valid positions (continuation prefixes are ragged)."""
+        logits, cache = self.decoder(prompt_tokens, cache=cache, dtype=self.compute_dtype, prefill=True)
+        return self._ragged_last(logits, cache, lengths, 0)
 
     def decode_block_pick(self, tokens, cache: Cache, pick):
         """[B, W] tokens -> (logits [B, V] at column ``pick`` [B], cache)."""

@@ -158,6 +158,25 @@ class DfaBuilder:
         d = _DIGIT_BYTES
         return self.quoted_pattern([d, d, (0x3A,), d, d])
 
+    def choice(self, options: list[str]) -> "DfaBuilder":
+        """One of several literal alternatives (e.g. true / false); options
+        must differ in their first byte."""
+        firsts = [o.encode("utf-8")[0] for o in options]
+        if len(set(firsts)) != len(firsts):
+            raise ValueError("choice options must differ in first byte")
+        entry = self.state
+        exit_state = self._new_state()
+        for option in options:
+            data = option.encode("utf-8")
+            self.state = entry
+            for byte in data[:-1]:
+                nxt = self._new_state()
+                self._link(self.state, byte, nxt)
+                self.state = nxt
+            self._link(self.state, data[-1], exit_state)
+        self.state = exit_state
+        return self
+
     def loop_list(
         self,
         build_item: Callable[["DfaBuilder"], None],

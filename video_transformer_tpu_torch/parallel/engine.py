@@ -1,13 +1,23 @@
 """The inference engine: preprocess, prefill and the constrained decode loop.
 
-``InferenceEngine.generate(frames, prompts)`` is the counterpart of the JAX
-package's ``parallel/engine.py::InferenceEngine.generate`` on one CUDA card:
-the same prompt layout (each row's prompt in its own 128-multiple bucket),
-the same cache sizing, and the same decode loop semantics (frozen rows, EOS
-filler, grammar fast-forward blocks of 1 + max_forced_run tokens, per-row
+``InferenceEngine.generate(frames, prompts)`` and ``generate_text(prompts)``
+are the counterparts of the JAX package's ``parallel/engine.py`` entry
+points on one CUDA card: the same prompt layout (each row's prompt in its
+own 128-multiple bucket, a continuation prefix right after it), the same
+cache sizing, and the same decode loop semantics (frozen rows, EOS filler,
+grammar fast-forward blocks of 1 + max_forced_run tokens, per-row
 ``out_pos`` with ``out_width`` slack, the cache index rewound to
-``index_before + advance`` after each block). The loop runs on the host, one
-decoder call per step; the tensors stay on the device.
+``index_before + advance`` after each block). The loop runs on the host,
+one decoder call per step; the tensors stay on the device.
+
+Continuation: ``prefixes`` (token ids or text) re-prefill prompt + prefix
+and resume the grammar mid-document; ``session_rounds`` with
+``return_session`` keeps the decode carry (logits, cache, grammar state,
+done rows) in an ``EngineSession`` that ``continue_session`` resumes with
+no prefill, through the same loop, so that a resumed generation equals one
+call with a longer budget. ``batch_bucket`` pads a ragged batch with rows
+that are frozen from step 0. ``restore`` loads trained weights (a converted
+``.npz``, or the port trainer's ``params_N/params.pt``).
 
 A bf16 KV cache decodes through K5 (each step's cache write and attention
 in one kernel), an int8 one through K2 then K3. ``quantize="int4"`` stores
@@ -16,9 +26,8 @@ multiplies through K6 (``ops/int4_matmul.py``); prefill's larger row counts
 take the unpacked route. ``preprocess`` is the batcher's staging entry
 (``serving.py``).
 
-Not ported yet (they raise NotImplementedError): continuation ``prefixes``,
-sessions, ``generate_text``, speculative decoding, projection fusion and data
-parallelism.
+Not ported: speculative decoding (no draft model), projection fusion and
+data parallelism (one device, so a batch pads only to ``batch_bucket``).
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from __future__ import annotations
 import logging
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -37,29 +47,74 @@ from ..models.quant import quantize_decoder
 from ..models.tokenizer import ByteTokenizer
 from ..models.vlm import VideoLM
 from ..ops.preprocess import preprocess_frames
-from ..weights import cast_weights, random_params
+from ..weights import cast_weights, from_jax_params, from_state_dict, load_npz, random_params
 
-__all__ = ["InferenceEngine", "EngineStats"]
+__all__ = ["InferenceEngine", "EngineStats", "EngineSession", "params_checkpoints", "resolve_params_dir"]
 
 
 def _round_up(x: int, multiple: int) -> int:
     return ((x + multiple - 1) // multiple) * multiple
 
 
+def params_checkpoints(parent: str | Path) -> list[Path]:
+    """The ``params_N`` checkpoint directories under ``parent``, highest
+    step first; raises when there is none."""
+    parent = Path(parent)
+    steps = sorted(
+        ((int(p.name.split("_")[-1]), p) for p in parent.iterdir()
+         if p.is_dir() and p.name.startswith("params_") and p.name.split("_")[-1].isdigit()),
+        reverse=True,
+    )
+    if not steps:
+        raise FileNotFoundError(f"no params_N checkpoints under {parent}")
+    return [p for _, p in steps]
+
+
+def resolve_params_dir(path: str | Path) -> Path:
+    """``path`` itself unless it is a directory of ``params_N`` checkpoints,
+    then the highest step under it."""
+    path = Path(path)
+    if not path.is_dir() or path.name.startswith("params_"):
+        return path
+    return params_checkpoints(path)[0]
+
+
 @dataclass
 class EngineStats:
     """Cumulative counters; seconds on the host clock after a device sync."""
 
+    generate_calls: int = 0
     tokens_generated: int = 0
     generate_seconds: float = 0.0
     prefill_seconds: float = 0.0
     """Preprocess, encoder and decoder prefill."""
     prefill_tokens: int = 0
+    session_resumes: int = 0
+    """Decode-only continuation rounds (each one saved a re-prefill)."""
     decode_steps: int = 0
+
+    @property
+    def tokens_per_second(self) -> float:
+        return self.tokens_generated / self.generate_seconds if self.generate_seconds else 0.0
+
+
+@dataclass
+class EngineSession:
+    """The decode carry kept on the device between continuation rounds:
+    the KV cache, each row's next-token logits and grammar state, and the
+    rows that have ended (completed, or batch padding)."""
+
+    cache: dict
+    logits: torch.Tensor
+    state: torch.Tensor
+    done: torch.Tensor
+    b_real: int
+    dfa: Any
+    rounds_left: int
 
 
 class InferenceEngine:
-    """Owns the model on one device and runs ``generate``."""
+    """Owns the model on one device and runs ``generate``/``generate_text``."""
 
     def __init__(
         self,
@@ -79,9 +134,10 @@ class InferenceEngine:
     ):
         """``params`` is a VideoLM (``weights.from_jax_params`` or
         ``weights.random_params``); None makes seeded random weights on
-        ``device``. ``param_dtype`` casts the float weights, ``quantize``
-        ("int8" or "int4") then quantizes the decoder's dense layers, and
-        ``kv_quant="int8"`` stores the KV cache in int8."""
+        ``device`` (``restore`` then loads trained ones). ``param_dtype``
+        casts the float weights, ``quantize`` ("int8" or "int4") then
+        quantizes the decoder's dense layers, and ``kv_quant="int8"`` stores
+        the KV cache in int8."""
         if quantize not in (None, "int8", "int4"):
             raise ValueError(f"unsupported quantize mode: {quantize!r}")
         if kv_quant not in (None, "int8"):
@@ -98,19 +154,57 @@ class InferenceEngine:
         self.structure_bias = float(structure_bias)
         self.max_forced_run = int(max_forced_run)
         self.kv_quant = kv_quant
+        self.quantize = quantize
+        self.param_dtype = getattr(torch, param_dtype) if param_dtype else None
         self.tokenizer = tokenizer or ByteTokenizer(config.decoder.vocab_size)
         self.stats = EngineStats()
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
-        dtype = getattr(torch, param_dtype) if param_dtype else torch.float32
         if params is None:
-            params = random_params(config, self._generator, self.device, dtype)
-        elif param_dtype:
-            cast_weights(params, dtype)
-        if quantize:
-            quantize_decoder(params, quantize)
-        self.model = params.to(self.device).eval()
+            params = random_params(config, self._generator, self.device, self.param_dtype or torch.float32)
+        self.model = self._place(params)
         self._tables: dict[int, Any] = {}
         self._forced: dict[int, tuple[torch.Tensor, ...]] = {}
+
+    def _place(self, model: VideoLM) -> VideoLM:
+        """The serving transform, in the JAX engine's order: the
+        ``param_dtype`` cast, then quantization, then the device."""
+        if self.param_dtype is not None:
+            cast_weights(model, self.param_dtype)
+        if self.quantize:
+            quantize_decoder(model, self.quantize)
+        return model.to(self.device).eval()
+
+    def restore(self, checkpoint_path: str | Path) -> None:
+        """Load trained weights, then re-apply the serving transform.
+
+        Takes a converted checkpoint (``.npz`` from ``tools/orbax_to_npz.py``),
+        a ``params_N`` directory holding the port trainer's ``params.pt``,
+        or a parent of such directories (the highest step is taken). The
+        leaves are loaded as the f32 tree the trainer writes (a bfloat16
+        checkpoint is widened exactly, as the JAX engine restores against
+        its f32 template), then cast and quantized as the engine serves.
+        Raises on a missing file and on a tree that does not fit the
+        preset; there is no fallback to random weights.
+        """
+        path = Path(checkpoint_path)
+        if path.is_dir() and (any(path.glob("*.safetensors")) or (path / "model.safetensors.index.json").exists()):
+            raise NotImplementedError(f"{path}: HF safetensors checkpoints are not ported")
+        if path.suffix == ".npz":
+            if not path.is_file():
+                raise FileNotFoundError(f"no converted checkpoint at {path}")
+            variables = load_npz(path)
+            if "quant" in variables:
+                raise ValueError(f"{path} holds quantized leaves; restore takes the trained float tree")
+            model = from_jax_params(variables, self.config, device="cpu")
+        else:
+            path = resolve_params_dir(path)
+            file = path / "params.pt"
+            if not file.is_file():
+                raise FileNotFoundError(f"no params.pt in {path}")
+            state = torch.load(file, map_location="cpu", weights_only=True)
+            model = from_state_dict(state, self.config, device="cpu")
+        cast_weights(model, torch.float32)
+        self.model = self._place(model)
 
     # -- grammar -----------------------------------------------------------------
 
@@ -176,23 +270,122 @@ class InferenceEngine:
         ceiling = fit - video_tokens - self.max_new_tokens - 2 * bw_max - 17
         return min(bucket, max((ceiling // 128) * 128, 128))
 
-    def _assemble_inputs(self, prompts: list[str], b_real: int, prompt_len: int, dfa):
-        """Token block [B, prompt_len], per-row valid lengths (each row's own
-        128-multiple bucket) and grammar start states."""
-        rows = []
-        lengths = np.full((b_real,), prompt_len, np.int32)
-        overflow = 0
-        for i, p in enumerate(prompts):
-            ids = self.tokenizer.encode(p)
-            overflow += len(ids) + 1 > prompt_len
-            rows.append(self.tokenizer.encode_array(p, prompt_len, add_bos=True))
-            lengths[i] = min(_round_up(len(ids) + 1, 128), prompt_len)
+    def _pad_and_tokenize(
+        self, prompts: list[str], b_real: int, prompt_len: int, batch_bucket: int | None = None
+    ) -> tuple[int, np.ndarray]:
+        """Prompt tokens [B, prompt_len], the batch rounded up to
+        ``batch_bucket`` with empty prompts (one device: no other quantum)."""
+        b_padded = _round_up(max(b_real, 1), batch_bucket or 1)
+        padded = prompts + [""] * (b_padded - b_real)
+        overflow = sum(1 for p in prompts if len(self.tokenizer.encode(p)) + 1 > prompt_len)
         if overflow:
             logging.getLogger("video_transformer").warning(
                 f"event=prompt_truncated count={overflow} prompt_len={prompt_len}"
             )
-        start = dfa.start if dfa is not None else 0
-        return np.stack(rows), lengths, np.full((b_real,), start, np.int64)
+        return b_padded, np.stack([self.tokenizer.encode_array(p, prompt_len, add_bos=True) for p in padded])
+
+    def _resume_state(self, dfa, prefix: bytes) -> int:
+        """Grammar state after consuming ``prefix`` bytes (continuation)."""
+        table = getattr(dfa, "dfa", dfa).next_state
+        state = dfa.start
+        for byte in prefix:
+            state = int(table[state, byte])
+            if state < 0:
+                raise ValueError("continuation prefix leaves the grammar")
+        return state
+
+    def _prefix_bytes(self, ids: list[int]) -> bytes:
+        """Exact bytes of a generated id sequence: ids keep a cap that fell
+        mid UTF-8 character intact, where re-encoded text would not."""
+        return b"".join(self.tokenizer.token_bytes(int(t)) for t in ids)
+
+    def _normalize_prefixes(self, prefixes) -> list[list[int]] | None:
+        """Text or token-id prefixes -> ids (ids are the exact path)."""
+        if prefixes is None:
+            return None
+        return [self.tokenizer.encode(p) if isinstance(p, str) else list(p) for p in prefixes]
+
+    def _assemble_inputs(
+        self,
+        prompts: list[str],
+        prefixes: list[list[int]] | None,
+        b_real: int,
+        prompt_len: int,
+        dfa,
+        with_video: bool,
+        batch_bucket: int | None = None,
+    ) -> tuple[int, int, np.ndarray, np.ndarray, np.ndarray]:
+        """(padded batch, width, tokens [B, prompt_len + prefix_bucket],
+        per-row valid lengths, grammar start states).
+
+        Each row's prompt occupies its own 128-multiple bucket and its
+        prefix follows right after it, resuming the grammar mid-document;
+        the prefix region is rounded up to 128 across the batch.
+        """
+        b_padded, prompt_tokens = self._pad_and_tokenize(prompts, b_real, prompt_len, batch_bucket)
+        row_buckets = np.full((b_padded,), prompt_len, np.int32)
+        for i, p in enumerate(prompts):
+            row_buckets[i] = min(_round_up(len(self.tokenizer.encode(p)) + 1, 128), prompt_len)
+
+        prefix_ids: list[list[int]] = [[] for _ in range(b_padded)]
+        for i, prefix in enumerate(prefixes or []):
+            prefix_ids[i] = [int(t) for t in prefix]
+        prefix_bucket = _round_up(max(map(len, prefix_ids)), 128) if any(prefix_ids) else 0
+
+        total = prompt_len + prefix_bucket
+        if prefix_bucket:
+            # The cache bound of a generation with no session reserve, raised
+            # here so that callers can stop continuing. No draft model: the
+            # JAX engine's speculative block width counts as 0.
+            spec_tokens = 0
+            video_tokens = self.config.video_tokens if with_video else 0
+            cache_len = _round_up(
+                video_tokens + total + self.max_new_tokens + 2 * max(self.max_forced_run + 1, spec_tokens) + 17,
+                128,
+            )
+            if cache_len > self.config.decoder.max_seq_len:
+                raise ValueError(
+                    f"prompt+prefix ({total} tokens) exceeds the sequence budget; cannot continue this generation"
+                )
+
+        tokens = np.full((b_padded, total), self.tokenizer.PAD, np.int32)
+        tokens[:, :prompt_len] = prompt_tokens
+        lengths = row_buckets.copy()
+        states = np.full((b_padded,), dfa.start if dfa is not None else 0, np.int64)
+        for i, ids in enumerate(prefix_ids):
+            if not ids:
+                continue
+            start = int(row_buckets[i])
+            tokens[i, start : start + len(ids)] = ids
+            lengths[i] = start + len(ids)
+            if dfa is not None:
+                states[i] = self._resume_state(dfa, self._prefix_bytes(ids))
+        return b_padded, total, tokens, lengths, states
+
+    def _max_session_rounds(self, prompt_width: int, with_video: bool, requested: int, dfa) -> int:
+        """Largest continuation-round reserve that still fits the KV cache
+        (0: no session; the caller continues with ``prefixes``)."""
+        video_tokens = self.config.video_tokens if with_video else 0
+        block_width = self._block_width(dfa)
+        per_round = self.max_new_tokens + block_width
+        cap = (self.config.decoder.max_seq_len // 128) * 128
+        budget = cap - video_tokens - prompt_width - block_width - 17
+        return max(0, min(requested, budget // per_round - 1))
+
+    def _cache_len(self, prompt_width: int, with_video: bool, dfa, extra_rounds: int) -> int:
+        """KV positions for a generation and ``extra_rounds`` session rounds,
+        with the tail slack past the last live position that K5's aligned
+        row write may touch, as in the JAX engine."""
+        block_width = self._block_width(dfa)
+        video_tokens = self.config.video_tokens if with_video else 0
+        cache_len = _round_up(
+            video_tokens + prompt_width + (1 + extra_rounds) * (self.max_new_tokens + block_width)
+            + 1 + block_width + 16,
+            128,
+        )
+        if cache_len > self.config.decoder.max_seq_len:
+            raise ValueError(f"sequence {cache_len} exceeds max_seq_len {self.config.decoder.max_seq_len}")
+        return cache_len
 
     def preprocess(self, frames) -> torch.Tensor:
         """uint8 [B, T, H, W, 3] frames -> patches on the device, in the
@@ -213,7 +406,7 @@ class InferenceEngine:
         prompts: list[str],
         prompt_len: int | None = None,
         dfa: Any = None,
-        prefixes: Any = None,
+        prefixes: list[str] | list[list[int]] | None = None,
         return_status: bool = False,
         return_tokens: bool = False,
         session_rounds: int = 0,
@@ -222,69 +415,166 @@ class InferenceEngine:
     ):
         """Analyze a batch of clips: returns one decoded text per clip.
 
-        ``frames`` uint8 [B, T, H, W, 3]; ``return_status=True`` appends
-        per-row completion flags (False = ran out of token budget) and
-        ``return_tokens=True`` the per-row generated token ids.
+        ``frames`` uint8 [B, T, H, W, 3]. ``prefixes`` continues earlier
+        generations (token ids from ``return_tokens=True`` resume exactly;
+        text re-encodes): each row re-prefills prompt + prefix, resumes the
+        grammar mid-document and returns only the new tail.
+        ``return_status=True`` appends per-row completion flags (False = ran
+        out of token budget), ``return_tokens=True`` the per-row generated
+        ids, and ``return_session=True`` an ``EngineSession`` holding cache
+        room for ``session_rounds`` decode-only rounds (None when no round
+        fits; continue with ``prefixes`` then). ``batch_bucket`` pads the
+        batch up to a multiple of it with rows that generate nothing.
         """
-        if prefixes is not None or session_rounds or return_session:
-            raise NotImplementedError("continuation prefixes and sessions are not ported")
-        if batch_bucket:
-            raise NotImplementedError("batch buckets are not ported (one device, no padding)")
-        b_real = len(frames)
+        frames = np.asarray(frames)
+        b_real = frames.shape[0]
         if len(prompts) != b_real:
             raise ValueError("one prompt per clip required")
         if prompt_len is None:
             prompt_len = self._prompt_bucket(prompts, with_video=True)
         dfa = dfa if dfa is not None else self.dfa
-        tokens_in, lengths, states = self._assemble_inputs(prompts, b_real, prompt_len, dfa)
+        b_padded, total, tokens_in, lengths, states = self._assemble_inputs(
+            prompts, self._normalize_prefixes(prefixes), b_real, prompt_len, dfa,
+            with_video=True, batch_bucket=batch_bucket,
+        )
+        if b_padded != b_real:
+            pad = np.zeros((b_padded - b_real,) + frames.shape[1:], frames.dtype)
+            frames = np.concatenate([frames, pad], axis=0)
+        return self._execute(
+            frames, tokens_in, lengths, states, b_real, total, dfa,
+            session_rounds, return_status, return_tokens, return_session,
+        )
+
+    @torch.no_grad()
+    def generate_text(
+        self,
+        prompts: list[str],
+        prompt_len: int | None = None,
+        dfa: Any = None,
+        prefixes: list[str] | list[list[int]] | None = None,
+        return_status: bool = False,
+        return_tokens: bool = False,
+        session_rounds: int = 0,
+        return_session: bool = False,
+        batch_bucket: int | None = None,
+    ):
+        """Text-only generation (validator scoring, consolidation, rewrite):
+        ``generate`` without frames, prefilled through ``prefill_text``."""
+        b_real = len(prompts)
+        if prompt_len is None:
+            prompt_len = self._prompt_bucket(prompts, with_video=False)
+        dfa = dfa if dfa is not None else self.dfa
+        _, total, tokens_in, lengths, states = self._assemble_inputs(
+            prompts, self._normalize_prefixes(prefixes), b_real, prompt_len, dfa,
+            with_video=False, batch_bucket=batch_bucket,
+        )
+        return self._execute(
+            None, tokens_in, lengths, states, b_real, total, dfa,
+            session_rounds, return_status, return_tokens, return_session,
+        )
+
+    @torch.no_grad()
+    def continue_session(self, session: EngineSession) -> tuple[list[str], list[bool], list[list[int]]]:
+        """One decode-only round over a session's live cache: no prefill.
+
+        Every row resumes from its next-token logits and grammar state;
+        rows that have ended stay frozen and return empty tails. Returns
+        (new-tail texts, complete flags, new-tail ids); the session advances
+        in place.
+        """
+        if session.rounds_left <= 0:
+            raise ValueError("session cache exhausted; no continuation rounds left")
+        start = time.perf_counter()
+        tokens, out_pos, complete, steps, session.logits, session.cache, session.state, session.done = (
+            self._decode(session.logits, session.cache, session.state, session.done, session.dfa)
+        )
+        session.rounds_left -= 1
+        tokens, out_pos, complete = tokens.cpu().numpy(), out_pos.cpu().numpy(), complete.cpu().numpy()
+        b_real = session.b_real
+        self.stats.generate_calls += 1
+        self.stats.session_resumes += 1
+        self.stats.tokens_generated += int(out_pos[:b_real].sum())
+        self.stats.generate_seconds += time.perf_counter() - start
+        self.stats.decode_steps += steps
+        ids = [tokens[i, : out_pos[i]].tolist() for i in range(b_real)]
+        return [self.tokenizer.decode(row) for row in ids], [bool(c) for c in complete[:b_real]], ids
+
+    def _execute(
+        self, frames, tokens_in, lengths, states, b_real, prompt_width, dfa,
+        session_rounds, return_status, return_tokens, return_session,
+    ):
+        """Prefill (with video when ``frames`` is given), then the decode
+        loop; packs the outputs as ``generate`` documents them."""
+        with_video = frames is not None
+        # A cache reserve is only of use to a session.
+        rounds = session_rounds if return_session else 0
+        if rounds:
+            rounds = self._max_session_rounds(prompt_width, with_video, rounds, dfa)
+        b = tokens_in.shape[0]
+        dev = self.device
+        cache_len = self._cache_len(prompt_width, with_video, dfa, rounds)
 
         start = time.perf_counter()
-        patches = self.preprocess(frames)
-        cfg = self.config
-        block_width = self._block_width(dfa)
-        # Tail slack past the last live position, as in the JAX engine.
-        cache_len = _round_up(
-            cfg.video_tokens + prompt_len + (self.max_new_tokens + block_width) + 1 + block_width + 16,
-            128,
-        )
-        if cache_len > cfg.decoder.max_seq_len:
-            raise ValueError(f"sequence {cache_len} exceeds max_seq_len {cfg.decoder.max_seq_len}")
-        dev = self.device
         cache = init_kv_cache(
-            cfg.decoder, b_real, cache_len, self.model.compute_dtype,
+            self.config.decoder, b, cache_len, self.model.compute_dtype,
             quant=self.kv_quant == "int8", device=dev,
         )
-        logits, cache = self.model.prefill(
-            patches, torch.from_numpy(tokens_in).to(dev), cache, torch.from_numpy(lengths).to(dev)
-        )
+        if b != b_real:
+            # Batch padding takes no part in the int8 KV scales: the JAX
+            # engine lets pad rows raise them, which changes the real rows'
+            # tokens against the unpadded call.
+            cache["active"] = torch.arange(b, device=dev) < b_real
+        tokens_t = torch.from_numpy(tokens_in).to(dev)
+        lengths_t = torch.from_numpy(lengths).to(dev)
+        if with_video:
+            logits, cache = self.model.prefill(self.preprocess(frames), tokens_t, cache, lengths_t)
+        else:
+            logits, cache = self.model.prefill_text(tokens_t, cache, lengths_t)
         self._sync()
         prefill_seconds = time.perf_counter() - start
         state = torch.from_numpy(states).to(dev)
-        done = torch.zeros((b_real,), dtype=torch.bool, device=dev)
+        # Batch-padding rows start done: frozen from step 0.
+        done = torch.arange(b, device=dev) >= b_real
         if dfa is not None:
             done = done | (state == dfa.accept)
-        tokens, out_pos, complete, steps = self._decode(logits, cache, state, done, dfa)
-        tokens = tokens.cpu().numpy()
-        out_pos = out_pos.cpu().numpy()
-        complete = complete.cpu().numpy()
-        elapsed = time.perf_counter() - start
+        tokens, out_pos, complete, steps, logits, cache, state, done = self._decode(logits, cache, state, done, dfa)
+        tokens, out_pos, complete = tokens.cpu().numpy(), out_pos.cpu().numpy(), complete.cpu().numpy()
 
-        self.stats.tokens_generated += int(out_pos.sum())
-        self.stats.generate_seconds += elapsed
+        self.stats.generate_calls += 1
+        self.stats.tokens_generated += int(out_pos[:b_real].sum())
+        self.stats.generate_seconds += time.perf_counter() - start
         self.stats.prefill_seconds += prefill_seconds
         self.stats.decode_steps += steps
-        self.stats.prefill_tokens += b_real * (cfg.video_tokens + prompt_len)
+        video_tokens = self.config.video_tokens if with_video else 0
+        self.stats.prefill_tokens += b_real * (video_tokens + prompt_width)
 
         ids = [tokens[i, : out_pos[i]].tolist() for i in range(b_real)]
-        out: tuple = ([self.tokenizer.decode(row) for row in ids],)
+        texts = [self.tokenizer.decode(row) for row in ids]
+        out: tuple = (texts,)
         if return_status:
-            out += ([bool(c) for c in complete],)
+            out += ([bool(c) for c in complete[:b_real]],)
         if return_tokens:
             out += (ids,)
-        return out if len(out) > 1 else out[0]
+        if return_session:
+            session = None
+            if rounds:
+                session = EngineSession(
+                    cache=cache, logits=logits, state=state, done=done,
+                    b_real=b_real, dfa=dfa, rounds_left=rounds,
+                )
+            out += (session,)
+        return out if len(out) > 1 else texts
 
     def _decode(self, logits, cache, state, finished, dfa):
-        """The constrained decode loop: up to max_new_tokens per row."""
+        """The constrained decode loop: up to max_new_tokens per row.
+
+        Takes and returns the full carry, so that ``generate`` and
+        ``continue_session`` run this one loop: ``finished`` marks rows
+        that have ended for good (accepted, EOS, batch padding); the token
+        cap freezes a row only for this round, through ``out_pos``.
+        Returns (tokens, out_pos, complete, steps, logits, cache, state,
+        finished).
+        """
         max_new = self.max_new_tokens
         eos = self.tokenizer.EOS
         dev = self.device
@@ -336,7 +626,9 @@ class InferenceEngine:
             index_before = cache["index"]
             new_logits, cache = self.model.decode_block_pick(block, cache, run)
             cache["index"] = (index_before + advance).to(torch.int32)
+            # Frozen rows keep their last live logits: a resumed session
+            # samples its next token from them.
             logits = torch.where(frozen[:, None], logits, new_logits)
             step += 1
         complete = (state == dfa.accept) if dfa is not None else finished
-        return tokens, out_pos, complete, step
+        return tokens, out_pos, complete, step, logits, cache, state, finished

@@ -25,6 +25,7 @@ import numpy as np
 
 from ..analyzer.schema import note_dfa
 from ..models.config import get_preset
+from ..parallel.engine import resolve_params_dir
 from .data import synthetic_batch
 from .trainer import TrainConfig, Trainer
 
@@ -205,15 +206,7 @@ def prepare(args: argparse.Namespace, logger: logging.Logger):
         note_dfa(min(config.decoder.vocab_size, 512)), prompt, args.prompt_len,
     )
     if args.init_from:
-        path = Path(args.init_from)
-        if path.is_dir() and not path.name.startswith("params_"):
-            candidates = sorted(
-                (p for p in path.iterdir() if p.name.startswith("params_") and p.name[7:].isdigit()),
-                key=lambda p: int(p.name.split("_")[-1]),
-            )
-            if not candidates:
-                raise SystemExit(f"no params_N checkpoints under {path}")
-            path = candidates[-1]
+        path = resolve_params_dir(args.init_from)
         trainer.restore_checkpoint(path)
         logger.info(f"event=train_init_from checkpoint={path}")
     return config, trainer, batches

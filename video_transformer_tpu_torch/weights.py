@@ -1,16 +1,24 @@
-"""The weight bridge: JAX parameter trees -> the port's VideoLM, and seeded
-random weights made directly on the device.
+"""The weight bridge: JAX parameter trees (live, or converted checkpoints in
+``.npz`` files) and the port trainer's state dicts -> the port's VideoLM, and
+seeded random weights made directly on the device.
 
 The port's parameter names are the JAX package's parameter paths joined by dots
 (``params/decoder/layer_0/attn/q/kernel`` -> ``decoder.layer_0.attn.q.kernel``;
 ``quant/decoder/.../scale`` -> ``...q.scale``), and dense kernels keep flax's
 [in, out] layout, so the bridge is a rename and nothing is transposed.
+
+A trained orbax checkpoint crosses over as one ``.npz`` that ``save_npz``
+writes (``tools/orbax_to_npz.py`` runs it on a host with JAX): each key is a
+leaf's path joined by ``/``, a bfloat16 leaf is stored as its uint16 bits,
+and the ``__index__`` array lists every leaf with its dtype. ``load_npz``
+reads it back into the nested tree that ``from_jax_params`` takes.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Iterator
+from pathlib import Path
+from typing import Any, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -18,7 +26,10 @@ import torch
 from .models.config import VLMConfig
 from .models.vlm import VideoLM
 
-__all__ = ["cast_weights", "from_jax_params", "random_params"]
+__all__ = ["cast_weights", "from_jax_params", "from_state_dict", "load_npz", "random_params", "save_npz"]
+
+NPZ_INDEX_KEY = "__index__"
+_NPZ_DTYPES = ("float32", "bfloat16", "int8", "uint8")  # what the JAX trees hold
 
 
 def _flatten(tree: dict, prefix: str = "") -> Iterator[tuple[str, Any]]:
@@ -30,6 +41,8 @@ def _flatten(tree: dict, prefix: str = "") -> Iterator[tuple[str, Any]]:
 
 
 def _to_tensor(array: Any) -> torch.Tensor:
+    if isinstance(array, torch.Tensor):
+        return array
     array = np.asarray(array)
     if array.dtype.name == "bfloat16":  # ml_dtypes bfloat16: same bits as torch's
         return torch.from_numpy(array.view(np.uint16).copy()).view(torch.bfloat16)
@@ -62,6 +75,25 @@ def _check_shape(model: torch.nn.Module, name: str, tensor: torch.Tensor) -> Non
         raise ValueError(f"JAX leaf {name} has shape {tuple(tensor.shape)} ({tensor.dtype}), expected {want}")
 
 
+def _build(items: Iterable[tuple[str, torch.Tensor]], config: VLMConfig, device, source: str) -> VideoLM:
+    """A VideoLM holding ``(dotted name, tensor)`` leaves; raises on a
+    missing or unknown leaf, or on one whose shape does not fit the model."""
+    with torch.device("meta"):
+        model = VideoLM(config)
+    expected = set(model.state_dict())
+    seen = set()
+    for name, tensor in items:
+        if name not in expected and not name.endswith(".scale"):
+            raise KeyError(f"unknown {source} leaf {name}")
+        _check_shape(model, name, tensor)
+        _assign(model, name, tensor)
+        seen.add(name)
+    missing = expected - seen
+    if missing:
+        raise KeyError(f"{source} tree lacks {sorted(missing)[:4]}")
+    return model.to(device)
+
+
 def from_jax_params(
     variables: dict, config: VLMConfig, device: str | torch.device = "cuda"
 ) -> VideoLM:
@@ -73,22 +105,85 @@ def from_jax_params(
     [in/2, out]). Raises on a missing or unknown leaf, or on one whose shape
     does not fit the model.
     """
-    with torch.device("meta"):
-        model = VideoLM(config)
-    expected = set(model.state_dict())
-    seen = set()
-    for collection in ("params", "quant"):
-        for name, leaf in _flatten(variables.get(collection, {})):
-            if name not in expected and not name.endswith(".scale"):
-                raise KeyError(f"unknown JAX leaf {collection}.{name}")
-            tensor = _to_tensor(leaf)
-            _check_shape(model, name, tensor)
-            _assign(model, name, tensor)
-            seen.add(name)
-    missing = expected - seen
-    if missing:
-        raise KeyError(f"JAX tree lacks {sorted(missing)[:4]}")
-    return model.to(device)
+    unknown = set(variables) - {"params", "quant"}
+    if unknown:
+        raise KeyError(f"unknown JAX collection {sorted(unknown)}")
+    items = (
+        (name, _to_tensor(leaf))
+        for collection in ("params", "quant")
+        for name, leaf in _flatten(variables.get(collection, {}))
+    )
+    return _build(items, config, device, "JAX")
+
+
+def from_state_dict(
+    state: dict[str, torch.Tensor], config: VLMConfig, device: str | torch.device = "cuda"
+) -> VideoLM:
+    """A VideoLM holding a state dict (the port trainer's ``params.pt``);
+    raises on a missing, unknown or misshapen leaf, as ``from_jax_params``."""
+    return _build(state.items(), config, device, "state dict")
+
+
+def save_npz(path: str | Path, leaves: dict[str, np.ndarray]) -> Path:
+    """Write ``{leaf path: numpy array}`` as a converted checkpoint: bf16
+    leaves as their uint16 bits, and the index of every leaf's dtype."""
+    payload: dict[str, np.ndarray] = {}
+    index = []
+    for key, leaf in leaves.items():
+        if key == NPZ_INDEX_KEY:
+            raise ValueError(f"leaf path {key!r} collides with the index key")
+        dtype = leaf.dtype.name
+        if dtype not in _NPZ_DTYPES:
+            raise ValueError(f"leaf {key} has unsupported dtype {dtype}")
+        payload[key] = leaf.view(np.uint16) if dtype == "bfloat16" else leaf
+        index.append((key, dtype))
+    payload[NPZ_INDEX_KEY] = np.array(index, dtype=np.str_).reshape(-1, 2)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as handle:  # a handle: np.savez would append ".npz"
+        np.savez(handle, **payload)
+    return path
+
+
+def load_npz(path: str | Path) -> dict:
+    """The nested ``{"params": ..., "quant": ...}`` tree of a converted
+    checkpoint (``save_npz``, run by ``tools/orbax_to_npz.py``), for
+    ``from_jax_params``.
+
+    Leaves are numpy arrays, except bfloat16 leaves, which come back from
+    their uint16 bits as torch bfloat16 tensors (numpy has no bfloat16).
+    Nothing is unpickled. Raises on a file without the index, on a key the
+    index does not list or lists without an array, on an unknown dtype, and
+    on a path outside the ``params`` and ``quant`` collections.
+    """
+    tree: dict = {}
+    with np.load(Path(path), allow_pickle=False) as data:
+        if NPZ_INDEX_KEY not in data.files:
+            raise KeyError(f"{path} has no {NPZ_INDEX_KEY} array: not a converted checkpoint")
+        index = {str(key): str(dtype) for key, dtype in data[NPZ_INDEX_KEY]}
+        extra = set(data.files) - set(index) - {NPZ_INDEX_KEY}
+        if extra:
+            raise KeyError(f"{path} holds leaves its index does not list: {sorted(extra)[:4]}")
+        for key, dtype in index.items():
+            if key not in data.files:
+                raise KeyError(f"{path} lists leaf {key} but holds no array for it")
+            if dtype not in _NPZ_DTYPES:
+                raise ValueError(f"leaf {key} has unsupported dtype {dtype}")
+            collection, *parts = key.split("/")
+            if collection not in ("params", "quant") or not parts:
+                raise KeyError(f"cannot place leaf {key}: not under params/ or quant/")
+            leaf = data[key]
+            if dtype == "bfloat16":
+                if leaf.dtype != np.uint16:
+                    raise ValueError(f"bfloat16 leaf {key} is stored as {leaf.dtype}, not uint16 bits")
+                leaf = torch.from_numpy(leaf.copy()).view(torch.bfloat16)
+            elif leaf.dtype.name != dtype:
+                raise ValueError(f"leaf {key} is {leaf.dtype}, its index says {dtype}")
+            node = tree.setdefault(collection, {})
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = leaf
+    return tree
 
 
 @torch.no_grad()
