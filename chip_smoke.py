@@ -76,7 +76,24 @@ every projection takes K6, then training gradients), then:
   (int8 weights and KV cache: K1, K2, K3) and at temperature 0.7, with every
   row walking the note grammar and decode tok/s and ms a step beside the
   card's name and power limit, then holds K5 and K2 + K3 at the eval's
-  decode shapes as on the engine API's.
+  decode shapes as on the engine API's;
+- runs the analyzer (``analyzer``): ``ContentAnalyzer.analyze_video`` on the
+  port's shipped config (``utils/config.json``), from a clip written to
+  disk to the rendered note. (a) The trained tiny checkpoint, restored from
+  the committed ``.npz`` (``event=engine_restored`` must be logged), at the
+  shipped serving settings (BPE, compact prompts, int8 weights and KV
+  cache), greedy, 1,536 new tokens, on a single-pass clip of one grounded
+  topic. (b) ``base`` at its full width and depth (12-layer ViT, 24-layer
+  decoder) with seeded random weights, int8 weights and KV, temperature
+  0.7, the note grammar's fields at a quarter of their budgets and a 2.5
+  closer bias: a single-pass clip through the engine, then a 25-minute clip
+  that the shipped planner cuts into 4 segments, which ``auto`` sends
+  through the continuous batcher (2 slots, batches of 2). Each call's
+  launches are counted from 0 (K2 once a layer an engine prefill, int8
+  decode step and batcher stage; K3 once a layer an engine step; K4 once a
+  layer a stage; K5 once a layer a batcher step), its note renders through
+  ``generate_report`` and passes ``validate_markdown_structure``; then K5
+  and K2 + K3 are held at every decode shape the analyzer ran.
 
 It prints one JSON object per line, flushed; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1). It
@@ -91,6 +108,7 @@ import copy
 import functools
 import itertools
 import json
+import logging
 import math
 import re
 import statistics
@@ -106,8 +124,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from video_transformer_tpu_torch.analyzer import ContentAnalyzer
 from video_transformer_tpu_torch.analyzer.prompts import render_prompt
 from video_transformer_tpu_torch.analyzer.schema import note_dfa, validator_dfa
+from video_transformer_tpu_torch.contracts.validators import validate_markdown_structure
 from video_transformer_tpu_torch.models.bpe import BpeTokenizer
 from video_transformer_tpu_torch.models import lm as lm_module
 from video_transformer_tpu_torch.models.config import VLMConfig, get_preset
@@ -143,8 +163,12 @@ from video_transformer_tpu_torch.parallel.engine import InferenceEngine
 from video_transformer_tpu_torch.parallel.serving import ContinuousBatcher, Request
 from video_transformer_tpu_torch.train.data import synthetic_batch
 from video_transformer_tpu_torch.train.eval_grounding import eval_inputs, run_eval
+from video_transformer_tpu_torch.train.grounded import render_topic_clip
 from video_transformer_tpu_torch.train.run import build_parser, make_prompt_sampler, prepare, setup_logging
 from video_transformer_tpu_torch.train.trainer import distillation_loss
+from video_transformer_tpu_torch.utils.config import load_config
+from video_transformer_tpu_torch.utils.counter import APICounter
+from video_transformer_tpu_torch.video.containers import write_npzv
 from video_transformer_tpu_torch.weights import random_params
 
 REPO = Path(__file__).resolve().parent
@@ -2361,6 +2385,238 @@ def grounding_phase(dev: torch.device, tokenizer, smi: str) -> tuple[list[dict],
     return lines, total
 
 
+# Main path 7, the analyzer: ``ContentAnalyzer.analyze_video`` from a clip on
+# disk to the rendered note, on the port's own config
+# (``utils/config.json``). (a) The trained tiny checkpoint restored from the
+# committed ``.npz`` at the shipped serving settings (BPE, compact prompts,
+# int8 weights and KV), greedy, at the scorecard's 1,536 tokens, on a
+# single-pass clip of one grounded topic. (b) ``base`` at its full width
+# and depth with seeded random weights at the shipped settings and
+# temperature 0.7: a single-pass clip (the engine route) and a 25-minute
+# clip that the shipped planner cuts into 4 segments, swept by ``auto``
+# through the continuous batcher (2 slots, batches of 2).
+ANALYZER_TOPIC = 0  # the grounded topic of (a)'s clip
+ANALYZER_CLIP_FRAMES, ANALYZER_CLIP_FPS = 16, 4.0  # (a) and (b)'s single-pass clips: 4 s
+ANALYZER_LONG_SECONDS, ANALYZER_LONG_FPS = 1500, 1.0  # (b)'s long clip: 4 segments of 480 s, overlap 20
+ANALYZER_FRAME_SIZE = 64  # clips' frames on disk; preprocess resizes them to the preset's 256
+# Random weights decode a free field to its budget and a list's loop at
+# will, so (b) takes the JAX tests' random-weight setting: note fields at a
+# quarter of their budgets and a 2.5 logit bias toward the JSON closers
+# (the shipped 0.0 is for trained weights). Its notes then close in 100-200
+# tokens (a one-layer model of base width on the CPU); the cap leaves room.
+ANALYZER_BASE_SCALE, ANALYZER_BASE_BIAS, ANALYZER_BASE_MAX_NEW = 0.25, 2.5, 512
+ANALYZER_BASE_BATCH, ANALYZER_BASE_SLOTS = 2, 2  # segment_batch_per_chip, serving_slots_per_chip
+
+
+def shortest_accepted(dfa) -> int:
+    """Bytes of the shortest document a byte grammar accepts (the EOS that
+    ends it not counted)."""
+    table = dfa.next_state
+    seen, frontier, depth = {dfa.start}, {dfa.start}, 0
+    while frontier:
+        nxt = set()
+        for state in frontier:
+            row = table[state]
+            for col in np.flatnonzero(row >= 0):
+                if int(row[col]) == dfa.accept:
+                    return depth
+                if int(row[col]) not in seen:
+                    seen.add(int(row[col]))
+                    nxt.add(int(row[col]))
+        frontier, depth = nxt, depth + 1
+    raise AssertionError("grammar accepts nothing")
+
+
+class LogLines(logging.Handler):
+    """Keeps the analyzer's log messages."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages: list[str] = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def analyzer_config(workdir: Path, **engine) -> dict:
+    """The port's shipped config (``utils/config.json``) with the run's
+    directories under ``workdir``, the tokenizer path made absolute and
+    ``engine`` overrides."""
+    config = copy.deepcopy(load_config())
+    for key in ("temp_dir", "output_dir", "log_dir"):
+        config["system"][key] = str(workdir / key)
+    config["engine"]["tokenizer"] = dict(config["engine"]["tokenizer"], path=str(TOKENIZER))
+    config["engine"].update(engine)
+    return config
+
+
+@contextlib.contextmanager
+def analyzer_tally(engine: InferenceEngine, tally: dict):
+    """Count in ``tally`` the engine's prefill calls (``_execute``) and
+    decode steps (``_decode``, sessions' too) and the batcher's stages."""
+    execute, decode, stage = engine._execute, engine._decode, ContinuousBatcher._stage
+
+    def counted_execute(*args):
+        tally["prefills"] += 1
+        return execute(*args)
+
+    def counted_decode(*args):
+        out = decode(*args)
+        tally["engine_steps"] += out[3]
+        return out
+
+    def counted_stage(batcher):
+        before = batcher._staged_total
+        stage(batcher)
+        tally["stages"] += batcher._staged_total > before
+
+    with mock.patch.object(engine, "_execute", counted_execute), \
+            mock.patch.object(engine, "_decode", counted_decode), \
+            mock.patch.object(ContinuousBatcher, "_stage", counted_stage):
+        yield
+
+
+def analyzer_run(analyzer: ContentAnalyzer, log: LogLines, clip: Path, label: str, smi: str) -> tuple[dict, dict]:
+    """One ``analyze_video`` call with the launches counted from 0: K1 in
+    every prefill; K2 once a layer for each engine prefill, int8 decode step
+    and batcher stage; K3 once a layer an engine decode step; K4 once a
+    layer a stage; K5 once a layer a batcher decode step; nothing plain on
+    the card. The note renders (``generate_report``, the shipped
+    ``self_check_mode``) under its title, and the report and the note's
+    default-mode layout (the one with hard structural rules) pass
+    ``validate_markdown_structure``. Returns the line and the launches."""
+    engine = analyzer.engine
+    layers = engine.config.decoder.num_layers
+    stats = engine.stats
+    before = (stats.decode_steps, stats.tokens_generated, stats.session_resumes, stats.frames_preprocessed)
+    logged = len(log.messages)
+    tally = dict.fromkeys(("prefills", "engine_steps", "stages"), 0)
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with analyzer_tally(engine, tally):
+        result = analyzer.analyze_video(clip)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launched = counts()
+    steps, tokens, resumes, frames = (now - then for now, then in zip(
+        (stats.decode_steps, stats.tokens_generated, stats.session_resumes, stats.frames_preprocessed), before))
+    batcher_steps = steps - tally["engine_steps"]
+    events = log.messages[logged:]
+    route = ("batcher" if any(m.startswith("event=segment_serving") for m in events)
+             else "engine" if result.metadata.get("segments", 1) == 1 else "engine_segments")
+    want = {"write_cache_rows": layers * (tally["prefills"] + tally["engine_steps"] + tally["stages"]),
+            "decode_attention": layers * tally["engine_steps"], "adopt_rows": layers * tally["stages"],
+            "decode_attention_update": layers * batcher_steps, "quantize_kv_on_card": 0,
+            "update_cache_rows_on_card": 0}
+    got = {key: launched[key] for key in want}
+    if got != want or not launched["flash_attention"]:
+        raise AssertionError(f"analyzer {label}: launches {launched}, expected {want} and K1")
+    mode = analyzer.config["system"]["self_check_mode"]
+    report = analyzer.generate_report(result, "images/blueprint.png", self_check_mode=mode)
+    layout = result.knowledge_doc.to_markdown(self_check_mode="default")
+    ok, errors = validate_markdown_structure(layout, "default")
+    if not ok or not validate_markdown_structure(report, mode)[0]:
+        raise AssertionError(f"analyzer {label}: the note does not validate: {errors}")
+    if not report.startswith(f"# {result.title}"):
+        raise AssertionError(f"analyzer {label}: the report does not open with the note's title")
+    line = {"phase": "analyzer", "run": label, "route": route, "wall_seconds": wall,
+            "segments": result.metadata.get("segments", 1),
+            "segments_analyzed": result.metadata.get("segments_analyzed", 1),
+            "segment_gaps": len(result.metadata.get("segment_gaps", [])), "engine_prefills": tally["prefills"],
+            "engine_decode_steps": tally["engine_steps"], "batcher_stages": tally["stages"],
+            "batcher_decode_steps": batcher_steps, "decode_steps": steps, "tokens": tokens,
+            "session_resumes": resumes, "frames_preprocessed": frames,
+            "tokens_per_s": tokens / wall, "ms_per_step": wall * 1e3 / steps if steps else 0.0,
+            "model_calls": analyzer.api_counter.current_count, "report_bytes": len(report.encode("utf-8")),
+            "title": result.title, "summary": result.knowledge_doc.one_sentence_summary,
+            "chapters": len(result.knowledge_doc.deep_dive),
+            "launches": {name: launched[name] for name in ("flash_attention", "write_cache_rows",
+                                                           "decode_attention", "adopt_rows",
+                                                           "decode_attention_update")},
+            "engine_stats": stats.as_dict(), "events": sorted({m.split()[0] for m in events}), "card": smi}
+    return line, launched
+
+
+def analyzer_phase(seed: int, smi: str) -> tuple[list[dict], dict[str, int]]:
+    """Main path 7 (see the constants above): (a) then (b), each through
+    ``ContentAnalyzer(config, APICounter(...), logger)`` on the port's
+    config. (a) must log ``event=engine_restored``; (b)'s single pass must
+    take the engine route and its long clip the batcher. Returns the lines
+    and the launches summed over the runs."""
+    lines, total = [], dict.fromkeys(counts(), 0)
+    rng = np.random.default_rng(seed)
+    with tempfile.TemporaryDirectory(prefix="vtx_analyzer_") as tmp:
+        workdir = Path(tmp)
+        log = LogLines()
+        logger = logging.getLogger("vtx.chip_smoke.analyzer")
+        logger.handlers, logger.propagate = [log], False
+        logger.setLevel(logging.INFO)
+
+        # (a) The trained tiny checkpoint.
+        config = analyzer_config(workdir / "tiny", model_preset="tiny", checkpoint_dir=str(TINY_WEIGHTS),
+                                 temperature=0.0, max_new_tokens=GROUNDING_MAX_NEW)
+        t0 = time.perf_counter()
+        analyzer = ContentAnalyzer(config, APICounter(config["system"]["max_api_calls"]), logger)
+        engine = analyzer.engine
+        if f"event=engine_restored checkpoint={TINY_WEIGHTS}" not in log.messages:
+            raise AssertionError(f"analyzer (a): the checkpoint was not restored: {log.messages}")
+        setup = time.perf_counter() - t0
+        clip = workdir / "topic.npzv"
+        cfg = engine.config.encoder
+        write_npzv(clip, render_topic_clip(ANALYZER_TOPIC, ANALYZER_CLIP_FRAMES, cfg.image_size, rng),
+                   ANALYZER_CLIP_FPS)
+        line, launched = analyzer_run(analyzer, log, clip, "tiny_trained_single", smi)
+        lines.append(dict(line, setup_seconds=setup, checkpoint=str(TINY_WEIGHTS.relative_to(REPO)),
+                          weights=engine.quantize, kv_cache=engine.kv_quant, temperature=engine.temperature,
+                          max_new_tokens=engine.max_new_tokens))
+        total = {name: total[name] + launched[name] for name in total}
+        if line["route"] != "engine":
+            raise AssertionError(f"analyzer (a): route {line['route']}")
+        del analyzer, engine
+
+        # (b) base at full width and depth, random weights, temperature 0.7.
+        config = analyzer_config(workdir / "base", checkpoint_dir=None, grammar_scale=ANALYZER_BASE_SCALE,
+                                 structure_bias=ANALYZER_BASE_BIAS, max_new_tokens=ANALYZER_BASE_MAX_NEW)
+        config["analyzer"]["long_video"].update(segment_batch_per_chip=ANALYZER_BASE_BATCH,
+                                                serving_slots_per_chip=ANALYZER_BASE_SLOTS)
+        t0 = time.perf_counter()
+        analyzer = ContentAnalyzer(config, APICounter(config["system"]["max_api_calls"]), logger)
+        engine = analyzer.engine
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        shortest = shortest_accepted(note_dfa(engine.byte_vocab, scale=ANALYZER_BASE_SCALE))
+        settings = {"preset": engine.config.name, "decoder_layers": engine.config.decoder.num_layers,
+                    "encoder_layers": engine.config.encoder.num_layers, "weights": "random, seeded",
+                    "quantize": engine.quantize, "kv_cache": engine.kv_quant, "temperature": engine.temperature,
+                    "max_forced_run": engine.max_forced_run, "grammar_scale": ANALYZER_BASE_SCALE,
+                    "structure_bias": engine.structure_bias, "max_new_tokens": engine.max_new_tokens,
+                    "shortest_accepted_note_bytes": shortest, "longest_accepted_note_bytes": None,
+                    "setup_seconds": setup}
+        if shortest >= engine.max_new_tokens:
+            raise AssertionError(f"analyzer (b): the shortest note ({shortest} bytes) exceeds the cap")
+        frames = rng.integers(0, 256, (ANALYZER_CLIP_FRAMES, ANALYZER_FRAME_SIZE, ANALYZER_FRAME_SIZE, 3),
+                              dtype=np.uint8)
+        short = workdir / "short.npzv"
+        write_npzv(short, frames, ANALYZER_CLIP_FPS)
+        n_long = int(ANALYZER_LONG_SECONDS * ANALYZER_LONG_FPS)
+        long = workdir / "lecture.npzv"
+        write_npzv(long, rng.integers(0, 256, (n_long, ANALYZER_FRAME_SIZE, ANALYZER_FRAME_SIZE, 3),
+                                      dtype=np.uint8), ANALYZER_LONG_FPS)
+        for clip, label, route in ((short, "base_single", "engine"), (long, "base_segments", "batcher")):
+            line, launched = analyzer_run(analyzer, log, clip, label, smi)
+            lines.append(dict(line, **settings))
+            total = {name: total[name] + launched[name] for name in total}
+            if line["route"] != route:
+                raise AssertionError(f"analyzer {label}: route {line['route']}, expected {route}")
+        if lines[-1]["segments"] < 3 or lines[-1]["segments_analyzed"] != lines[-1]["segments"]:
+            raise AssertionError(f"analyzer base_segments: {lines[-1]['segments_analyzed']} of "
+                                 f"{lines[-1]['segments']} segments analyzed")
+        del analyzer, engine
+    torch.cuda.empty_cache()
+    return lines, total
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
@@ -2513,9 +2769,23 @@ def run(seed: int) -> None:
     emit(line)
     note_path_decode(kernels, line)
     emit({"phase": "grounding_done", "seconds": time.perf_counter() - t0})
+
+    # Main path 7, the analyzer: a clip on disk to the rendered note, (a) on
+    # the trained tiny checkpoint, (b) at full base width; then K2 + K3 and
+    # K5 at each decode shape it ran.
+    t0 = time.perf_counter()
+    found = {}
+    with path_decode_inputs(found):
+        analyzer_lines, analyzed = analyzer_phase(seed, smi)
+    for line in analyzer_lines:
+        emit(line)
+    line = path_decode_readings(seed, found, "analyzer")
+    emit(line)
+    note_path_decode(kernels, line)
+    emit({"phase": "analyzer_done", "seconds": time.perf_counter() - t0})
     # Each kernel's launches summed over the main paths' runs.
     launches = {name: served[name] + batch_launched[name] + trained[name] + int4_served[name] + api_launched[name]
-                + grounded[name] for name in served}
+                + grounded[name] + analyzed[name] for name in served}
 
     sources = {
         "flash_attention": ("csrc/flash_fwd.cuh", "video_transformer_tpu/ops/attention.py:56"),

@@ -1,8 +1,8 @@
 """The port stands alone: import isolation and code hygiene.
 
 The PyTorch/CUDA port (``video_transformer_tpu_torch``) and ``chip_smoke.py``
-run on a machine that has no JAX, flax, optax, orbax, yaml, transformers or
-ml_dtypes, and they import nothing of the JAX package. A subprocess whose
+run on a machine that has no JAX, flax, optax, orbax, yaml, transformers,
+ml_dtypes or PIL, and they import nothing of the JAX package. A subprocess whose
 meta-path finder refuses those imports must still import every module of the
 port and ``chip_smoke``. The hygiene checks mirror tests/test_code_hygiene.py
 (which covers the JAX package) for the port's sources.
@@ -19,8 +19,15 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "video_transformer_tpu_torch"
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
-REFUSED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "transformers", "ml_dtypes",
+REFUSED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "transformers", "ml_dtypes", "PIL",
            "video_transformer_tpu")
+# The analyzer's modules (copies of the JAX package's, at the same paths).
+ANALYZER_MODULES = (
+    "contracts.timefmt", "contracts.normalize", "contracts.validators", "contracts.render",
+    "contracts.knowledge", "contracts.results", "utils.counter", "utils.budget_planner", "utils.pacer",
+    "utils.config", "video.containers", "video.probe", "video.segmenter", "video.prefetch",
+    "analyzer.json_repair", "analyzer.segmentation", "analyzer.content_analyzer",
+)
 
 _ISOLATED_IMPORT = """
 import importlib, pkgutil, sys
@@ -37,8 +44,12 @@ import video_transformer_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-for want in ("parallel.serving", "train.grounded", "train.shifts", "train.eval_grounding"):
+for want in ("parallel.serving", "train.grounded", "train.shifts", "train.eval_grounding") + {analyzer!r}:
     assert "video_transformer_tpu_torch." + want in names, names
+from video_transformer_tpu_torch.analyzer import ContentAnalyzer
+from video_transformer_tpu_torch.utils.config import load_config
+assert load_config()["engine"]["model_preset"] == "base"
+assert ContentAnalyzer({{}}, None).device == "cuda"
 from video_transformer_tpu_torch.parallel.engine import InferenceEngine
 for method in ("generate_text", "continue_session", "restore"):
     assert callable(getattr(InferenceEngine, method)), method
@@ -52,7 +63,7 @@ print(len(names))
 def test_port_imports_without_jax_or_the_jax_package():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     result = subprocess.run(
-        [sys.executable, "-c", _ISOLATED_IMPORT.format(refused=REFUSED)],
+        [sys.executable, "-c", _ISOLATED_IMPORT.format(refused=REFUSED, analyzer=ANALYZER_MODULES)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert result.returncode == 0, result.stderr[-2000:]

@@ -27,7 +27,8 @@ take the unpacked route. ``preprocess`` is the batcher's staging entry
 (``serving.py``).
 
 Not ported: speculative decoding (no draft model), projection fusion and
-data parallelism (one device, so a batch pads only to ``batch_bucket``).
+data parallelism (one device, so a batch pads only to ``batch_bucket``, and
+``data_parallel`` is 1).
 """
 
 from __future__ import annotations
@@ -89,6 +90,8 @@ class EngineStats:
     prefill_seconds: float = 0.0
     """Preprocess, encoder and decoder prefill."""
     prefill_tokens: int = 0
+    frames_preprocessed: int = 0
+    preprocess_seconds: float = 0.0
     session_resumes: int = 0
     """Decode-only continuation rounds (each one saved a re-prefill)."""
     decode_steps: int = 0
@@ -96,6 +99,21 @@ class EngineStats:
     @property
     def tokens_per_second(self) -> float:
         return self.tokens_generated / self.generate_seconds if self.generate_seconds else 0.0
+
+    def as_dict(self) -> dict[str, Any]:
+        """The JAX engine's nine keys and roundings (``prefill_seconds``,
+        the port's own, is left out)."""
+        return {
+            "generate_calls": self.generate_calls,
+            "tokens_generated": self.tokens_generated,
+            "generate_seconds": round(self.generate_seconds, 3),
+            "tokens_per_second": round(self.tokens_per_second, 1),
+            "prefill_tokens": self.prefill_tokens,
+            "frames_preprocessed": self.frames_preprocessed,
+            "preprocess_seconds": round(self.preprocess_seconds, 3),
+            "session_resumes": self.session_resumes,
+            "decode_steps": self.decode_steps,
+        }
 
 
 @dataclass
@@ -387,11 +405,22 @@ class InferenceEngine:
             raise ValueError(f"sequence {cache_len} exceeds max_seq_len {self.config.decoder.max_seq_len}")
         return cache_len
 
+    @property
+    def data_parallel(self) -> int:
+        """Data-axis width: the port serves on one device."""
+        return 1
+
     def preprocess(self, frames) -> torch.Tensor:
         """uint8 [B, T, H, W, 3] frames -> patches on the device, in the
-        compute dtype."""
-        frames_t = torch.as_tensor(np.asarray(frames)).to(self.device)
-        return preprocess_frames(frames_t, self.config.encoder, self.model.compute_dtype)
+        compute dtype, timed into stats (after a device sync)."""
+        start = time.perf_counter()
+        frames = np.asarray(frames)
+        frames_t = torch.as_tensor(frames).to(self.device)
+        patches = preprocess_frames(frames_t, self.config.encoder, self.model.compute_dtype)
+        self._sync()
+        self.stats.preprocess_seconds += time.perf_counter() - start
+        self.stats.frames_preprocessed += frames.shape[0] * frames.shape[1]
+        return patches
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

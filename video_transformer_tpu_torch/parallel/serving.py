@@ -417,6 +417,7 @@ class ContinuousBatcher:
             self._stage()
             chunk_start = time.perf_counter()
             status, comp_n = self._refill_chunk()
+            stats.generate_calls += 1
             stats.generate_seconds += time.perf_counter() - chunk_start
             if comp_n:
                 meta = self._comp_meta[:comp_n].cpu().numpy()
