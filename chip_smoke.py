@@ -93,7 +93,25 @@ every projection takes K6, then training gradients), then:
   decode step and batcher stage; K3 once a layer an engine step; K4 once a
   layer a stage; K5 once a layer a batcher step), its note renders through
   ``generate_report`` and passes ``validate_markdown_structure``; then K5
-  and K2 + K3 are held at every decode shape the analyzer ran.
+  and K2 + K3 are held at every decode shape the analyzer ran;
+- runs the system's own entry point (``pipeline``), from a clip on disk to
+  the saved note, blueprint and audit. (a) ``cli.main(["--url", clip,
+  "--config", config.json])`` in this process at ``base`` full width and
+  depth (the analyzer's (b) settings) with the validator and the auditor
+  scoring through the engine (2 rounds): exit 0, the note saved and linted
+  (``event=note_lint``), a quality report, ``progress.json``, a 1280x720
+  PNG that the port's own reader decodes, a validator call each round, a
+  rewrite after each failed round but the last, an audit call; launches
+  counted from 0 (K1 in every engine call's prefill, video and text-only;
+  K2 once a layer a prefill and a decode step; K3 once a layer a step;
+  nothing plain on the card); the seconds of each step (download, analyze,
+  validate, render, audit, save) and each engine call's steps and tok/s.
+  (b) the trained tiny checkpoint through ``python -m
+  video_transformer_tpu_torch --batch LIST --sharded`` in a fresh process
+  on two grounded clips (exit 0, two notes and two PNGs), then again (exit
+  0, both skipped through the progress file), then a ``WatchService`` scan
+  over one clip in this process (launches as in (a)); then K2 + K3 are held
+  at every decode shape the phase ran.
 
 It prints one JSON object per line, flushed; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1). It
@@ -104,6 +122,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
+import importlib.util
+import os
 import copy
 import functools
 import itertools
@@ -124,6 +145,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from video_transformer_tpu_torch import cli as port_cli
 from video_transformer_tpu_torch.analyzer import ContentAnalyzer
 from video_transformer_tpu_torch.analyzer.prompts import render_prompt
 from video_transformer_tpu_torch.analyzer.schema import note_dfa, validator_dfa
@@ -161,12 +183,20 @@ from video_transformer_tpu_torch.ops.int4_matmul import INT4_WIDTHS, int4_matmul
 from video_transformer_tpu_torch.ops.preprocess import preprocess_frames
 from video_transformer_tpu_torch.parallel.engine import InferenceEngine
 from video_transformer_tpu_torch.parallel.serving import ContinuousBatcher, Request
+from video_transformer_tpu_torch.pipeline.auditor import QualityAuditor
+from video_transformer_tpu_torch.pipeline.downloader import VideoDownloader
+from video_transformer_tpu_torch.pipeline.pipeline import VideoPipeline
+from video_transformer_tpu_torch.pipeline.png import decode_png
+from video_transformer_tpu_torch.pipeline.service import WatchService
+from video_transformer_tpu_torch.pipeline.validator import ConsistencyValidator
+from video_transformer_tpu_torch.pipeline.visualizer import ImageGenerator
 from video_transformer_tpu_torch.train.data import synthetic_batch
 from video_transformer_tpu_torch.train.eval_grounding import eval_inputs, run_eval
 from video_transformer_tpu_torch.train.grounded import render_topic_clip
 from video_transformer_tpu_torch.train.run import build_parser, make_prompt_sampler, prepare, setup_logging
 from video_transformer_tpu_torch.train.trainer import distillation_loss
 from video_transformer_tpu_torch.utils.config import load_config
+from video_transformer_tpu_torch.utils.logger import LOGGER_NAME
 from video_transformer_tpu_torch.utils.counter import APICounter
 from video_transformer_tpu_torch.video.containers import write_npzv
 from video_transformer_tpu_torch.weights import random_params
@@ -2617,6 +2647,294 @@ def analyzer_phase(seed: int, smi: str) -> tuple[list[dict], dict[str, int]]:
     return lines, total
 
 
+# Main path 8, the system's own entry point (``pipeline``): the CLI from a
+# clip on disk to the saved note, blueprint and audit. (a) ``base`` at full
+# width and depth through ``cli.main([...])`` in-process on the port's
+# config, random weights as in the analyzer's (b), with the validator and
+# the auditor scoring through the engine (``use_engine``, 2 rounds). The
+# auditor's threshold is 0: random weights judge at random, and the image
+# must be kept for its PNG to be checked (the audit still runs and its
+# score is printed). (b) The trained tiny checkpoint through ``python -m
+# video_transformer_tpu_torch --batch LIST --sharded`` in a fresh process,
+# twice (the second run skips both clips through the progress file), then
+# a ``WatchService`` scan over one clip in this process.
+PIPELINE_AUDIT_THRESHOLD = 0.0
+PIPELINE_ROUNDS = 2
+PIPELINE_TOPICS = (0, 3)  # (b)'s grounded topics
+PIPELINE_CLI_TIMEOUT = 300
+STEPS = ((VideoDownloader, "download_video", "download"), (ContentAnalyzer, "analyze_video", "analyze"),
+         (VideoPipeline, "_validation_loop", "validate"), (ImageGenerator, "generate_blueprint", "render"),
+         (QualityAuditor, "audit_image", "audit"), (VideoPipeline, "_save_outputs", "save"))
+CALLS = ((ConsistencyValidator, "_model_score", "validator"), (ContentAnalyzer, "rewrite_visual_schema", "rewrite"),
+         (QualityAuditor, "_model_score", "audit"))
+
+
+@contextlib.contextmanager
+def pipeline_probes(record: dict):
+    """Class-level wrappers that fill ``record``: the seconds of each of the
+    pipeline's steps (``steps``, summed over videos); one entry per engine
+    call (``calls``: prefill with or without video, decode steps, tokens,
+    seconds, K1 launches), labelled note, validator, rewrite or audit by
+    the component that made it; each validation's verdict (``verdicts``);
+    and each ``ProcessResult`` (``results``)."""
+    record.update(steps=dict.fromkeys([label for _, _, label in STEPS], 0.0), calls=[], verdicts=[], results=[])
+    labels = ["note"]
+
+    def timed(fn, label):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                record["steps"][label] += time.perf_counter() - start
+        return inner
+
+    def labelled(fn, label):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            labels.append(label)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                labels.pop()
+        return inner
+
+    execute, validate, process = InferenceEngine._execute, ConsistencyValidator.validate, \
+        VideoPipeline.process_single_video
+
+    def counted_execute(engine, frames, *args):
+        stats = engine.stats
+        before = (stats.decode_steps, stats.tokens_generated, flash_attention.launches)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = execute(engine, frames, *args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        steps, tokens = stats.decode_steps - before[0], stats.tokens_generated - before[1]
+        record["calls"].append({"call": labels[-1], "video": frames is not None, "rows": args[3],
+                                "decode_steps": steps, "tokens": tokens, "seconds": seconds,
+                                "tokens_per_s": tokens / seconds, "ms_per_step": seconds * 1e3 / steps if steps else 0.0,
+                                "k1_launches": flash_attention.launches - before[2]})
+        return out
+
+    def counted_validate(validator, *args, **kwargs):
+        out = validate(validator, *args, **kwargs)
+        record["verdicts"].append({"score": out.total_score, "passed": out.passed})
+        return out
+
+    def kept_result(pipeline, *args, **kwargs):
+        out = process(pipeline, *args, **kwargs)
+        record["results"].append(out)
+        return out
+
+    with contextlib.ExitStack() as stack:
+        for cls, name, label in STEPS:
+            stack.enter_context(mock.patch.object(cls, name, timed(getattr(cls, name), label)))
+        for cls, name, label in CALLS:
+            stack.enter_context(mock.patch.object(cls, name, labelled(getattr(cls, name), label)))
+        stack.enter_context(mock.patch.object(InferenceEngine, "_execute", counted_execute))
+        stack.enter_context(mock.patch.object(ConsistencyValidator, "validate", counted_validate))
+        stack.enter_context(mock.patch.object(VideoPipeline, "process_single_video", kept_result))
+        yield
+
+
+def pipeline_launch_check(launched: dict, calls: list[dict], layers: int, label: str) -> None:
+    """K1 in every engine call's prefill (video or text); K2 once a layer
+    for each prefill and int8 decode step; K3 once a layer a step; no
+    batcher kernel and nothing plain on the card."""
+    steps = sum(c["decode_steps"] for c in calls)
+    want = {"write_cache_rows": layers * (len(calls) + steps), "decode_attention": layers * steps,
+            "adopt_rows": 0, "decode_attention_update": 0, "quantize_kv_on_card": 0, "update_cache_rows_on_card": 0}
+    got = {key: launched[key] for key in want}
+    if got != want or not all(c["k1_launches"] for c in calls):
+        raise AssertionError(f"pipeline {label}: launches {launched} for {len(calls)} engine calls and {steps} "
+                             f"decode steps, expected {want} and K1 in every call: {calls}")
+
+
+def pipeline_outputs(config: dict, video_id: str, label: str, progress_name: str = "progress.json") -> dict:
+    """The files one processed video leaves: the note, the quality report,
+    the 1280x720 blueprint the port's reader decodes, the progress file
+    (the CLI's, or the watch service's ``service_progress.json``)."""
+    output = Path(config["system"]["output_dir"])
+    note = output / "documents" / f"{video_id}_knowledge_note.md"
+    report = output / "documents" / f"{video_id}_quality_report.json"
+    png = output / "blueprints" / f"{video_id}_mind_map.png"
+    progress = Path(config["system"]["temp_dir"]) / progress_name
+    missing = [str(path) for path in (note, report, png, progress) if not path.exists()]
+    if missing:
+        raise AssertionError(f"pipeline {label}: missing outputs {missing}")
+    pixels = decode_png(png.read_bytes())
+    if pixels.shape != (720, 1280, 3):
+        raise AssertionError(f"pipeline {label}: blueprint {pixels.shape}, expected (720, 1280, 3)")
+    processed = json.loads(progress.read_text(encoding="utf-8"))["processed"]
+    if video_id not in processed:
+        raise AssertionError(f"pipeline {label}: {video_id} not in progress.json {processed}")
+    text = note.read_text(encoding="utf-8")
+    return {"note_bytes": len(text.encode("utf-8")), "note_lines": len(text.splitlines()),
+            "note_title": text.splitlines()[0] if text else "", "png_bytes": png.stat().st_size,
+            "quality_gates_triggered": json.loads(report.read_text(encoding="utf-8"))["gates_triggered"]}
+
+
+@contextlib.contextmanager
+def framework_log(log: LogLines):
+    """``log`` as the only handler of the framework logger (``setup_logging``
+    then adds none of its own)."""
+    logger = logging.getLogger(LOGGER_NAME)
+    saved = logger.handlers[:], logger.propagate
+    logger.handlers, logger.propagate = [log], False
+    try:
+        yield logger
+    finally:
+        logger.handlers, logger.propagate = saved
+
+
+def pipeline_cli_base(workdir: Path, rng: np.random.Generator, smi: str) -> tuple[dict, dict[str, int]]:
+    """(a): ``cli.main(["--url", clip, "--config", config.json])`` at full
+    base width and depth; the line and the launches."""
+    config = analyzer_config(workdir, checkpoint_dir=None, grammar_scale=ANALYZER_BASE_SCALE,
+                             structure_bias=ANALYZER_BASE_BIAS, max_new_tokens=ANALYZER_BASE_MAX_NEW)
+    config["validator"].update(use_engine=True, max_rounds=PIPELINE_ROUNDS)
+    config["auditor"].update(use_engine=True, threshold=PIPELINE_AUDIT_THRESHOLD)
+    workdir.mkdir(parents=True)
+    config_path = workdir / "config.json"
+    config_path.write_text(json.dumps(config, ensure_ascii=False, indent=1), encoding="utf-8")
+    clip = workdir / "lecture.npzv"
+    write_npzv(clip, rng.integers(0, 256, (ANALYZER_CLIP_FRAMES, ANALYZER_FRAME_SIZE, ANALYZER_FRAME_SIZE, 3),
+                                  dtype=np.uint8), ANALYZER_CLIP_FPS)
+    log, record = LogLines(), {}
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with framework_log(log), pipeline_probes(record):
+        code = port_cli.main(["--url", str(clip), "--config", str(config_path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launched = counts()
+    (result,) = record["results"]
+    if code != 0 or not result.success:
+        raise AssertionError(f"pipeline (a): exit {code}, {result}")
+    calls = record["calls"]
+    kinds = [c["call"] for c in calls]
+    if kinds.count("note") != 1 or "validator" not in kinds or "audit" not in kinds:
+        raise AssertionError(f"pipeline (a): engine calls {kinds}")
+    flags = [v["passed"] for v in record["verdicts"]]
+    rewrites = sum(1 for i, ok in enumerate(flags) if not ok and i < PIPELINE_ROUNDS - 1)
+    if kinds.count("rewrite") != rewrites or kinds.count("validator") != len(flags):
+        raise AssertionError(f"pipeline (a): verdicts {flags}, engine calls {kinds}")
+    if not any(m.startswith(f"event=note_lint video_id={result.video_id} ") for m in log.messages):
+        raise AssertionError("pipeline (a): the saved note was not linted")
+    outputs = pipeline_outputs(config, result.video_id, "(a)")
+    engine_layers = get_preset("base").decoder.num_layers
+    pipeline_launch_check(launched, calls, engine_layers, "(a)")
+    line = {"phase": "pipeline", "run": "base_cli_url", "wall_seconds": wall, "exit_code": code,
+            "step_seconds": record["steps"], "engine_calls": calls, "validation_rounds": record["verdicts"],
+            "rewrites": rewrites, "validation_score": result.validation_score, "audit_score": result.audit_score,
+            "api_calls_used": result.api_calls_used, "processing_seconds": result.processing_time, **outputs,
+            "lint": [m for m in log.messages if m.startswith("event=note_lint")],
+            "launches": {name: launched[name] for name in ("flash_attention", "write_cache_rows",
+                                                           "decode_attention")},
+            "settings": {"preset": "base", "decoder_layers": engine_layers, "weights": "random, seeded",
+                         "quantize": config["engine"]["quantize"], "kv_cache": config["engine"]["kv_quant"],
+                         "temperature": config["engine"]["temperature"], "grammar_scale": ANALYZER_BASE_SCALE,
+                         "structure_bias": ANALYZER_BASE_BIAS, "max_new_tokens": ANALYZER_BASE_MAX_NEW,
+                         "validator_use_engine": True, "auditor_use_engine": True, "max_rounds": PIPELINE_ROUNDS,
+                         "auditor_threshold": PIPELINE_AUDIT_THRESHOLD},
+            "card": smi}
+    return line, launched
+
+
+def pipeline_cli_tiny(workdir: Path, rng: np.random.Generator, smi: str) -> dict:
+    """(b): the trained tiny checkpoint through ``python -m
+    video_transformer_tpu_torch --batch LIST --sharded`` in a fresh process,
+    twice; the second run must skip both clips."""
+    config = analyzer_config(workdir, model_preset="tiny", checkpoint_dir=str(TINY_WEIGHTS), temperature=0.0,
+                             max_new_tokens=GROUNDING_MAX_NEW)
+    workdir.mkdir(parents=True)
+    config_path = workdir / "config.json"
+    config_path.write_text(json.dumps(config, ensure_ascii=False, indent=1), encoding="utf-8")
+    size = get_preset("tiny").encoder.image_size
+    clips = []
+    for topic in PIPELINE_TOPICS:
+        clip = workdir / f"topic{topic}.npzv"
+        write_npzv(clip, render_topic_clip(topic, ANALYZER_CLIP_FRAMES, size, rng), ANALYZER_CLIP_FPS)
+        clips.append(clip)
+    listing = workdir / "urls.txt"
+    listing.write_text("# grounded topics\n" + "\n".join(map(str, clips)) + "\n", encoding="utf-8")
+    argv = [sys.executable, "-m", "video_transformer_tpu_torch", "--batch", str(listing), "--sharded",
+            "--config", str(config_path)]
+    runs = []
+    for attempt in ("first", "again"):
+        start = time.perf_counter()
+        done = subprocess.run(argv, cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+                              text=True, timeout=PIPELINE_CLI_TIMEOUT)
+        seconds = time.perf_counter() - start
+        if done.returncode != 0:
+            raise AssertionError(f"pipeline (b) {attempt}: exit {done.returncode}\n{done.stdout[-2000:]}\n"
+                                 f"{done.stderr[-4000:]}")
+        runs.append({"run": attempt, "seconds": seconds, "exit_code": done.returncode,
+                     "stdout": [line for line in done.stdout.splitlines() if line.strip("= ")]})
+    outputs = {clip.stem: pipeline_outputs(config, clip.stem, f"(b) {clip.stem}") for clip in clips}
+    notes = sorted(p.name for p in (Path(config["system"]["output_dir"]) / "documents").glob("*.md"))
+    if len(notes) != 2 or "2/2" not in " ".join(runs[0]["stdout"]):
+        raise AssertionError(f"pipeline (b): notes {notes}, stdout {runs[0]['stdout']}")
+    log_text = (Path(config["system"]["log_dir"]) / "run.log").read_text(encoding="utf-8")
+    if "所有视频均已处理" not in log_text or runs[1]["stdout"]:
+        raise AssertionError(f"pipeline (b): the second run did not skip both clips: {runs[1]}")
+    return {"phase": "pipeline", "run": "tiny_cli_batch_sharded", "checkpoint": str(TINY_WEIGHTS.relative_to(REPO)),
+            "runs": runs, "outputs": outputs, "card": smi}
+
+
+def pipeline_watch(workdir: Path, rng: np.random.Generator, smi: str) -> tuple[dict, dict[str, int]]:
+    """(b), last: one ``WatchService`` scan (``--once``) over one clip, in
+    this process, on the trained tiny checkpoint; launches as in (a)."""
+    config = analyzer_config(workdir, model_preset="tiny", checkpoint_dir=str(TINY_WEIGHTS), temperature=0.0,
+                             max_new_tokens=GROUNDING_MAX_NEW)
+    inbox = workdir / "inbox"
+    inbox.mkdir(parents=True)
+    clip = inbox / "watched.npzv"
+    write_npzv(clip, render_topic_clip(PIPELINE_TOPICS[0], ANALYZER_CLIP_FRAMES, get_preset("tiny").encoder.image_size,
+                                       rng), ANALYZER_CLIP_FPS)
+    log, record = LogLines(), {}
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with framework_log(log) as logger, pipeline_probes(record):
+        processed = WatchService(config, logger, inbox, poll_interval=0.0).run(once=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launched = counts()
+    if processed != 1 or not any(m.startswith("event=service_pickup video=watched.npzv") for m in log.messages):
+        raise AssertionError(f"pipeline watch: processed {processed}: {log.messages[-5:]}")
+    pipeline_launch_check(launched, record["calls"], get_preset("tiny").decoder.num_layers, "watch")
+    outputs = pipeline_outputs(config, "watched", "watch", "service_progress.json")
+    return {"phase": "pipeline", "run": "tiny_watch_once", "wall_seconds": wall, "processed": processed,
+            "step_seconds": record["steps"], "engine_calls": record["calls"], **outputs,
+            "launches": {name: launched[name] for name in ("flash_attention", "write_cache_rows",
+                                                           "decode_attention")}, "card": smi}, launched
+
+
+def pipeline_phase(seed: int, smi: str) -> tuple[list[dict], dict[str, int]]:
+    """Main path 8 (see the constants above): (a), (b) and the watch scan.
+    Returns the lines and the launches of (a) and the scan."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    with tempfile.TemporaryDirectory(prefix="vtx_pipeline_") as tmp:
+        workdir = Path(tmp)
+        line, launched = pipeline_cli_base(workdir / "base", rng, smi)
+        lines.append(line)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lines.append(pipeline_cli_tiny(workdir / "cli", rng, smi))
+        line, watched = pipeline_watch(workdir / "watch", rng, smi)
+        lines.append(line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lines, {name: launched[name] + watched[name] for name in launched}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
@@ -2638,7 +2956,9 @@ def run(seed: int) -> None:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     emit({"phase": "device", "name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "find_spec": {name: importlib.util.find_spec(name) is not None for name in ("PIL", "requests", "yt_dlp")},
+          "dejavu_sans": Path("/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf").exists()})
 
     t0 = time.perf_counter()
     _lib.library()
@@ -2783,9 +3103,24 @@ def run(seed: int) -> None:
     emit(line)
     note_path_decode(kernels, line)
     emit({"phase": "analyzer_done", "seconds": time.perf_counter() - t0})
+
+    # Main path 8, the system's own entry point: the CLI from a clip on disk
+    # to the saved note, blueprint and audit, (a) base through cli.main, (b)
+    # the trained tiny checkpoint through python -m ... --batch --sharded
+    # twice and a WatchService scan; then K2 + K3 at its decode shapes.
+    t0 = time.perf_counter()
+    found = {}
+    with path_decode_inputs(found):
+        pipeline_lines, piped = pipeline_phase(seed, smi)
+    for line in pipeline_lines:
+        emit(line)
+    line = path_decode_readings(seed, found, "pipeline")
+    emit(line)
+    note_path_decode(kernels, line)
+    emit({"phase": "pipeline_done", "seconds": time.perf_counter() - t0})
     # Each kernel's launches summed over the main paths' runs.
     launches = {name: served[name] + batch_launched[name] + trained[name] + int4_served[name] + api_launched[name]
-                + grounded[name] + analyzed[name] for name in served}
+                + grounded[name] + analyzed[name] + piped[name] for name in served}
 
     sources = {
         "flash_attention": ("csrc/flash_fwd.cuh", "video_transformer_tpu/ops/attention.py:56"),

@@ -2,7 +2,9 @@
 
 The PyTorch/CUDA port (``video_transformer_tpu_torch``) and ``chip_smoke.py``
 run on a machine that has no JAX, flax, optax, orbax, yaml, transformers,
-ml_dtypes or PIL, and they import nothing of the JAX package. A subprocess whose
+ml_dtypes, PIL, requests or yt_dlp, and they import nothing of the JAX
+package (``requests`` and ``yt_dlp`` stay imports inside the functions
+that need them). A subprocess whose
 meta-path finder refuses those imports must still import every module of the
 port and ``chip_smoke``. The hygiene checks mirror tests/test_code_hygiene.py
 (which covers the JAX package) for the port's sources.
@@ -20,13 +22,22 @@ REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "video_transformer_tpu_torch"
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
 REFUSED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "transformers", "ml_dtypes", "PIL",
-           "video_transformer_tpu")
+           "requests", "yt_dlp", "video_transformer_tpu")
+LAZY = ("requests", "yt_dlp")  # imported inside functions only
+# Command-line entry points: what they print is their interface.
+PRINTING = ("cli.py", "tools/validate_note.py")
 # The analyzer's modules (copies of the JAX package's, at the same paths).
 ANALYZER_MODULES = (
     "contracts.timefmt", "contracts.normalize", "contracts.validators", "contracts.render",
     "contracts.knowledge", "contracts.results", "utils.counter", "utils.budget_planner", "utils.pacer",
     "utils.config", "video.containers", "video.probe", "video.segmenter", "video.prefetch",
     "analyzer.json_repair", "analyzer.segmentation", "analyzer.content_analyzer",
+)
+# The pipeline's modules and the CLI (copies of the JAX package's, at the same paths).
+PIPELINE_MODULES = (
+    "exceptions", "utils.logger", "utils.progress", "utils.proxy", "utils.refiner_contract", "utils.refiner",
+    "utils.quality", "tools.validate_note", "pipeline.downloader", "pipeline.validator", "pipeline.visualizer",
+    "pipeline.auditor", "pipeline.pipeline", "cli", "pipeline.service",
 )
 
 _ISOLATED_IMPORT = """
@@ -50,6 +61,15 @@ from video_transformer_tpu_torch.analyzer import ContentAnalyzer
 from video_transformer_tpu_torch.utils.config import load_config
 assert load_config()["engine"]["model_preset"] == "base"
 assert ContentAnalyzer({{}}, None).device == "cuda"
+from video_transformer_tpu_torch.pipeline import VideoPipeline
+from video_transformer_tpu_torch.pipeline.service import WatchService
+from video_transformer_tpu_torch.cli import build_parser
+import inspect
+assert inspect.signature(VideoPipeline).parameters["device"].default == "cuda"
+assert inspect.signature(WatchService).parameters["device"].default == "cuda"
+assert build_parser().parse_args(["--url", "clip.npzv"]).device == "cuda"
+from video_transformer_tpu_torch.utils.proxy import verify_proxy_connection
+assert verify_proxy_connection("http://localhost:1") is False  # requests refused: no key pool
 from video_transformer_tpu_torch.parallel.engine import InferenceEngine
 for method in ("generate_text", "continue_session", "restore"):
     assert callable(getattr(InferenceEngine, method)), method
@@ -63,7 +83,7 @@ print(len(names))
 def test_port_imports_without_jax_or_the_jax_package():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     result = subprocess.run(
-        [sys.executable, "-c", _ISOLATED_IMPORT.format(refused=REFUSED, analyzer=ANALYZER_MODULES)],
+        [sys.executable, "-c", _ISOLATED_IMPORT.format(refused=REFUSED, analyzer=ANALYZER_MODULES + PIPELINE_MODULES)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert result.returncode == 0, result.stderr[-2000:]
@@ -80,7 +100,13 @@ class TestPortHygiene:
         compile(path.read_text(encoding="utf-8"), str(path), "exec")
 
     def test_no_refused_imports(self, path):
-        for node in ast.walk(_module_ast(path)):
+        """No refused import anywhere, but ``requests`` and ``yt_dlp`` inside
+        the functions that need them (the JAX package's optional cloud and
+        download seams)."""
+        tree = _module_ast(path)
+        lazy = {id(node) for fn in ast.walk(tree) if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                for node in ast.walk(fn)}
+        for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [alias.name for alias in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -88,6 +114,8 @@ class TestPortHygiene:
             else:
                 continue
             for name in names:
+                if name.split(".")[0] in LAZY and id(node) in lazy:
+                    continue
                 assert name.split(".")[0] not in REFUSED, f"{path.name}:{node.lineno} imports {name}"
 
     def test_no_unused_imports(self, path):
@@ -138,10 +166,12 @@ class TestPortHygiene:
 
 
 def test_no_print_in_library_code():
-    """The package logs nothing to stdout; only chip_smoke.py prints."""
+    """The package logs nothing to stdout; only chip_smoke.py and the
+    command-line entry points (``PRINTING``, as in the JAX package) print."""
     offenders = [
         f"{path.relative_to(REPO)}:{node.lineno}"
         for path in PACKAGE.rglob("*.py")
+        if path.relative_to(PACKAGE).as_posix() not in PRINTING
         for node in ast.walk(_module_ast(path))
         if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) and node.func.id == "print"
     ]

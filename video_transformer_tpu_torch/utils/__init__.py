@@ -1,8 +1,9 @@
-"""Infrastructure: config, model-call budgets, segment planning, call pacing.
+"""Infrastructure: config, logging, budgets, progress, note post-processing.
 
-This package's own copies of the JAX package's ``utils/{config,counter,
-budget_planner,pacer}.py``; the logger, progress and note post-processing
-modules are not ported yet (ROADMAP.md §1 item 3b).
+This package's own copies of the JAX package's ``utils/`` modules
+(``config``, ``counter``, ``budget_planner``, ``pacer``, ``logger``,
+``progress``, ``proxy``, ``refiner_contract``, ``refiner``, ``quality``);
+``compressor`` and ``tracing`` are not ported yet (ROADMAP.md §1).
 """
 
 from .counter import APICounter, APILimitExceeded
