@@ -73,7 +73,8 @@ every projection takes K6, then training gradients), then:
   (bf16 weights and KV cache: K1, K2 in prefill, K5; first-token logits
   within 2e-2 x max|logit| of the CPU's, hits within 1 of the JAX eval's
   10/16 and 0/8, per-topic diff printed), at the serving settings greedy
-  (int8 weights and KV cache: K1, K2, K3) and at temperature 0.7, with every
+  (int8 weights and KV cache: K1, K2, K3) and at temperature 0.7 (8 topics,
+  no composites), with every
   row walking the note grammar and decode tok/s and ms a step beside the
   card's name and power limit, then holds K5 and K2 + K3 at the eval's
   decode shapes as on the engine API's;
@@ -111,7 +112,35 @@ every projection takes K6, then training gradients), then:
   on two grounded clips (exit 0, two notes and two PNGs), then again (exit
   0, both skipped through the progress file), then a ``WatchService`` scan
   over one clip in this process (launches as in (a)); then K2 + K3 are held
-  at every decode shape the phase ran.
+  at every decode shape the phase ran;
+- trains on grounded and staged data (``train_grounded``, ``train_staged``)
+  at the full ``base`` width and depth with the BPE vocabulary: ``train.run
+  --grounded`` (a pool of 16 host-rendered samples in which every branch of
+  the sampler is drawn: composite pairs with near-hue and uniform partners,
+  band-only clips, stated frame attributes, plain clips; each draw jittered,
+  preprocessed in float32 on the card) for 3 steps, then 4 grounded pairs
+  staged on disk by ``stage_grounded_corpus``, found by
+  ``distillation_records`` and trained on by ``train.run --data`` for 2
+  steps; every step 36 launches each of K7a-c, no K1 and no reference
+  backward; every staged row's note body is the note's ``encode_aligned``
+  ids and walks the note grammar; the set-up seconds (the grammar's bitset
+  from its cache, the pool's render) and the step ms;
+- scores the trained tiny checkpoint with the content eval (``python -m
+  video_transformer_tpu_torch.train.eval_content``'s main: 4 topics, batch
+  4, greedy, the model judge on; coverage, the rubric, every parsed note's
+  checks booleans) and the real-footage harness (``stage_out_of_bank``
+  writes 3 held-out clips with their truths, ``run_real_eval`` scores them
+  greedily; every note parses), each engine call with K1 in its prefill, K2
+  once a layer a prefill and K5 once a layer a decode step; then K5 is held
+  at their decode shapes;
+- prints the tracer's summary of every engine call of the run (the spans
+  ``engine.preprocess``, ``engine.generate``, ``engine.generate_text`` and
+  ``engine.continue_session``) and runs one ``device_trace`` around a short
+  greedy decode, whose exported trace must name the spans beside the
+  device kernels, each span an NVTX range.
+
+The setup line gives the note grammar's bitset seconds built and loaded
+from its cache (``build/grammar_cache/``).
 
 It prints one JSON object per line, flushed; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1). It
@@ -127,6 +156,7 @@ import importlib.util
 import os
 import copy
 import functools
+import io
 import itertools
 import json
 import logging
@@ -181,6 +211,7 @@ from video_transformer_tpu_torch.ops.flash_bwd import (
 )
 from video_transformer_tpu_torch.ops.int4_matmul import INT4_WIDTHS, int4_matmul, int4_matmul_reference, unpack_int4
 from video_transformer_tpu_torch.ops.preprocess import preprocess_frames
+from video_transformer_tpu_torch.ops.token_grammar import TokenGrammar
 from video_transformer_tpu_torch.parallel.engine import InferenceEngine
 from video_transformer_tpu_torch.parallel.serving import ContinuousBatcher, Request
 from video_transformer_tpu_torch.pipeline.auditor import QualityAuditor
@@ -190,14 +221,18 @@ from video_transformer_tpu_torch.pipeline.png import decode_png
 from video_transformer_tpu_torch.pipeline.service import WatchService
 from video_transformer_tpu_torch.pipeline.validator import ConsistencyValidator
 from video_transformer_tpu_torch.pipeline.visualizer import ImageGenerator
-from video_transformer_tpu_torch.train.data import synthetic_batch
+from video_transformer_tpu_torch.train import eval_content
+from video_transformer_tpu_torch.train import grounded as grounded_module
+from video_transformer_tpu_torch.train.data import distillation_records, synthetic_batch
 from video_transformer_tpu_torch.train.eval_grounding import eval_inputs, run_eval
-from video_transformer_tpu_torch.train.grounded import render_topic_clip
+from video_transformer_tpu_torch.train.eval_real import run_real_eval, stage_out_of_bank
+from video_transformer_tpu_torch.train.grounded import render_topic_clip, stage_grounded_corpus
 from video_transformer_tpu_torch.train.run import build_parser, make_prompt_sampler, prepare, setup_logging
 from video_transformer_tpu_torch.train.trainer import distillation_loss
 from video_transformer_tpu_torch.utils.config import load_config
 from video_transformer_tpu_torch.utils.logger import LOGGER_NAME
 from video_transformer_tpu_torch.utils.counter import APICounter
+from video_transformer_tpu_torch.utils.tracing import device_trace, tracer
 from video_transformer_tpu_torch.video.containers import write_npzv
 from video_transformer_tpu_torch.weights import random_params
 
@@ -277,6 +312,10 @@ TRAIN_ARGS = [  # the training CLI at base width, as a user would call it
     "--preset", "base", "--tokenizer", str(TOKENIZER), "--batch", "2", "--text-len", "2048",
     "--steps", str(TRAIN_STEPS), "--device", "cuda",
 ]
+# A base training step's launches: K7a-c once a layer of the ViT's 12 and
+# the decoder's 24, no K1 and no reference backward.
+TRAIN_STEP_LAUNCHES = {"flash_fwd_lse": 36, "flash_bwd_dq": 36, "flash_bwd_dkv": 36,
+                       "flash_attention": 0, "reference_backwards": 0}
 
 
 _START = time.perf_counter()
@@ -1670,8 +1709,7 @@ def train_phase(dev: torch.device, workdir: Path) -> tuple[list[dict], dict[str,
               "seq": config.video_tokens + args.text_len, "batch": args.batch, "vocab": config.decoder.vocab_size,
               "params": sum(p.numel() for p in trainer.optimizer.params), "weights": "random f32, seeded",
               "compute_dtype": config.dtype}]
-    expected = {"flash_fwd_lse": 36, "flash_bwd_dq": 36, "flash_bwd_dkv": 36,
-                "flash_attention": 0, "reference_backwards": 0}
+    expected = TRAIN_STEP_LAUNCHES
     step_ms, loss_tokens = [], []
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2297,7 +2335,9 @@ JAX_GREEDY_COMPOSITES = {
     "混合精度+学习率调度": "primary", "注意力机制+梯度下降": "primary", "序列到序列+位置编码": "secondary",
     "特征工程+循环神经网络": "neither", "残差连接+优化器": "primary",
 }
-JAX_SAMPLED_HITS = (10, 0)  # the JAX eval's logged score at temperature 0.7 (16 + 8)
+# The setting at temperature 0.7 scores 8 single topics and no composites
+# (to keep the smoke within its 5 minutes: 16 + 8 took 26 s).
+SAMPLED_TOPICS, SAMPLED_COMPOSITES = 8, 0
 
 
 def grounding_engine(cfg: VLMConfig, tokenizer, device, grammar=None, **kwargs) -> InferenceEngine:
@@ -2310,7 +2350,8 @@ def grounding_engine(cfg: VLMConfig, tokenizer, device, grammar=None, **kwargs) 
     return engine
 
 
-def grounding_run(engine: InferenceEngine, setting: str) -> tuple[dict, dict[str, int], list]:
+def grounding_run(engine: InferenceEngine, setting: str, topics: int = GROUNDING_TOPICS,
+                  composites: int = GROUNDING_COMPOSITES) -> tuple[dict, dict[str, int], list]:
     """One scorecard run through ``run_eval`` with the launches counted from
     0: every row walks the grammar (``check_complete`` where complete); K2
     writes once a layer a prefill, and each decode step runs K5 once a layer
@@ -2329,12 +2370,12 @@ def grounding_run(engine: InferenceEngine, setting: str) -> tuple[dict, dict[str
         calls.append((frames, prompts))
         return texts
 
-    topic_ids, pairs = eval_inputs(GROUNDING_TOPICS, GROUNDING_COMPOSITES)
+    topic_ids, pairs = eval_inputs(topics, composites)
     before = (stats.generate_calls, stats.decode_steps, stats.tokens_generated, stats.generate_seconds,
               stats.prefill_seconds)
     reset_counts()
     with mock.patch.object(engine, "generate", recorded), decode_carries(engine, carries):
-        report = run_eval(engine, topic_ids, GROUNDING_BATCH, seed=GROUNDING_SEED, composite_pairs=pairs)
+        report = run_eval(engine, topic_ids, GROUNDING_BATCH, seed=GROUNDING_SEED, composite_pairs=pairs or None)
     launched = counts()
     prefills, steps, tokens, seconds, prefill_seconds = (
         now - then for now, then in zip((stats.generate_calls, stats.decode_steps, stats.tokens_generated,
@@ -2350,14 +2391,14 @@ def grounding_run(engine: InferenceEngine, setting: str) -> tuple[dict, dict[str
     line = {
         "phase": "grounding", "setting": setting, "temperature": engine.temperature,
         "weights": engine.quantize or "bfloat16", "kv_cache": engine.kv_quant or "bfloat16",
-        "hits": report["hits"], "total": report["total"], "composite_hits": report["composite_hits"],
-        "composite_total": report["composite_total"], "per_topic": report["per_topic"],
-        "per_composite": report["per_composite"],
+        "hits": report["hits"], "total": report["total"], "composite_hits": report.get("composite_hits", 0),
+        "composite_total": report.get("composite_total", 0), "per_topic": report["per_topic"],
+        "per_composite": report.get("per_composite", {}),
         "per_topic_diff_vs_jax_greedy": {name: [JAX_GREEDY_TOPICS[name], hit]
                                          for name, hit in report["per_topic"].items()
                                          if hit != JAX_GREEDY_TOPICS[name]},
         "per_composite_diff_vs_jax_greedy": {label: [JAX_GREEDY_COMPOSITES[label], got]
-                                             for label, got in report["per_composite"].items()
+                                             for label, got in report.get("per_composite", {}).items()
                                              if got != JAX_GREEDY_COMPOSITES[label]},
         "prefills": prefills, "decode_steps": steps, "tokens": tokens, "wall_seconds": report["wall_seconds"],
         "decode_tokens_per_s": tokens / decode_s if decode_s else 0.0,
@@ -2373,7 +2414,8 @@ def grounding_phase(dev: torch.device, tokenizer, smi: str) -> tuple[list[dict],
     (``tiny-zh-grounded-r5mix/params_4500``, full trained width) in three
     settings: the eval's own (bf16 weights and KV cache, greedy: K1, K2 in
     prefill, K5), the shipped serving one (int8 weights and KV cache, greedy:
-    K1, K2, K3) and the shipped temperature (0.7, at the eval's settings).
+    K1, K2, K3) and the shipped temperature (0.7, at the eval's settings, on
+    ``SAMPLED_TOPICS`` topics and no composites).
     The first is held to the CPU's plain path (every row's first-token
     logits within ``GROUNDING_LOGIT_TOL`` x max|logit|) and to the JAX
     eval's score (single topics and composites each within 1 of 10/16 and
@@ -2388,7 +2430,9 @@ def grounding_phase(dev: torch.device, tokenizer, smi: str) -> tuple[list[dict],
     )
     lines, total = [], dict.fromkeys(counts(), 0)
     for setting, engine in settings:
-        line, launched, calls = grounding_run(engine, setting)
+        sampled = setting == "eval_temperature_0.7"
+        line, launched, calls = grounding_run(engine, setting, *((SAMPLED_TOPICS, SAMPLED_COMPOSITES) if sampled
+                                                                 else (GROUNDING_TOPICS, GROUNDING_COMPOSITES)))
         total = {name: total[name] + launched[name] for name in total}
         if setting == "eval_greedy":
             cpu = grounding_engine(cfg, tokenizer, "cpu", greedy.dfa, temperature=0.0, max_new_tokens=0)
@@ -2409,8 +2453,6 @@ def grounding_phase(dev: torch.device, tokenizer, smi: str) -> tuple[list[dict],
                 raise AssertionError(f"grounding: {line['hits']}/16 and {line['composite_hits']}/8 against JAX's "
                                      f"{jax_hits}/16 and {jax_composites}/8")
             line.update(jax_hits=jax_hits, jax_composite_hits=jax_composites)
-        elif setting == "eval_temperature_0.7":
-            line.update(jax_logged_hits=JAX_SAMPLED_HITS[0], jax_logged_composite_hits=JAX_SAMPLED_HITS[1])
         lines.append(dict(line, card=smi))
     return lines, total
 
@@ -2670,6 +2712,32 @@ CALLS = ((ConsistencyValidator, "_model_score", "validator"), (ContentAnalyzer, 
 
 
 @contextlib.contextmanager
+def engine_calls(record: list, label=None):
+    """One entry per engine call in ``record``: ``label()``'s name for it
+    where given, with video or text-only, rows, decode steps, tokens,
+    seconds, tok/s, ms a step and K1 launches."""
+    execute = InferenceEngine._execute
+
+    def counted(engine, frames, *args):
+        stats = engine.stats
+        before = (stats.decode_steps, stats.tokens_generated, flash_attention.launches)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = execute(engine, frames, *args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        steps, tokens = stats.decode_steps - before[0], stats.tokens_generated - before[1]
+        record.append({**({"call": label()} if label else {}), "video": frames is not None, "rows": args[3],
+                       "decode_steps": steps, "tokens": tokens, "seconds": seconds, "tokens_per_s": tokens / seconds,
+                       "ms_per_step": seconds * 1e3 / steps if steps else 0.0,
+                       "k1_launches": flash_attention.launches - before[2]})
+        return out
+
+    with mock.patch.object(InferenceEngine, "_execute", counted):
+        yield
+
+
+@contextlib.contextmanager
 def pipeline_probes(record: dict):
     """Class-level wrappers that fill ``record``: the seconds of each of the
     pipeline's steps (``steps``, summed over videos); one entry per engine
@@ -2702,23 +2770,7 @@ def pipeline_probes(record: dict):
                 labels.pop()
         return inner
 
-    execute, validate, process = InferenceEngine._execute, ConsistencyValidator.validate, \
-        VideoPipeline.process_single_video
-
-    def counted_execute(engine, frames, *args):
-        stats = engine.stats
-        before = (stats.decode_steps, stats.tokens_generated, flash_attention.launches)
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        out = execute(engine, frames, *args)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - start
-        steps, tokens = stats.decode_steps - before[0], stats.tokens_generated - before[1]
-        record["calls"].append({"call": labels[-1], "video": frames is not None, "rows": args[3],
-                                "decode_steps": steps, "tokens": tokens, "seconds": seconds,
-                                "tokens_per_s": tokens / seconds, "ms_per_step": seconds * 1e3 / steps if steps else 0.0,
-                                "k1_launches": flash_attention.launches - before[2]})
-        return out
+    validate, process = ConsistencyValidator.validate, VideoPipeline.process_single_video
 
     def counted_validate(validator, *args, **kwargs):
         out = validate(validator, *args, **kwargs)
@@ -2735,7 +2787,7 @@ def pipeline_probes(record: dict):
             stack.enter_context(mock.patch.object(cls, name, timed(getattr(cls, name), label)))
         for cls, name, label in CALLS:
             stack.enter_context(mock.patch.object(cls, name, labelled(getattr(cls, name), label)))
-        stack.enter_context(mock.patch.object(InferenceEngine, "_execute", counted_execute))
+        stack.enter_context(engine_calls(record["calls"], lambda: labels[-1]))
         stack.enter_context(mock.patch.object(ConsistencyValidator, "validate", counted_validate))
         stack.enter_context(mock.patch.object(VideoPipeline, "process_single_video", kept_result))
         yield
@@ -2935,6 +2987,317 @@ def pipeline_phase(seed: int, smi: str) -> tuple[list[dict], dict[str, int]]:
     return lines, {name: launched[name] + watched[name] for name in launched}
 
 
+# Main path 9, training on grounded and staged data: the training CLI's
+# ``--grounded`` (a pool of 16 host-rendered samples, every branch of the
+# sampler: composite with near-hue and uniform partners, band-only, stated
+# frame attributes, plain) and ``--data`` (4 grounded pairs staged on disk by
+# ``stage_grounded_corpus``) at the full base width and depth, BPE notes
+# tokenized by the note grammar's ``encode_aligned``. A pool of 8 (the first
+# plan) draws no attribute sample at seed 0.
+TRAIN_DATA_ARGS = ["--preset", "base", "--tokenizer", str(TOKENIZER), "--batch", "2", "--text-len", "2048"]
+GROUNDED_ARGS = [
+    "--grounded", "--grounded-composite", "0.5", "--grounded-band", "0.2", "--grounded-attrs", "0.5",
+    "--grounded-hard-pairs", "0.5", "--grounded-cache", "16",
+]
+GROUNDED_STEPS, STAGED_STEPS, STAGED_PAIRS = 3, 2, 4
+
+
+@contextlib.contextmanager
+def sample_branches(record: dict):
+    """Count the grounded sampler's branches in ``record`` while the pool
+    renders: composite clips (and the near-hue partner searches among
+    them), band-only clips, single-topic clips with stated attributes, and
+    plain ones."""
+    record.update(composite=0, near_hue_partner=0, band=0, attrs=0, topic=0)
+    renders = {name: getattr(grounded_module, name)
+               for name in ("render_composite_clip", "render_band_clip", "render_topic_clip")}
+    argsort = np.argsort
+    depth = [0]
+
+    def counted(name, key):
+        def call(*args, **kwargs):
+            if depth[0] == 0:  # the composite and band renderers draw topic clips themselves
+                record["attrs" if kwargs.get("orient") is not None else key] += 1
+            depth[0] += 1
+            try:
+                return renders[name](*args, **kwargs)
+            finally:
+                depth[0] -= 1
+        return call
+
+    def near_hue(*args, **kwargs):
+        record["near_hue_partner"] += 1
+        return argsort(*args, **kwargs)
+
+    with contextlib.ExitStack() as stack:
+        for name, key in (("render_composite_clip", "composite"), ("render_band_clip", "band"),
+                          ("render_topic_clip", "topic")):
+            stack.enter_context(mock.patch.object(grounded_module, name, counted(name, key)))
+        stack.enter_context(mock.patch.object(np, "argsort", near_hue))
+        yield
+
+
+def train_data_steps(trainer, batches, steps: int, label: str) -> tuple[list[dict], list[float], list]:
+    """``steps`` steps of the CLI's loop on ``batches``: each batch's patches
+    preprocessed on the card in float32, each step with a finite loss and
+    gradient norm and exactly ``TRAIN_STEP_LAUNCHES``. Returns the step
+    lines, the step ms and each batch's (tokens, prompt blocks)."""
+    lines, step_ms, rows = [], [], []
+    for step in range(1, steps + 1):
+        start = time.perf_counter()
+        patches, tokens, prompt_lens = next(batches)
+        batch_s = time.perf_counter() - start
+        if patches.device != trainer.device or patches.dtype != torch.float32:
+            raise AssertionError(f"{label}: patches {patches.dtype} on {patches.device}, want float32 on the card")
+        rows.append((tokens, prompt_lens))
+        before = counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        metrics = trainer.step(patches, tokens, prompt_lens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - start) * 1e3
+        launched = {key: n - before[key] for key, n in counts().items()}
+        if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])):
+            raise AssertionError(f"{label} step {step}: non-finite loss or gradient {metrics}")
+        if any(launched[key] != n for key, n in TRAIN_STEP_LAUNCHES.items()):
+            raise AssertionError(f"{label} step {step}: launches {launched}, expected {TRAIN_STEP_LAUNCHES}")
+        step_ms.append(ms)
+        lines.append({"phase": f"{label}_step", "step": step, "loss": metrics["loss"],
+                      "grad_norm": metrics["grad_norm"], "loss_tokens": metrics["tokens"], "step_ms": ms,
+                      "batch_seconds": batch_s, "launches": {k: launched[k] for k in TRAIN_STEP_LAUNCHES}})
+    return lines, step_ms, rows
+
+
+def timed_grammar(record: list):
+    """Append the seconds of each grammar bitset (built or loaded) to ``record``."""
+    compute = TokenGrammar._compute_allowed_bits
+
+    def timed(self, cache_dir):
+        start = time.perf_counter()
+        try:
+            return compute(self, cache_dir)
+        finally:
+            record.append(time.perf_counter() - start)
+
+    return mock.patch.object(TokenGrammar, "_compute_allowed_bits", timed)
+
+
+def train_grounded_phase(dev: torch.device, workdir: Path, smi: str) -> tuple[list[dict], dict[str, int]]:
+    """``train.run --grounded`` at base for ``GROUNDED_STEPS`` steps (see
+    ``GROUNDED_ARGS``): set-up (trainer, grammar from its cache), the pool's
+    render (the first batch), every sampler branch drawn, each step through
+    K7a-c only. Returns the lines and the launches."""
+    args = build_parser().parse_args(TRAIN_DATA_ARGS + GROUNDED_ARGS + [
+        "--steps", str(GROUNDED_STEPS), "--device", str(dev), "--out", str(workdir / "ckpt"),
+        "--log-dir", str(workdir)])
+    grammar_s: list[float] = []
+    start = time.perf_counter()
+    with timed_grammar(grammar_s):
+        config, trainer, batches = prepare(args, setup_logging(args.log_dir))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    branches: dict = {}
+    start = time.perf_counter()
+    with sample_branches(branches):
+        first = next(batches)
+    first_s = time.perf_counter() - start
+    if not all(branches.values()) or branches["near_hue_partner"] == branches["composite"]:
+        raise AssertionError(f"train_grounded: a sampler branch was not drawn: {branches}")
+    reset_counts()
+    lines, step_ms, _ = train_data_steps(trainer, itertools.chain([first], batches), GROUNDED_STEPS,
+                                         "train_grounded")
+    launched = counts()
+    lines.append({"phase": "train_grounded", "preset": config.name, "steps": GROUNDED_STEPS, "batch": args.batch,
+                  "seq": config.video_tokens + args.text_len, "setup_seconds": setup_s,
+                  "grammar_seconds": grammar_s, "pool": args.grounded_cache,
+                  "first_batch_seconds_with_pool_render": first_s, "branches": branches,
+                  "step_ms": step_ms, "steady_step_ms": statistics.median(step_ms[1:]), "launches": launched,
+                  "card": smi})
+    del trainer, batches, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lines, launched
+
+
+def train_staged_phase(dev: torch.device, workdir: Path, tokenizer, smi: str) -> tuple[list[dict], dict[str, int]]:
+    """``stage_grounded_corpus`` writes ``STAGED_PAIRS`` pairs at base's
+    frame size, ``distillation_records`` finds them, and ``train.run --data``
+    trains ``STAGED_STEPS`` base steps on them. Every row's note body is the
+    note's ``encode_aligned`` ids (as far as the row holds them), ends in EOS
+    and walks the note grammar, to its end where the row holds the whole
+    note. Returns the lines and the launches."""
+    stage = workdir / "staged"
+    start = time.perf_counter()
+    paths = stage_grounded_corpus(stage, STAGED_PAIRS, get_preset(TRAIN_DATA_ARGS[1]).encoder)
+    stage_s = time.perf_counter() - start
+    records = list(distillation_records(stage))
+    if [p for p, _ in records] != paths:
+        raise AssertionError(f"train_staged: distillation_records found {[p.name for p, _ in records]}")
+    args = build_parser().parse_args(TRAIN_DATA_ARGS + [
+        "--data", str(stage), "--steps", str(STAGED_STEPS), "--device", str(dev), "--out", str(workdir / "ckpt"),
+        "--log-dir", str(workdir)])
+    start = time.perf_counter()
+    config, trainer, batches = prepare(args, setup_logging(args.log_dir))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    reset_counts()
+    lines, step_ms, rows = train_data_steps(trainer, batches, STAGED_STEPS, "train_staged")
+    launched = counts()
+    grammar = TokenGrammar(note_dfa(512), tokenizer)
+    bodies = []
+    for k, (tokens, blocks) in enumerate(rows):
+        for r, (row, block) in enumerate(zip(tokens, blocks)):
+            text = json.dumps(records[(k * args.batch + r) % len(records)][1], ensure_ascii=False)
+            want = grammar.encode_aligned(text)
+            kept = want[: args.text_len - int(block) - 1]  # the CLI's truncation (_pack_row)
+            body = row[int(block):].tolist()
+            if body[: len(kept) + 1] != kept + [tokenizer.EOS] or want == tokenizer.encode(text):
+                raise AssertionError(f"train_staged batch {k} row {r}: the body is not the note's encode_aligned ids")
+            if kept == want:
+                check_complete(grammar, r, want)
+            else:
+                grammar_walk(grammar, kept)
+            bodies.append([len(kept), len(want)])
+    lines.append({"phase": "train_staged", "preset": config.name, "pairs": len(records), "stage_seconds": stage_s,
+                  "setup_seconds": setup_s, "steps": STAGED_STEPS, "step_ms": step_ms,
+                  "aligned_body_tokens_kept_of": bodies, "launches": launched, "card": smi})
+    del trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lines, launched
+
+
+def bf16_eval_launch_check(launched: dict, calls: list[dict], layers: int, label: str) -> None:
+    """An eval engine's launches (bf16 KV cache): K1 in every call's
+    prefill, K2 once a layer a prefill, K5 once a layer a decode step, no
+    K3 and nothing plain on the card."""
+    steps = sum(c["decode_steps"] for c in calls)
+    want = {"write_cache_rows": layers * len(calls), "decode_attention_update": layers * steps,
+            "decode_attention": 0, "adopt_rows": 0, "quantize_kv_on_card": 0, "update_cache_rows_on_card": 0}
+    got = {key: launched[key] for key in want}
+    if got != want or not calls or not all(c["k1_launches"] for c in calls):
+        raise AssertionError(f"{label}: launches {launched} for {len(calls)} engine calls and {steps} decode "
+                             f"steps, expected {want} and K1 in every call: {calls}")
+
+
+EVAL_CONTENT_ARGS = ["--preset", "tiny", "--checkpoint", str(TINY_WEIGHTS), "--tokenizer", str(TOKENIZER),
+                     "--topics", "4", "--batch", "4", "--temperature", "0"]
+EVAL_REAL_CLIPS, EVAL_REAL_SEED = 3, 36  # seed 36 draws topics of the range the checkpoint was trained on
+
+
+def eval_content_phase(dev: torch.device, smi: str) -> tuple[dict, dict[str, int]]:
+    """``python -m video_transformer_tpu_torch.train.eval_content`` 's main
+    on the trained tiny checkpoint (``EVAL_CONTENT_ARGS``: 4 topics, batch
+    4, greedy, the model judge on): one JSON line, every parsed note's
+    checks booleans, K1 in every prefill (the notes' and each judgment's),
+    K2 + K5 on the bf16 cache. Returns the line and the launches."""
+    calls: list = []
+    out = io.StringIO()
+    reset_counts()
+    start = time.perf_counter()
+    with engine_calls(calls), contextlib.redirect_stdout(out):
+        rc = eval_content.main(EVAL_CONTENT_ARGS + ["--device", str(dev)])
+    seconds = time.perf_counter() - start
+    launched = counts()
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    parsed = [row for row in report["per_topic"].values() if row["parse"]]
+    if len(report["per_topic"]) != 4 or not parsed:
+        raise AssertionError(f"eval_content: {report['per_topic']}")
+    for row in parsed:
+        if not all(isinstance(v, bool) for v in row["checks"].values()) or "error" in row["rubric"]:
+            raise AssertionError(f"eval_content: a parsed note's checks or rubric: {row}")
+    judged = [c for c in calls if not c["video"]]  # a note with no visual schema is not judged
+    if not 1 <= len(judged) <= len(parsed) or len(calls) - len(judged) != 1:
+        raise AssertionError(f"eval_content: {len(calls)} engine calls for {len(parsed)} parsed notes")
+    bf16_eval_launch_check(launched, calls, get_preset("tiny").decoder.num_layers, "eval_content")
+    steps = sum(c["decode_steps"] for c in calls)
+    line = {"phase": "eval_content", "exit_code": rc, "content_coverage": report["content_coverage"],
+            "rubric_mean": report["rubric_mean"], "rubric_pass_rate": report["rubric_pass_rate"],
+            "parse_rate": report["parse_rate"], "contamination_mean": report["contamination_mean"],
+            "per_check": report["per_check"],
+            "per_topic": {name: [row.get("coverage"), row.get("rubric", {}).get("total")]
+                          for name, row in report["per_topic"].items()},
+            "seconds": seconds, "wall_seconds": report["wall_seconds"], "engine_calls": calls,
+            "ms_per_step": sum(c["seconds"] for c in calls) / steps * 1e3, "launches": launched, "card": smi}
+    return line, launched
+
+
+def eval_real_phase(dev: torch.device, workdir: Path, tokenizer, smi: str) -> tuple[dict, dict[str, int]]:
+    """``stage_out_of_bank`` writes ``EVAL_REAL_CLIPS`` held-out clips with
+    their truths, and ``run_real_eval`` scores the trained tiny checkpoint
+    on them greedily (the eval's 1,024 new tokens, bf16): every note parses,
+    K1 in the prefill, K2 + K5 on the bf16 cache. Returns the line and the
+    launches."""
+    cfg = base_config(tokenizer.vocab_size, "tiny")
+    paths = stage_out_of_bank(workdir, EVAL_REAL_CLIPS, cfg.encoder.num_frames, cfg.encoder.image_size,
+                              seed=EVAL_REAL_SEED)
+    engine = grounding_engine(cfg, tokenizer, dev, temperature=0.0, max_new_tokens=1024)
+    calls: list = []
+    reset_counts()
+    with engine_calls(calls):
+        report = run_real_eval(engine, workdir, batch=4)
+    launched = counts()
+    if report["clips"] != len(paths) or report["parse_rate"] != 1.0:
+        raise AssertionError(f"eval_real: {report}")
+    bf16_eval_launch_check(launched, calls, cfg.decoder.num_layers, "eval_real")
+    steps = sum(c["decode_steps"] for c in calls)
+    line = {"phase": "eval_real", "clips": report["clips"], "parse_rate": report["parse_rate"],
+            "headline_hits": report["headline_hits"], "must_coverage": report["must_coverage"],
+            "should_coverage": report["should_coverage"], "violation_clips": report["violation_clips"],
+            "per_clip": {stem: [s["headline_hit"], s["must_coverage"]] for stem, s in report["per_clip"].items()},
+            "wall_seconds": report["wall_seconds"], "decode_steps": steps,
+            "ms_per_step": sum(c["seconds"] for c in calls) / steps * 1e3, "launches": launched, "card": smi}
+    return line, launched
+
+
+TRACED_SPANS = ("engine.preprocess", "engine.generate", "engine.generate_text", "engine.continue_session")
+
+
+def tracing_phase(dev: torch.device, tokenizer, workdir: Path, smi: str) -> dict:
+    """The tracer's summary over every engine call of the smoke so far
+    (each of ``TRACED_SPANS`` must be there: the engine API phase resumes a
+    session), then one ``device_trace`` around a 16-token greedy decode of
+    the trained tiny checkpoint: the exported trace must name the spans
+    (``engine.preprocess``, ``engine.generate``) beside device kernels."""
+    summary = tracer.summary()
+    missing = [name for name in TRACED_SPANS if name not in summary]
+    if missing:
+        raise AssertionError(f"tracing: no {missing} span in {sorted(summary)}")
+    cfg = base_config(tokenizer.vocab_size, "tiny")
+    engine = grounding_engine(cfg, tokenizer, dev, temperature=0.0, max_new_tokens=PROFILE_TOKENS)
+    clip = render_topic_clip(0, cfg.encoder.num_frames, cfg.encoder.image_size, np.random.default_rng(1))[None]
+    engine.generate(clip, [PROMPT])  # warm
+    nvtx_ranges: list = []
+    push = torch.cuda.nvtx.range_push
+
+    def pushed(name):
+        nvtx_ranges.append(name)
+        return push(name)
+
+    start = time.perf_counter()
+    with mock.patch.object(torch.cuda.nvtx, "range_push", pushed), device_trace(workdir) as prof:
+        engine.generate(clip, [PROMPT])
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    trace_path = workdir / "trace.json"
+    events = json.loads(trace_path.read_text(encoding="utf-8"))["traceEvents"]
+    named = {}
+    for event in events:
+        if event.get("name") in TRACED_SPANS:
+            named.setdefault(event["name"], set()).add(event.get("cat", ""))
+    kernels = sum(1 for event in events if event.get("cat") == "kernel")
+    if not {"engine.preprocess", "engine.generate"} <= set(named) or not kernels:
+        raise AssertionError(f"tracing: the trace names {sorted(named)} and holds {kernels} device kernels")
+    if nvtx_ranges != ["engine.generate", "engine.preprocess"]:
+        raise AssertionError(f"tracing: NVTX ranges pushed {nvtx_ranges}")
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    return {"phase": "tracing", "summary": summary, "trace_bytes": trace_path.stat().st_size,
+            "trace_events": len(events), "trace_device_kernels": kernels,
+            "span_categories": {name: sorted(cats) for name, cats in named.items()},
+            "nvtx_ranges_pushed": nvtx_ranges, "traced_seconds": seconds, "traced_device_ms": device_ms,
+            "card": smi}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
@@ -2980,8 +3343,22 @@ def run(seed: int) -> None:
     engine = InferenceEngine(serve_cfg, **serving)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    engine.dfa = engine.wrap_grammar(note_dfa(engine.byte_vocab))
-    emit({"phase": "setup", "engine_seconds": t1 - t0, "grammar_seconds": time.perf_counter() - t1,
+    # The note grammar's bitset: built and written to the checkout's cache
+    # (build/grammar_cache/) on a fresh checkout, then loaded from it.
+    cache_dir = REPO / "build" / "grammar_cache"
+    cached_before = set(cache_dir.glob("bits_*.npz"))
+    bits_seconds: list[float] = []
+    with timed_grammar(bits_seconds):
+        engine.dfa = engine.wrap_grammar(note_dfa(engine.byte_vocab))
+        t2 = time.perf_counter()
+        loaded = TokenGrammar(note_dfa(engine.byte_vocab), tokenizer)
+    if not np.array_equal(loaded.allowed_bits, engine.dfa.allowed_bits):
+        raise AssertionError("setup: the grammar's cached bitset differs from the one built")
+    emit({"phase": "setup", "engine_seconds": t1 - t0, "grammar_seconds": t2 - t1,
+          "grammar_cached_seconds": time.perf_counter() - t2,
+          "grammar_bits_seconds": {"first": bits_seconds[0], "from_cache": bits_seconds[1],
+                                   "first_was": "built" if set(cache_dir.glob("bits_*.npz")) - cached_before
+                                   else "loaded (cache already there)"},
           "preset": cfg.name, "decoder_layers": layers, "weights": "random, seeded", "quantize": "int8",
           "kv_quant": "int8"})
     prompt_bucket = engine._prompt_bucket([PROMPT], with_video=True)
@@ -3064,6 +3441,16 @@ def run(seed: int) -> None:
     for line in train_lines:
         emit(line)
 
+    # Main path 9, training on grounded and staged data through K7a-c.
+    with tempfile.TemporaryDirectory(prefix="vtx_train_data_") as workdir:
+        t0 = time.perf_counter()
+        data_lines, trained_grounded = train_grounded_phase(dev, Path(workdir) / "grounded", smi)
+        lines, trained_staged = train_staged_phase(dev, Path(workdir) / "staged", tokenizer, smi)
+        data_lines += lines
+    for line in data_lines:
+        emit(line)
+    emit({"phase": "train_data_done", "seconds": time.perf_counter() - t0})
+
     # Main path 4, int4 serving at 7b width: K6 at every decode step, K1-K3.
     torch.cuda.empty_cache()
     int4_kernels, int4_served = int4_serving_phase(seed, dev, tokenizer, grammar)
@@ -3118,9 +3505,28 @@ def run(seed: int) -> None:
     emit(line)
     note_path_decode(kernels, line)
     emit({"phase": "pipeline_done", "seconds": time.perf_counter() - t0})
+
+    # Main path 10, the content and real-footage evals of the trained tiny
+    # checkpoint (K1, K2, K5), then K5 at their decode shapes; then the
+    # tracer's spans over the whole run and one device trace.
+    t0 = time.perf_counter()
+    found = {}
+    with tempfile.TemporaryDirectory(prefix="vtx_evals_") as workdir, path_decode_inputs(found):
+        content_line, content_launched = eval_content_phase(dev, smi)
+        real_line, real_launched = eval_real_phase(dev, Path(workdir) / "oob", tokenizer, smi)
+    emit(content_line)
+    emit(real_line)
+    line = path_decode_readings(seed, found, "evals")
+    emit(line)
+    note_path_decode(kernels, line)
+    emit({"phase": "evals_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="vtx_trace_") as workdir:
+        emit(dict(tracing_phase(dev, tokenizer, Path(workdir), smi), seconds=time.perf_counter() - t0))
     # Each kernel's launches summed over the main paths' runs.
     launches = {name: served[name] + batch_launched[name] + trained[name] + int4_served[name] + api_launched[name]
-                + grounded[name] + analyzed[name] + piped[name] for name in served}
+                + grounded[name] + analyzed[name] + piped[name] + trained_grounded[name] + trained_staged[name]
+                + content_launched[name] + real_launched[name] for name in served}
 
     sources = {
         "flash_attention": ("csrc/flash_fwd.cuh", "video_transformer_tpu/ops/attention.py:56"),

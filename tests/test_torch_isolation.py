@@ -25,7 +25,8 @@ REFUSED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "transformers", "m
            "requests", "yt_dlp", "video_transformer_tpu")
 LAZY = ("requests", "yt_dlp")  # imported inside functions only
 # Command-line entry points: what they print is their interface.
-PRINTING = ("cli.py", "tools/validate_note.py")
+PRINTING = ("cli.py", "tools/validate_note.py", "train/eval_content.py", "train/eval_real.py", "utils/compressor.py",
+            "tools/add_p_params.py", "tools/export_pdf.py")
 # The analyzer's modules (copies of the JAX package's, at the same paths).
 ANALYZER_MODULES = (
     "contracts.timefmt", "contracts.normalize", "contracts.validators", "contracts.render",
@@ -38,6 +39,11 @@ PIPELINE_MODULES = (
     "exceptions", "utils.logger", "utils.progress", "utils.proxy", "utils.refiner_contract", "utils.refiner",
     "utils.quality", "tools.validate_note", "pipeline.downloader", "pipeline.validator", "pipeline.visualizer",
     "pipeline.auditor", "pipeline.pipeline", "cli", "pipeline.service",
+)
+# The training data paths, the evals, the tracer and the last note tools.
+SLICE_MODULES = (
+    "train.data", "train.run", "train.eval_content", "train.eval_real", "utils.tracing", "utils.compressor",
+    "tools.add_p_params", "tools.export_pdf", "models.bpe", "ops.token_grammar",
 )
 
 _ISOLATED_IMPORT = """
@@ -73,6 +79,16 @@ assert verify_proxy_connection("http://localhost:1") is False  # requests refuse
 from video_transformer_tpu_torch.parallel.engine import InferenceEngine
 for method in ("generate_text", "continue_session", "restore"):
     assert callable(getattr(InferenceEngine, method)), method
+from video_transformer_tpu_torch.models.bpe import train_bpe, BpeTokenizer
+from video_transformer_tpu_torch.ops.token_grammar import TokenGrammar
+from video_transformer_tpu_torch.train.data import distillation_records
+from video_transformer_tpu_torch.train.grounded import stage_grounded_corpus, grounded_records
+from video_transformer_tpu_torch.train.run import _grounded_batches, _staged_batches
+from video_transformer_tpu_torch.train import eval_content, eval_real
+from video_transformer_tpu_torch.utils.tracing import tracer, device_trace
+assert callable(BpeTokenizer.save) and callable(TokenGrammar.encode_aligned)
+assert inspect.signature(TokenGrammar).parameters["cache_dir"].default == "build/grammar_cache"
+assert callable(eval_content.main) and callable(eval_real.main)
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
@@ -83,7 +99,8 @@ print(len(names))
 def test_port_imports_without_jax_or_the_jax_package():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     result = subprocess.run(
-        [sys.executable, "-c", _ISOLATED_IMPORT.format(refused=REFUSED, analyzer=ANALYZER_MODULES + PIPELINE_MODULES)],
+        [sys.executable, "-c", _ISOLATED_IMPORT.format(
+            refused=REFUSED, analyzer=ANALYZER_MODULES + PIPELINE_MODULES + SLICE_MODULES)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert result.returncode == 0, result.stderr[-2000:]

@@ -13,6 +13,7 @@ with its module's names rebound to the port's (``rerun``), so the same
 assertions hold both copies.
 """
 
+import contextlib
 import copy
 import inspect
 import json
@@ -65,6 +66,23 @@ def rerun(module: types.ModuleType, names: dict, test, *args):
             env[key] = types.FunctionType(value.__code__, env, value.__name__, value.__defaults__, value.__closure__)
     fn = types.FunctionType(test.__code__, env, test.__name__, test.__defaults__, test.__closure__)
     return fn(*args)
+
+
+@contextlib.contextmanager
+def port_modules(**modules: types.ModuleType):
+    """Within the block, ``from video_transformer_tpu.<name> import ...``
+    inside a JAX test body gives the port's module (``name`` with its dots
+    as ``__``): ``rerun`` rebinds a module's globals, not the imports a test
+    makes in its body."""
+    saved = {}
+    for name, module in modules.items():
+        key = "video_transformer_tpu." + name.replace("__", ".")
+        saved[key] = sys.modules[key]
+        sys.modules[key] = module
+    try:
+        yield
+    finally:
+        sys.modules.update(saved)
 
 
 def cases(module: types.ModuleType, classes: tuple[str, ...]):

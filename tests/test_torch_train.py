@@ -313,6 +313,22 @@ def test_checkpoint_round_trip_and_init_from(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--data", "staged"], ["--grounded"], ["--tp", "2"], ["--pp", "2"]])
 def test_unported_options_raise(tmp_path, flags):
+    """``--tp``/``--pp`` above 1 are not ported and raise. ``--data`` and
+    ``--grounded`` are ported: they prepare their batch iterators
+    (``tests/test_torch_train_data.py`` holds the batches to JAX's)."""
+    if flags[0] in ("--data", "--grounded"):
+        from video_transformer_tpu_torch.train.grounded import stage_grounded_corpus
+
+        if flags[0] == "--data":
+            stage_grounded_corpus(tmp_path / flags[1], 2, get_preset("tiny").encoder)
+            flags = ["--data", str(tmp_path / flags[1])]
+        args = run.build_parser().parse_args(["--device", "cpu", "--text-len", str(TEXT_LEN), "--batch", "2",
+                                              "--grounded-cache", "2", *flags])
+        config, _, batches = run.prepare(args, run.setup_logging(tmp_path))
+        patches, tokens, blocks = next(batches)
+        assert patches.shape[:2] == (2, config.video_tokens) and tokens.shape == (2, args.text_len)
+        assert blocks.tolist() == [args.prompt_len] * 2  # the prompt block, clamped to half the text
+        return
     args = run.build_parser().parse_args(["--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="not ported"):
         run.prepare(args, run.setup_logging(tmp_path))

@@ -1,19 +1,21 @@
-"""Byte-level BPE codec: load, encode, decode and the grammar's token table.
+"""Byte-level BPE: train, save, load, encode, decode and the grammar's token table.
 
-This package's own copy of the serving half of the JAX package's
-``models/bpe.py`` (training a vocabulary stays there). Ids 0-255 are raw
-bytes, 256-259 the specials PAD/BOS/EOS/VID, and ids from 260 are merges, so
-a byte-DFA column works unchanged for single-byte tokens and specials.
+This package's own copy of the JAX package's ``models/bpe.py``. Ids 0-255
+are raw bytes, 256-259 the specials PAD/BOS/EOS/VID, and ids from 260 are
+merges, so a byte-DFA column works unchanged for single-byte tokens and
+specials. ``train_bpe`` learns merges from a corpus (pair-count BPE over
+pre-split units, ties to the larger pair) until the vocab is full.
 """
 
 from __future__ import annotations
 
 import json
+from collections import Counter, defaultdict
 from pathlib import Path
 
 import numpy as np
 
-__all__ = ["BpeTokenizer"]
+__all__ = ["BpeTokenizer", "train_bpe"]
 
 _NUM_BYTES = 256
 _NUM_SPECIALS = 4
@@ -41,6 +43,78 @@ def _pre_split(text: str) -> list[bytes]:
     return units
 
 
+def train_bpe(
+    corpus: list[str],
+    vocab_size: int,
+    min_pair_count: int = 2,
+    max_token_bytes: int = 16,
+) -> "BpeTokenizer":
+    """Learn BPE merges from ``corpus`` until the vocab reaches vocab_size.
+
+    vocab_size must be a multiple of 128 and leave room for 128 merges.
+    Merged tokens never exceed ``max_token_bytes`` decoded bytes: the token
+    grammar walks at most that many byte columns per token, so a longer
+    token would be unreachable under constrained decoding.
+    """
+    if vocab_size % 128:
+        raise ValueError(f"vocab_size {vocab_size} must be a multiple of 128")
+    if vocab_size < _NUM_BYTES + _NUM_SPECIALS + 128:
+        raise ValueError("vocab_size leaves no room for merges")
+
+    unit_counts: Counter[bytes] = Counter()
+    for text in corpus:
+        unit_counts.update(_pre_split(text))
+    words = [list(unit) for unit in unit_counts]
+    counts = list(unit_counts.values())
+
+    # Incremental pair statistics: a merge touches only the words holding
+    # its pair, not the whole corpus.
+    byte_len: dict[int, int] = {i: 1 for i in range(_NUM_BYTES)}
+
+    def _fits(pair: tuple[int, int]) -> bool:
+        return byte_len[pair[0]] + byte_len[pair[1]] <= max_token_bytes
+
+    pair_counts: Counter[tuple[int, int]] = Counter()
+    pair_words: dict[tuple[int, int], set[int]] = defaultdict(set)
+    for wi, (symbols, count) in enumerate(zip(words, counts)):
+        for pair in zip(symbols, symbols[1:]):
+            if _fits(pair):
+                pair_counts[pair] += count
+                pair_words[pair].add(wi)
+
+    merges: list[tuple[int, int]] = []
+    next_id = _NUM_BYTES + _NUM_SPECIALS
+    max_merges = vocab_size - next_id
+    while len(merges) < max_merges and pair_counts:
+        (a, b), best = max(pair_counts.items(), key=lambda kv: (kv[1], kv[0]))
+        if best < min_pair_count:
+            break
+        merges.append((a, b))
+        new_id = next_id
+        next_id += 1
+        byte_len[new_id] = byte_len[a] + byte_len[b]
+        for wi in list(pair_words.get((a, b), ())):
+            symbols = words[wi]
+            count = counts[wi]
+            # Take the word's old pairs out, rewrite it, put its new pairs in.
+            for pair in zip(symbols, symbols[1:]):
+                if _fits(pair) and pair in pair_counts:
+                    pair_counts[pair] -= count
+                    if pair_counts[pair] <= 0:
+                        del pair_counts[pair]
+            i = 0
+            while i < len(symbols) - 1:
+                if symbols[i] == a and symbols[i + 1] == b:
+                    symbols[i : i + 2] = [new_id]
+                else:
+                    i += 1
+            for pair in zip(symbols, symbols[1:]):
+                if _fits(pair):
+                    pair_counts[pair] += count
+                    pair_words[pair].add(wi)
+    return BpeTokenizer(merges=merges, vocab_size=vocab_size)
+
+
 class BpeTokenizer:
     """Byte-level BPE codec with the engine's tokenizer interface."""
 
@@ -62,6 +136,10 @@ class BpeTokenizer:
         self._bytes += [b""] * _NUM_SPECIALS
         for a, b in self.merges:
             self._bytes.append(self.token_bytes(a) + self.token_bytes(b))
+
+    def save(self, path: str | Path) -> None:
+        payload = {"vocab_size": self.vocab_size, "merges": self.merges}
+        Path(path).write_text(json.dumps(payload), encoding="utf-8")
 
     @classmethod
     def load(cls, path: str | Path) -> "BpeTokenizer":

@@ -1,14 +1,24 @@
 """Token-level grammar: a byte-schema DFA projected onto a BPE vocabulary.
 
-This package's counterpart of the JAX package's ``ops/token_grammar.py``
-(serving half). Per state, a bitset ``allowed_bits[S, ceil(V/32)]`` answers
+This package's counterpart of the JAX package's ``ops/token_grammar.py``.
+Per state, a bitset ``allowed_bits[S, ceil(V/32)]`` answers
 which tokens keep the automaton alive (one row gather and a bit test); the
 successor of the one sampled token per row is a walk of its byte columns
 through the byte table; forced literal runs re-tokenize by the BPE codec so
 the engine's fast-forward blocks work unchanged.
+
+The bitset is a host precompute (seconds at a 2,048 vocab), cached on disk
+under ``build/grammar_cache/`` at the repo root, keyed by a hash of the byte
+table and the token table. ``encode_aligned`` tokenizes a training note with
+merge breaks at every forced/free boundary of the byte DFA, the segmentation
+the constrained decode loop produces.
 """
 
 from __future__ import annotations
+
+import hashlib
+import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -21,7 +31,13 @@ __all__ = ["TokenGrammar"]
 class TokenGrammar:
     """Engine-facing grammar over a BPE vocab (same surface as JsonDfa)."""
 
-    def __init__(self, dfa: JsonDfa, tokenizer, max_token_bytes: int = 16):
+    def __init__(
+        self,
+        dfa: JsonDfa,
+        tokenizer,
+        max_token_bytes: int = 16,
+        cache_dir: str | Path | None = "build/grammar_cache",
+    ):
         if tokenizer.vocab_size % 128:
             raise ValueError("BPE vocab must be a multiple of 128")
         self.dfa = dfa
@@ -31,10 +47,28 @@ class TokenGrammar:
         self.max_token_bytes = max_token_bytes
         self.vocab_size = tokenizer.vocab_size
         self.token_cols, self.token_len = tokenizer.token_table(max_token_bytes)
-        self.allowed_bits = self._compute_allowed_bits()
+        self.allowed_bits = self._compute_allowed_bits(cache_dir)
 
-    def _compute_allowed_bits(self) -> np.ndarray:
-        """Walk every token's bytes from every state through the byte table."""
+    def _cache_key(self) -> str:
+        h = hashlib.sha256()
+        h.update(self.dfa.next_state.tobytes())
+        h.update(self.token_cols.tobytes())
+        return h.hexdigest()[:24]
+
+    def _compute_allowed_bits(self, cache_dir) -> np.ndarray:
+        """Walk every token's bytes from every state through the byte table,
+        or load the result from ``cache_dir`` (a relative path is anchored
+        at the repo root; None neither reads nor writes a cache)."""
+        if cache_dir is not None:
+            cache_dir = Path(cache_dir)
+            if not cache_dir.is_absolute():
+                cache_dir = Path(__file__).resolve().parents[2] / cache_dir
+            cache_path = cache_dir / f"bits_{self._cache_key()}.npz"
+            if cache_path.exists():
+                try:
+                    return np.load(cache_path)["bits"]
+                except Exception:  # a torn or foreign host file: rebuild it
+                    pass
         table = self.dfa.next_state
         num_states = table.shape[0]
         vocab = self.vocab_size
@@ -61,6 +95,17 @@ class TokenGrammar:
                 bits[:, w] |= (ok[:, sel] * bit_val[sel][None, :]).astype(np.uint32).sum(
                     axis=1, dtype=np.uint32
                 )
+        if cache_dir is not None:
+            try:
+                cache_path.parent.mkdir(parents=True, exist_ok=True)
+                # Publish atomically: concurrent processes may build the same
+                # key, and a file written in place could be left torn.
+                tmp_path = cache_path.with_suffix(f".{os.getpid()}.tmp")
+                with open(tmp_path, "wb") as fh:  # np.savez would append ".npz" to a name
+                    np.savez_compressed(fh, bits=bits)
+                os.replace(tmp_path, cache_path)
+            except OSError:
+                pass
         return bits
 
     @property
@@ -121,3 +166,34 @@ class TokenGrammar:
             forced_tokens[s, : len(tokens)] = tokens
             forced_end[s] = cur
         return forced_len, forced_tokens, forced_end
+
+    def encode_aligned(self, text: str) -> list[int]:
+        """Tokenize ``text`` with merge breaks at forced/free DFA boundaries.
+
+        Walks the byte DFA over the text, splits the byte stream wherever
+        the automaton's forcedness (exactly one allowed byte) flips, and
+        BPE-encodes each span as its own merge unit: the segmentation the
+        constrained decode loop enforces. Raises ValueError if the text
+        leaves the grammar.
+        """
+        table = self.dfa.next_state
+        forced = (table >= 0).sum(axis=1) == 1
+        ids: list[int] = []
+        span: list[int] = []
+        state = self.dfa.start
+        span_forced = bool(forced[state])
+        for byte in text.encode("utf-8"):
+            now_forced = bool(forced[state])
+            if now_forced != span_forced and span:
+                ids.extend(self.tokenizer.encode_bytes(bytes(span)))
+                span = []
+            span_forced = now_forced
+            nxt = int(table[state, byte])
+            if nxt < 0:
+                # The offset counts the ids emitted so far, as the JAX package's message does.
+                raise ValueError(f"text leaves the grammar at byte offset {len(ids)}")
+            span.append(byte)
+            state = nxt
+        if span:
+            ids.extend(self.tokenizer.encode_bytes(bytes(span)))
+        return ids

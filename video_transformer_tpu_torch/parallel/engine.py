@@ -26,6 +26,13 @@ multiplies through K6 (``ops/int4_matmul.py``); prefill's larger row counts
 take the unpacked route. ``preprocess`` is the batcher's staging entry
 (``serving.py``).
 
+Each entry point opens the JAX engine's tracing span (``utils/tracing.py``):
+``engine.preprocess`` (``frames=``), ``engine.generate`` and
+``engine.generate_text`` (``batch=``, the padded batch) and
+``engine.continue_session`` (``batch=``, the real rows); on a CUDA engine
+each is also an NVTX range. A span closes after the host has read the
+call's results back from the device.
+
 Not ported: speculative decoding (no draft model), projection fusion and
 data parallelism (one device, so a batch pads only to ``batch_bucket``, and
 ``data_parallel`` is 1).
@@ -48,6 +55,7 @@ from ..models.quant import quantize_decoder
 from ..models.tokenizer import ByteTokenizer
 from ..models.vlm import VideoLM
 from ..ops.preprocess import preprocess_frames
+from ..utils.tracing import tracer
 from ..weights import cast_weights, from_jax_params, from_state_dict, load_npz, random_params
 
 __all__ = ["InferenceEngine", "EngineStats", "EngineSession", "params_checkpoints", "resolve_params_dir"]
@@ -415,9 +423,10 @@ class InferenceEngine:
         compute dtype, timed into stats (after a device sync)."""
         start = time.perf_counter()
         frames = np.asarray(frames)
-        frames_t = torch.as_tensor(frames).to(self.device)
-        patches = preprocess_frames(frames_t, self.config.encoder, self.model.compute_dtype)
-        self._sync()
+        with tracer.span("engine.preprocess", nvtx=self._nvtx, frames=frames.shape[0] * frames.shape[1]):
+            frames_t = torch.as_tensor(frames).to(self.device)
+            patches = preprocess_frames(frames_t, self.config.encoder, self.model.compute_dtype)
+            self._sync()
         self.stats.preprocess_seconds += time.perf_counter() - start
         self.stats.frames_preprocessed += frames.shape[0] * frames.shape[1]
         return patches
@@ -425,6 +434,11 @@ class InferenceEngine:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    @property
+    def _nvtx(self) -> bool:
+        """Spans are also NVTX ranges on a CUDA engine."""
+        return self.device.type == "cuda"
 
     # -- generate ----------------------------------------------------------------
 
@@ -469,10 +483,11 @@ class InferenceEngine:
         if b_padded != b_real:
             pad = np.zeros((b_padded - b_real,) + frames.shape[1:], frames.dtype)
             frames = np.concatenate([frames, pad], axis=0)
-        return self._execute(
-            frames, tokens_in, lengths, states, b_real, total, dfa,
-            session_rounds, return_status, return_tokens, return_session,
-        )
+        with tracer.span("engine.generate", nvtx=self._nvtx, batch=len(lengths)):
+            return self._execute(
+                frames, tokens_in, lengths, states, b_real, total, dfa,
+                session_rounds, return_status, return_tokens, return_session,
+            )
 
     @torch.no_grad()
     def generate_text(
@@ -497,10 +512,11 @@ class InferenceEngine:
             prompts, self._normalize_prefixes(prefixes), b_real, prompt_len, dfa,
             with_video=False, batch_bucket=batch_bucket,
         )
-        return self._execute(
-            None, tokens_in, lengths, states, b_real, total, dfa,
-            session_rounds, return_status, return_tokens, return_session,
-        )
+        with tracer.span("engine.generate_text", nvtx=self._nvtx, batch=len(lengths)):
+            return self._execute(
+                None, tokens_in, lengths, states, b_real, total, dfa,
+                session_rounds, return_status, return_tokens, return_session,
+            )
 
     @torch.no_grad()
     def continue_session(self, session: EngineSession) -> tuple[list[str], list[bool], list[list[int]]]:
@@ -514,11 +530,12 @@ class InferenceEngine:
         if session.rounds_left <= 0:
             raise ValueError("session cache exhausted; no continuation rounds left")
         start = time.perf_counter()
-        tokens, out_pos, complete, steps, session.logits, session.cache, session.state, session.done = (
-            self._decode(session.logits, session.cache, session.state, session.done, session.dfa)
-        )
+        with tracer.span("engine.continue_session", nvtx=self._nvtx, batch=session.b_real):
+            tokens, out_pos, complete, steps, session.logits, session.cache, session.state, session.done = (
+                self._decode(session.logits, session.cache, session.state, session.done, session.dfa)
+            )
+            tokens, out_pos, complete = tokens.cpu().numpy(), out_pos.cpu().numpy(), complete.cpu().numpy()
         session.rounds_left -= 1
-        tokens, out_pos, complete = tokens.cpu().numpy(), out_pos.cpu().numpy(), complete.cpu().numpy()
         b_real = session.b_real
         self.stats.generate_calls += 1
         self.stats.session_resumes += 1

@@ -1,16 +1,20 @@
-"""Synthetic distillation pairs for training.
+"""Training data: staged distillation pairs and synthetic pairs.
 
-This package's own copy of the JAX package's ``train/data.py`` synthetic
-path: schema-shaped templated teacher notes (``templated_teacher_note``),
-uniform walks of the note grammar (``sample_dfa_text``) and whole batches of
-(random frames' patches, note tokens) (``synthetic_batch``). For the same
+This package's own copy of the JAX package's ``train/data.py``:
+``distillation_records`` yields the (clip, teacher note) pairs of a staging
+directory, the production path; schema-shaped templated teacher notes
+(``templated_teacher_note``), uniform walks of the note grammar
+(``sample_dfa_text``) and whole batches of (random frames' patches, note
+tokens) (``synthetic_batch``) serve smoke training. For the same
 ``np.random.default_rng`` seed they give the JAX package's arrays exactly
-(``tests/test_torch_train.py``). Staged (video, note) pairs are not ported.
+(``tests/test_torch_train.py``).
 """
 
 from __future__ import annotations
 
 import json
+from collections.abc import Iterator
+from pathlib import Path
 
 import numpy as np
 
@@ -18,7 +22,7 @@ from ..models.config import VLMConfig
 from ..models.tokenizer import ByteTokenizer
 from ..ops.constrained import JsonDfa
 
-__all__ = ["sample_dfa_text", "templated_teacher_note", "synthetic_batch"]
+__all__ = ["sample_dfa_text", "templated_teacher_note", "synthetic_batch", "distillation_records"]
 
 # Topic/phrase pools for templated teacher notes. Chinese pools match the
 # product's output language (the unicode grammar admits CJK); the English
@@ -196,3 +200,19 @@ def synthetic_batch(
         row = prefix + ids
         tokens[i, : len(row)] = row
     return patches, tokens
+
+
+def distillation_records(data_dir: str | Path) -> Iterator[tuple[Path, dict]]:
+    """Yield (video_path, teacher_note_json) pairs from a staging directory.
+
+    Layout: <dir>/<id>.<ext> with a sibling <id>.note.json teacher output;
+    the clip is the first of .npzv, .npz, .y4m, .mp4 that exists.
+    """
+    data_dir = Path(data_dir)
+    for note_path in sorted(data_dir.glob("*.note.json")):
+        stem = note_path.name[: -len(".note.json")]
+        for ext in (".npzv", ".npz", ".y4m", ".mp4"):
+            video = data_dir / f"{stem}{ext}"
+            if video.exists():
+                yield video, json.loads(note_path.read_text(encoding="utf-8"))
+                break

@@ -8,6 +8,9 @@ lecture clips, and its teacher note names that topic's terms. The grounding
 eval (``train/eval_grounding.py``) renders unseen clips with these and
 scores a hit when the generated note names the clip's topic. The clips and
 notes are byte-equal to the JAX package's for the same rng.
+``stage_grounded_corpus`` writes such pairs to disk in the staging layout
+of ``train/data.py::distillation_records`` (``python -m
+video_transformer_tpu_torch.train.run --data DIR`` trains on them).
 
 All note text stays inside the constrained-decoding alphabet (ASCII + CJK
 ideographs), so every note replays through the note grammar.
@@ -16,9 +19,13 @@ ideographs), so every note replays through the note grammar.
 from __future__ import annotations
 
 import colorsys
+import json
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
+
+from ..models.config import EncoderConfig
 
 __all__ = [
     "COUNT_NAMES",
@@ -30,6 +37,8 @@ __all__ = [
     "render_band_clip",
     "grounded_note",
     "composite_note",
+    "grounded_records",
+    "stage_grounded_corpus",
 ]
 
 
@@ -387,3 +396,37 @@ def composite_note(
     note["glossary"][secondary.name[:8]] = secondary.gloss
     note["glossary"][t1[:8]] = f"{t1}支撑{secondary.name}"
     return note
+
+
+def grounded_records(rng: np.random.Generator, count: int, num_frames: int, size: int):
+    """Yield ``count`` (topic_idx, frames, note_dict) grounded pairs."""
+    for _ in range(count):
+        idx = int(rng.integers(len(TOPIC_BANK)))
+        frames = render_topic_clip(idx, num_frames, size, rng)
+        note = grounded_note(TOPIC_BANK[idx], rng)
+        yield idx, frames, note
+
+
+def stage_grounded_corpus(
+    out_dir: str | Path,
+    count: int,
+    encoder: EncoderConfig,
+    seed: int = 0,
+    fps: float = 2.0,
+) -> list[Path]:
+    """Write (clip.npzv, note.json) pairs in distillation_records layout."""
+    from ..video.containers import write_npzv
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i, (idx, frames, note) in enumerate(
+        grounded_records(rng, count, encoder.num_frames, encoder.image_size)
+    ):
+        clip = out_dir / f"grounded_{i:04d}_t{idx:02d}.npzv"
+        write_npzv(clip, frames, fps=fps)
+        note_path = out_dir / f"grounded_{i:04d}_t{idx:02d}.note.json"
+        note_path.write_text(json.dumps(note, ensure_ascii=False), encoding="utf-8")
+        paths.append(clip)
+    return paths

@@ -1,15 +1,21 @@
 """Training driver CLI.
 
-Distills (clip, teacher-note) pairs into the VideoLM on one device, from
-schema-valid synthetic samples (the JAX package's default data path):
+Distills (clip, teacher-note) pairs into the VideoLM on one device. Data
+comes from a staging directory (``--data``: <id>.<ext> + <id>.note.json
+pairs, see train/data.py), from grounded topic-signature pairs rendered on
+the host (``--grounded``, train/grounded.py) or, when neither is given, from
+schema-valid synthetic samples:
 
   python -m video_transformer_tpu_torch.train.run --preset base \\
-      --tokenizer data/tokenizers/bpe-zh-2048.json [--steps 100] [--remat]
+      --tokenizer data/tokenizers/bpe-zh-2048.json [--grounded | --data DIR] \\
+      [--steps 100] [--remat]
 
 The flags and defaults are those of ``python -m video_transformer_tpu.train.run``
 plus ``--device`` (``cuda`` by default; ``cpu`` runs the plain versions of
-the kernels). Staged video pairs (``--data``), grounded pairs
-(``--grounded``) and ``--tp``/``--pp`` above 1 are not ported and raise.
+the kernels). With ``--tokenizer``, notes are tokenized by the note grammar's
+``encode_aligned``. For the same arguments the staged and grounded batches
+equal the JAX training CLI's (patches preprocessed in float32 on the trainer's
+device). ``--tp``/``--pp`` above 1 are not ported and raise.
 """
 
 from __future__ import annotations
@@ -22,11 +28,14 @@ from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..analyzer.schema import note_dfa
 from ..models.config import get_preset
+from ..models.tokenizer import ByteTokenizer
+from ..ops.preprocess import preprocess_frames
 from ..parallel.engine import resolve_params_dir
-from .data import synthetic_batch
+from .data import distillation_records, synthetic_batch
 from .trainer import TrainConfig, Trainer
 
 __all__ = ["build_parser", "main", "make_prompt_sampler", "prepare"]
@@ -94,6 +103,156 @@ def make_prompt_sampler(prompt_profile: str):
     return sample_prompt
 
 
+def _frames_to_patches(frames, config, device="cpu") -> torch.Tensor:
+    """uint8 frames [B, T, H, W, 3] -> float32 patches on ``device``."""
+    frames_t = torch.from_numpy(np.ascontiguousarray(frames)).to(device)
+    return preprocess_frames(frames_t, config.encoder, torch.float32)
+
+
+def _staged_batches(data_dir, config, batch, text_len, logger, prompt=None,
+                    prompt_len=0, tok=None, encode_note=None, device="cpu"):
+    """Cycle over staged (video, note) pairs, yielding device-ready batches."""
+    import json
+
+    from ..video.containers import read_frames
+
+    tok = tok or ByteTokenizer(config.decoder.vocab_size)
+    encode_note = encode_note or (lambda text: tok.encode(text))
+    records = list(distillation_records(data_dir))
+    if not records:
+        raise SystemExit(f"no (video, note) pairs found under {data_dir}")
+    logger.info(f"staged records: {len(records)}")
+    rng = np.random.default_rng(0)
+    cursor = 0
+    while True:
+        patches_list, tokens_list, blocks = [], [], []
+        for _ in range(batch):
+            video, note = records[cursor % len(records)]
+            cursor += 1
+            frames = read_frames(video, config.encoder.num_frames)  # clips may differ in size
+            patches_list.append(_frames_to_patches(frames[None], config, device)[0])
+            text = json.dumps(note, ensure_ascii=False)
+            row, block = _pack_row(tok, encode_note, text, text_len, prompt, prompt_len, rng)
+            tokens_list.append(row)
+            blocks.append(block)
+        yield (
+            torch.stack(patches_list),
+            np.stack(tokens_list),
+            np.asarray(blocks, np.int32),
+        )
+
+
+def _grounded_batches(config, batch, text_len, logger, prompt=None,
+                      prompt_len=0, tok=None, encode_note=None, seed=0,
+                      cache_size=384, composite_p=0.0, band_p=0.0,
+                      attrs_p=0.0, hard_pairs_p=0.0, device="cpu"):
+    """Grounded pairs: frames carry the note's topic signature.
+
+    A pool of ``cache_size`` samples is rendered once and batches draw from
+    it, each draw jittered anew (``augment``); cache_size=0 renders every
+    sample. One ``np.random.default_rng(seed)`` stream feeds ``sample``,
+    ``augment`` and the picks in the JAX training CLI's order, so a seed gives
+    its batches.
+    """
+    import json
+
+    from .grounded import (
+        TOPIC_BANK,
+        composite_note,
+        grounded_note,
+        render_band_clip,
+        render_composite_clip,
+        render_topic_clip,
+    )
+
+    tok = tok or ByteTokenizer(config.decoder.vocab_size)
+    encode_note = encode_note or (lambda text: tok.encode(text))
+    rng = np.random.default_rng(seed)
+
+    def sample():
+        idx = int(rng.integers(len(TOPIC_BANK)))
+        draw = rng.random()
+        if composite_p > 0 and draw < composite_p:
+            # Compositional pair: two signatures in one clip, the note covers both.
+            if hard_pairs_p > 0 and rng.random() < hard_pairs_p:
+                # Hard negatives: a partner among the 4 nearest hues, so that
+                # the band detector learns the fine hue margins.
+                hues = (np.arange(len(TOPIC_BANK)) * 0.618034) % 1.0
+                d = np.abs(hues - hues[idx])
+                d = np.minimum(d, 1.0 - d)
+                d[idx] = np.inf
+                near = np.argsort(d)[:4]
+                other = int(near[int(rng.integers(len(near)))])
+            else:
+                other = int(rng.integers(len(TOPIC_BANK) - 1))
+                other += other >= idx
+            frames = render_composite_clip(
+                idx, other, config.encoder.num_frames, config.encoder.image_size, rng,
+            )
+            note = composite_note(TOPIC_BANK[idx], TOPIC_BANK[other], rng)
+        elif band_p > 0 and draw < composite_p + band_p:
+            # Curriculum: the band region alone carries the signature; the
+            # note is the ordinary single-topic note.
+            frames = render_band_clip(idx, config.encoder.num_frames, config.encoder.image_size, rng)
+            note = grounded_note(TOPIC_BANK[idx], rng)
+        else:
+            attrs = None
+            if attrs_p > 0 and rng.random() < attrs_p:
+                # Frame attributes drawn independently of the topic and
+                # stated in the note: only this clip's pixels predict them.
+                attrs = (int(rng.integers(3)), int(rng.integers(1, 6)))
+            frames = render_topic_clip(
+                idx, config.encoder.num_frames, config.encoder.image_size, rng,
+                orient=None if attrs is None else attrs[0],
+                n_shapes=None if attrs is None else attrs[1],
+            )
+            note = grounded_note(TOPIC_BANK[idx], rng, attrs=attrs)
+        text = json.dumps(note, ensure_ascii=False)
+        row, block = _pack_row(tok, encode_note, text, text_len, prompt, prompt_len, rng)
+        return frames, row, block
+
+    def augment(frames: np.ndarray) -> np.ndarray:
+        """Photometric and temporal jitter, so that a cached clip never
+        repeats pixel for pixel; the signatures survive every change."""
+        out = frames.astype(np.float32)
+        out *= rng.uniform(0.82, 1.18)  # brightness
+        out += rng.uniform(-12.0, 12.0)  # offset
+        out += rng.normal(0.0, rng.uniform(0.0, 6.0), out.shape)  # sensor noise
+        shift = int(rng.integers(0, frames.shape[0]))  # temporal phase
+        out = np.roll(out, shift, axis=0)
+        if rng.random() < 0.2:  # temporal reversal: the signatures are direction-free
+            out = out[::-1]
+        # Spatial translation with wrap-around, off the patch grid; small
+        # vertically so that composite band boundaries barely smear.
+        size = frames.shape[1]
+        dy = int(rng.integers(-(size // 32), size // 32 + 1))
+        dx = int(rng.integers(-(size // 8), size // 8 + 1))
+        out = np.roll(out, (dy, dx), axis=(1, 2))
+        return np.clip(out, 0.0, 255.0).astype(np.uint8)
+
+    def to_batch(drawn):
+        frames = np.stack([augment(d[0]) for d in drawn])
+        return (
+            _frames_to_patches(frames, config, device),
+            np.stack([d[1] for d in drawn]),
+            np.asarray([d[2] for d in drawn], np.int32),
+        )
+
+    if cache_size > 0:
+        logger.info(
+            f"grounded corpus: {len(TOPIC_BANK)} topics, caching "
+            f"{cache_size} samples (per-draw jitter)"
+        )
+        pool = [sample() for _ in range(cache_size)]
+        while True:
+            picks = rng.integers(0, cache_size, size=batch)
+            yield to_batch([pool[i] for i in picks])
+
+    logger.info(f"grounded corpus: {len(TOPIC_BANK)} topics, on-the-fly")
+    while True:
+        yield to_batch([sample() for _ in range(batch)])
+
+
 def _synthetic_batches(config, batch, text_len, dfa, prompt, prompt_len):
     rng = np.random.default_rng(0)
     blocks = np.full((batch,), prompt_len if prompt else 0, np.int32)
@@ -118,16 +277,25 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--pp-schedule", default="gpipe", choices=["gpipe", "1f1b"],
                         help="pipeline backward schedule (read with --pp only)")
     parser.add_argument("--remat", action="store_true")
-    parser.add_argument("--data", help="staging dir of (video, note) pairs (not ported)")
-    parser.add_argument("--grounded", action="store_true", help="grounded topic-signature pairs (not ported)")
-    parser.add_argument("--grounded-composite", type=float, default=0.0)
-    parser.add_argument("--grounded-hard-pairs", type=float, default=0.0)
-    parser.add_argument("--grounded-attrs", type=float, default=0.0)
-    parser.add_argument("--grounded-band", type=float, default=0.0)
-    parser.add_argument("--grounded-cache", type=int, default=384)
+    parser.add_argument("--data", help="staging dir of (video, note) pairs")
+    parser.add_argument(
+        "--grounded", action="store_true",
+        help="train on grounded topic-signature pairs (frames determine the note content; see train/grounded.py)",
+    )
+    parser.add_argument("--grounded-composite", type=float, default=0.0,
+                        help="probability of two-signature pairs (the note covers both topics)")
+    parser.add_argument("--grounded-hard-pairs", type=float, default=0.0,
+                        help="within composite draws: probability that the partner is one of the 4 nearest hues")
+    parser.add_argument("--grounded-attrs", type=float, default=0.0,
+                        help="probability that a single-topic sample randomizes and states its frame attributes")
+    parser.add_argument("--grounded-band", type=float, default=0.0,
+                        help="probability of band-only curriculum samples")
+    parser.add_argument("--grounded-cache", type=int, default=384,
+                        help="size of the pre-rendered grounded sample pool (0 = render every sample)")
     parser.add_argument(
         "--tokenizer",
-        help="path to a trained BPE vocab (models/bpe.py); resizes the decoder vocab",
+        help="path to a trained BPE vocab (models/bpe.py); resizes the decoder vocab and uses "
+             "grammar-aligned note tokenization",
     )
     parser.add_argument(
         "--prompt-len", type=int, default=256,
@@ -159,24 +327,24 @@ def setup_logging(log_dir: str | Path) -> logging.Logger:
 
 def prepare(args: argparse.Namespace, logger: logging.Logger):
     """The CLI's set-up: config, trainer and the batch iterator. Adjusts
-    ``args`` (prompt_len, text_len) as the JAX driver does."""
-    if args.data:
-        raise NotImplementedError("--data (staged video pairs) is not ported (ROADMAP: training, staged data)")
-    if args.grounded:
-        raise NotImplementedError("--grounded (train/grounded.py) is not ported (ROADMAP: training, grounded data)")
+    ``args`` (prompt_len, text_len) as the JAX training CLI does."""
     if args.tp > 1 or args.pp > 1:
         raise NotImplementedError("--tp/--pp above 1 are not ported (ROADMAP: Parallelism)")
     if args.prompt_len >= args.text_len:
         args.prompt_len = args.text_len // 2
         logger.info(f"prompt_len clamped to {args.prompt_len} (text_len {args.text_len})")
     config = get_preset(args.preset)
+    # Optional BPE tokenizer: resize the decoder vocab and tokenize notes
+    # with the grammar-aligned segmentation of the constrained decode loop.
+    tok = None
+    encode_note = None
     if args.tokenizer:
-        # The synthetic path tokenizes with bytes; the BPE vocab sizes the
-        # decoder (the grammar-aligned note encoding serves staged data only).
         from ..models.bpe import BpeTokenizer
+        from ..ops.token_grammar import TokenGrammar
 
         tok = BpeTokenizer.load(args.tokenizer)
         config = replace(config, decoder=replace(config.decoder, vocab_size=tok.vocab_size))
+        encode_note = TokenGrammar(note_dfa(512), tok).encode_aligned
         logger.info(f"bpe tokenizer: {args.tokenizer} vocab={tok.vocab_size} merges={len(tok.merges)}")
 
     # Align the full sequence (video tokens + text) to 128 so the flash
@@ -200,11 +368,30 @@ def prepare(args: argparse.Namespace, logger: logging.Logger):
         device=args.device,
     )
     prompt = make_prompt_sampler(args.prompt_profile) if args.prompt_len > 0 else None
-    logger.info("no --data given: training on schema-valid synthetic pairs")
-    batches = _synthetic_batches(
-        config, args.batch, args.text_len,
-        note_dfa(min(config.decoder.vocab_size, 512)), prompt, args.prompt_len,
-    )
+    if args.data:
+        batches = _staged_batches(
+            args.data, config, args.batch, args.text_len, logger,
+            prompt=prompt, prompt_len=args.prompt_len,
+            tok=tok, encode_note=encode_note, device=trainer.device,
+        )
+    elif args.grounded:
+        batches = _grounded_batches(
+            config, args.batch, args.text_len, logger,
+            prompt=prompt, prompt_len=args.prompt_len,
+            tok=tok, encode_note=encode_note,
+            cache_size=args.grounded_cache,
+            composite_p=args.grounded_composite,
+            band_p=args.grounded_band,
+            attrs_p=args.grounded_attrs,
+            hard_pairs_p=args.grounded_hard_pairs,
+            device=trainer.device,
+        )
+    else:
+        logger.info("no --data given: training on schema-valid synthetic pairs")
+        batches = _synthetic_batches(
+            config, args.batch, args.text_len,
+            note_dfa(min(config.decoder.vocab_size, 512)), prompt, args.prompt_len,
+        )
     if args.init_from:
         path = resolve_params_dir(args.init_from)
         trainer.restore_checkpoint(path)

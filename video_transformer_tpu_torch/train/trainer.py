@@ -190,6 +190,8 @@ class Trainer:
         self.step_count = 0
 
     def _tensor(self, array) -> torch.Tensor:
+        if isinstance(array, torch.Tensor):  # patches preprocessed on the device
+            return array.to(self.device)
         return torch.as_tensor(np.asarray(array)).to(self.device)
 
     def step(self, patches, tokens, prompt_lens=None) -> dict[str, float]:

@@ -2,8 +2,9 @@
 
 This package's own copies of the JAX package's ``utils/`` modules
 (``config``, ``counter``, ``budget_planner``, ``pacer``, ``logger``,
-``progress``, ``proxy``, ``refiner_contract``, ``refiner``, ``quality``);
-``compressor`` and ``tracing`` are not ported yet (ROADMAP.md §1).
+``progress``, ``proxy``, ``refiner_contract``, ``refiner``, ``quality``,
+``compressor``, ``tracing``); ``tracing`` puts its device traces on
+``torch.profiler``.
 """
 
 from .counter import APICounter, APILimitExceeded
