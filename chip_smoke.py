@@ -49,12 +49,31 @@ every projection takes K6, then training gradients), then:
   reference backward, profiles one step, and saves and restores a
   checkpoint in a temporary directory;
 - serves one batch of two 16-frame clips through ``InferenceEngine.generate``
-  at the full ``7b`` width and depth (seeded random weights, bf16, int4 weights, int8 KV cache, the same
-  vocabulary and grammar, greedy), after holding K1-K3 at its shapes, shows
+  at the full ``7b`` width and 8 of its 28 decoder layers
+  (``INT4_SERVING_LAYERS``; seeded random weights, bf16, int4 weights, int8
+  KV cache, the same vocabulary and grammar, greedy), after holding K1-K3
+  at its shapes, shows
   that every decode step ran K6 for each of the 7 projections of each layer
   and prefill none, and K2 and K3 as
   on the base path, profiles a 16-token call, and counts a decode step's
   device kernels beside the parent route's;
+- serves ``qwen2vl-7b`` at its full width and depth (``qwen2vl``): first K1
+  at the vision tower's head_dim 80 ([clips x 8, 16, 256, 80] non-causal,
+  timed beside SDPA, and at the ragged shapes causal and not; head_dim 96
+  must raise), the tiny Qwen geometry's logits on the card against the
+  CPU's (random biases; K1 in every tower block), and an HF checkpoint
+  round trip at full width and 2 tower blocks and decoder layers (HF-named
+  state written as two safetensors shards and an index by the smoke's own
+  writer, ``engine.restore(dir)``: weights and prefill logits equal to an
+  engine built from the same state in memory); then the 32-block tower,
+  the 28-layer Qwen2 decoder with q/k/v biases and the untied 152,064-wide
+  head (seeded random weights made on the card, int4 decoder weights, int8
+  KV cache) serve two 16-frame 224 px clips, 128 new tokens, greedy, under
+  the validator grammar over the synthetic 152k vocabulary
+  (``write_synth_qwen_vocab``, ``HfTokenizer``; the encode branch printed),
+  with K1 32 times in the tower and 28 in the prefill, K2 28 times a
+  prefill and a step, K3 28 and K6 196 a step, and no plain attention or
+  cache write on a CUDA tensor;
 - drives the engine API the analyzer calls on the serving engine above
   (``engine_api``): ``generate_text`` with the validator grammar, a capped
   ``generate`` continued by token-id prefixes of ragged lengths, a session
@@ -182,10 +201,16 @@ from video_transformer_tpu_torch.analyzer.schema import note_dfa, validator_dfa
 from video_transformer_tpu_torch.contracts.validators import validate_markdown_structure
 from video_transformer_tpu_torch.models.bpe import BpeTokenizer
 from video_transformer_tpu_torch.models import lm as lm_module
-from video_transformer_tpu_torch.models.config import VLMConfig, get_preset
+from video_transformer_tpu_torch.models.config import DecoderConfig, VLMConfig, get_preset
+from video_transformer_tpu_torch.models.hf_tokenizer import HfTokenizer
 from video_transformer_tpu_torch.models.lm import init_kv_cache
+from video_transformer_tpu_torch.models.port import decoder_key_map, port_decoder_state, port_vision_state, vision_key_map
 from video_transformer_tpu_torch.models.quant import quantize_decoder
+from video_transformer_tpu_torch.models.qwen_vit import QwenVisionConfig
+from video_transformer_tpu_torch.models.synth_vocab import write_synth_qwen_vocab
+from video_transformer_tpu_torch.models.vlm import VideoLM
 from video_transformer_tpu_torch.ops import _lib
+from video_transformer_tpu_torch.ops import attention as attention_module
 from video_transformer_tpu_torch.ops import decode_attention as decode_module
 from video_transformer_tpu_torch.ops import flash_bwd as flash_bwd_module
 from video_transformer_tpu_torch.ops.attention import flash_attention, mha_reference
@@ -234,7 +259,7 @@ from video_transformer_tpu_torch.utils.logger import LOGGER_NAME
 from video_transformer_tpu_torch.utils.counter import APICounter
 from video_transformer_tpu_torch.utils.tracing import device_trace, tracer
 from video_transformer_tpu_torch.video.containers import write_npzv
-from video_transformer_tpu_torch.weights import random_params
+from video_transformer_tpu_torch.weights import from_jax_params, random_params
 
 REPO = Path(__file__).resolve().parent
 TOKENIZER = REPO / "data" / "tokenizers" / "bpe-zh-2048.json"
@@ -252,6 +277,10 @@ PROFILE_TOKENS = 16
 # at the full presets' shapes. The engine API (path 5) serves the full base
 # depth.
 SERVING_LAYERS = 8  # of base's 24
+# The 7b int4 path's decoder depth (main path 4) since the qwen2vl path
+# (main path 11) serves the same decoder geometry at its full 28 layers:
+# K6, K2 and K3 keep the 7b shapes, each layer-count check counts these.
+INT4_SERVING_LAYERS = 8  # of 7b's 28
 PROMPT = "分析这段视频的内容，写出结构化的知识笔记。"
 KERNELS = (flash_attention, write_cache_rows, decode_attention)  # the serving path's
 BATCHER_KERNELS = (adopt_rows, decode_attention_update)  # with K1 and K2 (the stage); the bf16 pool takes no K3
@@ -594,9 +623,8 @@ def flash_errors(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
 
 
 def check_flash(gen: torch.Generator, dev: torch.device, batch: int, heads: int, kv_heads: int,
-                seq: int, causal: bool) -> dict:
-    """K1 at one attention shape (``flash_errors``); times and bound."""
-    d = 128
+                seq: int, causal: bool, d: int = 128) -> dict:
+    """K1 at one attention shape of head_dim ``d`` (``flash_errors``); times and bound."""
     q = torch.randn(batch, heads, seq, d, generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn(batch, kv_heads, seq, d, generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn(batch, kv_heads, seq, d, generator=gen, device=dev).to(torch.bfloat16)
@@ -622,14 +650,15 @@ def check_flash(gen: torch.Generator, dev: torch.device, batch: int, heads: int,
 FLASH_RAGGED_SHAPES = ((100, 100), (64, 200), (3, 1155), (129, 129))
 
 
-def flash_ragged_reading(gen: torch.Generator, dev: torch.device, heads: int, kv_heads: int) -> dict:
-    """K1 at every ``FLASH_RAGGED_SHAPES`` entry, causal and not, batch 2;
-    the worst element-wise ratio and the smallest shifted-mask ratio."""
+def flash_ragged_reading(gen: torch.Generator, dev: torch.device, heads: int, kv_heads: int, d: int = 128) -> dict:
+    """K1 at every ``FLASH_RAGGED_SHAPES`` entry, causal and not, batch 2,
+    head_dim ``d``; the worst element-wise ratio and the smallest
+    shifted-mask ratio."""
     readings = []
     for s_q, s_k in FLASH_RAGGED_SHAPES:
         for causal in (True, False):
-            q = torch.randn(2, heads, s_q, 128, generator=gen, device=dev).to(torch.bfloat16)
-            k, v = (torch.randn(2, kv_heads, s_k, 128, generator=gen, device=dev).to(torch.bfloat16)
+            q = torch.randn(2, heads, s_q, d, generator=gen, device=dev).to(torch.bfloat16)
+            k, v = (torch.randn(2, kv_heads, s_k, d, generator=gen, device=dev).to(torch.bfloat16)
                     for _ in range(2))
             result = flash_errors(q, k, v, causal)
             result.pop("out")
@@ -1572,16 +1601,18 @@ def reference_phase(seed: int, dev: torch.device, vocab_size: int, int4: bool = 
     return line
 
 
-# Calls of K2's plain versions on a CUDA tensor made by the port's modules
-# (``watch_plain_writes``): the card's routes take K2 for every cache write.
-PLAIN_ON_CARD = {"quantize_kv": 0, "update_cache_rows": 0}
+# Calls of K2's plain versions, and of K1's (plain attention), on a CUDA
+# tensor made by the port's modules (``watch_plain_writes``): the card's
+# routes take K2 for every cache write and K1 for every attention.
+PLAIN_ON_CARD = {"quantize_kv": 0, "update_cache_rows": 0, "mha_reference": 0}
+PLAIN_MODULES = {"quantize_kv": decode_module, "update_cache_rows": decode_module, "mha_reference": attention_module}
 
 
 @contextlib.contextmanager
 def watch_plain_writes():
-    """Count in ``PLAIN_ON_CARD`` each call of ``quantize_kv`` or
-    ``update_cache_rows`` on a CUDA tensor that goes through
-    ``ops/decode_attention.py``'s names (the port's own calls; the smoke's
+    """Count in ``PLAIN_ON_CARD`` each call of ``quantize_kv``,
+    ``update_cache_rows`` or ``mha_reference`` on a CUDA tensor that goes
+    through the port's modules' names (the port's own calls; the smoke's
     comparisons call the functions it imported)."""
     def watched(name, fn):
         def call(x, *args, **kwargs):
@@ -1590,8 +1621,8 @@ def watch_plain_writes():
         return call
 
     with contextlib.ExitStack() as stack:
-        for name in PLAIN_ON_CARD:
-            stack.enter_context(mock.patch.object(decode_module, name, watched(name, getattr(decode_module, name))))
+        for name, module in PLAIN_MODULES.items():
+            stack.enter_context(mock.patch.object(module, name, watched(name, getattr(module, name))))
         yield
 
 
@@ -1798,9 +1829,11 @@ def grammar_walk(grammar, ids: list[int]) -> int:
 def check_complete(grammar, row: int, ids: list[int]) -> None:
     """A row reported complete sampled EOS into the accepting state, and the
     engine does not emit that EOS: its tokens must walk to a state whose EOS
-    transition is the accepting one."""
+    transition (the EOS token's byte-DFA column: 258 for the BPE and HF
+    vocabularies) is the accepting one."""
     state = grammar_walk(grammar, ids)
-    if int(grammar.dfa.next_state[state, grammar.tokenizer.EOS]) != grammar.accept:
+    eos_column = int(grammar.token_cols[grammar.tokenizer.EOS, 0])
+    if int(grammar.dfa.next_state[state, eos_column]) != grammar.accept:
         raise AssertionError(f"row {row} reports complete but its tokens end in state {state}, short of accept")
 
 
@@ -2069,7 +2102,8 @@ def decode_step_launches(engine: InferenceEngine, seed: int, cache_len: int, ste
 
 
 def int4_serving_phase(seed: int, dev: torch.device, tokenizer, grammar) -> tuple[dict, dict]:
-    """Main path 4: int4 serving at the full ``7b`` width. Builds the engine
+    """Main path 4: int4 serving at the full ``7b`` width and
+    ``INT4_SERVING_LAYERS`` of its decoder layers. Builds the engine
     (seeded random f32 weights, cast to bf16, decoder quantized to packed
     int4; int8 KV cache, the note grammar, greedy), holds K1-K3 at this
     path's shapes against their plain versions, then serves one batch of two
@@ -2078,6 +2112,7 @@ def int4_serving_phase(seed: int, dev: torch.device, tokenizer, grammar) -> tupl
     K1-K3 at least once. Prints its lines; returns the kernel readings and
     the launches."""
     cfg = base_config(tokenizer.vocab_size, "7b")
+    cfg = replace(cfg, decoder=replace(cfg.decoder, num_layers=INT4_SERVING_LAYERS))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = InferenceEngine(
@@ -2089,6 +2124,7 @@ def int4_serving_phase(seed: int, dev: torch.device, tokenizer, grammar) -> tupl
     weights = list(engine.model.parameters())
     packed = [w for w in weights if w.dtype == torch.uint8]
     emit({"phase": "setup_7b", "engine_seconds": time.perf_counter() - t0, "preset": cfg.name,
+              "decoder_layers": cfg.decoder.num_layers,
               "weights": "random, seeded", "quantize": "int4", "kv_quant": "int8",
               "params": sum(w.numel() for w in weights) + sum(w.numel() for w in packed),
               "int4_kernels": len(packed), "int4_gib": nbytes(*packed) / 2**30,
@@ -2134,6 +2170,322 @@ def int4_serving_phase(seed: int, dev: torch.device, tokenizer, grammar) -> tupl
     emit(dict(profile_phase(engine, clips), preset=cfg.name))
     emit({"phase": "decode_step_launches", "preset": cfg.name, **decode_step_launches(engine, seed, cache_len)})
     return kernels, served
+
+
+# -- the qwen2vl path (main path 11) ---------------------------------------------
+
+QWEN_MAX_NEW = 128  # new tokens a request of the qwen2vl path
+QWEN_CLIPS = 2  # 16-frame clips at 224 px in its one generate call
+# The tiny Qwen geometry of the CPU reference (and of the CPU tests): the
+# tower keeps head_dim 80 (160 / 2 heads); the decoder has q/k/v biases and
+# an untied lm_head.
+QWEN_TINY_VISION = dict(embed_dim=160, depth=2, num_heads=2, mlp_ratio=2.0, image_size=56, num_frames=4)
+QWEN_TINY_DECODER = dict(hidden_dim=256, num_layers=2, num_heads=2, num_kv_heads=1, head_dim=128, mlp_dim=512,
+                         max_seq_len=1024, qkv_bias=True, tied_embeddings=False)
+HF_ROUND_TRIP_DEPTH = 2  # tower blocks and decoder layers of the HF checkpoint round trip
+
+
+def qwen_tiny_config(vocab_size: int) -> VLMConfig:
+    return VLMConfig(
+        name="qwen-tiny",
+        encoder=QwenVisionConfig(hidden_size=QWEN_TINY_DECODER["hidden_dim"], **QWEN_TINY_VISION),
+        decoder=DecoderConfig(vocab_size=vocab_size, **QWEN_TINY_DECODER),
+    )
+
+
+def qwen_reference_phase(seed: int, dev: torch.device) -> dict:
+    """The tiny Qwen geometry, bf16, int8 KV: prefill (the tower through K1
+    at head_dim 80) and decode logits on the card against the plain
+    versions on the CPU, same weights, with every bias and LayerNorm offset
+    drawn at random (flax's init makes them zero)."""
+    cfg = qwen_tiny_config(512)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    cpu_model = random_params(cfg, gen, device="cpu", dtype=torch.bfloat16)
+    with torch.no_grad():
+        for name, param in cpu_model.named_parameters():
+            if name.endswith("bias"):
+                param.copy_(torch.randn(param.shape, generator=gen) * 0.1)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    rng = np.random.default_rng(seed)
+    side = cfg.encoder.image_size
+    frames = torch.from_numpy(rng.integers(0, 256, (2, cfg.encoder.num_frames, side, side, 3), dtype=np.uint8))
+    prompt = torch.from_numpy(rng.integers(0, 256, (2, 128)).astype(np.int64))
+    blocks = torch.from_numpy(rng.integers(0, 256, (3, 2, 3)).astype(np.int64))
+    lengths = torch.tensor([128, 100], dtype=torch.int32)
+    logits = {}
+    for name, model, device in (("cpu", cpu_model, torch.device("cpu")), ("gpu", gpu_model, dev)):
+        reset_counts()
+        with torch.no_grad():
+            patches = preprocess_frames(frames.to(device), cfg.encoder, torch.bfloat16)
+            cache = init_kv_cache(cfg.decoder, 2, 512, torch.bfloat16, quant=True, device=device)
+            last, cache = model.prefill(patches, prompt.to(device), cache, lengths.to(device))
+            outs = [last.float().cpu()]
+            for block in blocks:
+                step, cache = model.decode_block_pick(block.to(device), cache, torch.tensor([2, 1], device=device))
+                outs.append(step.float().cpu())
+        logits[name] = torch.stack(outs)
+    launched = counts()
+    want_k1 = cfg.encoder.depth + cfg.decoder.num_layers
+    if launched["flash_attention"] != want_k1 or launched["mha_reference_on_card"]:
+        raise AssertionError(f"qwen reference: launches {launched}, expected K1 {want_k1} and no plain attention")
+    err = (logits["cpu"] - logits["gpu"]).abs().max().item()
+    scale = logits["cpu"].abs().max().item()
+    tol = GROUNDING_LOGIT_TOL * max(scale, 1.0)
+    if not torch.isfinite(logits["gpu"]).all() or err > tol:
+        raise AssertionError(f"tiny Qwen logits: card vs CPU max_abs_err {err} > {tol}")
+    return {"phase": "qwen_reference", "preset": cfg.name, "vision": QWEN_TINY_VISION,
+            "vision_head_dim": cfg.encoder.head_dim, "decoder": QWEN_TINY_DECODER, "max_abs_err": err,
+            "tol": tol, "logit_scale": scale, "k1_launches": launched["flash_attention"]}
+
+
+def hf_state_dict(cfg: VLMConfig, gen: torch.Generator, dev: torch.device) -> dict[str, torch.Tensor]:
+    """A Qwen2-VL state dict of ``cfg``'s geometry under the hub's names,
+    seeded (normal, std 0.02) on the card, then on the host: bf16 matrices
+    and f32 vectors, as a checkpoint may mix them."""
+    with torch.device("meta"):
+        ported = VideoLM(cfg).state_dict()
+    shapes = {}
+    for hf_name, (path, transpose) in decoder_key_map(cfg.decoder.num_layers, cfg.decoder.qkv_bias,
+                                                      cfg.decoder.tied_embeddings).items():
+        shape = tuple(ported[".".join(path)].shape)
+        shapes[hf_name] = shape[::-1] if transpose else shape
+    for hf_name, (path, transpose) in vision_key_map(cfg.encoder.depth).items():
+        shape = tuple(ported[".".join(("visual",) + path)].shape)
+        shapes[f"visual.{hf_name}"] = shape[::-1] if transpose else shape
+    enc = cfg.encoder
+    shapes["visual.patch_embed.proj.weight"] = (enc.embed_dim, enc.in_channels, enc.temporal_patch_size,
+                                                enc.patch_size, enc.patch_size)
+    return {name: (torch.randn(shape, generator=gen, device=dev) * 0.02)
+            .to(torch.float32 if len(shape) == 1 else torch.bfloat16).cpu()
+            for name, shape in sorted(shapes.items())}
+
+
+SAFETENSORS_NAMES = {torch.bfloat16: "BF16", torch.float32: "F32"}
+
+
+def write_safetensors(path: Path, tensors: dict[str, torch.Tensor]) -> None:
+    """The safetensors format: an 8-byte little-endian header length, the
+    JSON header (padded to 8 bytes), then each tensor's raw bytes."""
+    header, offset = {}, 0
+    for name, tensor in tensors.items():
+        size = tensor.numel() * tensor.element_size()
+        header[name] = {"dtype": SAFETENSORS_NAMES[tensor.dtype], "shape": list(tensor.shape),
+                        "data_offsets": [offset, offset + size]}
+        offset += size
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as fh:
+        fh.write(len(raw).to_bytes(8, "little"))
+        fh.write(raw)
+        for tensor in tensors.values():
+            fh.write(tensor.contiguous().reshape(-1).view(torch.uint8).numpy().data)
+
+
+def write_hf_checkpoint(directory: Path, state: dict[str, torch.Tensor], shards: int = 2) -> int:
+    """``state`` as ``shards`` safetensors files and the index that maps
+    each name to its file, as the hub ships a sharded checkpoint; returns
+    the bytes written."""
+    names = list(state)
+    weight_map, total = {}, 0
+    for i in range(shards):
+        part = names[i * len(names) // shards:(i + 1) * len(names) // shards]
+        file = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        write_safetensors(directory / file, {name: state[name] for name in part})
+        weight_map.update({name: file for name in part})
+        total += (directory / file).stat().st_size
+    (directory / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}))
+    return total
+
+
+def hf_round_trip(seed: int, dev: torch.device, cfg: VLMConfig, tokenizer) -> dict:
+    """An HF checkpoint at full ``qwen2vl-7b`` width and
+    ``HF_ROUND_TRIP_DEPTH`` tower blocks and decoder layers, written as
+    sharded safetensors with an index, loaded by ``engine.restore(dir)``;
+    its weights and prefill logits must equal those of an engine built from
+    the same state in memory through ``port_decoder_state`` /
+    ``port_vision_state``."""
+    cfg = replace(cfg, encoder=replace(cfg.encoder, depth=HF_ROUND_TRIP_DEPTH),
+                  decoder=replace(cfg.decoder, num_layers=HF_ROUND_TRIP_DEPTH))
+    settings = dict(tokenizer=tokenizer, max_new_tokens=8, temperature=0.0, param_dtype="bfloat16",
+                    kv_quant="int8", device=dev)
+    t0 = time.perf_counter()
+    state = hf_state_dict(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    tree = port_decoder_state(state, cfg.decoder)
+    tree["visual"] = port_vision_state(state, cfg.encoder)
+    in_memory = InferenceEngine(cfg, params=from_jax_params({"params": tree}, cfg, device="cpu"), **settings)
+    del tree
+    with tempfile.TemporaryDirectory(prefix="vtx_hf_") as workdir:
+        t1 = time.perf_counter()
+        written = write_hf_checkpoint(Path(workdir), state)
+        del state
+        t2 = time.perf_counter()
+        restored = InferenceEngine(cfg, **settings)
+        restored.restore(workdir)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    want, got = in_memory.model.state_dict(), restored.model.state_dict()
+    unequal = [name for name in want if not torch.equal(want[name], got[name])]
+    if set(want) != set(got) or unequal:
+        raise AssertionError(f"HF round trip: leaves differ from the in-memory port: {unequal[:4]}")
+    rng = np.random.default_rng(seed)
+    side = cfg.encoder.image_size
+    frames = rng.integers(0, 256, (1, cfg.encoder.num_frames, side, side, 3), dtype=np.uint8)
+    tokens = torch.from_numpy(rng.integers(0, 20000, (1, 128))).to(dev)
+    logits = []
+    for engine in (in_memory, restored):
+        cache = init_kv_cache(cfg.decoder, 1, 1024, torch.bfloat16, quant=True, device=dev)
+        with torch.no_grad():
+            last, _ = engine.model.prefill(engine.preprocess(frames), tokens, cache,
+                                           torch.tensor([128], dtype=torch.int32, device=dev))
+        logits.append(last.float())
+    err = (logits[0] - logits[1]).abs().max().item()
+    if not torch.isfinite(logits[1]).all() or not torch.equal(logits[0], logits[1]):
+        raise AssertionError(f"HF round trip: prefill logits differ from the in-memory port's ({err})")
+    return {"phase": "qwen_hf_round_trip", "vision_depth": cfg.encoder.depth, "decoder_layers": cfg.decoder.num_layers,
+            "leaves": len(want), "checkpoint_gib": written / 2**30, "shards": 2,
+            "port_in_memory_seconds": t1 - t0, "write_seconds": t2 - t1, "restore_seconds": t3 - t2,
+            "logits_equal": True, "max_abs_err": err, "logit_scale": logits[0].abs().max().item()}
+
+
+def qwen_kernel_phase(seed: int, dev: torch.device, cfg: VLMConfig) -> dict:
+    """K1 at the tower's shape, [clips x 8, 16, 256, 80] non-causal, timed
+    beside SDPA; at head_dim 80 on the ragged shapes, causal and not (Sq !=
+    Sk among them); head_dim 96 must raise on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    enc = cfg.encoder
+    groups, _, _ = enc.grid
+    frame_tokens = enc.tokens_per_clip // groups
+    k1 = check_flash(gen, dev, QWEN_CLIPS * groups, enc.num_heads, enc.num_heads, frame_tokens, causal=False,
+                     d=enc.head_dim)
+    q = torch.randn(QWEN_CLIPS * groups, enc.num_heads, frame_tokens, enc.head_dim, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k1["device_ms"] = device_ms(lambda: flash_attention(q, q, q, causal=False))
+    ragged = flash_ragged_reading(gen, dev, enc.num_heads, enc.num_heads, d=enc.head_dim)
+    emit({"phase": "flash_ragged", "preset": cfg.name, "head_dim": enc.head_dim, **ragged})
+    k1["ragged_worst_ratio"] = ragged["worst_ratio"]
+    k1["ragged_min_shifted_mask_ratio"] = ragged["min_shifted_mask_ratio"]
+    wide = torch.zeros(2, 2, 128, 96, device=dev, dtype=torch.bfloat16)
+    try:
+        flash_attention(wide, wide, wide, causal=False)
+    except ValueError as exc:
+        k1["head_dim_96"] = str(exc)
+    else:
+        raise AssertionError("flash_attention took head_dim 96 on the card")
+    return k1
+
+
+def qwen2vl_phase(seed: int, dev: torch.device, smi: str) -> tuple[dict, dict[str, int]]:
+    """Main path 11: ``qwen2vl-7b`` at its full width and depth (the
+    32-block tower at head_dim 80, the 28-layer Qwen2 decoder with q/k/v
+    biases and an untied 152,064-wide lm_head), seeded random weights made
+    on the card, int4 decoder weights, int8 KV cache, greedy, under the
+    validator grammar over the synthetic 152k HF vocabulary; two 16-frame
+    224 px clips, 128 new tokens. Before it: K1 at the tower's shapes, the
+    tiny Qwen reference and the HF checkpoint round trip. Launches are
+    counted from 0 around the one generate call: K1 32 times in the tower
+    and 28 in the decoder's prefill, K2 28 times a prefill and a decode
+    step, K3 28 and K6 196 times a step, no plain attention or cache write
+    on the card. Prints its lines; returns K1's readings and the launches."""
+    cfg = get_preset("qwen2vl-7b")
+    t0 = time.perf_counter()
+    k1 = qwen_kernel_phase(seed + 11, dev, cfg)
+    emit(dict(qwen_reference_phase(seed, dev), seconds=time.perf_counter() - t0))
+    with tempfile.TemporaryDirectory(prefix="vtx_qwen_vocab_") as workdir:
+        t0 = time.perf_counter()
+        vocab_path = write_synth_qwen_vocab(Path(workdir) / "tokenizer.json", vocab_size=cfg.decoder.vocab_size)
+        t1 = time.perf_counter()
+        tokenizer = HfTokenizer(vocab_path, vocab_size=cfg.decoder.vocab_size)
+        t2 = time.perf_counter()
+    emit(dict(hf_round_trip(seed, dev, cfg, tokenizer), card=smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t3 = time.perf_counter()
+    engine = InferenceEngine(
+        cfg, max_new_tokens=QWEN_MAX_NEW, temperature=0.0, seed=seed, tokenizer=tokenizer,
+        param_dtype="bfloat16", quantize="int4", kv_quant="int8", max_forced_run=2, device=dev,
+    )
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    bits_seconds: list[float] = []
+    with timed_grammar(bits_seconds):
+        engine.dfa = engine.wrap_grammar(validator_dfa(engine.byte_vocab))
+    weights = list(engine.model.parameters())
+    packed = [w for w in weights if w.dtype == torch.uint8]
+    emit({"phase": "qwen_setup", "preset": cfg.name, "vision_depth": cfg.encoder.depth,
+          "vision_head_dim": cfg.encoder.head_dim, "decoder_layers": cfg.decoder.num_layers,
+          "vocab_size": cfg.decoder.vocab_size, "video_tokens": cfg.video_tokens,
+          "weights": "random, seeded", "quantize": "int4", "kv_quant": "int8",
+          "params": sum(w.numel() for w in weights) + sum(w.numel() for w in packed),
+          "int4_kernels": len(packed), "engine_seconds": t4 - t3,
+          "init_peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "resident_gib": torch.cuda.memory_allocated() / 2**30,
+          "vocab_write_seconds": t1 - t0, "tokenizer_load_seconds": t2 - t1,
+          "encode_branch": tokenizer.encode_branch, "grammar": "validator",
+          "grammar_states": engine.dfa.num_states, "grammar_bits_seconds": bits_seconds[0],
+          "card": smi})
+
+    side = cfg.encoder.image_size
+    clips = np.random.default_rng(seed + 12).integers(0, 256, (QWEN_CLIPS, cfg.encoder.num_frames, side, side, 3),
+                                                      dtype=np.uint8)
+    model = engine.model
+    tower_k1, prefill_k6 = [], []
+    encode_video, prefill = model.encode_video, model.prefill
+
+    def counted_encode(*args):
+        before = flash_attention.launches
+        out = encode_video(*args)
+        tower_k1.append(flash_attention.launches - before)
+        return out
+
+    def counted_prefill(*args):
+        before = int4_matmul.launches
+        out = prefill(*args)
+        prefill_k6.append(int4_matmul.launches - before)
+        return out
+
+    model.encode_video, model.prefill = counted_encode, counted_prefill
+    stats = engine.stats
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        texts, status, ids = engine.generate(clips, [PROMPT] * QWEN_CLIPS, return_status=True, return_tokens=True)
+    finally:
+        del model.encode_video, model.prefill
+    launched = counts()
+    steps, layers, depth = stats.decode_steps, cfg.decoder.num_layers, cfg.encoder.depth
+    want = {"flash_attention": depth + layers, "write_cache_rows": layers * (1 + steps),
+            "decode_attention": layers * steps, "int4_matmul": 7 * layers * steps, "decode_attention_update": 0,
+            "reference_backwards": 0, "quantize_kv_on_card": 0, "update_cache_rows_on_card": 0,
+            "mha_reference_on_card": 0}
+    got = {key: launched[key] for key in want}
+    if got != want or tower_k1 != [depth] or prefill_k6 != [0]:
+        raise AssertionError(f"qwen2vl launches {got} (tower K1 {tower_k1}, prefill K6 {prefill_k6}), "
+                             f"expected {want}")
+    for row, (text, done, row_ids) in enumerate(zip(texts, status, ids)):
+        if not 0 < len(row_ids) <= QWEN_MAX_NEW + 2:
+            raise AssertionError(f"qwen2vl row {row}: {len(row_ids)} tokens")
+        grammar_walk(engine.dfa, row_ids)
+        if done:
+            check_complete(engine.dfa, row, row_ids)
+            json.loads(text)
+    patches = engine.preprocess(clips)
+    with torch.no_grad():
+        tower_ms = time_ms(lambda: model.encode_video(patches), warmup=1, reps=2, rounds=3)
+    decode_s = stats.generate_seconds - stats.prefill_seconds
+    emit({
+        "phase": "qwen2vl", "preset": cfg.name, "batch": QWEN_CLIPS, "frames": cfg.encoder.num_frames,
+        "image_size": side, "max_new_tokens": QWEN_MAX_NEW, "tokens": [len(r) for r in ids],
+        "complete": status, "decode_steps": steps, "tower_ms": tower_ms, "prefill_ms": stats.prefill_seconds * 1e3,
+        "ms_per_step": decode_s * 1e3 / steps, "tokens_per_s": stats.tokens_per_second,
+        "decode_tokens_per_s": stats.tokens_generated / decode_s, "peak_memory_gib":
+        torch.cuda.max_memory_allocated() / 2**30, "launches": got, "tower_k1": tower_k1[0],
+        "text_head": texts[0][:48], "card": smi,
+    })
+    k1["launches"] = got["flash_attention"]
+    return k1, launched
 
 
 # -- engine API phase (main path 5) ---------------------------------------------
@@ -3464,6 +3816,22 @@ def run(seed: int) -> None:
                     "ragged_worst_ratio"):
             if key in result:
                 kernels[name][f"7b_{key}"] = result[key]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Main path 11, qwen2vl-7b at full width and depth: the ported tower
+    # (K1 at head_dim 80), the Qwen2 decoder with biases (K1, K2, K3, K6),
+    # the 152k HF vocabulary under the validator grammar; before it the
+    # tiny Qwen reference and the HF checkpoint round trip.
+    t0 = time.perf_counter()
+    qwen_k1, qwen_launched = qwen2vl_phase(seed, dev, smi)
+    for key in ("max_abs_err", "tol", "worst_ratio", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape", "ragged_worst_ratio", "ragged_min_shifted_mask_ratio", "launches",
+                "head_dim_96"):
+        kernels["flash_attention"][f"qwen_vit_{key}"] = qwen_k1[key]
+    emit({"phase": "qwen2vl_done", "seconds": time.perf_counter() - t0})
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # Main path 6, the grounding scorecard of the trained tiny checkpoint.
     t0 = time.perf_counter()
@@ -3526,7 +3894,9 @@ def run(seed: int) -> None:
     # Each kernel's launches summed over the main paths' runs.
     launches = {name: served[name] + batch_launched[name] + trained[name] + int4_served[name] + api_launched[name]
                 + grounded[name] + analyzed[name] + piped[name] + trained_grounded[name] + trained_staged[name]
-                + content_launched[name] + real_launched[name] for name in served}
+                + content_launched[name] + real_launched[name] + qwen_launched[name] for name in served}
+    if launches["mha_reference_on_card"]:
+        raise AssertionError(f"plain attention ran {launches['mha_reference_on_card']} times on a CUDA tensor")
 
     sources = {
         "flash_attention": ("csrc/flash_fwd.cuh", "video_transformer_tpu/ops/attention.py:56"),

@@ -566,11 +566,10 @@ def capture_logger(name):
 
 class TestAnalyzerEngine:
     @pytest.mark.parametrize("engine_cfg,item", [
-        ({"tokenizer": {"type": "hf", "path": "tokenizer.json"}}, "item 5"),
         ({"mesh": {"data": 1, "model": 2}}, "item 9"),
         ({"mesh": {"data": 4, "model": 1}}, "item 9"),
         ({"draft": {"model_preset": "tiny", "checkpoint_dir": None}}, "item 7"),
-    ], ids=["hf_tokenizer", "mesh_model", "mesh_data", "draft"])
+    ], ids=["mesh_model", "mesh_data", "draft"])
     def test_unported_settings_raise(self, tmp_path, engine_cfg, item):
         analyzer = ContentAnalyzer(analyzer_config(tmp_path, **engine_cfg), counter.APICounter(5), device="cpu")
         with pytest.raises(NotImplementedError, match=item):

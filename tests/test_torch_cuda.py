@@ -722,3 +722,47 @@ def test_tiny_session_on_card_equals_the_long_call(cuda):
     session = next(line for line in lines if line["phase"] == "api_session")
     assert session["equals_long_call"] and session["rounds_resumed"] > 0
     assert launched["decode_attention"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,sq,sk", [(16, 16, 256, 256), (2, 2, 100, 300), (2, 4, 3, 1155), (2, 2, 129, 129)])
+def test_flash_attention_at_head_dim_80_matches_plain(cuda, causal, b, h, sq, sk):
+    """K1 at the Qwen2-VL tower's head_dim 80 (its shape [16, 16, 256, 80]
+    for two clips, and ragged Sq != Sk): within REL_TOL of mha_reference
+    and element by element within BF16_TOL of f32-weight attention; where
+    causal, a mask shifted by one key fails (flash_errors raises)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = randn(gen, b, h, sq, 80, device=cuda), randn(gen, b, h, sk, 80, device=cuda), \
+        randn(gen, b, h, sk, 80, device=cuda)
+    before = flash_attention.launches
+    errors = flash_errors(q, k, v, causal)
+    assert flash_attention.launches == before + 1
+    assert errors["max_abs_err"] <= errors["tol"] and errors["worst_ratio"] <= 1
+    if causal:
+        assert errors["shifted_mask_ratio"] > 1
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_other_head_dims_on_the_card(cuda):
+    """Head_dim 96 raises on a CUDA tensor (never the plain version), and a
+    CUDA tensor at head_dim 80 with grad raises: K7a-c take 128 only."""
+    x = torch.zeros(2, 2, 128, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        flash_attention(x, x, x, causal=False)
+    y = torch.zeros(2, 2, 128, 80, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        flash_attention(y, y, y, causal=True)
+
+
+@pytest.mark.cuda
+def test_tiny_qwen_geometry_on_card_matches_the_cpu(cuda):
+    """The tiny Qwen geometry (tower head_dim 80, decoder q/k/v biases,
+    untied lm_head): the card's prefill and decode logits within 2e-2 x
+    max|logit| of the CPU's, K1 in every tower block and decoder layer, no
+    plain attention on the card (``qwen_reference_phase`` raises otherwise)."""
+    from chip_smoke import qwen_reference_phase, watch_plain_writes
+
+    with watch_plain_writes():
+        line = qwen_reference_phase(0, cuda)
+    assert line["max_abs_err"] <= line["tol"] and line["k1_launches"] == 4

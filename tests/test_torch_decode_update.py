@@ -175,9 +175,12 @@ class TestFusedUpdate:
         assert self.routes(monkeypatch, torch.bfloat16) == ["K5"]
 
 
-def test_prompt_truncation_is_logged_as_in_jax(caplog):
+def test_prompt_truncation_is_logged_as_in_jax(caplog, monkeypatch):
     """An over-long prompt logs ``event=prompt_truncated`` with the JAX
-    engine's count and prompt_len (F2)."""
+    engine's count and prompt_len (F2). The logger propagates to caplog
+    here whatever an earlier test in the same worker set up (the CLI and
+    training tests' logger setup turns propagation off)."""
+    monkeypatch.setattr(logging.getLogger("video_transformer"), "propagate", True)
     prompts = ["长提示 " * 80, "short", "another long prompt " * 30]
     j_tok = JBpe.load(TOKENIZER)
     j_cfg = j_get_preset("tiny")

@@ -142,11 +142,13 @@ def test_sampled_output_stays_in_grammar(tokenizer):
 
 
 def test_unported_surface_raises(tokenizer, tmp_path):
-    """What stays unported raises: HF safetensors checkpoints and the
-    speculative draft; bad arguments raise as in the JAX engine."""
+    """What stays unported raises: the speculative draft. An HF safetensors
+    checkpoint needs a ported-tower preset (``qwen2vl-7b``): the tiny
+    preset's native encoder raises, as in the JAX engine, and bad
+    arguments raise as in the JAX engine."""
     engine = port_engine(tokenizer)
     (tmp_path / "model.safetensors.index.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="safetensors"):
+    with pytest.raises(ValueError, match="ported-tower"):
         engine.restore(tmp_path)
     assert not hasattr(engine, "attach_draft")
     with pytest.raises(ValueError, match="quantize mode"):

@@ -2,9 +2,10 @@
 
 The PyTorch/CUDA port (``video_transformer_tpu_torch``) and ``chip_smoke.py``
 run on a machine that has no JAX, flax, optax, orbax, yaml, transformers,
-ml_dtypes, PIL, requests or yt_dlp, and they import nothing of the JAX
-package (``requests`` and ``yt_dlp`` stay imports inside the functions
-that need them). A subprocess whose
+ml_dtypes, PIL, requests, yt_dlp, safetensors or tokenizers, and they
+import nothing of the JAX package (``requests``, ``yt_dlp`` and
+``tokenizers`` stay imports inside the functions that need them; the HF
+checkpoint reader reads safetensors files with numpy). A subprocess whose
 meta-path finder refuses those imports must still import every module of the
 port and ``chip_smoke``. The hygiene checks mirror tests/test_code_hygiene.py
 (which covers the JAX package) for the port's sources.
@@ -22,8 +23,8 @@ REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "video_transformer_tpu_torch"
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
 REFUSED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "transformers", "ml_dtypes", "PIL",
-           "requests", "yt_dlp", "video_transformer_tpu")
-LAZY = ("requests", "yt_dlp")  # imported inside functions only
+           "requests", "yt_dlp", "safetensors", "tokenizers", "video_transformer_tpu")
+LAZY = ("requests", "yt_dlp", "tokenizers")  # imported inside functions only
 # Command-line entry points: what they print is their interface.
 PRINTING = ("cli.py", "tools/validate_note.py", "train/eval_content.py", "train/eval_real.py", "utils/compressor.py",
             "tools/add_p_params.py", "tools/export_pdf.py")
@@ -45,6 +46,9 @@ SLICE_MODULES = (
     "train.data", "train.run", "train.eval_content", "train.eval_real", "utils.tracing", "utils.compressor",
     "tools.add_p_params", "tools.export_pdf", "models.bpe", "ops.token_grammar",
 )
+# The Qwen2-VL geometry: the vision tower, the HF checkpoint port, the HF
+# tokenizer and the synthetic 152k vocabulary.
+QWEN_MODULES = ("models.qwen_vit", "models.port", "models.hf_tokenizer", "models.synth_vocab")
 
 _ISOLATED_IMPORT = """
 import importlib, pkgutil, sys
@@ -89,6 +93,18 @@ from video_transformer_tpu_torch.utils.tracing import tracer, device_trace
 assert callable(BpeTokenizer.save) and callable(TokenGrammar.encode_aligned)
 assert inspect.signature(TokenGrammar).parameters["cache_dir"].default == "build/grammar_cache"
 assert callable(eval_content.main) and callable(eval_real.main)
+import json, tempfile
+from pathlib import Path
+from video_transformer_tpu_torch.models.config import get_preset
+from video_transformer_tpu_torch.models.hf_tokenizer import HfTokenizer
+from video_transformer_tpu_torch.models.port import load_qwen2vl_dir, read_safetensors
+assert get_preset("qwen2vl-7b").video_tokens == 512 and callable(read_safetensors) and callable(load_qwen2vl_dir)
+with tempfile.TemporaryDirectory() as tmp:
+    vocab = {{chr(c): i for i, c in enumerate(range(ord("!"), ord("!") + 94))}}
+    path = Path(tmp) / "tokenizer.json"
+    path.write_text(json.dumps({{"model": {{"type": "BPE", "vocab": vocab, "merges": []}},
+                                "added_tokens": [{{"content": "<|endoftext|>", "id": 94}}]}}))
+    assert HfTokenizer(path).encode_branch == "merge_units"  # tokenizers refused: the merge-unit branch
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
@@ -100,7 +116,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     result = subprocess.run(
         [sys.executable, "-c", _ISOLATED_IMPORT.format(
-            refused=REFUSED, analyzer=ANALYZER_MODULES + PIPELINE_MODULES + SLICE_MODULES)],
+            refused=REFUSED, analyzer=ANALYZER_MODULES + PIPELINE_MODULES + SLICE_MODULES + QWEN_MODULES)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert result.returncode == 0, result.stderr[-2000:]

@@ -180,7 +180,7 @@ def test_malformed_inputs_raise(tmp_path):
     hf = tmp_path / "hf"
     hf.mkdir()
     (hf / "model-00001-of-00002.safetensors").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="safetensors"):
+    with pytest.raises(ValueError, match="ported-tower"):  # an HF directory needs a QwenVisionConfig preset
         eng.restore(hf)
 
 

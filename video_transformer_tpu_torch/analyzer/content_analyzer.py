@@ -17,9 +17,8 @@ state and per-segment outputs are cached to disk as JSON. Greedy, the
 ``AnalysisResult`` equals the JAX analyzer's
 (``tests/test_torch_analyzer_e2e.py``).
 
-Not ported (``NotImplementedError``, ROADMAP.md §1): HF tokenizers
-(item 5), a mesh of more than one device (item 9) and a draft model for
-speculative decoding (item 7).
+Not ported (``NotImplementedError``, ROADMAP.md §1): a mesh of more than
+one device (item 9) and a draft model for speculative decoding (item 7).
 """
 
 from __future__ import annotations
@@ -130,10 +129,13 @@ class ContentAnalyzer:
 
         ``engine.tokenizer`` config selects the vocabulary: absent/"byte"
         keeps the byte tokenizer; ``{type: bpe, path: ...}`` loads a trained
-        BPE vocab (models/bpe.py), resizes the decoder embedding/logits to
-        match, and projects all grammars to token level (token_grammar.py).
+        BPE vocab (models/bpe.py) and ``{type: hf, path: ..., vocab_size:
+        ...}`` an HF tokenizer.json (models/hf_tokenizer.py); either resizes
+        the decoder embedding/logits to match and projects all grammars to
+        token level (token_grammar.py).
         ``engine.checkpoint_dir`` names a converted ``.npz``
-        (``tools/orbax_to_npz.py``) or a port ``params_N/params.pt``; the
+        (``tools/orbax_to_npz.py``), a port ``params_N/params.pt`` or an HF
+        safetensors directory (``models/port.py``); the
         JAX package's orbax directories do not restore here, and a failed
         restore keeps the random weights, as in the JAX analyzer.
         """
@@ -152,6 +154,11 @@ class ContentAnalyzer:
                 from ..models.bpe import BpeTokenizer
 
                 tokenizer = BpeTokenizer.load(tok_cfg["path"])
+            elif tok_type == "hf":
+                # Real-checkpoint vocabularies (Qwen2-VL's tokenizer.json).
+                from ..models.hf_tokenizer import HfTokenizer
+
+                tokenizer = HfTokenizer(tok_cfg["path"], vocab_size=tok_cfg.get("vocab_size"))
             if tokenizer is not None:
                 preset = replace(
                     preset,
@@ -236,12 +243,6 @@ class ContentAnalyzer:
     def _refuse_unported(self) -> None:
         """Raise for the engine settings the port does not serve yet, before
         anything is built (each names its ROADMAP.md §1 item)."""
-        tok_cfg = self.engine_config.get("tokenizer") or {}
-        if isinstance(tok_cfg, dict) and tok_cfg.get("type") == "hf":
-            raise NotImplementedError(
-                "engine.tokenizer.type 'hf' (HF tokenizer.json) is not ported "
-                "(ROADMAP.md §1 item 5, Qwen2-VL geometry)"
-            )
         mesh = self.engine_config.get("mesh") or {}
         for axis in ("data", "model"):
             size = int(mesh.get(axis, 1) or 1) if isinstance(mesh, dict) else 1

@@ -409,7 +409,8 @@ bool encode_maps(CUtensorMap (&maps)[4], const void* a, const void* b, int a_hea
 extern "C" int vtx_flash_fwd_lse(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
                                  int hq, int hkv, int s, int d, int causal, float scale, void* stream) {
   if (flash_bwd::bad_shape(hq, hkv, s, d)) return (int)cudaErrorInvalidValue;
-  return flash_fwd::launch_flash_fwd<true>(q, k, v, out, (float*)lse, batch, hq, hkv, s, s, causal, scale, stream);
+  return flash_fwd::launch_flash_fwd<true>(q, k, v, out, (float*)lse, batch, hq, hkv, s, s, d, causal, scale,
+                                           stream);
 }
 
 extern "C" int vtx_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,

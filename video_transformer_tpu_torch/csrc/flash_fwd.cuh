@@ -3,10 +3,17 @@
 // kLse = true also LSE = m + log(l) per query row in f32, the residual the
 // backward kernels recompute the probabilities from.
 //
-// softmax(Q K^T / sqrt(d) + mask) V for q [B, Hq, Sq, 128] against k/v
-// [B, Hkv, Sk, 128], GQA head h -> h / (Hq / Hkv), causal mask aligned to
+// softmax(Q K^T / sqrt(d) + mask) V for q [B, Hq, Sq, d] against k/v
+// [B, Hkv, Sk, d], d = 128 or (K1 only) 80, GQA head h -> h / (Hq / Hkv), causal mask aligned to
 // the last Sq keys (q_offset = Sk - Sq; K7a takes Sq == Sk, so its mask has
 // no offset), key tiles wholly above the causal edge skipped.
+//
+// Head_dim 80 (the Qwen2-VL vision tower's) runs the d = 128 tiles
+// unchanged: the tensor maps give the rows an inner extent of 80, so TMA
+// fills columns 80-127 of every q, k and v tile with zeros. Zero columns
+// add nothing to Q K^T and give zero columns of O, which the epilogue does
+// not store; the scale the caller passes is 1/sqrt(80). No copy is made,
+// at the price of 128/80 of the tensor-core work.
 //
 // What bounds it on an H100: at the main paths' shapes (S = 1024-3072,
 // D = 128) attention does S/4 to S/2 operations per byte of q/k/v/o
@@ -134,7 +141,8 @@ template <bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
-                     float* __restrict__ lse, int hq, int hkv, int sq, int sk, int causal, float scale_log2) {
+                     float* __restrict__ lse, int hq, int hkv, int sq, int sk, int d, int causal,
+                     float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw + pad);
@@ -257,11 +265,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (row >= sq) continue;
     const float safe_l = fmaxf(l[r], 1e-30f);
     const float inv = 1.f / safe_l;
-    __nv_bfloat16* out = o + ((size_t)q_bh * sq + row) * kD + col0;
+    __nv_bfloat16* out = o + ((size_t)q_bh * sq + row) * d + col0;
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+      if (8 * j < d)  // columns past d are the zero padding
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
     if constexpr (kLse) {
       if (lane % 4 == 0) lse[(size_t)q_bh * sq + row] = m[r] * 0.69314718055994531f + logf(safe_l);
     }
@@ -271,21 +280,23 @@ __global__ void __launch_bounds__(kThreads, 1)
 // -- host side -------------------------------------------------------------------
 
 // Launch the forward on `stream`; `lse` is written only when kLse is true.
+// `d` is the head_dim of q, k, v and out (a multiple of 8, at most 128).
 // The shared-memory opt-in is set once per process and instantiation.
 template <bool kLse>
 int launch_flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int batch, int hq,
-                     int hkv, int sq, int sk, int causal, float scale, void* stream) {
+                     int hkv, int sq, int sk, int d, int causal, float scale, void* stream) {
   static const cudaError_t opt_in =
       cudaFuncSetAttribute(flash_fwd_kernel<kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (opt_in != cudaSuccess) return (int)opt_in;
   if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_map(&q_map, q, batch * hq, sq, kBM) || !encode_map(&k_map, k, batch * hkv, sk, kBN) ||
-      !encode_map(&v_map, v, batch * hkv, sk, kBN))
+  if (d <= 0 || d > kD || d % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (!encode_map(&q_map, q, batch * hq, sq, kBM, d) || !encode_map(&k_map, k, batch * hkv, sk, kBN, d) ||
+      !encode_map(&v_map, v, batch * hkv, sk, kBN, d))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(hq, batch, (sq + kBM - 1) / kBM);
   flash_fwd_kernel<kLse><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      q_map, k_map, v_map, (__nv_bfloat16*)out, lse, hq, hkv, sq, sk, causal, scale * 1.4426950408889634f);
+      q_map, k_map, v_map, (__nv_bfloat16*)out, lse, hq, hkv, sq, sk, d, causal, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 

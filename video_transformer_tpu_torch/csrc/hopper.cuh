@@ -252,11 +252,13 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map over [heads, s, 128] bf16 (heads = B * H), box [1, box_rows, 64],
-// 128-byte swizzle; rows past s read as zeros.
-inline bool encode_map(CUtensorMap* map, const void* base, int heads, int s, int box_rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)kD, (cuuint64_t)s, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)kD * 2, (cuuint64_t)s * kD * 2};  // bytes, dims 1 and 2
+// A 3-D map over [heads, s, d] bf16 (heads = B * H, d <= 128), box
+// [1, box_rows, 64], 128-byte swizzle; rows past s and columns past d read
+// as zeros, so a tile of a narrower head_dim arrives as the [rows, 128]
+// tile of the same rows padded with zero columns.
+inline bool encode_map(CUtensorMap* map, const void* base, int heads, int s, int box_rows, int d = kD) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};  // bytes, dims 1 and 2
   const cuuint32_t box[3] = {(cuuint32_t)kHalf, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, unit,

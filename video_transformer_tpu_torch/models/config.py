@@ -2,13 +2,14 @@
 
 The same dataclasses and presets as the JAX package's ``models/config.py``,
 kept as this package's own copy so the port imports nothing of the JAX
-package. Every contraction dimension is a multiple of 128 and head_dim is
-128. The ported Qwen2-VL preset waits for its vision tower's port.
+package. Every contraction dimension is a multiple of 128 and the
+decoder's head_dim is 128; ``qwen2vl-7b``'s vision tower has head_dim 80.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Any
 
 __all__ = ["EncoderConfig", "DecoderConfig", "VLMConfig", "get_preset", "PRESETS"]
 
@@ -55,23 +56,31 @@ class DecoderConfig:
     max_seq_len: int = 4096
     rope_theta: float = 10000.0
     dropout: float = 0.0
+    # Qwen2-family knobs (models/port.py): q/k/v projection biases, added
+    # before RoPE, and an untied lm_head.
     qkv_bias: bool = False
     tied_embeddings: bool = True
 
 
 @dataclass(frozen=True)
 class VLMConfig:
-    """Full video-language model: encoder -> projector -> decoder."""
+    """Full video-language model: encoder -> projector -> decoder.
+
+    ``encoder`` is the native EncoderConfig or a ported
+    ``qwen_vit.QwenVisionConfig`` (both give tokens_per_clip, patch_dim,
+    image_size and num_frames).
+    """
 
     name: str = "tiny"
-    encoder: EncoderConfig = field(default_factory=EncoderConfig)
+    encoder: Any = field(default_factory=EncoderConfig)
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
     dtype: str = "bfloat16"  # compute dtype
 
     @property
     def video_tokens(self) -> int:
-        """Tokens the decoder sees per clip."""
-        return self.encoder.tokens_per_clip
+        """Tokens the decoder sees per clip (after the merger for a ported tower)."""
+        merged = getattr(self.encoder, "merged_tokens_per_clip", None)
+        return merged if merged is not None else self.encoder.tokens_per_clip
 
 
 def _tiny() -> VLMConfig:
@@ -122,11 +131,35 @@ def _7b() -> VLMConfig:
     )
 
 
-PRESETS = {"tiny": _tiny, "base": _base, "7b": _7b}
+def _qwen2vl_7b() -> VLMConfig:
+    """Qwen2-VL-7B-Instruct's geometry: the 152,064-entry vocab, the ported
+    vision tower (``models/qwen_vit.py``) and the Qwen2 decoder with q/k/v
+    biases and an untied lm_head, so that ``models/port.py`` loads a real
+    checkpoint as it is. 16 frames at 224 px give 2,048 patches, merged
+    into 512 video tokens.
+    """
+    from .qwen_vit import QwenVisionConfig
+
+    return VLMConfig(
+        name="qwen2vl-7b",
+        encoder=QwenVisionConfig(
+            embed_dim=1280, depth=32, num_heads=16, mlp_ratio=4.0, patch_size=14,
+            temporal_patch_size=2, spatial_merge_size=2, hidden_size=3584,
+            image_size=224, num_frames=16,
+        ),
+        decoder=DecoderConfig(
+            vocab_size=152064, hidden_dim=3584, num_layers=28, num_heads=28,
+            num_kv_heads=4, head_dim=128, mlp_dim=18944, max_seq_len=32768,
+            rope_theta=1000000.0, qkv_bias=True, tied_embeddings=False,
+        ),
+    )
+
+
+PRESETS = {"tiny": _tiny, "base": _base, "7b": _7b, "qwen2vl-7b": _qwen2vl_7b}
 
 
 def get_preset(name: str) -> VLMConfig:
-    """Look up a named model preset (tiny / base / 7b)."""
+    """Look up a named model preset (tiny / base / 7b / qwen2vl-7b)."""
     try:
         return PRESETS[name]()
     except KeyError:

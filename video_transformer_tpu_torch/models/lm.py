@@ -76,15 +76,15 @@ class RMSNorm(nn.Module):
 class Attention(nn.Module):
     def __init__(self, cfg: DecoderConfig, layer_idx: int):
         super().__init__()
-        if cfg.qkv_bias:
-            raise NotImplementedError("q/k/v projection biases (Qwen2 decoders) are not ported")
         self.cfg = cfg
         self.layer_idx = layer_idx
         q_dim = cfg.num_heads * cfg.head_dim
         kv_dim = cfg.num_kv_heads * cfg.head_dim
-        self.q = QDense(cfg.hidden_dim, q_dim)
-        self.k = QDense(cfg.hidden_dim, kv_dim)
-        self.v = QDense(cfg.hidden_dim, kv_dim)
+        # Qwen2 decoders carry q/k/v biases, added after the quantization
+        # scale and before RoPE: the k-bias is rotated per position.
+        self.q = QDense(cfg.hidden_dim, q_dim, bias=cfg.qkv_bias)
+        self.k = QDense(cfg.hidden_dim, kv_dim, bias=cfg.qkv_bias)
+        self.v = QDense(cfg.hidden_dim, kv_dim, bias=cfg.qkv_bias)
         self.out = QDense(q_dim, cfg.hidden_dim)
 
     def forward(self, x, positions, rope, cache: Cache | None, prefill: bool = False):

@@ -73,12 +73,15 @@ class Dense(nn.Module):
     [in, out], or a uint8 carrier [in/2, out] of packed int4 pairs, which
     ``ops/int4_matmul.py`` multiplies in the compute type (K6 at decode
     row counts on the card). A quantized kernel is a parameter without grad.
+    ``bias=True`` adds a ``bias`` [out] after the scale, in the compute type
+    (flax ``nn.Dense`` and the JAX package's ``QDense`` with ``use_bias``).
     """
 
-    def __init__(self, in_dim: int, out_dim: int):
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = False):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(in_dim, out_dim))
         self.register_buffer("scale", None)
+        self.bias = nn.Parameter(torch.zeros(out_dim)) if bias else None
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
         if self.kernel.dtype == torch.uint8:  # packed int4
@@ -89,6 +92,8 @@ class Dense(nn.Module):
             y = x.to(dtype) @ self.kernel.to(dtype)
         if self.scale is not None:
             y = y * self.scale.to(dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(dtype)
         return y
 
 

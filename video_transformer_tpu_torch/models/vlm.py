@@ -1,5 +1,9 @@
 """VideoLM: encoder -> GELU projector -> decoder, the video-language model.
 
+With a ported Qwen2-VL tower (a ``QwenVisionConfig`` encoder) the tower is
+the ``visual`` module and there is no projector: its PatchMerger already
+lands in the decoder's width.
+
 Methods map onto the inference engine's phases: ``encode_video`` (patches ->
 projected video embeddings), ``prefill`` (video embeddings + prompt tokens
 -> KV cache + each row's last logits), ``prefill_text`` (the same without
@@ -14,8 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .config import VLMConfig
+from .config import EncoderConfig, VLMConfig
 from .lm import Cache, Decoder
+from .qwen_vit import QwenVisionEncoder
 from .vit import Dense, VideoEncoder
 
 __all__ = ["VideoLM"]
@@ -25,9 +30,18 @@ class VideoLM(nn.Module):
     def __init__(self, config: VLMConfig):
         super().__init__()
         self.config = config
-        self.encoder = VideoEncoder(config.encoder)
-        self.projector_up = Dense(config.encoder.hidden_dim, config.decoder.hidden_dim)
-        self.projector_down = Dense(config.decoder.hidden_dim, config.decoder.hidden_dim)
+        self.ported_vision = not isinstance(config.encoder, EncoderConfig)
+        if self.ported_vision:
+            if config.encoder.hidden_size != config.decoder.hidden_dim:
+                raise ValueError(
+                    f"vision hidden_size {config.encoder.hidden_size} != "
+                    f"decoder hidden_dim {config.decoder.hidden_dim}"
+                )
+            self.visual = QwenVisionEncoder(config.encoder)
+        else:
+            self.encoder = VideoEncoder(config.encoder)
+            self.projector_up = Dense(config.encoder.hidden_dim, config.decoder.hidden_dim)
+            self.projector_down = Dense(config.decoder.hidden_dim, config.decoder.hidden_dim)
         self.decoder = Decoder(config.decoder)
 
     @property
@@ -35,13 +49,17 @@ class VideoLM(nn.Module):
         return getattr(torch, self.config.dtype)
 
     def encode_video(self, patches: torch.Tensor) -> torch.Tensor:
-        """[B, N, patch_dim] -> [B, N, decoder_hidden] video embeddings.
+        """[B, N, patch_dim] -> [B, Nv, decoder_hidden] video embeddings.
 
-        The projector computes in the promotion of the compute type with its
+        Nv is N for the native encoder and N / 4 for a ported tower, whose
+        merger output is returned in the compute type. The native
+        projector computes in the promotion of the compute type with its
         weights' type, and its GELU is the tanh approximation (flax's
         ``nn.gelu`` default).
         """
         dtype = self.compute_dtype
+        if self.ported_vision:
+            return self.visual(patches, dtype=dtype).to(dtype)
         encoded = self.encoder(patches, dtype=dtype)
         hidden = F.gelu(self.projector_up(encoded.to(dtype)), approximate="tanh")
         return self.projector_down(hidden).to(dtype)

@@ -4,7 +4,10 @@ Layouts: q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], GQA via Hq % Hkv == 0. When
 Sq != Sk the causal mask aligns queries to the LAST Sq key positions. The
 kernel (``csrc/flash_attention.cu``) replaces the JAX package's Pallas
 ``ops/attention.py::_flash_kernel``; ``mha_reference`` is the plain version,
-which the wrapper takes for CPU tensors only.
+which the wrapper takes for CPU tensors only. The kernel takes head_dim 128
+(the decoders and the native encoders) and 80 (the Qwen2-VL vision tower,
+which the JAX package sends to its XLA reference); any other head_dim on a
+CUDA tensor raises.
 
 ``flash_attention`` is differentiable, with the dispatch of the JAX
 package's ``custom_vjp`` (``_flash_diff_fwd`` / ``_flash_diff_bwd``): when
@@ -12,7 +15,9 @@ autograd records and ``supports_flash_bwd`` holds, the forward is K7a and
 the backward K7b + K7c (``ops/flash_bwd.py``) from the saved O and LSE;
 when it records and the shape is not supported, the forward is K1 and the
 backward recomputes through ``mha_reference`` (counted in
-``flash_attention.reference_backwards``); without grad, K1 alone.
+``flash_attention.reference_backwards``); without grad, K1 alone. K7a-c
+take head_dim 128 only, so a CUDA tensor of another head_dim with grad
+raises (training through the Qwen2-VL tower is ROADMAP.md §1 item 10).
 """
 
 from __future__ import annotations
@@ -57,8 +62,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) ->
             raise ValueError(f"flash_attention: {name} must be 16-byte aligned")
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or hq % hkv:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if d != 128:
-        raise ValueError(f"flash_attention: head_dim {d} unsupported (the kernel takes 128)")
+    if d not in (80, 128):
+        raise ValueError(f"flash_attention: head_dim {d} unsupported (the kernel takes 80 or 128)")
     if causal and s_q > s_k:
         raise ValueError("flash_attention: causal attention needs Sq <= Sk")
     out = torch.empty_like(q)
@@ -76,6 +81,11 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
+        if q.device.type == "cuda" and q.shape[3] != 128:
+            raise NotImplementedError(
+                f"flash_attention with grad at head_dim {q.shape[3]}: the training kernels K7a-c take 128 "
+                "(training through the Qwen2-VL tower is ROADMAP.md §1 item 10)"
+            )
         ctx.causal = causal
         if supports_flash_bwd(q.shape[2], k.shape[2]):
             out, lse = flash_fwd_lse(q, k, v, causal)

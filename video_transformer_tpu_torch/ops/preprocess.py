@@ -2,7 +2,9 @@
 
 uint8 frames go to the device once; the separable bilinear resize is two
 matrix products (height, then width) with precomputed weight matrices, then
-``x / 127.5 - 1``, then the tubelet patch layout of ``models/vit.py``.
+``x / 127.5 - 1``, then the patch layout of the encoder: the tubelet order
+of ``models/vit.py``, or Qwen2-VL's channel-major merge-block order for a
+ported tower (``models/qwen_vit.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from ..models.config import EncoderConfig
+from ..models.qwen_vit import qwen_patchify
 from ..models.vit import tubelet_patchify
 
 __all__ = ["preprocess_frames", "resize_weights"]
@@ -37,10 +40,10 @@ def resize_weights(src: int, dst: int) -> np.ndarray:
 
 def preprocess_frames(
     frames: torch.Tensor,  # uint8 [B, T, H, W, 3]
-    config: EncoderConfig,
+    config,  # EncoderConfig | QwenVisionConfig
     dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """uint8 frames -> normalized tubelet patches [B, N, patch_dim]."""
+    """uint8 frames -> normalized patches [B, N, patch_dim]."""
     _, _, h, w, _ = frames.shape
     size = config.image_size
     x = frames.float()
@@ -49,4 +52,6 @@ def preprocess_frames(
     x = torch.einsum("bthwc,hy->btywc", x, wy)
     x = torch.einsum("btywc,wx->btyxc", x, wx)
     x = x * (1.0 / 127.5) - 1.0
-    return tubelet_patchify(x, config.patch_size, config.tubelet_t).to(dtype)
+    if isinstance(config, EncoderConfig):
+        return tubelet_patchify(x, config.patch_size, config.tubelet_t).to(dtype)
+    return qwen_patchify(x, config).to(dtype)

@@ -17,7 +17,8 @@ done rows) in an ``EngineSession`` that ``continue_session`` resumes with
 no prefill, through the same loop, so that a resumed generation equals one
 call with a longer budget. ``batch_bucket`` pads a ragged batch with rows
 that are frozen from step 0. ``restore`` loads trained weights (a converted
-``.npz``, or the port trainer's ``params_N/params.pt``).
+``.npz``, the port trainer's ``params_N/params.pt``, or an HF Qwen2-VL
+safetensors directory through ``models/port.py``).
 
 A bf16 KV cache decodes through K5 (each step's cache write and attention
 in one kernel), an int8 one through K2 then K3. ``quantize="int4"`` stores
@@ -51,12 +52,13 @@ import torch
 
 from ..models.config import VLMConfig
 from ..models.lm import init_kv_cache
+from ..models.port import load_qwen2vl_dir
 from ..models.quant import quantize_decoder
 from ..models.tokenizer import ByteTokenizer
 from ..models.vlm import VideoLM
 from ..ops.preprocess import preprocess_frames
 from ..utils.tracing import tracer
-from ..weights import cast_weights, from_jax_params, from_state_dict, load_npz, random_params
+from ..weights import cast_weights, flatten_tree, from_jax_params, from_state_dict, load_npz, random_params
 
 __all__ = ["InferenceEngine", "EngineStats", "EngineSession", "params_checkpoints", "resolve_params_dir"]
 
@@ -205,16 +207,19 @@ class InferenceEngine:
 
         Takes a converted checkpoint (``.npz`` from ``tools/orbax_to_npz.py``),
         a ``params_N`` directory holding the port trainer's ``params.pt``,
-        or a parent of such directories (the highest step is taken). The
-        leaves are loaded as the f32 tree the trainer writes (a bfloat16
-        checkpoint is widened exactly, as the JAX engine restores against
-        its f32 template), then cast and quantized as the engine serves.
-        Raises on a missing file and on a tree that does not fit the
-        preset; there is no fallback to random weights.
+        a parent of such directories (the highest step is taken), or an HF
+        checkpoint directory (``*.safetensors`` shards and/or
+        ``model.safetensors.index.json``, e.g. Qwen2-VL-7B-Instruct's), which
+        ``_restore_hf`` loads. The leaves are loaded as the f32 tree the
+        trainer writes (a bfloat16 checkpoint is widened exactly, as the JAX
+        engine restores against its f32 template), then cast and quantized
+        as the engine serves. Raises on a missing file and on a tree that
+        does not fit the preset; there is no fallback to random weights.
         """
         path = Path(checkpoint_path)
         if path.is_dir() and (any(path.glob("*.safetensors")) or (path / "model.safetensors.index.json").exists()):
-            raise NotImplementedError(f"{path}: HF safetensors checkpoints are not ported")
+            self._restore_hf(path)
+            return
         if path.suffix == ".npz":
             if not path.is_file():
                 raise FileNotFoundError(f"no converted checkpoint at {path}")
@@ -231,6 +236,31 @@ class InferenceEngine:
             model = from_state_dict(state, self.config, device="cpu")
         cast_weights(model, torch.float32)
         self.model = self._place(model)
+
+    def _restore_hf(self, path: Path) -> None:
+        """Load an HF safetensors checkpoint directory into the served model.
+
+        The ported tree must match the engine's f32 structure leaf for leaf
+        (the checkpoint's geometry is the preset's); otherwise it raises
+        with the missing, extra and drifted leaves. Then the serving
+        transform: the leaves keep the checkpoint's dtypes unless
+        ``param_dtype`` casts them (a bf16 hub checkpoint serves bf16
+        weights, as the JAX engine's ``_restore_hf`` places them), then
+        quantization, then the device.
+        """
+        tree = load_qwen2vl_dir(path, self.config)
+        with torch.device("meta"):
+            expected = {name: tuple(t.shape) for name, t in VideoLM(self.config).state_dict().items()}
+        got = {name: tuple(leaf.shape) for name, leaf in flatten_tree(tree)}
+        if got != expected:
+            missing = sorted(set(expected) - set(got))[:4]
+            extra = sorted(set(got) - set(expected))[:4]
+            drifted = sorted(k for k in set(expected) & set(got) if expected[k] != got[k])[:4]
+            raise ValueError(
+                f"HF checkpoint does not match preset {self.config.name}: missing={missing} extra={extra} "
+                f"shape_drift={[(k, got[k], expected[k]) for k in drifted]}"
+            )
+        self.model = self._place(from_jax_params({"params": tree}, self.config, device="cpu"))
 
     # -- grammar -----------------------------------------------------------------
 

@@ -26,21 +26,24 @@ import torch
 from .models.config import VLMConfig
 from .models.vlm import VideoLM
 
-__all__ = ["cast_weights", "from_jax_params", "from_state_dict", "load_npz", "random_params", "save_npz"]
+__all__ = ["cast_weights", "flatten_tree", "from_jax_params", "from_state_dict", "load_npz", "random_params",
+           "save_npz", "to_tensor"]
 
 NPZ_INDEX_KEY = "__index__"
 _NPZ_DTYPES = ("float32", "bfloat16", "int8", "uint8")  # what the JAX trees hold
 
 
-def _flatten(tree: dict, prefix: str = "") -> Iterator[tuple[str, Any]]:
+def flatten_tree(tree: dict, prefix: str = "") -> Iterator[tuple[str, Any]]:
+    """(dotted path, leaf) of every leaf of a nested dict."""
     for key, value in tree.items():
         if isinstance(value, dict):
-            yield from _flatten(value, f"{prefix}{key}.")
+            yield from flatten_tree(value, f"{prefix}{key}.")
         else:
             yield prefix + key, value
 
 
-def _to_tensor(array: Any) -> torch.Tensor:
+def to_tensor(array: Any) -> torch.Tensor:
+    """A torch tensor of a numpy (or ml_dtypes bfloat16) array; a tensor passes as it is."""
     if isinstance(array, torch.Tensor):
         return array
     array = np.asarray(array)
@@ -109,9 +112,9 @@ def from_jax_params(
     if unknown:
         raise KeyError(f"unknown JAX collection {sorted(unknown)}")
     items = (
-        (name, _to_tensor(leaf))
+        (name, to_tensor(leaf))
         for collection in ("params", "quant")
-        for name, leaf in _flatten(variables.get(collection, {}))
+        for name, leaf in flatten_tree(variables.get(collection, {}))
     )
     return _build(items, config, device, "JAX")
 
@@ -196,7 +199,9 @@ def random_params(
     """A VideoLM with seeded weights at flax's init scales, made on ``device``.
 
     Dense kernels: lecun normal (truncated at two standard deviations);
-    embedding and lm_head: normal(0.02); norms: ones. ``generator`` must live
+    embedding and lm_head: normal(0.02); norm and LayerNorm scales: ones;
+    biases (the Qwen2 q/k/v and every dense layer of a ported vision
+    tower) and LayerNorm offsets: zeros. ``generator`` must live
     on ``device``. Weights are stored in ``dtype`` (the serving config's
     ``param_dtype``).
     """
