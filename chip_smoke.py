@@ -14,7 +14,8 @@ then K3, with new positions across a split edge; K3 and K5 also at 20-80
 folded query rows per kv head, twice on the same inputs, one kernel a call,
 and with the host's cost of a call; K3 on the batcher's bf16 pool beside
 scaled_dot_product_attention with a length mask; K6, the packed-int4
-matmul, at the 7b decoder's four product shapes and at 1-256 rows, bit for
+matmul, at the 7b decoder's four product shapes, at the two fused widths of
+a fused 7b engine and at 1-256 rows, bit for
 bit on integer inputs and twice on the same inputs, with the host's cost of
 a call beside torch.matmul's; K2, the cache row write, bit for bit against
 its plain version on the card and on the CPU, quantizing bf16 rows into
@@ -56,7 +57,10 @@ every projection takes K6, then training gradients), then:
   that every decode step ran K6 for each of the 7 projections of each layer
   and prefill none, and K2 and K3 as
   on the base path, profiles a 16-token call, and counts a decode step's
-  device kernels beside the parent route's;
+  device kernels beside the parent route's; then serves the clips again
+  with ``fuse_projections=True`` (``fusion_7b``: one q/k/v carrier of N =
+  4,608 and one gate/up carrier of N = 37,888 a layer; the logits within
+  2e-2 x max|logit| of the unfused engine's, K6 4 times a layer a step);
 - serves ``qwen2vl-7b`` at its full width and depth (``qwen2vl``): first K1
   at the vision tower's head_dim 80 ([clips x 8, 16, 256, 80] non-causal,
   timed beside SDPA, and at the ragged shapes causal and not; head_dim 96
@@ -74,6 +78,31 @@ every projection takes K6, then training gradients), then:
   with K1 32 times in the tower and 28 in the prefill, K2 28 times a
   prefill and a step, K3 28 and K6 196 a step, and no plain attention or
   cache write on a CUDA tensor;
+- decodes speculatively (``speculative``) on the serving path's int8
+  weights (base width, 8 layers, 256 new tokens, the note grammar, bf16
+  caches) with the trained tiny checkpoint as the draft
+  (``attach_draft(tiny, checkpoint=...npz, spec_tokens=6)``): greedy on two
+  clips against the plain loop one token a step (``SPEC_PLAIN_FORCED_RUN``:
+  tokens equal, or parting only where the plain model's top-two gap is
+  under 2e-2 x max|logit|, each such row printed), with accepted tokens a
+  cycle, target forwards against the shipped plain loop's steps, ms a
+  cycle and tok/s; a self-draft (``share_target_params``, 64 tokens: fewer
+  than half as many target forwards as the one-token loop's steps);
+  temperature 0.7 (64 tokens; every row walks the grammar); a session of 4
+  reserve rounds resumed until it completes (equal to the call with the
+  same cache length by the same rule); the continuous batcher (8 slots,
+  twelve requests of 64 tokens; its first wave against the speculative
+  ``generate`` at batch 8); the analyzer's (a) run with
+  ``engine.draft`` in its config (``event=engine_draft_attached``; its
+  engine calls against the plain (a) run's). Launches are counted from 0
+  a call: K1 in every encoder and prefill layer of both models, K2 once a
+  layer of both a prefill or stage, K4 once a layer of each pool a stage,
+  K5 once a target layer a cycle (W = 6) and once a draft layer a draft
+  step (W = 1), no K3 and nothing plain on the card; then K5 is timed at
+  the verify's and a draft step's shapes and held at every decode shape
+  the phase ran (``path_decode``). Before it, ``grammar_advance`` times
+  the note grammar's ``advance`` through its ``next_token`` table and
+  through the byte walk in the same call (equal successors required);
 - drives the engine API the analyzer calls on the serving engine above
   (``engine_api``): ``generate_text`` with the validator grammar, a capped
   ``generate`` continued by token-id prefixes of ragged lengths, a session
@@ -92,8 +121,7 @@ every projection takes K6, then training gradients), then:
   (bf16 weights and KV cache: K1, K2 in prefill, K5; first-token logits
   within 2e-2 x max|logit| of the CPU's, hits within 1 of the JAX eval's
   10/16 and 0/8, per-topic diff printed), at the serving settings greedy
-  (int8 weights and KV cache: K1, K2, K3) and at temperature 0.7 (8 topics,
-  no composites), with every
+  (int8 weights and KV cache: K1, K2, K3; 4 topics, no composites), with every
   row walking the note grammar and decode tok/s and ms a step beside the
   card's name and power limit, then holds K5 and K2 + K3 at the eval's
   decode shapes as on the engine API's;
@@ -103,22 +131,23 @@ every projection takes K6, then training gradients), then:
   the committed ``.npz`` (``event=engine_restored`` must be logged), at the
   shipped serving settings (BPE, compact prompts, int8 weights and KV
   cache), greedy, 1,536 new tokens, on a single-pass clip of one grounded
-  topic. (b) ``base`` at its full width and depth (12-layer ViT, 24-layer
-  decoder) with seeded random weights, int8 weights and KV, temperature
-  0.7, the note grammar's fields at a quarter of their budgets and a 2.5
-  closer bias: a single-pass clip through the engine, then a 25-minute clip
-  that the shipped planner cuts into 4 segments, which ``auto`` sends
-  through the continuous batcher (2 slots, batches of 2). Each call's
-  launches are counted from 0 (K2 once a layer an engine prefill, int8
-  decode step and batcher stage; K3 once a layer an engine step; K4 once a
-  layer a stage; K5 once a layer a batcher step), its note renders through
-  ``generate_report`` and passes ``validate_markdown_structure``; then K5
+  topic. (b) ``base`` at its full width (12-layer ViT, 8 of its 24 decoder
+  layers: ``ANALYZER_BASE_LAYERS``) with seeded random weights, int8
+  weights and KV, temperature 0.7, the note grammar's fields at a quarter
+  of their budgets and a 2.5 closer bias: a single-pass clip through the
+  engine, then a 25-minute clip that the shipped planner cuts into 4
+  segments, which ``auto`` sends through the continuous batcher (2 slots,
+  batches of 2). Each call's launches are counted from 0 (K2 once a layer
+  an engine prefill, int8 decode step and batcher stage; K3 once a layer an
+  engine step; K4 once a layer a stage; K5 once a layer a batcher step),
+  its note renders through ``generate_report`` and passes
+  ``validate_markdown_structure``; then K5
   and K2 + K3 are held at every decode shape the analyzer ran;
 - runs the system's own entry point (``pipeline``), from a clip on disk to
   the saved note, blueprint and audit. (a) ``cli.main(["--url", clip,
   "--config", config.json])`` in this process at ``base`` full width and
-  depth (the analyzer's (b) settings) with the validator and the auditor
-  scoring through the engine (2 rounds): exit 0, the note saved and linted
+  ``ANALYZER_BASE_LAYERS`` layers (the analyzer's (b) settings) with the
+  validator and the auditor scoring through the engine (2 rounds): exit 0, the note saved and linted
   (``event=note_lint``), a quality report, ``progress.json``, a 1280x720
   PNG that the port's own reader decodes, a validator call each round, a
   rewrite after each failed round but the last, an audit call; launches
@@ -128,8 +157,9 @@ every projection takes K6, then training gradients), then:
   validate, render, audit, save) and each engine call's steps and tok/s.
   (b) the trained tiny checkpoint through ``python -m
   video_transformer_tpu_torch --batch LIST --sharded`` in a fresh process
-  on two grounded clips (exit 0, two notes and two PNGs), then again (exit
-  0, both skipped through the progress file), then a ``WatchService`` scan
+  on two grounded clips (exit 0, two notes and two PNGs), then again
+  through ``cli.main`` in this process (exit 0, both skipped through the
+  progress file, nothing printed), then a ``WatchService`` scan
   over one clip in this process (launches as in (a)); then K2 + K3 are held
   at every decode shape the phase ran;
 - trains on grounded and staged data (``train_grounded``, ``train_staged``)
@@ -156,7 +186,9 @@ every projection takes K6, then training gradients), then:
   ``engine.preprocess``, ``engine.generate``, ``engine.generate_text`` and
   ``engine.continue_session``) and runs one ``device_trace`` around a short
   greedy decode, whose exported trace must name the spans beside the
-  device kernels, each span an NVTX range.
+  device kernels, each span an NVTX range; then 8 ``device_trace``
+  sessions of 20 one-kernel calls must each record 20 kernels (beside 8
+  each with no warm-up step, with no pad, and bare, printed).
 
 The setup line gives the note grammar's bitset seconds built and loaded
 from its cache (``build/grammar_cache/``).
@@ -214,6 +246,7 @@ from video_transformer_tpu_torch.ops import attention as attention_module
 from video_transformer_tpu_torch.ops import decode_attention as decode_module
 from video_transformer_tpu_torch.ops import flash_bwd as flash_bwd_module
 from video_transformer_tpu_torch.ops.attention import flash_attention, mha_reference
+from video_transformer_tpu_torch.ops.constrained import DfaBuilder
 from video_transformer_tpu_torch.ops.decode_attention import (
     _scaled_reference,
     adopt_rows,
@@ -236,7 +269,7 @@ from video_transformer_tpu_torch.ops.flash_bwd import (
 )
 from video_transformer_tpu_torch.ops.int4_matmul import INT4_WIDTHS, int4_matmul, int4_matmul_reference, unpack_int4
 from video_transformer_tpu_torch.ops.preprocess import preprocess_frames
-from video_transformer_tpu_torch.ops.token_grammar import TokenGrammar
+from video_transformer_tpu_torch.ops.token_grammar import TokenGrammar, token_transition_table
 from video_transformer_tpu_torch.parallel.engine import InferenceEngine
 from video_transformer_tpu_torch.parallel.serving import ContinuousBatcher, Request
 from video_transformer_tpu_torch.pipeline.auditor import QualityAuditor
@@ -257,7 +290,8 @@ from video_transformer_tpu_torch.train.trainer import distillation_loss
 from video_transformer_tpu_torch.utils.config import load_config
 from video_transformer_tpu_torch.utils.logger import LOGGER_NAME
 from video_transformer_tpu_torch.utils.counter import APICounter
-from video_transformer_tpu_torch.utils.tracing import device_trace, tracer
+from video_transformer_tpu_torch.utils import tracing as tracing_module
+from video_transformer_tpu_torch.utils.tracing import WINDOW_PAD_S, device_trace, tracer
 from video_transformer_tpu_torch.video.containers import write_npzv
 from video_transformer_tpu_torch.weights import from_jax_params, random_params
 
@@ -296,6 +330,9 @@ ALL_KERNELS = KERNELS + BATCHER_KERNELS + TRAIN_KERNELS + INT4_KERNELS
 # 2 x block width 3: q and out, k and v, gate and up, down.
 INT4_SHAPES = {"q_out": (1792, 3584), "k_v": (1792, 512), "gate_up": (1792, 18944), "down": (9472, 3584)}
 INT4_DECODE_ROWS = 6
+# The fused products of a 7b engine with ``fuse_projections`` (models/fuse.py):
+# q/k/v as one [K/2, 3,584 + 2 x 512] carrier and gate/up as one [K/2, 2 x 18,944].
+INT4_FUSED_SHAPES = {"qkv_fused": (1792, 4608), "gate_up_fused": (1792, 37888)}
 # Other row counts at the gate shape: 1 and 130 (x padded to wgmma widths 8
 # and 256), the batcher's 8 slots x 3, and the top of K6's dispatch.
 INT4_WIDE_ROWS = (1, 24, 130, 256)
@@ -384,10 +421,13 @@ def device_profile(fn, calls: int = 20, tries: int = 10) -> tuple[float, float]:
     launches, summed by torch.profiler over ``calls`` calls, after one
     warm-up call. Unlike ``time_ms`` it leaves out the host's time between
     launches, which sets ``time_ms`` where a call's kernels are short.
-    CUPTI sometimes drops records at the start of a session (a 7b K2 window
-    read 16 kernels for 20 calls in each of 10 sessions), so each session
-    first runs the calls in a traced warm-up window whose records are
-    discarded, and counts the next window. A profile that records no device
+    The profiler drops the device records that CUPTI places before the
+    window's start, and CUPTI can place a kernel up to a millisecond or more
+    before its launch (``utils/tracing.WINDOW_PAD_S``; a 7b K2 window read
+    16 kernels for 20 calls in each of 10 sessions), so each session first
+    runs the calls in a traced warm-up window whose records are discarded,
+    then waits ``WINDOW_PAD_S`` inside the counted window before the calls
+    it counts. A profile that records no device
     activity, or a count of kernels that is no multiple of ``calls``, is
     taken again, up to ``tries`` times; after that the last profile with
     device time stands."""
@@ -401,7 +441,9 @@ def device_profile(fn, calls: int = 20, tries: int = 10) -> tuple[float, float]:
         windows = []
         with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
                      on_trace_ready=lambda p: windows.append(p.key_averages())) as prof:
-            for _ in range(2):  # the warm-up window, then the counted one
+            for window in range(2):  # the warm-up window, then the counted one
+                if window:
+                    time.sleep(WINDOW_PAD_S)
                 for _ in range(calls):
                     fn()
                 torch.cuda.synchronize()
@@ -424,8 +466,8 @@ def device_ms(fn, calls: int = 20, tries: int = 10) -> float:
 
 def unwarmed_kernels(fn, calls: int = 20) -> float:
     """Device kernels a call that torch.profiler records for ``calls``
-    calls of ``fn`` in a session of its own with no warm-up window, as
-    ``device_profile`` read before it warmed its sessions."""
+    calls of ``fn`` in a bare session of its own (no warm-up window, no
+    pad: the calls start as the window opens)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -474,17 +516,33 @@ def decode_name(function: str) -> str:
     return f"{kind} decode_kernel<{cache}, parts {parts}>"
 
 
-def kernel_sass() -> dict[str, dict[str, int]]:
+BACKGROUND: list[subprocess.Popen] = []  # stopped by ``main`` if still running
+
+
+def start_sass(out: Path) -> subprocess.Popen:
+    """``cuobjdump -sass`` of the built library into the file ``out``, in
+    the background (it took 9 s, which the kernel checks now overlap)."""
+    cuobjdump = Path(_lib._nvcc()).parent / "cuobjdump"
+    with open(out, "w", encoding="utf-8") as sink:
+        proc = subprocess.Popen([str(cuobjdump), "-sass", _lib.library()._name], stdout=sink,
+                                stderr=subprocess.STDOUT)
+    BACKGROUND.append(proc)
+    return proc
+
+
+def kernel_sass(proc: subprocess.Popen, out: Path) -> dict[str, dict[str, int]]:
     """Tensor-core instructions in each wgmma kernel of the built library
     (K1 is flash_fwd_kernel<false>, K7a <true>; K7b flash_bwd_dq_kernel, K7c
     flash_bwd_dkv_kernel; K6 int4_matmul_kernel<width> for each wgmma width)
     and in each instantiation of K3 and K5 (decode_kernel<cache, fused,
-    warps a group>), counted in ``cuobjdump -sass``: HGMMA (wgmma) and HMMA
-    (mma.sync). Raises if a kernel is missing, a wgmma kernel has no HGMMA
-    or a K3/K5 instantiation no HMMA."""
-    cuobjdump = Path(_lib._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", _lib.library()._name], capture_output=True, text=True,
-                          timeout=120, check=True).stdout
+    warps a group>), counted in ``cuobjdump -sass`` (``start_sass``'s
+    process and file): HGMMA (wgmma) and HMMA (mma.sync). Raises if
+    cuobjdump failed, a kernel is missing, a wgmma kernel has no HGMMA or a
+    K3/K5 instantiation no HMMA."""
+    code = proc.wait(timeout=120)
+    sass = out.read_text(encoding="utf-8")
+    if code != 0:
+        raise AssertionError(f"cuobjdump -sass exited {code}: {sass[-2000:]}")
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
@@ -1250,11 +1308,14 @@ def path_decode_reading(gen: torch.Generator, args: tuple) -> dict:
         caches = [torch.randn(k_cache.shape, generator=gen, device=dev).to(k_cache.dtype) for _ in range(2)]
     new = [torch.randn(k_new.shape, generator=gen, device=dev).to(k_new.dtype) for _ in range(2)]
     q = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
-    end = torch.tensor([s - width - 70 * i for i in range(b)], dtype=torch.int32, device=dev)
+    # Ends 70 positions apart down from the cache's end, wrapped into the
+    # cache where the batch outruns it (8 rows of a 384-position pool).
+    end = torch.tensor([(s - width - 70 * i) % (s - width + 1) for i in range(b)], dtype=torch.int32, device=dev)
     held("full_extent", q, *caches, *new, end)
 
-    lengths = torch.tensor([min(64 * (2 + 5 * i), s - width) - 1 if i % 2 == 0 else s - width - 1 - 64 * i
-                            for i in range(b)], dtype=torch.int32, device=dev)
+    tiles = (s - width - 2) // 64 + 1  # odd rows: whole tiles below the end, at least one position in
+    lengths = torch.tensor([min(64 * (2 + 5 * i), s - width) - 1 if i % 2 == 0
+                            else s - width - 1 - 64 * (i % tiles) for i in range(b)], dtype=torch.int32, device=dev)
     expected = mark_decode_edges(q, *caches, lengths, rows, v_scale)
     if quantized:
         out = decode_attention(q, *caches, lengths, rows, k_scale, v_scale)
@@ -1535,14 +1596,17 @@ def rotating(calls: list):
 
 
 def int4_kernel_phase(seed: int, dev: torch.device) -> dict:
-    """K6 at the 7b decoder's four product shapes at decode M, and at the
-    gate shape at the batcher's M and the dispatch's top. The gate shape at
+    """K6 at the 7b decoder's four product shapes at decode M, at the
+    gate shape at the batcher's M and the dispatch's top, and at the two
+    fused widths (``INT4_FUSED_SHAPES``) at decode M. The gate shape at
     decode M leads; every shape's readings are in ``shapes``."""
     gen = torch.Generator(device=dev).manual_seed(seed + 13)
     shapes = {f"{name}_m{INT4_DECODE_ROWS}": check_int4(gen, dev, INT4_DECODE_ROWS, k2, n)
               for name, (k2, n) in INT4_SHAPES.items()}
     for m in INT4_WIDE_ROWS:
         shapes[f"gate_up_m{m}"] = check_int4(gen, dev, m, *INT4_SHAPES["gate_up"])
+    for name, (k2, n) in INT4_FUSED_SHAPES.items():
+        shapes[f"{name}_m{INT4_DECODE_ROWS}"] = check_int4(gen, dev, INT4_DECODE_ROWS, k2, n)
     lead = shapes[f"gate_up_m{INT4_DECODE_ROWS}"]
     return dict(lead, library="torch.matmul(x, w) with w the unpacked bf16 weight [K, N] (4x the weight bytes)",
                 shapes=shapes)
@@ -1814,10 +1878,11 @@ def train_phase(dev: torch.device, workdir: Path) -> tuple[list[dict], dict[str,
 # -- serving phase ---------------------------------------------------------------
 
 
-def grammar_walk(grammar, ids: list[int]) -> int:
-    """The byte-DFA state after ``ids``; raises if a byte leaves the grammar."""
+def grammar_walk(grammar, ids: list[int], start: int | None = None) -> int:
+    """The byte-DFA state after ``ids`` from ``start`` (the grammar's start
+    by default); raises if a byte leaves the grammar."""
     table = grammar.dfa.next_state
-    state = grammar.start
+    state = grammar.start if start is None else start
     for tok in ids:
         for byte in grammar.tokenizer.token_bytes(tok):
             state = int(table[state, byte])
@@ -2169,7 +2234,87 @@ def int4_serving_phase(seed: int, dev: torch.device, tokenizer, grammar) -> tupl
                   max_new_tokens_cap=MAX_NEW_TOKENS))
     emit(dict(profile_phase(engine, clips), preset=cfg.name))
     emit({"phase": "decode_step_launches", "preset": cfg.name, **decode_step_launches(engine, seed, cache_len)})
-    return kernels, served
+    line, fused = fused_7b_check(engine, clips)
+    emit(line)
+    return kernels, {name: served[name] + fused[name] for name in served}
+
+
+def fused_7b_check(engine: InferenceEngine, clips: np.ndarray) -> tuple[dict, dict[str, int]]:
+    """The 7b int4 path with ``fuse_projections=True``: a second engine on
+    the same packed weights whose blocks carry one q/k/v carrier [1,792,
+    4,608] and one gate/up carrier [1,792, 37,888] (``models/fuse.py``)
+    serves the same clips for ``PROFILE_TOKENS`` tokens, greedy, beside
+    the unfused engine. Its prefill logits, and every decode step's whose
+    input blocks so far equal the unfused run's, lie within
+    ``GROUNDING_LOGIT_TOL`` x max|logit| of the unfused engine's; K6 runs
+    4 times a layer a decode step (qkv, out, gate/up, down; 7 unfused) and
+    never in prefill.
+    Returns the line and the fused call's launches."""
+    cfg = engine.config
+    layers = cfg.decoder.num_layers
+    fused = InferenceEngine(cfg, params=engine.model, tokenizer=engine.tokenizer, max_new_tokens=PROFILE_TOKENS,
+                            temperature=0.0, kv_quant="int8", max_forced_run=2, fuse_projections=True,
+                            device=engine.device)
+    fused.dfa = engine.dfa
+    blocks = [getattr(fused.model.decoder, f"layer_{i}") for i in range(layers)]
+    widths = {(tuple(b.attn.qkv.kernel.shape), tuple(b.mlp.gateup.kernel.shape), b.attn.qkv.kernel.dtype)
+              for b in blocks}
+    want_widths = {(INT4_FUSED_SHAPES["qkv_fused"], INT4_FUSED_SHAPES["gate_up_fused"], torch.uint8)}
+    if widths != want_widths or any("q" in b.attn._modules or "gate" in b.mlp._modules for b in blocks):
+        raise AssertionError(f"fused 7b engine: carriers {widths}, expected {want_widths}")
+
+    def run(target: InferenceEngine) -> tuple[list, list, list[list[int]], int]:
+        """One greedy call; the prefill logits with the prefill's K6
+        launches, and each step's (block, logits)."""
+        prefills, steps = [], []
+        prefill, pick = target.model.prefill, target.model.decode_block_pick
+
+        def recorded_prefill(*args):
+            before = int4_matmul.launches
+            logits, cache = prefill(*args)
+            prefills.append((logits.float().cpu(), int4_matmul.launches - before))
+            return logits, cache
+
+        def recorded_pick(block, cache, run_len):
+            logits, cache = pick(block, cache, run_len)
+            steps.append((block.cpu(), logits.float().cpu()))
+            return logits, cache
+
+        cap, target.max_new_tokens = target.max_new_tokens, PROFILE_TOKENS
+        steps0 = target.stats.decode_steps
+        try:
+            with mock.patch.object(target.model, "prefill", recorded_prefill), \
+                    mock.patch.object(target.model, "decode_block_pick", recorded_pick):
+                _, _, ids = target.generate(clips, [PROMPT] * len(clips), return_status=True, return_tokens=True)
+        finally:
+            target.max_new_tokens = cap
+        return prefills, steps, ids, target.stats.decode_steps - steps0
+
+    want_prefill, want_steps, want_ids, _ = run(engine)
+    reset_counts()
+    got_prefill, got_steps, got_ids, steps = run(fused)
+    launched = counts()
+
+    def ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+        return (got - want).abs().max().item() / (GROUNDING_LOGIT_TOL * want.abs().max().item())
+
+    worst = ratio(got_prefill[0][0], want_prefill[0][0])
+    compared = 0
+    for (got_block, got_logits), (want_block, want_logits) in zip(got_steps, want_steps):
+        if not torch.equal(got_block, want_block):
+            break
+        worst, compared = max(worst, ratio(got_logits, want_logits)), compared + 1
+    if not math.isfinite(worst) or worst > 1:
+        raise AssertionError(f"fused 7b engine: logits off the unfused engine's by {worst} x the tolerance")
+    if launched["int4_matmul"] != 4 * layers * steps or got_prefill[0][1]:
+        raise AssertionError(f"fused 7b engine: K6 {launched['int4_matmul']} launches for {steps} steps "
+                             f"({got_prefill[0][1]} in prefill), expected {4 * layers * steps} and none")
+    return {"phase": "fusion_7b", "preset": cfg.name, "decoder_layers": layers, "weights": "int4, fused",
+            "qkv_carrier": list(INT4_FUSED_SHAPES["qkv_fused"]),
+            "gate_up_carrier": list(INT4_FUSED_SHAPES["gate_up_fused"]),
+            "logits_worst_ratio": worst, "logits_tol": GROUNDING_LOGIT_TOL, "steps_compared": compared,
+            "decode_steps": steps, "k6_launches": launched["int4_matmul"], "k6_prefill_launches": got_prefill[0][1],
+            "tokens_equal_unfused": got_ids == want_ids}, launched
 
 
 # -- the qwen2vl path (main path 11) ---------------------------------------------
@@ -2687,9 +2832,11 @@ JAX_GREEDY_COMPOSITES = {
     "混合精度+学习率调度": "primary", "注意力机制+梯度下降": "primary", "序列到序列+位置编码": "secondary",
     "特征工程+循环神经网络": "neither", "残差连接+优化器": "primary",
 }
-# The setting at temperature 0.7 scores 8 single topics and no composites
-# (to keep the smoke within its 5 minutes: 16 + 8 took 26 s).
-SAMPLED_TOPICS, SAMPLED_COMPOSITES = 8, 0
+# The int8 serving setting scores 4 single topics and no composites (to
+# keep the smoke within its 5 minutes with the speculative path added:
+# 16 + 8 took 15 s there, 8 topics 4.7 s; the setting at temperature 0.7,
+# 4 s, went, the speculative path sampling at 0.7 in its place).
+SERVING_INT8_TOPICS, SERVING_INT8_COMPOSITES = 4, 0
 
 
 def grounding_engine(cfg: VLMConfig, tokenizer, device, grammar=None, **kwargs) -> InferenceEngine:
@@ -2763,11 +2910,11 @@ def grounding_run(engine: InferenceEngine, setting: str, topics: int = GROUNDING
 
 def grounding_phase(dev: torch.device, tokenizer, smi: str) -> tuple[list[dict], dict[str, int]]:
     """Main path 6: the grounding scorecard of the trained tiny checkpoint
-    (``tiny-zh-grounded-r5mix/params_4500``, full trained width) in three
+    (``tiny-zh-grounded-r5mix/params_4500``, full trained width) in two
     settings: the eval's own (bf16 weights and KV cache, greedy: K1, K2 in
-    prefill, K5), the shipped serving one (int8 weights and KV cache, greedy:
-    K1, K2, K3) and the shipped temperature (0.7, at the eval's settings, on
-    ``SAMPLED_TOPICS`` topics and no composites).
+    prefill, K5) and the shipped serving one (int8 weights and KV cache,
+    greedy: K1, K2, K3, on ``SERVING_INT8_TOPICS`` topics and no
+    composites).
     The first is held to the CPU's plain path (every row's first-token
     logits within ``GROUNDING_LOGIT_TOL`` x max|logit|) and to the JAX
     eval's score (single topics and composites each within 1 of 10/16 and
@@ -2778,13 +2925,12 @@ def grounding_phase(dev: torch.device, tokenizer, smi: str) -> tuple[list[dict],
         ("eval_greedy", greedy),
         ("serving_int8_greedy", grounding_engine(cfg, tokenizer, dev, greedy.dfa, temperature=0.0,
                                                  quantize="int8", kv_quant="int8")),
-        ("eval_temperature_0.7", grounding_engine(cfg, tokenizer, dev, greedy.dfa, temperature=0.7)),
     )
     lines, total = [], dict.fromkeys(counts(), 0)
     for setting, engine in settings:
-        sampled = setting == "eval_temperature_0.7"
-        line, launched, calls = grounding_run(engine, setting, *((SAMPLED_TOPICS, SAMPLED_COMPOSITES) if sampled
-                                                                 else (GROUNDING_TOPICS, GROUNDING_COMPOSITES)))
+        scope = {"serving_int8_greedy": (SERVING_INT8_TOPICS, SERVING_INT8_COMPOSITES)}
+        line, launched, calls = grounding_run(engine, setting, *scope.get(setting, (GROUNDING_TOPICS,
+                                                                                     GROUNDING_COMPOSITES)))
         total = {name: total[name] + launched[name] for name in total}
         if setting == "eval_greedy":
             cpu = grounding_engine(cfg, tokenizer, "cpu", greedy.dfa, temperature=0.0, max_new_tokens=0)
@@ -2830,6 +2976,27 @@ ANALYZER_FRAME_SIZE = 64  # clips' frames on disk; preprocess resizes them to th
 # tokens (a one-layer model of base width on the CPU); the cap leaves room.
 ANALYZER_BASE_SCALE, ANALYZER_BASE_BIAS, ANALYZER_BASE_MAX_NEW = 0.25, 2.5, 512
 ANALYZER_BASE_BATCH, ANALYZER_BASE_SLOTS = 2, 2  # segment_batch_per_chip, serving_slots_per_chip
+# (b) and the pipeline's (a) build base at full width with this many of its
+# 24 decoder layers (``base_depth``; since the speculative path: at 24 they
+# took 20.7 and 13.9 s of a smoke that had to fit in 5 minutes).
+ANALYZER_BASE_LAYERS = SERVING_LAYERS
+
+
+@contextlib.contextmanager
+def base_depth(layers: int = ANALYZER_BASE_LAYERS):
+    """``get_preset("base")`` with ``layers`` decoder layers while the block
+    runs: the analyzer and the CLI build their engine from the preset's name
+    in ``engine.model_preset``."""
+    from video_transformer_tpu_torch.models import config as config_module
+
+    preset = config_module.get_preset
+
+    def cut(name, *args, **kwargs):
+        cfg = preset(name, *args, **kwargs)
+        return replace(cfg, decoder=replace(cfg.decoder, num_layers=layers)) if name == "base" else cfg
+
+    with mock.patch.object(config_module, "get_preset", cut):
+        yield
 
 
 def shortest_accepted(dfa) -> int:
@@ -2999,14 +3166,16 @@ def analyzer_phase(seed: int, smi: str) -> tuple[list[dict], dict[str, int]]:
             raise AssertionError(f"analyzer (a): route {line['route']}")
         del analyzer, engine
 
-        # (b) base at full width and depth, random weights, temperature 0.7.
+        # (b) base at full width and ANALYZER_BASE_LAYERS layers, random
+        # weights, temperature 0.7.
         config = analyzer_config(workdir / "base", checkpoint_dir=None, grammar_scale=ANALYZER_BASE_SCALE,
                                  structure_bias=ANALYZER_BASE_BIAS, max_new_tokens=ANALYZER_BASE_MAX_NEW)
         config["analyzer"]["long_video"].update(segment_batch_per_chip=ANALYZER_BASE_BATCH,
                                                 serving_slots_per_chip=ANALYZER_BASE_SLOTS)
         t0 = time.perf_counter()
-        analyzer = ContentAnalyzer(config, APICounter(config["system"]["max_api_calls"]), logger)
-        engine = analyzer.engine
+        with base_depth():
+            analyzer = ContentAnalyzer(config, APICounter(config["system"]["max_api_calls"]), logger)
+            engine = analyzer.engine
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
         shortest = shortest_accepted(note_dfa(engine.byte_vocab, scale=ANALYZER_BASE_SCALE))
@@ -3043,15 +3212,17 @@ def analyzer_phase(seed: int, smi: str) -> tuple[list[dict], dict[str, int]]:
 
 # Main path 8, the system's own entry point (``pipeline``): the CLI from a
 # clip on disk to the saved note, blueprint and audit. (a) ``base`` at full
-# width and depth through ``cli.main([...])`` in-process on the port's
-# config, random weights as in the analyzer's (b), with the validator and
+# width and ``ANALYZER_BASE_LAYERS`` layers through ``cli.main([...])``
+# in-process on the port's config, random weights as in the analyzer's
+# (b), with the validator and
 # the auditor scoring through the engine (``use_engine``, 2 rounds). The
 # auditor's threshold is 0: random weights judge at random, and the image
 # must be kept for its PNG to be checked (the audit still runs and its
 # score is printed). (b) The trained tiny checkpoint through ``python -m
 # video_transformer_tpu_torch --batch LIST --sharded`` in a fresh process,
-# twice (the second run skips both clips through the progress file), then
-# a ``WatchService`` scan over one clip in this process.
+# then again through ``cli.main`` in this process (it skips both clips
+# through the progress file), then a ``WatchService`` scan over one clip in
+# this process.
 PIPELINE_AUDIT_THRESHOLD = 0.0
 PIPELINE_ROUNDS = 2
 PIPELINE_TOPICS = (0, 3)  # (b)'s grounded topics
@@ -3197,7 +3368,8 @@ def framework_log(log: LogLines):
 
 def pipeline_cli_base(workdir: Path, rng: np.random.Generator, smi: str) -> tuple[dict, dict[str, int]]:
     """(a): ``cli.main(["--url", clip, "--config", config.json])`` at full
-    base width and depth; the line and the launches."""
+    base width and ``ANALYZER_BASE_LAYERS`` layers; the line and the
+    launches."""
     config = analyzer_config(workdir, checkpoint_dir=None, grammar_scale=ANALYZER_BASE_SCALE,
                              structure_bias=ANALYZER_BASE_BIAS, max_new_tokens=ANALYZER_BASE_MAX_NEW)
     config["validator"].update(use_engine=True, max_rounds=PIPELINE_ROUNDS)
@@ -3212,7 +3384,7 @@ def pipeline_cli_base(workdir: Path, rng: np.random.Generator, smi: str) -> tupl
     reset_counts()
     torch.cuda.synchronize()
     start = time.perf_counter()
-    with framework_log(log), pipeline_probes(record):
+    with framework_log(log), pipeline_probes(record), base_depth():
         code = port_cli.main(["--url", str(clip), "--config", str(config_path)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
@@ -3231,7 +3403,7 @@ def pipeline_cli_base(workdir: Path, rng: np.random.Generator, smi: str) -> tupl
     if not any(m.startswith(f"event=note_lint video_id={result.video_id} ") for m in log.messages):
         raise AssertionError("pipeline (a): the saved note was not linted")
     outputs = pipeline_outputs(config, result.video_id, "(a)")
-    engine_layers = get_preset("base").decoder.num_layers
+    engine_layers = ANALYZER_BASE_LAYERS
     pipeline_launch_check(launched, calls, engine_layers, "(a)")
     line = {"phase": "pipeline", "run": "base_cli_url", "wall_seconds": wall, "exit_code": code,
             "step_seconds": record["steps"], "engine_calls": calls, "validation_rounds": record["verdicts"],
@@ -3253,7 +3425,9 @@ def pipeline_cli_base(workdir: Path, rng: np.random.Generator, smi: str) -> tupl
 def pipeline_cli_tiny(workdir: Path, rng: np.random.Generator, smi: str) -> dict:
     """(b): the trained tiny checkpoint through ``python -m
     video_transformer_tpu_torch --batch LIST --sharded`` in a fresh process,
-    twice; the second run must skip both clips."""
+    then through ``cli.main`` with the same arguments in this process,
+    which must skip both clips (a second fresh process took 12.7 s to
+    start and skip)."""
     config = analyzer_config(workdir, model_preset="tiny", checkpoint_dir=str(TINY_WEIGHTS), temperature=0.0,
                              max_new_tokens=GROUNDING_MAX_NEW)
     workdir.mkdir(parents=True)
@@ -3267,25 +3441,31 @@ def pipeline_cli_tiny(workdir: Path, rng: np.random.Generator, smi: str) -> dict
         clips.append(clip)
     listing = workdir / "urls.txt"
     listing.write_text("# grounded topics\n" + "\n".join(map(str, clips)) + "\n", encoding="utf-8")
-    argv = [sys.executable, "-m", "video_transformer_tpu_torch", "--batch", str(listing), "--sharded",
-            "--config", str(config_path)]
-    runs = []
-    for attempt in ("first", "again"):
-        start = time.perf_counter()
-        done = subprocess.run(argv, cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
-                              text=True, timeout=PIPELINE_CLI_TIMEOUT)
-        seconds = time.perf_counter() - start
-        if done.returncode != 0:
-            raise AssertionError(f"pipeline (b) {attempt}: exit {done.returncode}\n{done.stdout[-2000:]}\n"
-                                 f"{done.stderr[-4000:]}")
-        runs.append({"run": attempt, "seconds": seconds, "exit_code": done.returncode,
-                     "stdout": [line for line in done.stdout.splitlines() if line.strip("= ")]})
+    args = ["--batch", str(listing), "--sharded", "--config", str(config_path)]
+    start = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "video_transformer_tpu_torch", *args], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True, text=True,
+                          timeout=PIPELINE_CLI_TIMEOUT)
+    seconds = time.perf_counter() - start
+    if done.returncode != 0:
+        raise AssertionError(f"pipeline (b) first: exit {done.returncode}\n{done.stdout[-2000:]}\n"
+                             f"{done.stderr[-4000:]}")
+    runs = [{"run": "first", "process": "fresh", "seconds": seconds, "exit_code": done.returncode,
+             "stdout": [line for line in done.stdout.splitlines() if line.strip("= ")]}]
+    out, log = io.StringIO(), LogLines()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out), framework_log(log):
+        code = port_cli.main(args)
+    seconds = time.perf_counter() - start
+    if code != 0:
+        raise AssertionError(f"pipeline (b) again: exit {code}\n{out.getvalue()[-2000:]}")
+    runs.append({"run": "again", "process": "this", "seconds": seconds, "exit_code": code,
+                 "stdout": [line for line in out.getvalue().splitlines() if line.strip("= ")]})
     outputs = {clip.stem: pipeline_outputs(config, clip.stem, f"(b) {clip.stem}") for clip in clips}
     notes = sorted(p.name for p in (Path(config["system"]["output_dir"]) / "documents").glob("*.md"))
     if len(notes) != 2 or "2/2" not in " ".join(runs[0]["stdout"]):
         raise AssertionError(f"pipeline (b): notes {notes}, stdout {runs[0]['stdout']}")
-    log_text = (Path(config["system"]["log_dir"]) / "run.log").read_text(encoding="utf-8")
-    if "所有视频均已处理" not in log_text or runs[1]["stdout"]:
+    if "所有视频均已处理" not in log.messages or runs[1]["stdout"]:
         raise AssertionError(f"pipeline (b): the second run did not skip both clips: {runs[1]}")
     return {"phase": "pipeline", "run": "tiny_cli_batch_sharded", "checkpoint": str(TINY_WEIGHTS.relative_to(REPO)),
             "runs": runs, "outputs": outputs, "card": smi}
@@ -3603,6 +3783,12 @@ def eval_real_phase(dev: torch.device, workdir: Path, tokenizer, smi: str) -> tu
 
 
 TRACED_SPANS = ("engine.preprocess", "engine.generate", "engine.generate_text", "engine.continue_session")
+# ``device_trace``'s two defences (a warm-up step, a padded window), held in
+# ``TRACE_SESSIONS`` sessions of ``TRACE_CALLS`` one-kernel calls each: every
+# session must record every call's kernel. As many sessions with either
+# defence taken out, and bare sessions with neither (``unwarmed_kernels``),
+# are printed beside them.
+TRACE_SESSIONS, TRACE_CALLS = 8, 20
 
 
 def tracing_phase(dev: torch.device, tokenizer, workdir: Path, smi: str) -> dict:
@@ -3610,7 +3796,12 @@ def tracing_phase(dev: torch.device, tokenizer, workdir: Path, smi: str) -> dict
     (each of ``TRACED_SPANS`` must be there: the engine API phase resumes a
     session), then one ``device_trace`` around a 16-token greedy decode of
     the trained tiny checkpoint: the exported trace must name the spans
-    (``engine.preprocess``, ``engine.generate``) beside device kernels."""
+    (``engine.preprocess``, ``engine.generate``) beside device kernels.
+    Then ``TRACE_SESSIONS`` ``device_trace`` sessions of ``TRACE_CALLS``
+    one-kernel calls, each of which must record every kernel, beside as
+    many with no warm-up step, with no pad, and bare; each session gives
+    the least gap from a launch record to its kernel's (negative where
+    CUPTI places the kernel before its launch)."""
     summary = tracer.summary()
     missing = [name for name in TRACED_SPANS if name not in summary]
     if missing:
@@ -3626,28 +3817,594 @@ def tracing_phase(dev: torch.device, tokenizer, workdir: Path, smi: str) -> dict
         nvtx_ranges.append(name)
         return push(name)
 
+    def trace_events(fn, out: Path) -> list[dict]:
+        with device_trace(out):
+            fn()
+            torch.cuda.synchronize()
+        return json.loads((out / "trace.json").read_text(encoding="utf-8"))["traceEvents"]
+
+    def kernels_in(events: list[dict]) -> int:
+        return sum(1 for event in events if event.get("cat") == "kernel")
+
+    def least_launch_gap_us(events: list[dict]) -> float | None:
+        launches = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                    if e.get("cat") == "cuda_runtime" and "LaunchKernel" in e.get("name", "")}
+        gaps = [float(e["ts"]) - launches[e["args"]["correlation"]] for e in events
+                if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in launches]
+        return min(gaps) if gaps else None
+
     start = time.perf_counter()
-    with mock.patch.object(torch.cuda.nvtx, "range_push", pushed), device_trace(workdir) as prof:
-        engine.generate(clip, [PROMPT])
-        torch.cuda.synchronize()
+    with mock.patch.object(torch.cuda.nvtx, "range_push", pushed):
+        events = trace_events(lambda: engine.generate(clip, [PROMPT]), workdir)
     seconds = time.perf_counter() - start
     trace_path = workdir / "trace.json"
-    events = json.loads(trace_path.read_text(encoding="utf-8"))["traceEvents"]
     named = {}
     for event in events:
         if event.get("name") in TRACED_SPANS:
             named.setdefault(event["name"], set()).add(event.get("cat", ""))
-    kernels = sum(1 for event in events if event.get("cat") == "kernel")
+    kernels = kernels_in(events)
     if not {"engine.preprocess", "engine.generate"} <= set(named) or not kernels:
         raise AssertionError(f"tracing: the trace names {sorted(named)} and holds {kernels} device kernels")
     if nvtx_ranges != ["engine.generate", "engine.preprocess"]:
         raise AssertionError(f"tracing: NVTX ranges pushed {nvtx_ranges}")
-    device_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    device_ms = sum(event.get("dur", 0) for event in events if event.get("cat") == "kernel") / 1e3
+
+    x = torch.zeros(1024, device=dev)
+
+    def calls():
+        for _ in range(TRACE_CALLS):
+            x.add_(1)
+
+    def sessions(tag: str) -> tuple[list[int], list[float | None]]:
+        traces = [trace_events(calls, workdir / f"{tag}_{i}") for i in range(TRACE_SESSIONS)]
+        return [kernels_in(events) for events in traces], [least_launch_gap_us(events) for events in traces]
+
+    recorded, gaps = sessions("session")
+    with mock.patch.object(tracing_module, "WARMUP_LAUNCHES", 0):
+        no_warmup, no_warmup_gaps = sessions("no_warmup")
+    with mock.patch.object(tracing_module, "WINDOW_PAD_S", 0.0):
+        no_pad, no_pad_gaps = sessions("no_pad")
+    bare = [round(unwarmed_kernels(calls, 1)) for _ in range(TRACE_SESSIONS)]
+    ablations = {"no_warmup_session_kernels": no_warmup, "no_warmup_least_gap_us": no_warmup_gaps,
+                 "no_pad_session_kernels": no_pad, "no_pad_least_gap_us": no_pad_gaps, "bare_session_kernels": bare}
+    if recorded != [TRACE_CALLS] * TRACE_SESSIONS:
+        raise AssertionError(f"tracing: sessions of {TRACE_CALLS} kernels recorded {recorded} (least launch-to-kernel "
+                             f"gaps {gaps} us; {ablations})")
     return {"phase": "tracing", "summary": summary, "trace_bytes": trace_path.stat().st_size,
             "trace_events": len(events), "trace_device_kernels": kernels,
             "span_categories": {name: sorted(cats) for name, cats in named.items()},
             "nvtx_ranges_pushed": nvtx_ranges, "traced_seconds": seconds, "traced_device_ms": device_ms,
+            "session_calls": TRACE_CALLS, "warmup_launches": tracing_module.WARMUP_LAUNCHES,
+            "window_pad_s": tracing_module.WINDOW_PAD_S, "session_kernels": recorded, "least_launch_gap_us": gaps,
+            **ablations,
             "card": smi}
+
+
+# -- the speculative path (main path 12) -----------------------------------------
+
+SPEC_TOKENS = 6  # the shipped engine.draft.spec_tokens
+SPEC_TEMPERATURE = 0.7  # the shipped engine.temperature
+SPEC_SESSION_ROUNDS = 4
+# New tokens a request of the speculative batcher, of the self-draft and of
+# the run at 0.7 (the smoke's 5 minutes: at 128 they took 11.7 + 5, 5.6 and
+# 5 s of a host-bound 48-128 ms cycle).
+SPEC_SHORT_TOKENS = 64
+# A speculative row may part from the plain loop's tokens only where the
+# plain model's top-two constrained logits lie within this fraction of the
+# row's largest |logit| (the grounding phase's card-against-CPU bound): the
+# verify's matmuls run at M = batch x 6 rows and the plain loop's at
+# batch x 1, and the card may round the two differently.
+SPEC_TIE_TOL = 2e-2
+# The plain loop whose tokens greedy speculation reproduces: one token a
+# step. With a subword vocabulary the shipped fast-forward (max_forced_run
+# 2) emits each forced byte run as its greedy re-tokenization
+# (TokenGrammar.forced_tables), while the verify takes the target's argmax
+# among every token the grammar allows there, so the two part at forced
+# runs; the JAX engine does the same (its speculative tests use the byte
+# vocabulary, where a forced byte is one token).
+SPEC_PLAIN_FORCED_RUN = 0
+
+
+def spec_session_grammar():
+    """The speculative session's grammar: a title of at most 12 characters,
+    so that five short rounds finish it (the validator grammar's 220 tokens
+    took 12 s)."""
+    return DfaBuilder().literal('{"title": ').free_string(1, 12).literal("}").finish()
+
+
+@contextlib.contextmanager
+def recorded_calls(engine: InferenceEngine, out: list):
+    """Append each engine call's inputs, token ids and completion flags
+    (``_execute``, asked for both whatever its caller asked) to ``out``."""
+    execute = engine._execute
+
+    def wrapped(frames, tokens_in, lengths, states, b_real, prompt_width, dfa, session_rounds, return_status,
+                return_tokens, return_session):
+        result = execute(frames, tokens_in, lengths, states, b_real, prompt_width, dfa, session_rounds, True, True,
+                         return_session)
+        texts, status, ids = result[:3]
+        out.append({"frames": frames, "tokens": tokens_in, "lengths": lengths, "states": states, "dfa": dfa,
+                    "ids": ids, "status": status})
+        kept = (texts,) + ((status,) if return_status else ()) + ((ids,) if return_tokens else ()) + result[3:]
+        return kept if len(kept) > 1 else texts
+
+    with mock.patch.object(engine, "_execute", wrapped):
+        yield
+
+
+@contextlib.contextmanager
+def spec_tally(engine: InferenceEngine, tally: dict):
+    """Count the speculative cycles (``_spec_cycle``, the batcher's too) and
+    sum each cycle's live rows and emitted tokens on the device."""
+    cycle = engine._spec_cycle
+
+    def counted(logp, cache, draft_cache, state, finished, frozen, *rest):
+        out = cycle(logp, cache, draft_cache, state, finished, frozen, *rest)
+        tally["cycles"] += 1
+        tally["live"] = tally["live"] + (~frozen).sum()
+        tally["emitted"] = tally["emitted"] + out[1].sum()
+        return out
+
+    with mock.patch.object(engine, "_spec_cycle", counted):
+        yield
+
+
+def new_tally() -> dict:
+    return {"cycles": 0, "live": 0, "emitted": 0}
+
+
+def tally_line(tally: dict, spec_k: int) -> dict:
+    """Accepted tokens a live row a cycle (t0 counts), and the share of
+    the draft's proposals that the target accepted."""
+    live, emitted = int(tally["live"]), int(tally["emitted"])
+    return {"cycles": tally["cycles"], "accepted_tokens_per_cycle": emitted / live if live else 0.0,
+            "proposals_accepted": (emitted - live) / (live * (spec_k - 1)) if live else 0.0}
+
+
+def tie_gap(engine: InferenceEngine, call: dict, row: int, j: int) -> float:
+    """The plain model's top-two constrained logit gap before token ``j``
+    of row ``row`` of a recorded call (``recorded_calls``), over the row's
+    largest |logit|: one prefill of the row's prompt block and its first
+    ``j`` ids into a bf16 cache, with the grammar state after them."""
+    model, dfa, dev = engine.model, call["dfa"], engine.device
+    ids = call["ids"][row][:j]
+    length = int(call["lengths"][row])
+    width = 128 * math.ceil((length + j) / 128)
+    tokens = np.full((1, width), engine.tokenizer.PAD, np.int32)
+    tokens[0, :length] = call["tokens"][row, :length]
+    tokens[0, length:length + j] = ids
+    frames = call["frames"]
+    video = engine.config.video_tokens if frames is not None else 0
+    with torch.no_grad():
+        cache = init_kv_cache(engine.config.decoder, 1, video + width, model.compute_dtype, device=dev)
+        tokens_t = torch.from_numpy(tokens).to(dev)
+        lengths_t = torch.tensor([length + j], dtype=torch.int32, device=dev)
+        if frames is not None:
+            logits, _ = model.prefill(engine.preprocess(frames[row:row + 1]), tokens_t, cache, lengths_t)
+        else:
+            logits, _ = model.prefill_text(tokens_t, cache, lengths_t)
+    logits = logits.float()
+    state = torch.tensor([grammar_walk(dfa, ids, int(call["states"][row]))], device=dev)
+    masked = dfa.constrain(logits, state, engine._table_for(dfa))
+    bias = engine.close_bias_array()
+    top = (masked if bias is None else masked + bias).topk(2, dim=-1).values[0]
+    return (top[0] - top[1]).item() / logits.abs().max().item()
+
+
+def parted_rows(plain: InferenceEngine, call: dict, got_ids: list[list[int]], got_status: list[bool],
+                label: str) -> list[dict]:
+    """Where each row of ``got_ids`` leaves the recorded call's stream: the
+    first differing token, or the end of a completed row where the other
+    went on (a row cut by the token cap at another point is a prefix of the
+    same stream). Raises unless every such row parts at a near tie
+    (``tie_gap`` under ``SPEC_TIE_TOL``); returns the parted rows."""
+    parted = []
+    for row, (want, got) in enumerate(zip(call["ids"], got_ids)):
+        j = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+        if j is None and len(want) != len(got):
+            shorter_done = call["status"][row] if len(want) < len(got) else got_status[row]
+            j = min(len(want), len(got)) if shorter_done else None
+        if j is None:
+            continue
+        gap = tie_gap(plain, call, row, j)
+        parted.append({"row": row, "position": j, "top_two_gap_over_max_logit": gap})
+        if not gap < SPEC_TIE_TOL:
+            raise AssertionError(f"{label}: row {row} leaves the plain loop's tokens at {j}, where the top-two "
+                                 f"gap is {gap} x max|logit| (a near tie is under {SPEC_TIE_TOL})")
+    return parted
+
+
+def check_spec_routes(launched: dict[str, int], target: VLMConfig, draft: VLMConfig, prefills: list[bool],
+                      cycles: int, label: str, stages: int = 0) -> None:
+    """A speculative run's launches: K1 in every encoder layer (a prefill
+    with video: ``prefills`` holds each prefill's with_video) and prefill
+    layer of both models; K2 once a layer of both models a prefill (a
+    batcher stage prefills both); K5 once a target layer a cycle (the
+    verify, W = SPEC_TOKENS) and once a draft layer a draft step (W = 1,
+    SPEC_TOKENS a cycle); K4 once a layer of each pool a stage; no K3 and
+    nothing plain on the card. Raises otherwise."""
+    lt, ld = target.decoder.num_layers, draft.decoder.num_layers
+    encoders = target.encoder.num_layers + draft.encoder.num_layers
+    n = len(prefills) + stages
+    flash = n * (lt + ld) + encoders * (sum(prefills) + stages)
+    want = {"flash_attention": flash, "write_cache_rows": n * (lt + ld),
+            "decode_attention_update": cycles * (lt + SPEC_TOKENS * ld), "adopt_rows": stages * (lt + ld),
+            "decode_attention": 0, "quantize_kv_on_card": 0, "update_cache_rows_on_card": 0,
+            "mha_reference_on_card": 0}
+    got = {key: launched[key] for key in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def spec_k5_reading(gen: torch.Generator, dev: torch.device, dec: DecoderConfig, batch: int, width: int,
+                    cache_len: int, index: list[int]) -> dict:
+    """K5 at a speculative decode shape (the verify's W = SPEC_TOKENS over
+    the target's heads, or a draft step's W = 1 over the tiny draft's one
+    head): bit for bit against K2 then K3 and twice on the same inputs
+    (``k5_repeatable``), within ``REL_TOL`` of the plain version
+    (``update_cache_rows`` then ``_scaled_reference``), timed beside it,
+    with its bound."""
+    hq, hkv, d = dec.num_heads, dec.num_kv_heads, dec.head_dim
+    q = torch.randn(batch, hq, width, d, generator=gen, device=dev).to(torch.bfloat16)
+    k_cache, v_cache = (torch.randn(batch, hkv, cache_len, d, generator=gen, device=dev).to(torch.bfloat16)
+                        for _ in range(2))
+    k_new, v_new = (torch.randn(batch, hkv, width, d, generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+    index_t = torch.tensor(index, dtype=torch.int32, device=dev)
+    repeated = k5_repeatable(q, k_cache, v_cache, k_new, v_new, index_t, None)
+    if not all(repeated.values()):
+        raise AssertionError(f"K5 at q {list(q.shape)}: {repeated}")
+    fused_k, fused_v, plain_k, plain_v = k_cache.clone(), v_cache.clone(), k_cache.clone(), v_cache.clone()
+    out = decode_attention_update(q, fused_k, fused_v, k_new, v_new, index_t)
+
+    def plain_update():
+        update_cache_rows(plain_k, k_new, index_t)
+        update_cache_rows(plain_v, v_new, index_t)
+        return _scaled_reference(q, plain_k, plain_v, index_t + 1, None, None, None)
+
+    ref = plain_update()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = REL_TOL * ref.float().abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"K5 at q {list(q.shape)} disagrees with its plain version: {err} > {tol}")
+    group = hq // hkv
+    visible = sum(n + width for n in index)
+    flops = sum(4 * group * d * (n + 1 + j) for n in index for j in range(width)) * hkv
+    bound_ms, bound_by = bound(2 * hkv * visible * d * 2 + 2 * nbytes(q) + 2 * nbytes(k_new, v_new)
+                               + nbytes(index_t), flops)
+    return {"max_abs_err": err, "tol": tol, **repeated, "rows_per_kv_head": group * width,
+            "splits": decode_splits(batch, hkv, cache_len),
+            **one_kernel_readings(lambda: decode_attention_update(q, fused_k, fused_v, k_new, v_new, index_t)),
+            "plain_ms": time_ms(plain_update), "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": f"q bf16 [{batch},{hq},{width},{d}] caches bf16 [{batch},{hkv},{cache_len},{d}] index={index}"}
+
+
+def spec_generate(spec: InferenceEngine, plain: InferenceEngine, plain_call: dict | None, clips: np.ndarray,
+                  label: str, smi: str, plain_steps: int) -> tuple[dict, dict[str, int]]:
+    """One speculative generate of ``clips`` with the launches counted from
+    0 (``check_spec_routes``): every row walks the grammar, and the tokens
+    equal the plain call's (``plain_call``, made by ``plain``), or part
+    from them at printed near ties (``parted_rows``). Returns the line and
+    the launches."""
+    stats, tally, calls = spec.stats, new_tally(), []
+    before = (stats.generate_seconds, stats.prefill_seconds, stats.tokens_generated)
+    reset_counts()
+    with spec_tally(spec, tally), recorded_calls(spec, calls):
+        spec.generate(clips, [PROMPT] * len(clips))
+    launched = counts()
+    check_spec_routes(launched, spec.config, spec.draft_config, [True], tally["cycles"], label)
+    seconds, prefill_s, tokens = (now - then for now, then in zip(
+        (stats.generate_seconds, stats.prefill_seconds, stats.tokens_generated), before))
+    call = calls[0]
+    walk_rows(spec.dfa, call["status"], call["ids"], spec.max_new_tokens + SPEC_TOKENS, label)
+    line = {"phase": "speculative", "run": label, "temperature": spec.temperature, "spec_tokens": spec.spec_tokens,
+            "draft": spec.draft_config.name, "rows": len(clips), "tokens": [len(r) for r in call["ids"]],
+            "complete": call["status"], **tally_line(tally, spec.spec_tokens), "plain_steps": plain_steps,
+            "target_forwards": tally["cycles"], "ms_per_cycle": (seconds - prefill_s) * 1e3 / tally["cycles"],
+            "prefill_ms": prefill_s * 1e3, "tokens_per_s": tokens / seconds,
+            "launches": {name: launched[name] for name in ("flash_attention", "write_cache_rows",
+                                                           "decode_attention_update", "decode_attention")},
+            "card": smi}
+    if plain_call is not None:
+        parted = parted_rows(plain, plain_call, call["ids"], call["status"], label)
+        line.update(rows_parted=len(parted), parted=parted)
+    return line, launched
+
+
+def grammar_advance_line(engine: InferenceEngine, seed: int, smi: str) -> dict:
+    """``TokenGrammar.advance`` on the note grammar's tables on the card,
+    through the ``next_token`` table and through the byte walk (the same
+    tables without it), in this one call: equal successors on random
+    (state, token) pairs, states of -1 among them, at the speculative
+    greedy run's 2 rows and the batcher's 8; each route's CUDA-event ms
+    and host µs a call, and the table's build ms. A speculative cycle
+    advances 1 + ``SPEC_TOKENS`` times, a plain step once."""
+    dfa, dev = engine.dfa, engine.device
+    tables = engine._table_for(dfa)
+    walk = {key: value for key, value in tables.items() if key != "next_token"}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    built = token_transition_table(tables)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - start) * 1e3
+    if not torch.equal(built, tables["next_token"]):
+        raise AssertionError("grammar advance: the rebuilt next_token table differs")
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    rows = {}
+    for batch in (2, BATCHER_SLOTS):
+        state = torch.randint(-1, dfa.num_states, (batch,), generator=gen, device=dev)
+        token = torch.randint(0, dfa.vocab_size, (batch,), generator=gen, device=dev)
+        if not torch.equal(dfa.advance(state, token, tables), dfa.advance(state, token, walk)):
+            raise AssertionError(f"grammar advance: the table and the walk part at batch {batch}")
+        rows[str(batch)] = {
+            "table_ms": time_ms(lambda: dfa.advance(state, token, tables)),
+            "walk_ms": time_ms(lambda: dfa.advance(state, token, walk)),
+            "table_host_us": host_us(lambda: dfa.advance(state, token, tables)),
+            "walk_host_us": host_us(lambda: dfa.advance(state, token, walk)),
+        }
+    return {"phase": "grammar_advance", "states": dfa.num_states, "vocab": dfa.vocab_size,
+            "table_shape": list(built.shape), "table_build_ms": build_ms, "by_batch": rows,
+            "advances_per_cycle": 1 + SPEC_TOKENS, "card": smi}
+
+
+def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine, clips: np.ndarray,
+                      batch_clips: np.ndarray, batch_prompts: list[str], smi: str) -> tuple[list[dict], dict, dict]:
+    """Main path 12, speculative decoding at base's full width and
+    ``SERVING_LAYERS`` layers on path 1's int8 weights, 256 new tokens, the
+    note grammar; the draft is the trained tiny checkpoint
+    (``attach_draft(tiny, checkpoint=TINY_WEIGHTS, spec_tokens=6)``). Both
+    caches are bf16, so the verify and every draft step run K5. ``plain``
+    is the shipped plain loop on the same weights with a bf16 cache (its
+    steps and tok/s are the comparison); the token reference is the same
+    engine one token a step (``SPEC_PLAIN_FORCED_RUN``).
+
+    - greedy, two clips, against the plain loop (tokens equal, or parting
+      at near ties; ``parted_rows``), with accepted tokens a cycle, target
+      forwards against the plain steps, ms a cycle and tok/s;
+    - a self-draft (``share_target_params=True``, ``SPEC_SHORT_TOKENS``):
+      fewer than half as many target forwards as the one-token loop's
+      steps for the same tokens, which follow the greedy rule;
+    - temperature 0.7 (``SPEC_SHORT_TOKENS``): every row walks the grammar;
+    - a session of ``SPEC_SESSION_ROUNDS`` rounds under a short title
+      grammar (``spec_session_grammar``), continued until it completes,
+      against one call with the budget that sizes the same cache;
+    - the batcher: 8 slots, a ring of 16, twelve requests of
+      ``SPEC_SHORT_TOKENS`` (K1, K2 and K4 into both pools in the stage, K5
+      for both models each cycle); the first wave against the speculative
+      engine's generate at batch 8;
+    - the analyzer's (a) run with ``engine.draft`` in its config
+      (``event=engine_draft_attached``) against the plain (a) run one token
+      a step, both with a bf16 cache.
+
+    Its first line is ``grammar_advance_line``'s. Returns the lines, the
+    launches summed over the phase and K5's
+    readings at the verify's and a draft step's shapes."""
+    cfg, dev, tokenizer = engine.config, engine.device, engine.tokenizer
+    draft_cfg = base_config(tokenizer.vocab_size, "tiny")
+    lines, total = [grammar_advance_line(engine, seed, smi)], dict.fromkeys(counts(), 0)
+
+    def add(launched):
+        for name in total:
+            total[name] += launched[name]
+
+    def spec_engine(**kwargs) -> InferenceEngine:
+        out = InferenceEngine(cfg, params=engine.model, tokenizer=tokenizer, max_new_tokens=MAX_NEW_TOKENS,
+                              temperature=0.0, max_forced_run=2, param_dtype="bfloat16", device=dev, **kwargs)
+        out.dfa = engine.dfa
+        return out
+
+    t0 = time.perf_counter()
+    spec = spec_engine()
+    spec.attach_draft(draft_cfg, checkpoint=TINY_WEIGHTS, spec_tokens=SPEC_TOKENS)
+    if spec.draft_model.decoder.layer_0.attn.q.kernel.dtype != torch.bfloat16:
+        raise AssertionError("the draft is not served in bf16")
+    setup = time.perf_counter() - t0
+
+    # The shipped plain loop on the same weights with a bf16 cache, then the
+    # token reference: the same, one token a step.
+    steps0 = plain.stats.decode_steps
+    gen0 = (plain.stats.generate_seconds, plain.stats.tokens_generated)
+    plain.generate(clips[:2], [PROMPT] * 2)
+    plain_steps = plain.stats.decode_steps - steps0
+    plain_tok_s = (plain.stats.tokens_generated - gen0[1]) / (plain.stats.generate_seconds - gen0[0])
+    plain = InferenceEngine(cfg, params=engine.model, tokenizer=tokenizer, max_new_tokens=MAX_NEW_TOKENS,
+                            temperature=0.0, max_forced_run=SPEC_PLAIN_FORCED_RUN, device=dev)
+    plain.dfa = engine.dfa
+    plain_calls = []
+    with recorded_calls(plain, plain_calls):
+        plain.generate(clips[:2], [PROMPT] * 2)
+    one_token_steps = plain.stats.decode_steps
+
+    line, launched = spec_generate(spec, plain, plain_calls[0], clips[:2], "greedy", smi, plain_steps)
+    lines.append(dict(line, setup_seconds=setup, plain_tokens_per_s=plain_tok_s, preset=cfg.name,
+                      one_token_plain_steps=one_token_steps, decoder_layers=cfg.decoder.num_layers,
+                      weights="int8", caches="bf16"))
+    add(launched)
+
+    self_spec = spec_engine()
+    self_spec.max_new_tokens = SPEC_SHORT_TOKENS
+    self_spec.attach_draft(cfg, share_target_params=True, spec_tokens=SPEC_TOKENS)
+    if self_spec.draft_model is not self_spec.model:
+        raise AssertionError("share_target_params: the draft is not the target's model")
+    line, launched = spec_generate(self_spec, plain, plain_calls[0], clips[:2], "self_draft", smi, plain_steps)
+    one_token = max(line["tokens"])  # the one-token loop's steps for the same tokens
+    if not 2 * line["target_forwards"] < one_token:
+        raise AssertionError(f"self-draft: {line['target_forwards']} target forwards for {one_token} tokens")
+    lines.append(dict(line, one_token_plain_steps=one_token))
+    add(launched)
+    del self_spec
+
+    spec.temperature, spec.max_new_tokens = SPEC_TEMPERATURE, SPEC_SHORT_TOKENS
+    line, launched = spec_generate(spec, plain, None, clips[:2], "temperature_0.7", smi, plain_steps)
+    spec.temperature, spec.max_new_tokens = 0.0, MAX_NEW_TOKENS
+    lines.append(line)
+    add(launched)
+
+    # A session under a short grammar, resumed until it completes.
+    title = spec.wrap_grammar(spec_session_grammar())
+    cap = longest_accepted(title.dfa) // (1 + SPEC_SESSION_ROUNDS) + 1
+    stats, tally = spec.stats, new_tally()
+    reset_counts()
+    spec.max_new_tokens = cap
+    try:
+        calls = []
+        with spec_tally(spec, tally), recorded_calls(spec, calls):
+            _, status, ids, session = spec.generate(clips[:2], API_PROMPTS, dfa=title,
+                                                    session_rounds=SPEC_SESSION_ROUNDS, return_session=True,
+                                                    return_status=True, return_tokens=True)
+            if session is None or session.rounds_left != SPEC_SESSION_ROUNDS or session.draft_cache is None:
+                raise AssertionError(f"speculative session reserve: {session and session.rounds_left}")
+            prefill_tokens = stats.prefill_tokens
+            session_len = session.cache["k"][0].shape[2]
+            combined, done, resumed = [list(r) for r in ids], list(status), 0
+            while not all(done) and session.rounds_left > 0:
+                _, done, more = spec.continue_session(session)
+                for row in range(len(done)):
+                    combined[row] += more[row]
+                resumed += 1
+        launched = counts()
+        if stats.prefill_tokens != prefill_tokens or not all(done) or not resumed:
+            raise AssertionError(f"speculative session: complete {done} after {resumed} rounds, or a round prefilled")
+        check_spec_routes(launched, cfg, draft_cfg, [True], tally["cycles"], "speculative session")
+        add(launched)
+        spec.max_new_tokens = (1 + SPEC_SESSION_ROUNDS) * cap + SPEC_SESSION_ROUNDS * SPEC_TOKENS
+        prompt_width = spec._prompt_bucket(API_PROMPTS, with_video=True)
+        if spec._cache_len(prompt_width, True, title, 0) != session_len:
+            raise AssertionError("the long call's cache length differs from the speculative session's")
+        long_calls = []
+        with recorded_calls(spec, long_calls):
+            spec.generate(clips[:2], API_PROMPTS, dfa=title)
+        parted = parted_rows(plain, long_calls[0], combined, done, "speculative session")
+        walk_rows(title, done, combined, spec.max_new_tokens + SPEC_TOKENS, "speculative session")
+    finally:
+        spec.max_new_tokens = MAX_NEW_TOKENS
+    lines.append({"phase": "speculative", "run": "session", "grammar": "title", "round_cap": cap,
+                  "reserve": SPEC_SESSION_ROUNDS, "rounds_resumed": resumed, "cache_len": session_len,
+                  "draft_cache_len": session.draft_cache["k"][0].shape[2],
+                  "tokens": [len(r) for r in combined], "long_tokens": [len(r) for r in long_calls[0]["ids"]],
+                  "rows_parted": len(parted), "parted": parted, **tally_line(tally, SPEC_TOKENS),
+                  "launches": {name: launched[name] for name in ("flash_attention", "write_cache_rows",
+                                                                 "decode_attention_update", "decode_attention")},
+                  "card": smi})
+    del session
+
+    # The speculative batcher: twelve requests through 8 slots.
+    batcher = ContinuousBatcher(spec, slots=BATCHER_SLOTS, max_new_tokens=SPEC_SHORT_TOKENS)
+    stages, stage = [], batcher._stage
+
+    def counted_stage():
+        before = batcher._staged_total
+        stage()
+        if batcher._staged_total > before:
+            stages.append(batcher._staged_total - before)
+
+    batcher._stage = counted_stage
+    for i, clip in enumerate(batch_clips):
+        batcher.submit(Request(i, clip, batch_prompts[i]))
+    tally = new_tally()
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with spec_tally(spec, tally):
+        completions = batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launched = counts()
+    check_spec_routes(launched, cfg, draft_cfg, [], tally["cycles"], "speculative batcher", stages=len(stages))
+    add(launched)
+    if sorted(c.request_id for c in completions) != list(range(len(batch_clips))):
+        raise AssertionError("speculative batcher: not every request completed once")
+    for c in completions:
+        grammar_walk(spec.dfa, c.token_ids)
+        if c.complete:
+            check_complete(spec.dfa, c.request_id, c.token_ids)
+    got = {c.request_id: c for c in completions}
+    wave = []
+    spec.max_new_tokens = SPEC_SHORT_TOKENS
+    with recorded_calls(spec, wave):
+        spec.generate(batch_clips[:BATCHER_SLOTS], batch_prompts[:BATCHER_SLOTS], prompt_len=batcher.prompt_len)
+    spec.max_new_tokens = MAX_NEW_TOKENS
+    parted = parted_rows(plain, wave[0], [got[i].token_ids for i in range(BATCHER_SLOTS)],
+                         [got[i].complete for i in range(BATCHER_SLOTS)], "speculative batcher first wave")
+    tokens = sum(c.tokens for c in completions)
+    lines.append({"phase": "speculative", "run": "batcher", "requests": len(batch_clips), "slots": BATCHER_SLOTS,
+                  "queue_depth": batcher.queue_depth, "cache_len": batcher.cache_len,
+                  "draft_cache_len": batcher.draft_cache_len, "park_len": batcher.park_len,
+                  "draft_park_len": batcher.draft_park_len, "stages": stages, "seconds": wall, "tokens": tokens,
+                  "tokens_per_s": tokens / wall, "ms_per_cycle": wall * 1e3 / tally["cycles"],
+                  **tally_line(tally, SPEC_TOKENS), "first_wave_rows_parted": len(parted), "parted": parted,
+                  "launches": {name: launched[name] for name in ("flash_attention", "write_cache_rows", "adopt_rows",
+                                                                 "decode_attention_update", "decode_attention")},
+                  "card": smi})
+    del batcher
+
+    # The analyzer's (a) run with the draft in its config, against the plain (a) run.
+    with tempfile.TemporaryDirectory(prefix="vtx_spec_analyzer_") as tmp:
+        workdir = Path(tmp)
+        log = LogLines()
+        logger = logging.getLogger("vtx.chip_smoke.speculative")
+        logger.handlers, logger.propagate = [log], False
+        logger.setLevel(logging.INFO)
+        runs = {}
+        for label, draft in (("plain", None), ("draft", {"model_preset": "tiny", "checkpoint_dir": str(TINY_WEIGHTS),
+                                                          "spec_tokens": SPEC_TOKENS})):
+            config = analyzer_config(workdir / label, model_preset="tiny", checkpoint_dir=str(TINY_WEIGHTS),
+                                     temperature=0.0, max_new_tokens=GROUNDING_MAX_NEW, kv_quant=None,
+                                     **({"draft": draft} if draft else {"max_forced_run": SPEC_PLAIN_FORCED_RUN}))
+            analyzer = ContentAnalyzer(config, APICounter(config["system"]["max_api_calls"]), logger)
+            target = analyzer.engine
+            if draft and not any(m.startswith("event=engine_draft_attached") for m in log.messages):
+                raise AssertionError(f"analyzer with a draft: not attached: {log.messages}")
+            clip = workdir / f"{label}.npzv"
+            write_npzv(clip, render_topic_clip(ANALYZER_TOPIC, ANALYZER_CLIP_FRAMES, target.config.encoder.image_size,
+                                               np.random.default_rng(seed)), ANALYZER_CLIP_FPS)
+            calls, tally = [], new_tally()
+            reset_counts()
+            start = time.perf_counter()
+            with recorded_calls(target, calls), spec_tally(target, tally) if draft else contextlib.nullcontext():
+                result = analyzer.analyze_video(clip)
+            wall = time.perf_counter() - start
+            launched = counts()
+            report = analyzer.generate_report(result, "images/blueprint.png",
+                                              self_check_mode=analyzer.config["system"]["self_check_mode"])
+            runs[label] = {"analyzer": analyzer, "calls": calls, "report": report, "wall": wall, "tally": tally,
+                           "launched": launched}
+            if draft:
+                check_spec_routes(launched, target.config, target.draft_config,
+                                  [call["frames"] is not None for call in calls], tally["cycles"],
+                                  "speculative analyzer")
+                add(launched)
+        parted, compared = [], 0
+        for want, got_call in zip(runs["plain"]["calls"], runs["draft"]["calls"]):
+            plain_engine = runs["plain"]["analyzer"].engine
+            parted = parted_rows(plain_engine, want, got_call["ids"], got_call["status"], "speculative analyzer")
+            compared += 1
+            if parted:
+                break
+    lines.append({"phase": "speculative", "run": "analyzer", "event": "engine_draft_attached",
+                  "engine_calls": [len(runs["plain"]["calls"]), len(runs["draft"]["calls"])],
+                  "calls_compared": compared, "rows_parted": len(parted), "parted": parted,
+                  "note_equal_to_plain": runs["draft"]["report"] == runs["plain"]["report"],
+                  "wall_seconds": [runs["plain"]["wall"], runs["draft"]["wall"]],
+                  **tally_line(runs["draft"]["tally"], SPEC_TOKENS),
+                  "launches": {name: runs["draft"]["launched"][name]
+                               for name in ("flash_attention", "write_cache_rows", "decode_attention_update",
+                                            "decode_attention")},
+                  "card": smi})
+    del runs
+
+    # K5 at the verify's shape and at a draft step's, beside the plain version.
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    verify_len = spec._cache_len(spec._prompt_bucket([PROMPT], True), True, spec.dfa, 0)
+    draft_len = spec._cache_len(spec._prompt_bucket([PROMPT], True), True, spec.dfa, 0, draft_cfg)
+    readings = {
+        "verify": spec_k5_reading(gen, dev, cfg.decoder, 2, SPEC_TOKENS, verify_len,
+                                  [cfg.video_tokens + 128 + 100, cfg.video_tokens + 128 + 230]),
+        "draft_step": spec_k5_reading(gen, dev, draft_cfg.decoder, 2, 1, draft_len,
+                                      [draft_cfg.video_tokens + 128 + 100, draft_cfg.video_tokens + 128 + 230]),
+    }
+    return lines, total, readings
 
 
 def main() -> None:
@@ -3656,8 +4413,14 @@ def main() -> None:
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU only")
-    with watch_plain_writes():
-        run(args.seed)
+    try:
+        with watch_plain_writes():
+            run(args.seed)
+    finally:
+        for proc in BACKGROUND:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def run(seed: int) -> None:
@@ -3683,7 +4446,9 @@ def run(seed: int) -> None:
     ptxas = [line for line in _lib.build_log.splitlines()
              if any(word in line for word in ("Function properties", "registers", "spill", "setmaxnreg", "wgmma"))]
     emit({"phase": "ptxas", "lines": ptxas})
-    emit({"phase": "sass", "kernels": kernel_sass()})
+    sass_dir = tempfile.TemporaryDirectory(prefix="vtx_sass_")
+    sass_out = Path(sass_dir.name) / "sass.txt"
+    sass = start_sass(sass_out)
 
     t0 = time.perf_counter()
     tokenizer = BpeTokenizer.load(TOKENIZER)
@@ -3729,6 +4494,8 @@ def run(seed: int) -> None:
     kernels.update(train_kernel_phase(seed, dev, cfg))
     kernels["int4_matmul"] = int4_kernel_phase(seed, dev)
     emit({"phase": "kernels_checked", "seconds": time.perf_counter() - t0})
+    with sass_dir:
+        emit({"phase": "sass", "kernels": kernel_sass(sass, sass_out)})
     t0 = time.perf_counter()
     emit(dict(reference_phase(seed, dev, tokenizer.vocab_size), seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
@@ -3783,6 +4550,24 @@ def run(seed: int) -> None:
     line = path_decode_readings(seed, found, "engine_api")
     emit(line)
     note_path_decode(kernels, line)
+
+    # Main path 12, speculative decoding on path 1's int8 weights with the
+    # trained tiny draft (K1, K2, K4 and K5 for both models, no K3); then K5
+    # at every decode shape it ran (W = 6 and W = 1), against the plain
+    # versions.
+    t0 = time.perf_counter()
+    found = {}
+    with path_decode_inputs(found):
+        spec_lines, spec_launched, spec_k5 = speculative_phase(seed, engine, batch_engine, clips, batch_clips,
+                                                               batch_prompts, smi)
+    for line in spec_lines:
+        emit(line)
+    line = path_decode_readings(seed, found, "speculative")
+    emit(line)
+    note_path_decode(kernels, line)
+    kernels["decode_attention_update"].update({f"spec_{name}": reading for name, reading in spec_k5.items()})
+    emit({"phase": "speculative_done", "seconds": time.perf_counter() - t0,
+          "launches": {name: n for name, n in spec_launched.items() if n}})
     grammar = engine.dfa
     del engine, batch_engine, found
     torch.cuda.empty_cache()
@@ -3894,7 +4679,8 @@ def run(seed: int) -> None:
     # Each kernel's launches summed over the main paths' runs.
     launches = {name: served[name] + batch_launched[name] + trained[name] + int4_served[name] + api_launched[name]
                 + grounded[name] + analyzed[name] + piped[name] + trained_grounded[name] + trained_staged[name]
-                + content_launched[name] + real_launched[name] + qwen_launched[name] for name in served}
+                + content_launched[name] + real_launched[name] + qwen_launched[name] + spec_launched[name]
+                for name in served}
     if launches["mha_reference_on_card"]:
         raise AssertionError(f"plain attention ran {launches['mha_reference_on_card']} times on a CUDA tensor")
 

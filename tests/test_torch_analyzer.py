@@ -10,8 +10,10 @@ and ``.y4m`` with time windows, ``prefetch_map``, ``InferencePacer``,
 Then the engine API the analyzer reads (``EngineStats.as_dict``, the
 preprocess counters, ``data_parallel``, the batcher's ``dfa``/``spec``) and
 the analyzer's own engine construction: the ``device`` argument, a failed
-restore, the constant synthetic weights, and the settings the port does not
-serve yet, which raise ``NotImplementedError``.
+restore, the constant synthetic weights, the speculative draft of
+``engine.draft`` (attached; a missing checkpoint serves the plain loop; a
+device error leaves, F10), and the settings the port does not serve yet,
+which raise ``NotImplementedError``.
 """
 
 import copy
@@ -568,13 +570,61 @@ class TestAnalyzerEngine:
     @pytest.mark.parametrize("engine_cfg,item", [
         ({"mesh": {"data": 1, "model": 2}}, "item 9"),
         ({"mesh": {"data": 4, "model": 1}}, "item 9"),
-        ({"draft": {"model_preset": "tiny", "checkpoint_dir": None}}, "item 7"),
-    ], ids=["mesh_model", "mesh_data", "draft"])
+    ], ids=["mesh_model", "mesh_data"])
     def test_unported_settings_raise(self, tmp_path, engine_cfg, item):
         analyzer = ContentAnalyzer(analyzer_config(tmp_path, **engine_cfg), counter.APICounter(5), device="cpu")
         with pytest.raises(NotImplementedError, match=item):
             analyzer.engine
         assert analyzer._engine is None
+
+    def test_draft_attaches_from_the_config(self, tmp_path):
+        """``engine.draft.model_preset`` attaches the preset at the
+        tokenizer's vocabulary with its checkpoint and ``spec_tokens``, as
+        the JAX analyzer does; the cached batcher then runs speculatively."""
+        logger, handler = capture_logger("vtx.test.draft_attached")
+        npz = REPO / "data" / "torch_weights" / "tiny-zh-grounded-r5mix-params_4500.npz"
+        cfg = analyzer_config(
+            tmp_path, checkpoint_dir=str(npz), param_dtype="bfloat16", quantize="int8", kv_quant="int8",
+            tokenizer={"type": "bpe", "path": str(REPO / "data" / "tokenizers" / "bpe-zh-2048.json")},
+            draft={"model_preset": "tiny", "checkpoint_dir": str(npz), "spec_tokens": 4},
+        )
+        analyzer = ContentAnalyzer(cfg, counter.APICounter(5), logger, device="cpu")
+        engine = analyzer.engine
+        assert "event=engine_draft_attached preset=tiny spec_tokens=4" in handler.messages
+        assert engine.draft_config.decoder.vocab_size == 2048 and engine.spec_tokens == 4
+        assert engine.draft_model.decoder.layer_0.mlp.down.kernel.dtype == torch.bfloat16
+        assert analyzer._get_batcher(2, 256).spec
+        engine.detach_draft()
+        assert not analyzer._get_batcher(2, 256).spec
+
+    def test_missing_draft_checkpoint_serves_the_plain_loop(self, tmp_path):
+        """A missing draft checkpoint (the shipped orbax directory, which
+        the port does not read, or no file at all) logs
+        ``event=engine_draft_failed`` and drops the draft, as in JAX."""
+        logger, handler = capture_logger("vtx.test.draft_failed")
+        for checkpoint in (str(REPO / "data" / "checkpoints" / "tiny-zh-grounded-r5mix" / "params_4500"),
+                           str(tmp_path / "missing.npz")):
+            cfg = analyzer_config(tmp_path, draft={"model_preset": "tiny", "checkpoint_dir": checkpoint})
+            engine = ContentAnalyzer(cfg, counter.APICounter(5), logger, device="cpu").engine
+            assert engine.draft_model is None and engine.spec_tokens == 0
+            assert engine.generate_text(["x"])  # the plain loop serves
+        failed = [m for m in handler.messages if m.startswith("event=engine_draft_failed")]
+        assert len(failed) == 2 and not any(m.startswith("event=engine_draft_attached") for m in handler.messages)
+
+    def test_device_error_in_attach_draft_leaves_the_analyzer(self, tmp_path, monkeypatch):
+        """F10 (F7's rule): JAX catches every exception of ``attach_draft``
+        and serves the plain loop; the port re-raises an error of torch or
+        the device."""
+        def out_of_memory(self, *args, **kwargs):
+            raise torch.OutOfMemoryError("CUDA out of memory while placing the draft")
+
+        monkeypatch.setattr(InferenceEngine, "attach_draft", out_of_memory)
+        logger, handler = capture_logger("vtx.test.draft_device_error")
+        cfg = analyzer_config(tmp_path, draft={"model_preset": "tiny", "checkpoint_dir": None})
+        analyzer = ContentAnalyzer(cfg, counter.APICounter(5), logger, device="cpu")
+        with pytest.raises(torch.OutOfMemoryError):
+            analyzer.engine
+        assert not any("event=engine_draft" in m for m in handler.messages)
 
     def test_device_defaults_to_cuda(self, tmp_path):
         analyzer = ContentAnalyzer(analyzer_config(tmp_path), counter.APICounter(5))

@@ -34,6 +34,7 @@ import torch
 
 from chip_smoke import (
     DECODE_ROW_SHAPES,
+    INT4_FUSED_SHAPES,
     INT4_SHAPES,
     REL_TOL,
     TRAIN_KERNELS,
@@ -766,3 +767,81 @@ def test_tiny_qwen_geometry_on_card_matches_the_cpu(cuda):
     with watch_plain_writes():
         line = qwen_reference_phase(0, cuda)
     assert line["max_abs_err"] <= line["tol"] and line["k1_launches"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,width", [(4, 6), (7, 6)], ids=["base_verify", "7b_verify"])
+def test_fused_update_at_the_speculative_widths(cuda, group, width):
+    """K5 at the verify block of 6 positions over base's 4 and 7b's 7 q
+    heads a kv head (24 and 42 folded rows): within tolerance of the plain
+    version, also at the causal edge, and bit-equal to K2 then K3 with new
+    positions across a split edge (decode_rows_reading raises otherwise).
+    A draft step's single position cannot straddle a split edge: W = 1 is
+    held by the next test."""
+    gen = torch.Generator(device=cuda).manual_seed(group * width + 1)
+    before = decode_attention_update.launches
+    reading = decode_rows_reading(gen, cuda, 1664, group, width, torch.bfloat16)
+    assert decode_attention_update.launches == before + 1 and reading["k5_bit_equal_to_k2_k3"]
+    assert reading["rows_per_kv_head"] == group * width and reading["max_abs_err"] <= reading["tol"]
+
+
+@pytest.mark.cuda
+def test_fused_update_at_the_tiny_drafts_own_shape(cuda):
+    """A draft step of the tiny preset (one q head over one kv head, W = 1)
+    and base's verify (8 q heads over 2, W = 6): K5 twice bit-identical,
+    bit-equal to K2 then K3, within tolerance of the plain version, one
+    kernel a call (spec_k5_reading raises otherwise)."""
+    from chip_smoke import spec_k5_reading
+    from video_transformer_tpu_torch.models.config import get_preset
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for preset, width, cache_len in (("tiny", 1, 512), ("base", 6, 1536)):
+        dec = get_preset(preset).decoder
+        reading = spec_k5_reading(gen, cuda, dec, 2, width, cache_len, [cache_len - 250, cache_len - 120])
+        assert reading["bit_equal_to_k2_k3"] and reading["bit_identical_runs"] and reading["kernels_per_call"] == 1
+        assert reading["max_abs_err"] <= reading["tol"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 6, 12])
+@pytest.mark.parametrize("shape", sorted(INT4_FUSED_SHAPES))
+def test_int4_matmul_at_the_fused_widths(cuda, m, shape):
+    """K6 at a fused 7b engine's carriers (q/k/v: N = 4,608; gate/up:
+    N = 37,888; K = 3,584): bit-equal on integer x, within tolerance on
+    normal x, faulty plain versions fail, two launches agree."""
+    gen = torch.Generator(device=cuda).manual_seed(m + 40)
+    before = int4_matmul.launches
+    reading = check_int4(gen, cuda, m, *INT4_FUSED_SHAPES[shape], timed=False)
+    assert int4_matmul.launches == before + 3
+    assert reading["integer_x_bit_equal"] and reading["bit_identical_runs"] and reading["worst_ratio"] <= 1
+    assert all(ratio > 1 for ratio in reading["fault_ratios"].values())
+
+
+@pytest.mark.cuda
+def test_tiny_speculative_engine_runs_through_k5(cuda):
+    """A tiny bf16 target with a self-draft on the card: every cycle runs
+    K5 once a target layer (W = spec_tokens) and once a draft layer per
+    draft step (W = 1), each prefill writes through K2 once a layer of both
+    models, no K3; the greedy tokens equal the one-token plain loop's on
+    the card, or part from them only at a near tie (``parted_rows``: the
+    verify's matmuls run at another row count)."""
+    from chip_smoke import parted_rows, recorded_calls
+
+    frames = np.random.default_rng(5).integers(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)
+    engine = tiny_bf16_engine(cuda)
+    engine.max_forced_run = 0
+    calls: list = []
+    with recorded_calls(engine, calls):
+        engine.generate(frames, ["分析", "hi"])
+    engine.attach_draft(engine.config, share_target_params=True, spec_tokens=4)
+    layers = engine.config.decoder.num_layers
+    kernels = (decode_attention_update, write_cache_rows, decode_attention)
+    before = [k.launches for k in kernels]
+    steps0 = engine.stats.decode_steps
+    _, status, got = engine.generate(frames, ["分析", "hi"], return_status=True, return_tokens=True)
+    cycles = engine.stats.decode_steps - steps0
+    launched = [k.launches - n for k, n in zip(kernels, before)]
+    assert launched == [cycles * (layers + 4 * layers), 2 * layers, 0]
+    engine.detach_draft()
+    assert len(parted_rows(engine, calls[0], got, status, "tiny speculative")) <= 1
+

@@ -142,15 +142,19 @@ def test_sampled_output_stays_in_grammar(tokenizer):
 
 
 def test_unported_surface_raises(tokenizer, tmp_path):
-    """What stays unported raises: the speculative draft. An HF safetensors
-    checkpoint needs a ported-tower preset (``qwen2vl-7b``): the tiny
-    preset's native encoder raises, as in the JAX engine, and bad
-    arguments raise as in the JAX engine."""
+    """Bad arguments raise as in the JAX engine: a draft of another
+    vocabulary (``attach_draft``), an HF safetensors checkpoint without a
+    ported-tower preset (``qwen2vl-7b``: the tiny preset's native encoder
+    raises), an unknown quantize mode, a prompt count that is not the clip
+    count."""
     engine = port_engine(tokenizer)
     (tmp_path / "model.safetensors.index.json").write_text("{}")
     with pytest.raises(ValueError, match="ported-tower"):
         engine.restore(tmp_path)
-    assert not hasattr(engine, "attach_draft")
+    draft = get_preset("tiny")  # the byte vocabulary: 512, not the engine's 2,048
+    with pytest.raises(ValueError, match="draft vocab 512 != target vocab 2048"):
+        engine.attach_draft(draft)
+    assert engine.draft_model is None and engine.spec_tokens == 0
     with pytest.raises(ValueError, match="quantize mode"):
         port_engine(tokenizer, quantize="int2")
     with pytest.raises(ValueError, match="one prompt per clip"):

@@ -25,7 +25,7 @@ from video_transformer_tpu_torch.analyzer.schema import note_dfa
 from video_transformer_tpu_torch.models.bpe import BpeTokenizer
 from video_transformer_tpu_torch.models.tokenizer import ByteTokenizer
 from video_transformer_tpu_torch.ops.constrained import DfaBuilder
-from video_transformer_tpu_torch.ops.token_grammar import TokenGrammar
+from video_transformer_tpu_torch.ops.token_grammar import TokenGrammar, token_transition_table
 
 torch.set_num_threads(2)
 
@@ -135,3 +135,25 @@ def test_token_grammar_constrain_and_advance(grammars):
         got = grammar.advance(torch.from_numpy(states), torch.from_numpy(tokens), tables)
         want = j_grammar.advance(jnp.asarray(states), jnp.asarray(tokens), j_tables)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_token_transition_table_advances_as_the_byte_walk(grammars):
+    """The ``next_token`` table (built where ``device_table`` fits it, on
+    any device) gives the byte walk's successor for every (state, token):
+    ``advance`` through it equals JAX's advance and the walk's (the tables
+    without it), states of -1 included."""
+    grammar, j_grammar = grammars
+    tables, j_tables = grammar.device_table("cpu"), j_grammar.device_table()
+    table = tables["next_token"]
+    assert torch.equal(table, token_transition_table(tables))
+    assert table.shape == (grammar.num_states, grammar.vocab_size) and table.dtype == torch.int32
+    walk = {key: value for key, value in tables.items() if key != "next_token"}
+    rng = np.random.default_rng(2)
+    states = rng.integers(-1, grammar.num_states, 256)
+    tokens = rng.integers(0, grammar.vocab_size, 256)
+    got = grammar.advance(torch.from_numpy(states), torch.from_numpy(tokens), tables)
+    want = j_grammar.advance(jnp.asarray(states), jnp.asarray(tokens), j_tables)
+    walked = grammar.advance(torch.from_numpy(states), torch.from_numpy(tokens), walk)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), walked.numpy())
+

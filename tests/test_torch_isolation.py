@@ -49,6 +49,8 @@ SLICE_MODULES = (
 # The Qwen2-VL geometry: the vision tower, the HF checkpoint port, the HF
 # tokenizer and the synthetic 152k vocabulary.
 QWEN_MODULES = ("models.qwen_vit", "models.port", "models.hf_tokenizer", "models.synth_vocab")
+# Speculative decoding's serving transform: the projection fusion.
+SPEC_MODULES = ("models.fuse",)
 
 _ISOLATED_IMPORT = """
 import importlib, pkgutil, sys
@@ -81,8 +83,10 @@ assert build_parser().parse_args(["--url", "clip.npzv"]).device == "cuda"
 from video_transformer_tpu_torch.utils.proxy import verify_proxy_connection
 assert verify_proxy_connection("http://localhost:1") is False  # requests refused: no key pool
 from video_transformer_tpu_torch.parallel.engine import InferenceEngine
-for method in ("generate_text", "continue_session", "restore"):
+for method in ("generate_text", "continue_session", "restore", "attach_draft", "detach_draft", "restore_draft"):
     assert callable(getattr(InferenceEngine, method)), method
+from video_transformer_tpu_torch.models.fuse import fuse_projections
+assert inspect.signature(InferenceEngine).parameters["fuse_projections"].default is False
 from video_transformer_tpu_torch.models.bpe import train_bpe, BpeTokenizer
 from video_transformer_tpu_torch.ops.token_grammar import TokenGrammar
 from video_transformer_tpu_torch.train.data import distillation_records
@@ -116,7 +120,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     result = subprocess.run(
         [sys.executable, "-c", _ISOLATED_IMPORT.format(
-            refused=REFUSED, analyzer=ANALYZER_MODULES + PIPELINE_MODULES + SLICE_MODULES + QWEN_MODULES)],
+            refused=REFUSED,
+            analyzer=ANALYZER_MODULES + PIPELINE_MODULES + SLICE_MODULES + QWEN_MODULES + SPEC_MODULES)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert result.returncode == 0, result.stderr[-2000:]

@@ -17,8 +17,12 @@ state and per-segment outputs are cached to disk as JSON. Greedy, the
 ``AnalysisResult`` equals the JAX analyzer's
 (``tests/test_torch_analyzer_e2e.py``).
 
-Not ported (``NotImplementedError``, ROADMAP.md §1): a mesh of more than
-one device (item 9) and a draft model for speculative decoding (item 7).
+``engine.draft.model_preset`` attaches a draft model for speculative
+decoding (``InferenceEngine.attach_draft``) as the JAX analyzer does: a
+missing or unfit draft checkpoint logs ``event=engine_draft_failed`` and
+serves the plain loop, while an error of torch or the device leaves the
+analyzer (F10, ROADMAP.md §3). Not ported (``NotImplementedError``, ROADMAP.md
+§1): a mesh of more than one device (item 9).
 """
 
 from __future__ import annotations
@@ -138,6 +142,9 @@ class ContentAnalyzer:
         safetensors directory (``models/port.py``); the
         JAX package's orbax directories do not restore here, and a failed
         restore keeps the random weights, as in the JAX analyzer.
+        ``engine.draft`` (``model_preset``, ``checkpoint_dir``,
+        ``spec_tokens``) attaches a speculative draft of the tokenizer's
+        vocabulary.
         """
         if self._engine is None:
             from dataclasses import replace
@@ -238,6 +245,33 @@ class ContentAnalyzer:
                         f"event=engine_restore_failed checkpoint={checkpoint_dir} "
                         f"error={exc}"
                     )
+            draft_cfg = self.engine_config.get("draft") or {}
+            if isinstance(draft_cfg, dict) and draft_cfg.get("model_preset"):
+                # Speculative decoding: a small distilled checkpoint drafts
+                # token blocks that the served model verifies in one wide
+                # forward. Greedy output is unchanged.
+                draft_preset = get_preset(draft_cfg["model_preset"])
+                if tokenizer is not None:
+                    draft_preset = replace(
+                        draft_preset,
+                        decoder=replace(draft_preset.decoder, vocab_size=tokenizer.vocab_size),
+                    )
+                try:
+                    self._engine.attach_draft(
+                        draft_preset,
+                        checkpoint=draft_cfg.get("checkpoint_dir"),
+                        spec_tokens=int(draft_cfg.get("spec_tokens", 6)),
+                    )
+                    self.logger.info(
+                        f"event=engine_draft_attached preset={draft_cfg['model_preset']} "
+                        f"spec_tokens={self._engine.spec_tokens}"
+                    )
+                except (FileNotFoundError, ValueError, KeyError) as exc:
+                    # A missing or unfit draft checkpoint never takes serving
+                    # down: drop the draft and serve the plain loop. An error
+                    # of torch or the device is not caught (F10).
+                    self._engine.detach_draft()
+                    self.logger.warning(f"event=engine_draft_failed error={exc}")
         return self._engine
 
     def _refuse_unported(self) -> None:
@@ -251,12 +285,6 @@ class ContentAnalyzer:
                     f"engine.mesh.{axis} = {size}: the port serves on one device "
                     "(ROADMAP.md §1 item 9, parallelism over torch.distributed)"
                 )
-        draft = self.engine_config.get("draft") or {}
-        if isinstance(draft, dict) and draft.get("model_preset"):
-            raise NotImplementedError(
-                "engine.draft.model_preset: speculative decoding is not ported "
-                "(ROADMAP.md §1 item 7)"
-            )
 
     # -- public API ----------------------------------------------------------
 

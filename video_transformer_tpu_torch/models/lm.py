@@ -12,7 +12,10 @@ an ``active`` entry [B] bool leaves padding rows out of the int8 scales'
 calibration. Without a cache (training) the
 blocks attend causally through ``ops/attention.py`` (K7a-c under autograd),
 and ``remat`` recomputes each block in the backward pass. Parameter names
-follow the JAX package's parameter paths (``layer_0.attn.q.kernel``).
+follow the JAX package's parameter paths (``layer_0.attn.q.kernel``). A
+served model may carry each block's q/k/v and gate/up as one fused dense
+(``models/fuse.py``: ``attn.qkv``, ``mlp.gateup``), whose product the block
+splits.
 """
 
 from __future__ import annotations
@@ -91,9 +94,15 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         dtype = x.dtype
-        q = self.q(x, dtype).reshape(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
-        k = self.k(x, dtype).reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
-        v = self.v(x, dtype).reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+        if "qkv" in self._modules:
+            # Serve-time fused projection (models/fuse.py): one product, split.
+            kv_dim = cfg.num_kv_heads * cfg.head_dim
+            q, k, v = self.qkv(x, dtype).split([cfg.num_heads * cfg.head_dim, kv_dim, kv_dim], dim=-1)
+        else:
+            q, k, v = self.q(x, dtype), self.k(x, dtype), self.v(x, dtype)
+        q = q.reshape(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+        k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+        v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
         cos, sin = rope
         q = apply_rope(q, positions, cos, sin).contiguous()
         k = apply_rope(k, positions, cos, sin).contiguous()
@@ -145,7 +154,11 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
-        return self.down(F.silu(self.gate(x, dtype)) * self.up(x, dtype), dtype)
+        if "gateup" in self._modules:  # fused (models/fuse.py)
+            gate, up = self.gateup(x, dtype).chunk(2, dim=-1)
+        else:
+            gate, up = self.gate(x, dtype), self.up(x, dtype)
+        return self.down(F.silu(gate) * up, dtype)
 
 
 class DecoderBlock(nn.Module):

@@ -7,8 +7,11 @@ lands in the decoder's width.
 Methods map onto the inference engine's phases: ``encode_video`` (patches ->
 projected video embeddings), ``prefill`` (video embeddings + prompt tokens
 -> KV cache + each row's last logits), ``prefill_text`` (the same without
-video: validator, consolidation and rewrite passes) and ``decode_block_pick`` (a block of
-tokens against the cache, logits at one position per row). ``forward`` is
+video: validator, consolidation and rewrite passes), ``decode_step`` (one
+token a row against the cache: a speculative draft's step),
+``decode_block`` (a block of tokens, logits at every position: the
+speculative verify) and ``decode_block_pick`` (a block of tokens against the
+cache, logits at one position per row). ``forward`` is
 the teacher-forced training forward (video + text -> logits).
 """
 
@@ -91,6 +94,16 @@ class VideoLM(nn.Module):
         each row's valid positions (continuation prefixes are ragged)."""
         logits, cache = self.decoder(prompt_tokens, cache=cache, dtype=self.compute_dtype, prefill=True)
         return self._ragged_last(logits, cache, lengths, 0)
+
+    def decode_step(self, tokens, cache: Cache):
+        """One decode step: tokens [B, 1] -> (logits [B, V], cache)."""
+        logits, cache = self.decoder(tokens, cache=cache, dtype=self.compute_dtype)
+        return logits[:, -1, :], cache
+
+    def decode_block(self, tokens, cache: Cache):
+        """[B, W] tokens against the cache -> (logits [B, W, V], cache): the
+        head at every block position."""
+        return self.decoder(tokens, cache=cache, dtype=self.compute_dtype)
 
     def decode_block_pick(self, tokens, cache: Cache, pick):
         """[B, W] tokens -> (logits [B, V] at column ``pick`` [B], cache)."""

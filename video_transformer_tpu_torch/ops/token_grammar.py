@@ -5,7 +5,11 @@ Per state, a bitset ``allowed_bits[S, ceil(V/32)]`` answers
 which tokens keep the automaton alive (one row gather and a bit test); the
 successor of the one sampled token per row is a walk of its byte columns
 through the byte table; forced literal runs re-tokenize by the BPE codec so
-the engine's fast-forward blocks work unchanged.
+the engine's fast-forward blocks work unchanged. Where ``S x V`` fits
+``TOKEN_TABLE_MAX``, ``device_table`` also holds the walk's result for every
+(state, token) pair, ``next_token`` [S, V], built on the table's device:
+``advance`` is then one gather instead of up to 16 byte steps, with the same
+values; above that size (the large grammars at a 152k vocabulary) it walks.
 
 The bitset is a host precompute (seconds at a 2,048 vocab), cached on disk
 under ``build/grammar_cache/`` at the repo root, keyed by a hash of the byte
@@ -25,7 +29,39 @@ import torch
 
 from .constrained import NEG_INF, JsonDfa
 
-__all__ = ["TokenGrammar"]
+__all__ = ["TokenGrammar", "TOKEN_TABLE_MAX", "token_transition_table"]
+
+# The largest token-level transition table (states x vocab entries, int32)
+# ``device_table`` builds: 256 MiB (the note grammar at the 2,048 BPE vocab
+# takes 50 MiB; at Qwen2-VL's 152k vocab only the small grammars fit).
+TOKEN_TABLE_MAX = 1 << 26
+# States walked at once while the table is built (bounds the temporaries).
+_TABLE_CHUNK = 1 << 20
+
+
+def _walk(state: torch.Tensor, cols: torch.Tensor, lens: torch.Tensor, byte_table: torch.Tensor) -> torch.Tensor:
+    """States after walking each token's byte columns ``cols`` [..., L]
+    (``lens`` valid) from ``state``; a state below 0, or a byte it refuses,
+    ends the walk there."""
+    s = state
+    for i in range(cols.shape[-1]):
+        col = cols[..., i]
+        nxt = byte_table[s.clamp(min=0), col.clamp(min=0)]
+        take = (i < lens) & (s >= 0) & (col >= 0)
+        s = torch.where(take, nxt, s)
+    return s
+
+
+def token_transition_table(tables: dict[str, torch.Tensor]) -> torch.Tensor:
+    """``advance``'s byte walk for every (state, token) pair: int32 [S, V]."""
+    byte_table, cols, lens = tables["byte_table"], tables["token_cols"], tables["token_len"]
+    num_states, vocab = byte_table.shape[0], cols.shape[0]
+    out = torch.empty((num_states, vocab), dtype=torch.int32, device=byte_table.device)
+    step = max(1, _TABLE_CHUNK // vocab)
+    for lo in range(0, num_states, step):
+        states = torch.arange(lo, min(lo + step, num_states), device=byte_table.device)[:, None]
+        out[lo:lo + step] = _walk(states.expand(-1, vocab), cols[None], lens[None], byte_table)
+    return out
 
 
 class TokenGrammar:
@@ -113,13 +149,17 @@ class TokenGrammar:
         return self.dfa.num_states
 
     def device_table(self, device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
-        """The grammar's tables on ``device`` (bits widened to int64)."""
-        return {
+        """The grammar's tables on ``device`` (bits widened to int64), with
+        ``next_token`` where it fits (module docstring)."""
+        tables = {
             "bits": torch.from_numpy(self.allowed_bits.astype(np.int64)).to(device),
             "byte_table": torch.from_numpy(self.dfa.next_state).to(device=device, dtype=torch.long),
             "token_cols": torch.from_numpy(self.token_cols).to(device=device, dtype=torch.long),
             "token_len": torch.from_numpy(self.token_len).to(device=device, dtype=torch.long),
         }
+        if self.num_states * self.token_cols.shape[0] <= TOKEN_TABLE_MAX:
+            tables["next_token"] = token_transition_table(tables)
+        return tables
 
     @staticmethod
     def constrain(logits: torch.Tensor, state: torch.Tensor, tables) -> torch.Tensor:
@@ -132,17 +172,12 @@ class TokenGrammar:
 
     @staticmethod
     def advance(state: torch.Tensor, token: torch.Tensor, tables) -> torch.Tensor:
-        """Successor state after emitting ``token``: walk its byte columns."""
-        cols = tables["token_cols"][token]  # [B, L]
-        lens = tables["token_len"][token]  # [B]
-        byte_table = tables["byte_table"]
-        s = state
-        for i in range(cols.shape[1]):
-            col = cols[:, i]
-            nxt = byte_table[s.clamp(min=0), col.clamp(min=0)]
-            take = (i < lens) & (s >= 0) & (col >= 0)
-            s = torch.where(take, nxt, s)
-        return s
+        """Successor state after emitting ``token``: walk its byte columns
+        (one gather of ``next_token`` where the tables hold it)."""
+        table = tables.get("next_token")
+        if table is not None:
+            return torch.where(state >= 0, table[state.clamp(min=0), token].long(), state)
+        return _walk(state, tables["token_cols"][token], tables["token_len"][token], tables["byte_table"])
 
     def forced_tables(self, max_run: int = 24) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Token-level forced runs: greedy re-tokenization of the byte runs."""

@@ -24,8 +24,23 @@ A bf16 KV cache decodes through K5 (each step's cache write and attention
 in one kernel), an int8 one through K2 then K3. ``quantize="int4"`` stores
 the decoder's dense kernels as packed int4, which each decode step
 multiplies through K6 (``ops/int4_matmul.py``); prefill's larger row counts
-take the unpacked route. ``preprocess`` is the batcher's staging entry
-(``serving.py``).
+take the unpacked route. ``fuse_projections=True`` serves each block's
+q/k/v and gate/up as one product each (``models/fuse.py``), the draft's
+too. ``preprocess`` is the batcher's staging entry (``serving.py``).
+
+Speculative decoding: ``attach_draft`` adds a small draft model of the same
+vocabulary (``detach_draft``, ``restore_draft``). Each cycle of the
+speculative loop takes its first token from the target's carried processed
+log-distribution, lets the draft propose the rest of a ``spec_tokens``-wide
+block one grammar-constrained ``decode_step`` at a time, verifies the block
+in one target ``decode_block`` and emits the longest accepted prefix
+(greedy: argmax equality, so the tokens are the plain loop's; above
+temperature 0: rejection sampling, with the residual ``norm(max(p - q,
+0))`` after a rejection); both cache indices are then rewound to
+``index_before + accepted``. Both caches are in the compute dtype whatever
+``kv_quant`` says (as in the JAX engine), so the verify and every draft
+step decode through K5. Sessions carry the draft's cache beside the
+target's.
 
 Each entry point opens the JAX engine's tracing span (``utils/tracing.py``):
 ``engine.preprocess`` (``frames=``), ``engine.generate`` and
@@ -34,9 +49,8 @@ Each entry point opens the JAX engine's tracing span (``utils/tracing.py``):
 each is also an NVTX range. A span closes after the host has read the
 call's results back from the device.
 
-Not ported: speculative decoding (no draft model), projection fusion and
-data parallelism (one device, so a batch pads only to ``batch_bucket``, and
-``data_parallel`` is 1).
+Not ported: data parallelism (one device, so a batch pads only to
+``batch_bucket``, and ``data_parallel`` is 1).
 """
 
 from __future__ import annotations
@@ -51,6 +65,7 @@ import numpy as np
 import torch
 
 from ..models.config import VLMConfig
+from ..models.fuse import fuse_projections as fuse_model
 from ..models.lm import init_kv_cache
 from ..models.port import load_qwen2vl_dir
 from ..models.quant import quantize_decoder
@@ -65,6 +80,11 @@ __all__ = ["InferenceEngine", "EngineStats", "EngineSession", "params_checkpoint
 
 def _round_up(x: int, multiple: int) -> int:
     return ((x + multiple - 1) // multiple) * multiple
+
+
+def _is_hf_dir(path: Path) -> bool:
+    """An HF checkpoint directory: safetensors shards and/or their index."""
+    return path.is_dir() and (any(path.glob("*.safetensors")) or (path / "model.safetensors.index.json").exists())
 
 
 def params_checkpoints(parent: str | Path) -> list[Path]:
@@ -129,8 +149,11 @@ class EngineStats:
 @dataclass
 class EngineSession:
     """The decode carry kept on the device between continuation rounds:
-    the KV cache, each row's next-token logits and grammar state, and the
-    rows that have ended (completed, or batch padding)."""
+    the KV cache, each row's next-token logits (with a draft attached, the
+    processed next-token log-distribution: a rejection's residual has no
+    raw-logits form) and grammar state, the rows that have ended
+    (completed, or batch padding), and the draft's KV cache (speculative
+    engines only)."""
 
     cache: dict
     logits: torch.Tensor
@@ -139,6 +162,7 @@ class EngineSession:
     b_real: int
     dfa: Any
     rounds_left: int
+    draft_cache: dict | None = None
 
 
 class InferenceEngine:
@@ -158,14 +182,17 @@ class InferenceEngine:
         param_dtype: str | None = None,
         quantize: str | None = None,
         kv_quant: str | None = None,
+        fuse_projections: bool = False,
         device: str | torch.device = "cuda",
     ):
         """``params`` is a VideoLM (``weights.from_jax_params`` or
         ``weights.random_params``); None makes seeded random weights on
         ``device`` (``restore`` then loads trained ones). ``param_dtype``
         casts the float weights, ``quantize`` ("int8" or "int4") then
-        quantizes the decoder's dense layers, and ``kv_quant="int8"`` stores
-        the KV cache in int8."""
+        quantizes the decoder's dense layers, ``fuse_projections`` then
+        fuses each block's q/k/v and gate/up (``models/fuse.py``), and
+        ``kv_quant="int8"`` stores the KV cache in int8 (not while a draft
+        is attached)."""
         if quantize not in (None, "int8", "int4"):
             raise ValueError(f"unsupported quantize mode: {quantize!r}")
         if kv_quant not in (None, "int8"):
@@ -183,6 +210,7 @@ class InferenceEngine:
         self.max_forced_run = int(max_forced_run)
         self.kv_quant = kv_quant
         self.quantize = quantize
+        self.fuse_projections = bool(fuse_projections)
         self.param_dtype = getattr(torch, param_dtype) if param_dtype else None
         self.tokenizer = tokenizer or ByteTokenizer(config.decoder.vocab_size)
         self.stats = EngineStats()
@@ -192,15 +220,114 @@ class InferenceEngine:
         self.model = self._place(params)
         self._tables: dict[int, Any] = {}
         self._forced: dict[int, tuple[torch.Tensor, ...]] = {}
+        # Speculative decoding (attach_draft): None serves the plain loop.
+        self.draft_model: VideoLM | None = None
+        self.draft_config: VLMConfig | None = None
+        self.spec_tokens = 0
 
     def _place(self, model: VideoLM) -> VideoLM:
         """The serving transform, in the JAX engine's order: the
-        ``param_dtype`` cast, then quantization, then the device."""
+        ``param_dtype`` cast, then quantization, then the projection fusion
+        (a new module; the caller's keeps its layout), then the device."""
         if self.param_dtype is not None:
             cast_weights(model, self.param_dtype)
         if self.quantize:
             quantize_decoder(model, self.quantize)
+        if self.fuse_projections:
+            model = fuse_model(model)
         return model.to(self.device).eval()
+
+    # -- speculative decoding ------------------------------------------------------
+
+    def attach_draft(
+        self,
+        config: VLMConfig,
+        params: VideoLM | None = None,
+        checkpoint: str | Path | None = None,
+        spec_tokens: int = 6,
+        share_target_params: bool = False,
+    ) -> None:
+        """Decode speculatively with a small draft model of the target's
+        vocabulary: each cycle the draft proposes a ``spec_tokens``-wide
+        block and one wide target forward verifies it (greedy output stays
+        the plain loop's; sampling keeps the target's distribution).
+
+        ``params`` is a float VideoLM of ``config``, ``checkpoint`` what
+        ``restore_draft`` takes; with neither, seeded random weights (every
+        misprediction is rejected, so the output is still the target's).
+        ``share_target_params=True`` drafts with the target's own served
+        model (the same geometry; no second copy). Sessions made before the
+        attach cannot be continued after it.
+        """
+        if config.decoder.vocab_size != self.config.decoder.vocab_size:
+            raise ValueError(
+                f"draft vocab {config.decoder.vocab_size} != target vocab {self.config.decoder.vocab_size}"
+            )
+        if not 2 <= int(spec_tokens) <= 16:
+            raise ValueError(f"spec_tokens must be in [2, 16], got {spec_tokens}")
+        if share_target_params:
+            if params is not None or checkpoint is not None:
+                raise ValueError("share_target_params excludes params/checkpoint")
+            if config.decoder != self.config.decoder or config.encoder != self.config.encoder:
+                raise ValueError("share_target_params needs the target's exact geometry")
+        if self.kv_quant:
+            logging.getLogger("video_transformer").info(
+                f"event=draft_kv_quant_unused kv_quant={self.kv_quant}: speculative caches are in the compute dtype"
+            )
+        self.draft_config = config
+        self.spec_tokens = int(spec_tokens)
+        if share_target_params:
+            self.draft_model = self.model
+            return
+        if params is None:
+            generator = torch.Generator(device=self.device).manual_seed(1)
+            params = random_params(config, generator, self.device)
+        self.draft_model = self._place_draft(params)
+        if checkpoint is not None:
+            self.restore_draft(checkpoint)
+
+    def detach_draft(self) -> None:
+        """Return to the plain decode loop; sessions of the speculative era
+        cannot be continued after it."""
+        self.draft_model = None
+        self.draft_config = None
+        self.spec_tokens = 0
+
+    def _place_draft(self, model: VideoLM) -> VideoLM:
+        """The draft's serving transform: the ``param_dtype`` cast (bf16 or
+        f32) and the projection fusion when the engine fuses; never
+        quantized (the draft is small enough that unpacking would cost
+        more than the bytes it saves)."""
+        if self.param_dtype is not None:
+            cast_weights(model, self.param_dtype)
+        if self.fuse_projections:
+            model = fuse_model(model)
+        return model.to(self.device).eval()
+
+    def restore_draft(self, checkpoint_path: str | Path) -> None:
+        """Load the draft's trained weights from what ``restore`` takes (a
+        converted ``.npz``, a ``params_N/params.pt`` or a parent of such
+        directories), then re-apply ``_place_draft``. An HF safetensors
+        directory is refused: the draft has no HF counterpart."""
+        if self.draft_model is None:
+            raise ValueError("attach_draft before restore_draft")
+        path = Path(checkpoint_path)
+        if _is_hf_dir(path):
+            raise ValueError(
+                f"{path} looks like an HF safetensors checkpoint; the draft loads converted .npz or "
+                "params_N checkpoints only"
+            )
+        self.draft_model = self._place_draft(self._read_checkpoint(path, self.draft_config))
+
+    def _draft_patches(self, frames: np.ndarray) -> torch.Tensor:
+        """The draft's own view of the clips: resampled in time to its frame
+        count, preprocessed at its encoder's geometry and compute dtype."""
+        want = self.draft_config.encoder.num_frames
+        have = frames.shape[1]
+        if have != want:
+            frames = frames[:, np.round(np.linspace(0, have - 1, want)).astype(int)]
+        frames_t = torch.as_tensor(np.ascontiguousarray(frames)).to(self.device)
+        return preprocess_frames(frames_t, self.draft_config.encoder, self.draft_model.compute_dtype)
 
     def restore(self, checkpoint_path: str | Path) -> None:
         """Load trained weights, then re-apply the serving transform.
@@ -217,25 +344,30 @@ class InferenceEngine:
         does not fit the preset; there is no fallback to random weights.
         """
         path = Path(checkpoint_path)
-        if path.is_dir() and (any(path.glob("*.safetensors")) or (path / "model.safetensors.index.json").exists()):
+        if _is_hf_dir(path):
             self._restore_hf(path)
             return
+        self.model = self._place(self._read_checkpoint(path, self.config))
+
+    @staticmethod
+    def _read_checkpoint(path: Path, config: VLMConfig) -> VideoLM:
+        """The f32 model of ``config`` in a converted ``.npz``, a
+        ``params_N/params.pt`` or a parent of such directories, on the CPU."""
         if path.suffix == ".npz":
             if not path.is_file():
                 raise FileNotFoundError(f"no converted checkpoint at {path}")
             variables = load_npz(path)
             if "quant" in variables:
                 raise ValueError(f"{path} holds quantized leaves; restore takes the trained float tree")
-            model = from_jax_params(variables, self.config, device="cpu")
+            model = from_jax_params(variables, config, device="cpu")
         else:
             path = resolve_params_dir(path)
             file = path / "params.pt"
             if not file.is_file():
                 raise FileNotFoundError(f"no params.pt in {path}")
             state = torch.load(file, map_location="cpu", weights_only=True)
-            model = from_state_dict(state, self.config, device="cpu")
-        cast_weights(model, torch.float32)
-        self.model = self._place(model)
+            model = from_state_dict(state, config, device="cpu")
+        return cast_weights(model, torch.float32)
 
     def _restore_hf(self, path: Path) -> None:
         """Load an HF safetensors checkpoint directory into the served model.
@@ -313,6 +445,10 @@ class InferenceEngine:
     # -- inputs ------------------------------------------------------------------
 
     def _block_width(self, dfa) -> int:
+        """Tokens one decode iteration may append: the draft block with a
+        draft attached, else the grammar's fast-forward block."""
+        if self.draft_model is not None:
+            return self.spec_tokens
         return (1 + self.max_forced_run) if dfa is not None else 1
 
     def _prompt_bucket(self, prompts: list[str], with_video: bool) -> int:
@@ -321,7 +457,7 @@ class InferenceEngine:
         longest = max((len(self.tokenizer.encode(p)) + 1 for p in prompts), default=1)
         bucket = _round_up(longest, 128)
         video_tokens = self.config.video_tokens if with_video else 0
-        bw_max = 1 + self.max_forced_run
+        bw_max = max(1 + self.max_forced_run, self.spec_tokens)
         fit = (self.config.decoder.max_seq_len // 128) * 128
         ceiling = fit - video_tokens - self.max_new_tokens - 2 * bw_max - 17
         return min(bucket, max((ceiling // 128) * 128, 128))
@@ -391,12 +527,10 @@ class InferenceEngine:
         total = prompt_len + prefix_bucket
         if prefix_bucket:
             # The cache bound of a generation with no session reserve, raised
-            # here so that callers can stop continuing. No draft model: the
-            # JAX engine's speculative block width counts as 0.
-            spec_tokens = 0
+            # here so that callers can stop continuing.
             video_tokens = self.config.video_tokens if with_video else 0
             cache_len = _round_up(
-                video_tokens + total + self.max_new_tokens + 2 * max(self.max_forced_run + 1, spec_tokens) + 17,
+                video_tokens + total + self.max_new_tokens + 2 * max(self.max_forced_run + 1, self.spec_tokens) + 17,
                 128,
             )
             if cache_len > self.config.decoder.max_seq_len:
@@ -428,19 +562,23 @@ class InferenceEngine:
         budget = cap - video_tokens - prompt_width - block_width - 17
         return max(0, min(requested, budget // per_round - 1))
 
-    def _cache_len(self, prompt_width: int, with_video: bool, dfa, extra_rounds: int) -> int:
-        """KV positions for a generation and ``extra_rounds`` session rounds,
-        with the tail slack past the last live position that K5's aligned
-        row write may touch, as in the JAX engine."""
+    def _cache_len(self, prompt_width: int, with_video: bool, dfa, extra_rounds: int,
+                   config: VLMConfig | None = None) -> int:
+        """KV positions of ``config``'s cache (the target's by default; the
+        draft's has its own video-token count) for a generation and
+        ``extra_rounds`` session rounds, with the tail slack past the last
+        live position that K5's aligned row write may touch, as in the JAX
+        engine."""
+        config = config or self.config
         block_width = self._block_width(dfa)
-        video_tokens = self.config.video_tokens if with_video else 0
+        video_tokens = config.video_tokens if with_video else 0
         cache_len = _round_up(
             video_tokens + prompt_width + (1 + extra_rounds) * (self.max_new_tokens + block_width)
             + 1 + block_width + 16,
             128,
         )
-        if cache_len > self.config.decoder.max_seq_len:
-            raise ValueError(f"sequence {cache_len} exceeds max_seq_len {self.config.decoder.max_seq_len}")
+        if cache_len > config.decoder.max_seq_len:
+            raise ValueError(f"sequence {cache_len} exceeds max_seq_len {config.decoder.max_seq_len} ({config.name})")
         return cache_len
 
     @property
@@ -559,11 +697,21 @@ class InferenceEngine:
         """
         if session.rounds_left <= 0:
             raise ValueError("session cache exhausted; no continuation rounds left")
+        if (session.draft_cache is None) != (self.draft_model is None):
+            # The carry follows the engine's draft state at the session's
+            # start: a session of the other era cannot resume.
+            raise ValueError("session predates an attach_draft/detach_draft switch; restart its generation")
         start = time.perf_counter()
         with tracer.span("engine.continue_session", nvtx=self._nvtx, batch=session.b_real):
-            tokens, out_pos, complete, steps, session.logits, session.cache, session.state, session.done = (
-                self._decode(session.logits, session.cache, session.state, session.done, session.dfa)
-            )
+            if session.draft_cache is not None:
+                (tokens, out_pos, complete, steps, session.logits, session.cache, session.draft_cache,
+                 session.state, session.done) = self._spec_decode(
+                    session.logits, session.cache, session.draft_cache, session.state, session.done, session.dfa
+                )
+            else:
+                tokens, out_pos, complete, steps, session.logits, session.cache, session.state, session.done = (
+                    self._decode(session.logits, session.cache, session.state, session.done, session.dfa)
+                )
             tokens, out_pos, complete = tokens.cpu().numpy(), out_pos.cpu().numpy(), complete.cpu().numpy()
         session.rounds_left -= 1
         b_real = session.b_real
@@ -590,10 +738,13 @@ class InferenceEngine:
         dev = self.device
         cache_len = self._cache_len(prompt_width, with_video, dfa, rounds)
 
+        spec = self.draft_model is not None
         start = time.perf_counter()
+        # Speculative caches are in the compute dtype whatever kv_quant says,
+        # as the JAX engine's speculative program makes them.
         cache = init_kv_cache(
             self.config.decoder, b, cache_len, self.model.compute_dtype,
-            quant=self.kv_quant == "int8", device=dev,
+            quant=self.kv_quant == "int8" and not spec, device=dev,
         )
         if b != b_real:
             # Batch padding takes no part in the int8 KV scales: the JAX
@@ -606,6 +757,17 @@ class InferenceEngine:
             logits, cache = self.model.prefill(self.preprocess(frames), tokens_t, cache, lengths_t)
         else:
             logits, cache = self.model.prefill_text(tokens_t, cache, lengths_t)
+        draft_cache = None
+        if spec:
+            # The draft prefills the same prompt block, with its own view of the clips.
+            draft_cache = init_kv_cache(
+                self.draft_config.decoder, b, self._cache_len(prompt_width, with_video, dfa, rounds, self.draft_config),
+                self.draft_model.compute_dtype, device=dev,
+            )
+            if with_video:
+                _, draft_cache = self.draft_model.prefill(self._draft_patches(frames), tokens_t, draft_cache, lengths_t)
+            else:
+                _, draft_cache = self.draft_model.prefill_text(tokens_t, draft_cache, lengths_t)
         self._sync()
         prefill_seconds = time.perf_counter() - start
         state = torch.from_numpy(states).to(dev)
@@ -613,7 +775,16 @@ class InferenceEngine:
         done = torch.arange(b, device=dev) >= b_real
         if dfa is not None:
             done = done | (state == dfa.accept)
-        tokens, out_pos, complete, steps, logits, cache, state, done = self._decode(logits, cache, state, done, dfa)
+        if spec:
+            table = self._table_for(dfa) if dfa is not None else None
+            logits = self._process(logits, state, dfa, table, self.close_bias_array())
+            tokens, out_pos, complete, steps, logits, cache, draft_cache, state, done = self._spec_decode(
+                logits, cache, draft_cache, state, done, dfa
+            )
+        else:
+            tokens, out_pos, complete, steps, logits, cache, state, done = self._decode(
+                logits, cache, state, done, dfa
+            )
         tokens, out_pos, complete = tokens.cpu().numpy(), out_pos.cpu().numpy(), complete.cpu().numpy()
 
         self.stats.generate_calls += 1
@@ -636,7 +807,7 @@ class InferenceEngine:
             if rounds:
                 session = EngineSession(
                     cache=cache, logits=logits, state=state, done=done,
-                    b_real=b_real, dfa=dfa, rounds_left=rounds,
+                    b_real=b_real, dfa=dfa, rounds_left=rounds, draft_cache=draft_cache,
                 )
             out += (session,)
         return out if len(out) > 1 else texts
@@ -708,3 +879,141 @@ class InferenceEngine:
             step += 1
         complete = (state == dfa.accept) if dfa is not None else finished
         return tokens, out_pos, complete, step, logits, cache, state, finished
+
+    # -- the speculative loop -------------------------------------------------------
+
+    def _process(self, logits, state, dfa, table, close_bias) -> torch.Tensor:
+        """Raw logits [B, V] -> the processed log-distribution a speculative
+        cycle samples from: grammar mask, closer bias and temperature, then
+        log_softmax (f32)."""
+        if table is not None:
+            logits = dfa.constrain(logits, state, table)
+        if close_bias is not None:
+            logits = logits + close_bias
+        scale = self.temperature if self.temperature > 0 else 1.0
+        return torch.log_softmax(logits.float() / scale, dim=-1)
+
+    def _pick(self, logp, frozen) -> torch.Tensor:
+        """argmax (greedy) or a draw from ``logp``; EOS for frozen rows."""
+        if self.temperature > 0:
+            tok = torch.multinomial(logp.exp(), 1, generator=self._generator)[:, 0]
+        else:
+            tok = logp.argmax(dim=-1)
+        return torch.where(frozen, torch.full_like(tok, self.tokenizer.EOS), tok)
+
+    def _spec_cycle(self, logp, cache, draft_cache, state, finished, frozen, dfa, table, close_bias):
+        """One draft/verify cycle over every row (the JAX engine's
+        ``_spec_decode_loop_fn`` body; the batcher's paged step too).
+
+        t0 is drawn from the carried processed distribution ``logp``, so a
+        live row emits at least one token; the draft then feeds t0 and its
+        own proposals through ``spec_tokens`` grammar-constrained
+        ``decode_step``s (the last keeps its cache covering every verified
+        position), and one target ``decode_block`` scores the whole block.
+        A proposal is accepted on argmax equality (greedy) or where
+        ``log u < log p - log q``; the longest accepted prefix is emitted,
+        and an emitted EOS ends its row without counting. The next
+        distribution is the target's after that prefix, or after a rejection
+        the residual ``norm(max(p - q, 0))``. Both cache indices are
+        rewound to ``index_before + adv`` (the caches are updated in place).
+        Returns (block [B, K], adv [B], logp, state, finished).
+        """
+        k = self.spec_tokens
+        eos = self.tokenizer.EOS
+        greedy = self.temperature <= 0
+        live = ~frozen
+        b = logp.shape[0]
+        rows = torch.arange(b, device=logp.device)
+
+        def advance(s, tok):
+            return torch.where(live, dfa.advance(s, tok, table), s) if table is not None else s
+
+        t0 = self._pick(logp, frozen)
+        draft_index = draft_cache["index"]
+        prev, s = t0, advance(state, t0)
+        proposals, draft_logps, states = [], [], []
+        for _ in range(k):
+            draft_logits, draft_cache = self.draft_model.decode_step(prev[:, None], draft_cache)
+            lq = self._process(draft_logits, s, dfa, table, close_bias)
+            prev = self._pick(lq, frozen)
+            proposals.append(prev)
+            draft_logps.append(lq)
+            states.append(s)  # the state after block token i, which constrained proposal i + 1
+            s = advance(s, prev)
+        block = torch.stack([t0] + proposals[: k - 1], dim=1)
+
+        index_before = cache["index"]
+        all_logits, cache = self.model.decode_block(block, cache)  # [B, K, V]
+        # The target's processed distribution at every block position, each
+        # under the state its draft proposal was constrained at.
+        states_t = torch.stack(states, dim=1)  # [B, K]: the state after block token i
+        p_all = self._process(all_logits.reshape(b * k, -1), states_t.reshape(-1), dfa, table,
+                              close_bias).reshape(b, k, -1)
+        proposed = block[:, 1:]
+        if greedy:
+            accepted = proposed == p_all[:, :-1].argmax(dim=-1)  # [B, K - 1]
+        else:
+            q_all = torch.stack(draft_logps, dim=1)
+            log_u = torch.log(torch.rand((b, k), generator=self._generator, device=logp.device))
+            lp = p_all[:, :-1].gather(2, proposed[..., None])[..., 0]
+            lq = q_all[:, :-1].gather(2, proposed[..., None])[..., 0]
+            accepted = log_u[:, 1:] < lp - lq
+
+        # The longest accepted prefix: token i is emitted while every
+        # proposal before it was accepted and no emitted token ended the row
+        # (EOS, or the grammar's accept); an emitted EOS does not count.
+        is_eos = block == eos
+        ended = is_eos | (states_t == dfa.accept) if table is not None else is_eos
+        go_on = torch.cat([live[:, None], accepted & ~ended[:, :-1]], dim=1)
+        emit = torch.cumprod(go_on.to(torch.int32), dim=1).bool()  # [B, K]
+        adv = (emit & ~is_eos).sum(dim=1).to(index_before.dtype)
+        last = (emit.sum(dim=1) - 1).clamp(min=0)
+        new_state = torch.where(emit[:, 0], states_t[rows, last], state)
+        new_finished = finished | (emit & ended).any(dim=1)
+
+        # The next distribution: the target's after the emitted prefix, or
+        # after a rejection the residual norm(max(p - q, 0)).
+        next_idx = (adv.long() - 1).clamp(min=0)
+        p_next = p_all[rows, next_idx]
+        if greedy:
+            new_logp = p_next
+        else:
+            q_next = q_all[rows, next_idx]
+            resid = (p_next.exp() - q_next.exp()).clamp(min=0.0)
+            total = resid.sum(dim=-1, keepdim=True)
+            resid = torch.where(total > 0, resid / total.clamp(min=1e-30), p_next.exp())
+            new_logp = torch.where((adv < k)[:, None], torch.log(resid + 1e-30), p_next)
+        logp = torch.where(frozen[:, None], logp, new_logp)
+        cache["index"] = (index_before + adv).to(torch.int32)
+        draft_cache["index"] = (draft_index + adv).to(torch.int32)
+        return block, adv.long(), logp, new_state, new_finished
+
+    def _spec_decode(self, logp, cache, draft_cache, state, finished, dfa):
+        """The speculative decode loop: up to max_new_tokens per row, one
+        ``_spec_cycle`` an iteration, with ``_decode``'s carry and freezing
+        rules (``logp`` is the processed distribution). Returns (tokens,
+        out_pos, complete, cycles, logp, cache, draft_cache, state,
+        finished)."""
+        max_new = self.max_new_tokens
+        dev = self.device
+        b = logp.shape[0]
+        table = self._table_for(dfa) if dfa is not None else None
+        close_bias = self.close_bias_array()
+        k = self.spec_tokens
+        # Frozen rows still write an EOS block at out_pos each cycle.
+        tokens = torch.full((b, max_new + 2 * k), self.tokenizer.EOS, dtype=torch.long, device=dev)
+        out_pos = torch.zeros((b,), dtype=torch.long, device=dev)
+        cols = torch.arange(k, device=dev)[None, :]
+        step = 0
+        while step < max_new:
+            frozen = finished | (out_pos >= max_new)
+            if bool(frozen.all()):  # the one host sync a cycle
+                break
+            block, adv, logp, state, finished = self._spec_cycle(
+                logp, cache, draft_cache, state, finished, frozen, dfa, table, close_bias
+            )
+            tokens.scatter_(1, out_pos[:, None] + cols, block)
+            out_pos = out_pos + adv
+            step += 1
+        complete = (state == dfa.accept) if dfa is not None else finished
+        return tokens, out_pos, complete, step, logp, cache, draft_cache, state, finished

@@ -32,9 +32,18 @@ The pool is in the compute dtype, so on the card each decode step writes
 and attends through K5 (``decode_attention_update`` on a bf16 cache). One
 device: no mesh, no sharding, no data-axis grouping, so a stage's width is
 its request count and no stage has pad lanes (the JAX batcher pads a stage
-only to divide its data axis). Not ported:
-speculative decoding in the batcher (the port's engine has no draft model, so
-``spec`` is always False).
+only to divide its data axis).
+
+Speculative decoding composes (device refill only, as in JAX): with a draft
+attached to the engine (``attach_draft``), each step of the chunk loop is
+the engine's draft/verify cycle (``InferenceEngine._spec_cycle``) over the
+paged pools. The draft has its own bf16 pool of ``draft_cache_len``
+positions, addressed through the same ``rows`` table, with its own per-slot
+index (its encoder emits its own video-token count); a stage prefills both
+models into their scratch caches and K4 adopts both into the pools, and the
+ring parks the processed start-state log-distribution, the carry of the
+speculative step. Greedy acceptance is exact, so the tokens are the plain
+batcher's.
 """
 
 from __future__ import annotations
@@ -113,26 +122,44 @@ class ContinuousBatcher:
     def __post_init__(self):
         engine = self.engine
         cfg = engine.config
-        self.spec = False  # no draft model in the port's engine (the analyzer reads this flag)
+        # Speculative decoding rides along when the engine has a draft attached.
+        self.spec = engine.draft_model is not None
+        self.spec_k = engine.spec_tokens if self.spec else 0
+        if self.spec and not self.device_refill:
+            raise ValueError(
+                "speculative decoding requires device_refill=True (the host-driven loop is the plain-path "
+                "parity oracle); detach_draft or use the default mode"
+            )
         self.max_new = self.max_new_tokens or engine.max_new_tokens
         self.dfa = engine.dfa
         self.table = engine._table_for(self.dfa) if self.dfa is not None else None
         self._forced = engine._forced_for(self.dfa) if self.dfa is not None else None
-        self.block_width = engine._block_width(self.dfa)
+        self.block_width = 1 + engine.max_forced_run if self.dfa is not None else 1
+        # The widest append of one step: the fast-forward block, or the draft block.
+        self.step_width = max(self.block_width, self.spec_k) if self.spec else self.block_width
         # Tail slack past the last live position: frozen rows still write a
         # block at their index, as in the JAX batcher.
         self.cache_len = _round_up(
-            cfg.video_tokens + self.prompt_len + self.max_new + 2 * self.block_width + 17, 128
+            cfg.video_tokens + self.prompt_len + self.max_new + 2 * self.step_width + 17, 128
         )
         if self.cache_len > cfg.decoder.max_seq_len:
             raise ValueError("slot cache exceeds max_seq_len")
-        self.out_width = self.max_new + 2 * self.block_width
+        self.out_width = self.max_new + 2 * self.step_width
         self.park_len = cfg.video_tokens + self.prompt_len
+        if self.spec:
+            dcfg = engine.draft_config
+            self.draft_cache_len = _round_up(
+                dcfg.video_tokens + self.prompt_len + self.max_new + 2 * self.step_width + 17, 128
+            )
+            if self.draft_cache_len > dcfg.decoder.max_seq_len:
+                raise ValueError("draft slot cache exceeds draft max_seq_len")
+            self.draft_park_len = dcfg.video_tokens + self.prompt_len
         self._slots = [_Slot() for _ in range(self.slots)]
         if self.queue_depth <= 0:
             self.queue_depth = 2 * self.slots
         self._close_bias = engine.close_bias_array()
-        self._cols = torch.arange(self.block_width, device=engine.device)[None, :]
+        # The columns one step writes: the fast-forward block, or the draft block.
+        self._cols = torch.arange(self.spec_k or self.block_width, device=engine.device)[None, :]
         self._init_device_state()
         if self.device_refill:
             self._init_ring_state()
@@ -162,12 +189,20 @@ class ContinuousBatcher:
         if self.device_refill:
             self.rows = torch.arange(self.slots, dtype=torch.int32, device=dev)
             self.cache["rows"] = self.rows
+        if self.spec:
+            # The draft's pool: the same physical rows, through the same table.
+            dcfg = engine.draft_config
+            dpool = init_kv_cache(dcfg.decoder, self.total_rows, self.draft_cache_len,
+                                  engine.draft_model.compute_dtype, device=dev)
+            self.dcache = {"k": dpool["k"], "v": dpool["v"], "rows": self.rows,
+                           "index": torch.zeros((self.slots,), dtype=torch.int32, device=dev)}
         eos = engine.tokenizer.EOS
         self.state = torch.full((self.slots,), self.dfa.start if self.dfa else 0, dtype=torch.long, device=dev)
         self.logits = torch.zeros((self.slots, cfg.decoder.vocab_size), dtype=torch.float32, device=dev)
         self.tokens_out = torch.full((self.slots, self.out_width), eos, dtype=torch.long, device=dev)
         self.out_pos = torch.zeros((self.slots,), dtype=torch.long, device=dev)
-        # Empty slots sit "done" so the decode freezes them.
+        # Empty slots sit "done" so the decode freezes them. With a draft,
+        # ``logits`` holds the processed log-distribution (the spec carry).
         self.done = torch.ones((self.slots,), dtype=torch.bool, device=dev)
 
     def _init_ring_state(self):
@@ -185,6 +220,7 @@ class ContinuousBatcher:
         dev = engine.device
         depth = self.queue_depth
         self._q_index = torch.zeros((depth,), dtype=torch.int32, device=dev)
+        self._q_dindex = torch.zeros((depth,), dtype=torch.int32, device=dev)  # the draft's (speculative only)
         self._q_logits = torch.zeros((depth, engine.config.decoder.vocab_size), dtype=torch.float32, device=dev)
         self._q_req = torch.full((depth,), -1, dtype=torch.long, device=dev)
         self._q_phys = torch.zeros((depth,), dtype=torch.int32, device=dev)
@@ -205,6 +241,9 @@ class ContinuousBatcher:
     @torch.no_grad()
     def _step(self) -> None:
         """One grammar-constrained decode iteration over all slots."""
+        if self.spec:
+            self._spec_step()
+            return
         engine = self.engine
         dfa = self.dfa
         eos = engine.tokenizer.EOS
@@ -246,6 +285,19 @@ class ContinuousBatcher:
         picked, cache = engine.model.decode_block_pick(block, cache, run)
         cache["index"] = (index_before + advance).to(torch.int32)
         self.logits = picked.float()
+
+    def _spec_step(self) -> None:
+        """One speculative cycle over all slots (the JAX batcher's
+        ``_make_spec_step``): the engine's draft/verify cycle over both
+        paged pools, then the batcher's output and freezing rules."""
+        frozen = self.done | (self.out_pos >= self.max_new)
+        block, adv, self.logits, self.state, done = self.engine._spec_cycle(
+            self.logits, self.cache, self.dcache, self.state, self.done, frozen, self.dfa, self.table,
+            self._close_bias,
+        )
+        self.tokens_out.scatter_(1, self.out_pos[:, None] + self._cols, block)
+        self.out_pos = self.out_pos + adv
+        self.done = done | (self.out_pos >= self.max_new)
 
     def _decode_chunk(self, n_steps: int) -> np.ndarray:
         """Host-driven chunk: up to ``n_steps`` steps, stopping once every
@@ -310,7 +362,8 @@ class ContinuousBatcher:
         engine = self.engine
         dev = engine.device
         requests = [heapq.heappop(self._queue)[2] for _ in range(take)]
-        patches = engine.preprocess(np.stack([r.frames for r in requests]))
+        frames = np.stack([r.frames for r in requests])
+        patches = engine.preprocess(frames)
         prompts = np.zeros((take, self.prompt_len), np.int32)
         buckets = np.zeros((take,), np.int32)
         reqs = np.zeros((take,), np.int64)
@@ -320,15 +373,28 @@ class ContinuousBatcher:
             buckets[i] = min(_round_up(n_tokens, 128), self.prompt_len)
             reqs[i] = request.request_id
         scratch = init_kv_cache(engine.config.decoder, take, self.park_len, engine.model.compute_dtype, device=dev)
-        first_logits, scratch = engine.model.prefill(
-            patches, torch.from_numpy(prompts).to(dev), scratch, torch.from_numpy(buckets).to(dev)
-        )
+        prompts_t, buckets_t = torch.from_numpy(prompts).to(dev), torch.from_numpy(buckets).to(dev)
+        first_logits, scratch = engine.model.prefill(patches, prompts_t, scratch, buckets_t)
         target_rows = torch.tensor(free[:take], dtype=torch.int32, device=dev)
         for pool_k, pool_v, filled_k, filled_v in zip(self.cache["k"], self.cache["v"], scratch["k"], scratch["v"]):
             adopt_rows(pool_k, filled_k, target_rows, take, self.park_len, pool_v, filled_v)
+        first_logits = first_logits.float()
+        if self.spec:
+            # The draft's prefill, parked in its own pool at the same rows;
+            # the ring keeps the processed start-state distribution.
+            draft = engine.draft_model
+            dscratch = init_kv_cache(engine.draft_config.decoder, take, self.draft_park_len, draft.compute_dtype,
+                                     device=dev)
+            _, dscratch = draft.prefill(engine._draft_patches(frames), prompts_t, dscratch, buckets_t)
+            for pool_k, pool_v, filled_k, filled_v in zip(self.dcache["k"], self.dcache["v"], dscratch["k"],
+                                                          dscratch["v"]):
+                adopt_rows(pool_k, filled_k, target_rows, take, self.draft_park_len, pool_v, filled_v)
+            self._q_dindex[:take] = dscratch["index"]
+            start = torch.full((take,), self.dfa.start if self.dfa else 0, dtype=torch.long, device=dev)
+            first_logits = engine._process(first_logits, start, self.dfa, self.table, self._close_bias)
         # Ring positions rebase to 0..take-1 (the ring is empty: see the assert).
         self._q_index[:take] = scratch["index"]
-        self._q_logits[:take] = first_logits.float()
+        self._q_logits[:take] = first_logits
         self._q_req[:take] = torch.from_numpy(reqs).to(dev)
         self._q_phys[:take] = target_rows
         self._q_head, self._q_tail = 0, take
@@ -351,6 +417,8 @@ class ContinuousBatcher:
         qi = self._q_head % self.queue_depth
         self.rows[slot] = self._q_phys[qi : qi + 1]
         self.cache["index"][slot] = self._q_index[qi : qi + 1]
+        if self.spec:
+            self.dcache["index"][slot] = self._q_dindex[qi : qi + 1]
         self.state[slot] = self.dfa.start if self.dfa else 0
         self.logits[slot] = self._q_logits[qi : qi + 1]
         self.tokens_out[slot] = eos
@@ -455,6 +523,11 @@ class ContinuousBatcher:
 
     def _fill_slots(self) -> None:
         """Host path: prefill queued requests into the empty slots."""
+        if self.spec:
+            raise RuntimeError(
+                "host-path slot prefill has no draft prefill; speculative batching stages requests through the "
+                "device ring (submit + run)"
+            )
         for i, slot in enumerate(self._slots):
             if slot.request_id is not None or not self._queue:
                 continue

@@ -11,8 +11,8 @@ same span schema:
   device is CUDA) it is also an NVTX range.
 - ``Tracer.summary()``: per-span aggregates for reports.
 - ``device_trace(dir)``: ``torch.profiler`` around a block (host activity,
-  and CUDA activity where CUDA is present), exported as a Chrome trace into
-  ``dir``.
+  and CUDA activity where CUDA is present: a warm-up step, then a padded
+  recording window), exported as a Chrome trace into ``dir``.
 
 A span measures host time. The engine's spans close after the host has
 read the work's results back from the device, so they cover that work.
@@ -91,15 +91,46 @@ def span(name: str, **fields: Any):
     return tracer.span(name, **fields)
 
 
+# Two defences of ``device_trace``'s records, each measured on an H100 with
+# the other taken out (``chip_smoke.py``'s ``tracing`` line, and
+# ``tools/trace_window_probe.py``). The profiler keeps only the device
+# records whose timestamps fall inside its recording window.
+# - Late in a long process, CUPTI stamps the first kernel records after it
+#   starts collecting far outside any window, in every other session; so a
+#   warm-up step of ``WARMUP_LAUNCHES`` small kernels, whose records are
+#   discarded, runs before the window opens.
+# - CUPTI places kernels up to milliseconds before their launches on the
+#   host's clock; so ``WINDOW_PAD_S`` passes inside the window on either side
+#   of the block.
+WARMUP_LAUNCHES = 256
+WINDOW_PAD_S = 0.02
+
+
 @contextlib.contextmanager
 def device_trace(log_dir: str | Path) -> Iterator[torch.profiler.profile]:
     """Profile a block with ``torch.profiler`` and export a Chrome trace
-    (``trace.json``) into ``log_dir``; yields the profiler."""
+    (``trace.json``) into ``log_dir``; yields the profiler. Where CUDA is
+    present the session first runs a warm-up step of ``WARMUP_LAUNCHES``
+    small kernels, and the device is idle and ``WINDOW_PAD_S`` has passed on
+    either side of the block inside the recording window."""
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1)
+    with torch.profiler.profile(activities=activities, schedule=schedule) as prof:
+        if cuda:
+            x = torch.zeros(1, device="cuda")
+            for _ in range(WARMUP_LAUNCHES):
+                x += 1
+            torch.cuda.synchronize()
+        prof.step()
+        if cuda:
+            time.sleep(WINDOW_PAD_S)
         yield prof
+        if cuda:
+            torch.cuda.synchronize()
+            time.sleep(WINDOW_PAD_S)
     prof.export_chrome_trace(str(out / "trace.json"))
