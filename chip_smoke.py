@@ -28,7 +28,7 @@ the tiny preset (serving logits, the same with a narrow int4 decoder whose
 every projection takes K6, then training gradients), then:
 
 - serves three requests through ``InferenceEngine.generate`` at the full
-  ``base`` width and 8 of its 24 decoder layers (``SERVING_LAYERS``; int8
+  ``base`` width and 4 of its 24 decoder layers (``SERVING_LAYERS``; int8
   weights, int8 KV cache, BPE vocabulary, the note grammar, greedy) with
   seeded random weights, shows that the requests went
   through K1-K3 (K2 exactly once a layer for each prefill call and each
@@ -43,14 +43,14 @@ every projection takes K6, then training gradients), then:
   first-token logits against ``engine.generate``'s and the first wave's
   tokens against ``engine.generate`` at the batcher's batch of 8, and
   profiles a short sweep;
-- trains five steps of ``python -m video_transformer_tpu_torch.train.run``'s
+- trains three steps of ``python -m video_transformer_tpu_torch.train.run``'s
   code path at the full ``base`` width (seeded random f32 weights, bf16
   compute, BPE vocabulary, batch 2, 1,024 video + 2,048 text positions),
   shows that every step ran 36 launches each of K7a, K7b and K7c and no
   reference backward, profiles one step, and saves and restores a
   checkpoint in a temporary directory;
 - serves one batch of two 16-frame clips through ``InferenceEngine.generate``
-  at the full ``7b`` width and 8 of its 28 decoder layers
+  at the full ``7b`` width and 4 of its 28 decoder layers
   (``INT4_SERVING_LAYERS``; seeded random weights, bf16, int4 weights, int8
   KV cache, the same vocabulary and grammar, greedy), after holding K1-K3
   at its shapes, shows
@@ -72,14 +72,14 @@ every projection takes K6, then training gradients), then:
   engine built from the same state in memory); then the 32-block tower,
   the 28-layer Qwen2 decoder with q/k/v biases and the untied 152,064-wide
   head (seeded random weights made on the card, int4 decoder weights, int8
-  KV cache) serve two 16-frame 224 px clips, 128 new tokens, greedy, under
+  KV cache) serve two 16-frame 224 px clips, 64 new tokens, greedy, under
   the validator grammar over the synthetic 152k vocabulary
   (``write_synth_qwen_vocab``, ``HfTokenizer``; the encode branch printed),
   with K1 32 times in the tower and 28 in the prefill, K2 28 times a
   prefill and a step, K3 28 and K6 196 a step, and no plain attention or
   cache write on a CUDA tensor;
 - decodes speculatively (``speculative``) on the serving path's int8
-  weights (base width, 8 layers, 256 new tokens, the note grammar, bf16
+  weights (base width, 4 layers, 128 new tokens, the note grammar, bf16
   caches) with the trained tiny checkpoint as the draft
   (``attach_draft(tiny, checkpoint=...npz, spec_tokens=6)``): greedy on two
   clips against the plain loop one token a step (``SPEC_PLAIN_FORCED_RUN``:
@@ -88,9 +88,10 @@ every projection takes K6, then training gradients), then:
   cycle, target forwards against the shipped plain loop's steps, ms a
   cycle and tok/s; a self-draft (``share_target_params``, 64 tokens: fewer
   than half as many target forwards as the one-token loop's steps);
-  temperature 0.7 (64 tokens; every row walks the grammar); a session of 4
-  reserve rounds resumed until it completes (equal to the call with the
-  same cache length by the same rule); the continuous batcher (8 slots,
+  temperature 0.7 (64 tokens; every row walks the grammar); a session whose
+  round and reserve come from one greedy call's longer document (so that a
+  continuation is needed) resumed until it completes (equal to the call with
+  the same cache length by the same rule); the continuous batcher (8 slots,
   twelve requests of 64 tokens; its first wave against the speculative
   ``generate`` at batch 8); the analyzer's (a) run with
   ``engine.draft`` in its config (``event=engine_draft_attached``; its
@@ -131,7 +132,7 @@ every projection takes K6, then training gradients), then:
   the committed ``.npz`` (``event=engine_restored`` must be logged), at the
   shipped serving settings (BPE, compact prompts, int8 weights and KV
   cache), greedy, 1,536 new tokens, on a single-pass clip of one grounded
-  topic. (b) ``base`` at its full width (12-layer ViT, 8 of its 24 decoder
+  topic. (b) ``base`` at its full width (12-layer ViT, 4 of its 24 decoder
   layers: ``ANALYZER_BASE_LAYERS``) with seeded random weights, int8
   weights and KV, temperature 0.7, the note grammar's fields at a quarter
   of their budgets and a 2.5 closer bias: a single-pass clip through the
@@ -182,6 +183,30 @@ every projection takes K6, then training gradients), then:
   greedily; every note parses), each engine call with K1 in its prefill, K2
   once a layer a prefill and K5 once a layer a decode step; then K5 is held
   at their decode shapes;
+- serves over a mesh of two ranks that share this card (``mesh``; gloo,
+  whose collectives on CUDA tensors go through the host): ``base`` at full
+  width and depth (24 decoder layers, int8 weights and KV cache, the note
+  grammar, greedy, ``MESH_NEW_TOKENS``) on ``{"data": 1, "model": 2}``,
+  two clips through ``InferenceEngine.generate`` against the 1-rank engine
+  on the same seeded weights (tokens equal, or parting only where the
+  1-rank model's top-two constrained logits lie within 2e-2 x
+  max|logit|, each such row printed; the logits at the first and the last
+  decode step within ``MESH_LOGIT_TOL`` x max|logit| of 1 rank's, each gap
+  printed), then ``ContentAnalyzer.analyze_video``
+  on the same mesh engine; ``7b`` at full width and ``MESH_INT4_LAYERS``
+  layers, int4, on the same two ranks (K6 7 times a layer a step on each
+  rank), held to the 1-rank engine in the same way, with K6 held at its
+  five per-rank shapes; then ``{"data": 2,
+  "model": 1}`` through ``ContinuousBatcher`` (4 slots, 6 requests, two
+  data groups), whose tokens must equal a 1-rank batcher's over each
+  group's requests. Every rank's launches are counted from 0 a run (none
+  plain on a CUDA tensor); K1 is held at a rank's prefill shape (4 q heads
+  over 1 kv head), K4 at a group's pool, and K2 + K3 and K5 at every
+  decode shape the ranks ran. The backend, ranks, devices, collectives a
+  step, ms a step and each rank's peak GiB are printed. The ``native_reader``
+  line: a ``.y4m`` read takes the C++ shim's route (the route counter) and
+  its frames are within 2 of the numpy decode's (the two conversions'
+  largest difference over every (y, u, v));
 - prints the tracer's summary of every engine call of the run (the spans
   ``engine.preprocess``, ``engine.generate``, ``engine.generate_text`` and
   ``engine.continue_session``) and runs one ``device_trace`` around a short
@@ -292,14 +317,18 @@ from video_transformer_tpu_torch.utils.logger import LOGGER_NAME
 from video_transformer_tpu_torch.utils.counter import APICounter
 from video_transformer_tpu_torch.utils import tracing as tracing_module
 from video_transformer_tpu_torch.utils.tracing import WINDOW_PAD_S, device_trace, tracer
-from video_transformer_tpu_torch.video.containers import write_npzv
+from video_transformer_tpu_torch.parallel.mesh import build_mesh
+from video_transformer_tpu_torch.video import native_reader
+from video_transformer_tpu_torch.video.containers import Y4M_ROUTES, read_frames, write_npzv, write_y4m
 from video_transformer_tpu_torch.weights import from_jax_params, random_params
 
 REPO = Path(__file__).resolve().parent
 TOKENIZER = REPO / "data" / "tokenizers" / "bpe-zh-2048.json"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
-MAX_NEW_TOKENS = 256  # capped for the smoke; the shipped config says 4096
+# Capped for the smoke; the shipped config says 4096. 256 until the mesh
+# phase (main path 13) needed its room in the smoke's time (PR 19).
+MAX_NEW_TOKENS = 128  # the kernel checks' write positions (prefill_seq + 198) need the cache it sizes
 # Tokens a request in the profiled windows (``profile_phase``,
 # ``batcher_profile``): 32 until the smoke outgrew its 5-minute limit; the
 # profiler's post-processing takes ~0.2 ms an event, a 32-token base window
@@ -308,13 +337,15 @@ PROFILE_TOKENS = 16
 # Decoder depth of the earlier serving paths (main paths 1, 2 and 4), cut to
 # keep the smoke within its 5-minute limit: every width stays the preset's,
 # each per-layer launch check counts these layers, and the kernel checks run
-# at the full presets' shapes. The engine API (path 5) serves the full base
-# depth.
-SERVING_LAYERS = 8  # of base's 24
+# at the full presets' shapes. 8 since PR 13, 4 since PR 19 (the mesh
+# phase's room in the smoke's time; the mesh phase serves base at its full
+# depth).
+SERVING_LAYERS = 4  # of base's 24
 # The 7b int4 path's decoder depth (main path 4) since the qwen2vl path
 # (main path 11) serves the same decoder geometry at its full 28 layers:
 # K6, K2 and K3 keep the 7b shapes, each layer-count check counts these.
-INT4_SERVING_LAYERS = 8  # of 7b's 28
+# 8 since PR 17, 4 since PR 19 (the mesh phase's room).
+INT4_SERVING_LAYERS = 4  # of 7b's 28
 PROMPT = "分析这段视频的内容，写出结构化的知识笔记。"
 KERNELS = (flash_attention, write_cache_rows, decode_attention)  # the serving path's
 BATCHER_KERNELS = (adopt_rows, decode_attention_update)  # with K1 and K2 (the stage); the bf16 pool takes no K3
@@ -373,7 +404,7 @@ LSE_TOL = 1e-3
 # by one position 11.7-15.2%: the limit sits about 3x from either side.
 GRAD_REL_TOL = 4e-2
 GRAD_SEEDS = 4
-TRAIN_STEPS = 5
+TRAIN_STEPS = 3  # 5 until PR 19 (the mesh phase's room)
 TRAIN_ARGS = [  # the training CLI at base width, as a user would call it
     "--preset", "base", "--tokenizer", str(TOKENIZER), "--batch", "2", "--text-len", "2048",
     "--steps", str(TRAIN_STEPS), "--device", "cuda",
@@ -1792,7 +1823,7 @@ def train_reference_phase(seed: int, dev: torch.device, vocab_size: int) -> dict
 def train_phase(dev: torch.device, workdir: Path) -> tuple[list[dict], dict[str, int]]:
     """Five steps of the training CLI's code path at base width; then one
     profiled step and a checkpoint round trip. Returns the lines to print
-    and the launches of the five steps."""
+    and the launches of the three steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2319,7 +2350,7 @@ def fused_7b_check(engine: InferenceEngine, clips: np.ndarray) -> tuple[dict, di
 
 # -- the qwen2vl path (main path 11) ---------------------------------------------
 
-QWEN_MAX_NEW = 128  # new tokens a request of the qwen2vl path
+QWEN_MAX_NEW = 64  # new tokens a request of the qwen2vl path (128 until PR 19)
 QWEN_CLIPS = 2  # 16-frame clips at 224 px in its one generate call
 # The tiny Qwen geometry of the CPU reference (and of the CPU tests): the
 # tower keeps head_dim 80 (160 / 2 heads); the decoder has q/k/v biases and
@@ -2526,7 +2557,7 @@ def qwen2vl_phase(seed: int, dev: torch.device, smi: str) -> tuple[dict, dict[st
     biases and an untied 152,064-wide lm_head), seeded random weights made
     on the card, int4 decoder weights, int8 KV cache, greedy, under the
     validator grammar over the synthetic 152k HF vocabulary; two 16-frame
-    224 px clips, 128 new tokens. Before it: K1 at the tower's shapes, the
+    224 px clips, 64 new tokens. Before it: K1 at the tower's shapes, the
     tiny Qwen reference and the HF checkpoint round trip. Launches are
     counted from 0 around the one generate call: K1 32 times in the tower
     and 28 in the decoder's prefill, K2 28 times a prefill and a decode
@@ -3884,7 +3915,6 @@ def tracing_phase(dev: torch.device, tokenizer, workdir: Path, smi: str) -> dict
 
 SPEC_TOKENS = 6  # the shipped engine.draft.spec_tokens
 SPEC_TEMPERATURE = 0.7  # the shipped engine.temperature
-SPEC_SESSION_ROUNDS = 4
 # New tokens a request of the speculative batcher, of the self-draft and of
 # the run at 0.7 (the smoke's 5 minutes: at 128 they took 11.7 + 5, 5.6 and
 # 5 s of a host-bound 48-128 ms cycle).
@@ -3906,10 +3936,10 @@ SPEC_PLAIN_FORCED_RUN = 0
 
 
 def spec_session_grammar():
-    """The speculative session's grammar: a title of at most 12 characters,
-    so that five short rounds finish it (the validator grammar's 220 tokens
-    took 12 s)."""
-    return DfaBuilder().literal('{"title": ').free_string(1, 12).literal("}").finish()
+    """The speculative session's grammar: a title of 8 to 12 characters, so
+    that a few short rounds finish it (the validator grammar's 220 tokens
+    took 12 s) and a third of a document is longer than a draft block."""
+    return DfaBuilder().literal('{"title": ').free_string(8, 12).literal("}").finish()
 
 
 @contextlib.contextmanager
@@ -4166,8 +4196,9 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
       fewer than half as many target forwards as the one-token loop's
       steps for the same tokens, which follow the greedy rule;
     - temperature 0.7 (``SPEC_SHORT_TOKENS``): every row walks the grammar;
-    - a session of ``SPEC_SESSION_ROUNDS`` rounds under a short title
-      grammar (``spec_session_grammar``), continued until it completes,
+    - a session under a short title grammar (``spec_session_grammar``),
+      its round and reserve sized from one greedy call's longer document
+      so that a continuation is needed, continued until it completes,
       against one call with the budget that sizes the same cache;
     - the batcher: 8 slots, a ring of 16, twelve requests of
       ``SPEC_SHORT_TOKENS`` (K1, K2 and K4 into both pools in the stage, K5
@@ -4241,9 +4272,18 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
     lines.append(line)
     add(launched)
 
-    # A session under a short grammar, resumed until it completes.
+    # A session under a short grammar, resumed until it completes. The
+    # round's cap and the reserve come from the longer row's document L (one
+    # greedy call that completes it), whatever the random weights write: a
+    # round emits at least its cap and at most a draft block more, so with a
+    # cap of (L - SPEC_TOKENS) // 2 the longer row needs a continuation, and
+    # ceil(L / cap) reserve rounds finish every row.
     title = spec.wrap_grammar(spec_session_grammar())
-    cap = longest_accepted(title.dfa) // (1 + SPEC_SESSION_ROUNDS) + 1
+    spec.max_new_tokens = longest_accepted(title.dfa) + 1
+    *_, whole = spec.generate(clips[:2], API_PROMPTS, dfa=title, return_tokens=True)
+    longest = max(len(row) for row in whole)
+    cap = max(1, (longest - SPEC_TOKENS) // 2)
+    rounds = -(-longest // cap)
     stats, tally = spec.stats, new_tally()
     reset_counts()
     spec.max_new_tokens = cap
@@ -4251,9 +4291,9 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
         calls = []
         with spec_tally(spec, tally), recorded_calls(spec, calls):
             _, status, ids, session = spec.generate(clips[:2], API_PROMPTS, dfa=title,
-                                                    session_rounds=SPEC_SESSION_ROUNDS, return_session=True,
+                                                    session_rounds=rounds, return_session=True,
                                                     return_status=True, return_tokens=True)
-            if session is None or session.rounds_left != SPEC_SESSION_ROUNDS or session.draft_cache is None:
+            if session is None or session.rounds_left != rounds or session.draft_cache is None:
                 raise AssertionError(f"speculative session reserve: {session and session.rounds_left}")
             prefill_tokens = stats.prefill_tokens
             session_len = session.cache["k"][0].shape[2]
@@ -4268,7 +4308,7 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
             raise AssertionError(f"speculative session: complete {done} after {resumed} rounds, or a round prefilled")
         check_spec_routes(launched, cfg, draft_cfg, [True], tally["cycles"], "speculative session")
         add(launched)
-        spec.max_new_tokens = (1 + SPEC_SESSION_ROUNDS) * cap + SPEC_SESSION_ROUNDS * SPEC_TOKENS
+        spec.max_new_tokens = (1 + rounds) * cap + rounds * SPEC_TOKENS
         prompt_width = spec._prompt_bucket(API_PROMPTS, with_video=True)
         if spec._cache_len(prompt_width, True, title, 0) != session_len:
             raise AssertionError("the long call's cache length differs from the speculative session's")
@@ -4280,7 +4320,7 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
     finally:
         spec.max_new_tokens = MAX_NEW_TOKENS
     lines.append({"phase": "speculative", "run": "session", "grammar": "title", "round_cap": cap,
-                  "reserve": SPEC_SESSION_ROUNDS, "rounds_resumed": resumed, "cache_len": session_len,
+                  "reserve": rounds, "longest_row_tokens": longest, "rounds_resumed": resumed, "cache_len": session_len,
                   "draft_cache_len": session.draft_cache["k"][0].shape[2],
                   "tokens": [len(r) for r in combined], "long_tokens": [len(r) for r in long_calls[0]["ids"]],
                   "rows_parted": len(parted), "parted": parted, **tally_line(tally, SPEC_TOKENS),
@@ -4398,13 +4438,411 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
     gen = torch.Generator(device=dev).manual_seed(seed + 21)
     verify_len = spec._cache_len(spec._prompt_bucket([PROMPT], True), True, spec.dfa, 0)
     draft_len = spec._cache_len(spec._prompt_bucket([PROMPT], True), True, spec.dfa, 0, draft_cfg)
+    # Two rows part-way into the new tokens: positions 100 and 230 of 256.
+    early, late = MAX_NEW_TOKENS // 2 - 28, MAX_NEW_TOKENS - 26
     readings = {
         "verify": spec_k5_reading(gen, dev, cfg.decoder, 2, SPEC_TOKENS, verify_len,
-                                  [cfg.video_tokens + 128 + 100, cfg.video_tokens + 128 + 230]),
+                                  [cfg.video_tokens + 128 + early, cfg.video_tokens + 128 + late]),
         "draft_step": spec_k5_reading(gen, dev, draft_cfg.decoder, 2, 1, draft_len,
-                                      [draft_cfg.video_tokens + 128 + 100, draft_cfg.video_tokens + 128 + 230]),
+                                      [draft_cfg.video_tokens + 128 + early, draft_cfg.video_tokens + 128 + late]),
     }
     return lines, total, readings
+
+
+# Main path 13, serving over a mesh (``mesh``): ranks that share the one
+# card (``build_mesh(..., devices=[cuda:0] * 2)``: gloo, CUDA tensors).
+# (a) base at its full width and depth (24 decoder layers; int8 weights and
+# KV cache, the note grammar, greedy) on ``{"data": 1, "model": 2}``:
+# ``generate`` on two clips against the 1-rank engine on the same seeded
+# weights (equal tokens, or parting only at a printed near tie; the logits
+# at the first and the last decode step within ``MESH_LOGIT_TOL``), then
+# ``ContentAnalyzer.analyze_video`` on the same mesh engine; (b) ``7b`` at
+# full width and ``MESH_INT4_LAYERS`` layers, int4 weights, on the same mesh,
+# held to the 1-rank engine as (a) is: K6 at the five per-rank product
+# shapes; (c) ``{"data": 2, "model": 1}``
+# through ``ContinuousBatcher`` (two data groups, bf16 pool, base at
+# ``SERVING_LAYERS`` layers) on the same two ranks: each group's requests
+# against a 1-rank batcher of the group's slots over the same requests. Every rank's
+# launches are counted from 0 a run; none is plain on a CUDA tensor.
+MESH_NEW_TOKENS = 32  # base on two model ranks, held to 1 rank over these
+MESH_BATCHER_NEW_TOKENS = 16
+# A step's logits on the mesh against 1 rank's: max|mesh - one| over
+# max|one|, a row. The row-parallel partial sums are rounded to bf16 before
+# the all-reduce, once a block for out and down, so the logits move.
+MESH_LOGIT_TOL = 5e-2
+MESH_TIMEOUT_S = 120.0
+MESH_INT4_LAYERS = 2  # of 7b's 28
+MESH_ANALYZER_SCALE = ANALYZER_BASE_SCALE / 2  # the note's field budgets: at 0.25 a note took 107 steps of 134-213 ms
+MESH_INT4_NEW_TOKENS = 16
+MESH_BATCHER_SLOTS, MESH_BATCHER_REQUESTS = 4, 6  # two groups of 2 slots, one stage of 3 lanes each
+# 7b's products on a model axis of 2, (K/2, N) of the packed int4 kernels.
+MESH_K6_SHAPES = {"q": (1792, 1792), "k_v": (1792, 256), "gate_up": (1792, 9472), "out": (896, 3584),
+                  "down": (4736, 3584)}
+_RANK_WATCH: contextlib.ExitStack | None = None
+
+
+def rank_reset() -> None:
+    """Launch counts and the peak memory from 0 on this rank. A worker rank
+    first starts the plain-call watch (rank 0 runs under ``main``'s)."""
+    global _RANK_WATCH
+    if torch.distributed.get_rank() != 0 and _RANK_WATCH is None:
+        _RANK_WATCH = contextlib.ExitStack()
+        _RANK_WATCH.enter_context(watch_plain_writes())
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def rank_counts() -> dict:
+    """This rank's launches since ``rank_reset`` and its peak memory."""
+    torch.cuda.synchronize()
+    return dict(counts(), rank=torch.distributed.get_rank(), device=f"cuda:{torch.cuda.current_device()}",
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def mesh_launch_check(per_rank: list[dict], want: dict[str, int], label: str) -> None:
+    """Every rank launched each kernel of ``want`` exactly so often, and
+    nothing plain on the card. Raises otherwise."""
+    plain = ("quantize_kv_on_card", "update_cache_rows_on_card", "mha_reference_on_card", "reference_backwards")
+    for got in per_rank:
+        bad = {k: got[k] for k in want if got[k] != want[k]} | {k: got[k] for k in plain if got[k]}
+        if bad:
+            raise AssertionError(f"mesh {label}: rank {got['rank']} launches {bad}, expected {want} and no plain")
+
+
+def mesh_serve(engine: InferenceEngine, clips: np.ndarray, label: str) -> tuple[dict, dict]:
+    """One ``generate`` on every rank with the launches counted from 0;
+    the line and the recorded call (its ids and completion flags)."""
+    mesh = engine.mesh
+    mesh.run_all(rank_reset)
+    before = mesh.collectives
+    calls: list = []
+    with recorded_calls(engine, calls):
+        lines = serve(engine, clips)
+    collectives = mesh.collectives - before
+    per_rank = mesh.run_all(rank_counts)
+    line = lines[0]
+    steps = line["decode_steps"]
+    decode_s = line["call_seconds"] - line["prefill_ms"] / 1e3
+    prefill_collectives = 2 * engine.config.decoder.num_layers if mesh.model > 1 else 0
+    return {"phase": "mesh", "run": label, "shape": mesh.shape, "decode_steps": steps,
+            "ms_per_step": decode_s * 1e3 / steps if steps else 0.0, "prefill_ms": line["prefill_ms"],
+            "collectives": collectives,
+            "collectives_per_step": (collectives - prefill_collectives) / steps if steps else 0.0,
+            "tokens": [row["tokens"] for row in lines], "complete": [row["complete"] for row in lines],
+            "per_rank": per_rank}, calls[0]
+
+
+def rank_step_logits(engine: InferenceEngine, inputs: dict, rows: list[int], steps: list[int]) -> torch.Tensor:
+    """The served model's next-token logits (f32 [len(rows), vocab], on the
+    CPU) before token ``steps[i]`` of row ``rows[i]`` of a recorded call
+    (``recorded_calls``), teacher-forced on its ids: one batched prefill of
+    each such row's prompt block and its first ``steps[i]`` ids into a
+    fresh bf16 cache of the model's kv heads (a mesh rank's share). On a
+    mesh every rank runs it (``Mesh.run_all``): the prefill's collectives
+    are the model's."""
+    model, dev = engine.model, engine.device
+    prompt, base = np.asarray(inputs["tokens"]), np.asarray(inputs["lengths"])
+    lengths = [int(base[r]) + j for r, j in zip(rows, steps)]
+    width = 128 * math.ceil(max(lengths) / 128)
+    tokens = np.full((len(rows), width), engine.tokenizer.PAD, np.int32)
+    for i, (r, j) in enumerate(zip(rows, steps)):
+        n = int(base[r])
+        tokens[i, :n] = prompt[r, :n]
+        tokens[i, n:n + j] = inputs["ids"][r][:j]
+    with torch.no_grad():
+        cache = init_kv_cache(engine.config.decoder, len(rows), engine.config.video_tokens + width,
+                              model.compute_dtype, device=dev, kv_heads=model.decoder.kv_heads)
+        logits, _ = model.prefill(engine.preprocess(inputs["frames"][rows]), torch.from_numpy(tokens).to(dev),
+                                  cache, torch.tensor(lengths, dtype=torch.int32, device=dev))
+    return logits.float().cpu()
+
+
+def mesh_logit_gaps(engine: InferenceEngine, one: InferenceEngine, call: dict, label: str) -> dict:
+    """The mesh engine's logits against the 1-rank engine's on the same
+    inputs, at the first decode step and at each row's last one
+    (teacher-forced on the 1-rank call's ids; one prefill of both): every
+    rank's logits equal (the all-reduced hidden state is one), and
+    max|mesh - one| over max|one| a row under ``MESH_LOGIT_TOL``. Raises
+    otherwise."""
+    ids = [list(map(int, row)) for row in call["ids"]]
+    inputs = {"frames": call["frames"], "tokens": np.asarray(call["tokens"]), "lengths": np.asarray(call["lengths"]),
+              "ids": ids}
+    n = len(ids)
+    rows, steps = list(range(n)) * 2, [0] * n + [max(len(row) - 1, 0) for row in ids]
+    ranks = engine.mesh.run_all(rank_step_logits, engine, inputs, rows, steps)
+    if any(not torch.equal(got, ranks[0]) for got in ranks[1:]):
+        raise AssertionError(f"{label}: the ranks' logits differ")
+    want = rank_step_logits(one, inputs, rows, steps)
+    gaps = (ranks[0] - want).abs().amax(dim=-1) / want.abs().amax(dim=-1)
+    out: dict = {"logit_tol": MESH_LOGIT_TOL}
+    for name, part in (("first_step", slice(0, n)), ("last_step", slice(n, 2 * n))):
+        gap = gaps[part].max().item()
+        out[f"{name}_logit_gap_over_max_logit"] = gap
+        out[f"{name}_positions"] = steps[part]
+        if not gap <= MESH_LOGIT_TOL:
+            raise AssertionError(f"{label}: {name} logits on the mesh differ from 1 rank's by {gap} x max|logit| "
+                                 f"(tolerance {MESH_LOGIT_TOL})")
+    return out
+
+
+def mesh_k6_readings(seed: int, dev: torch.device, rows: int) -> dict:
+    """K6 against its plain version at the five per-rank shapes of 7b on a
+    model axis of 2, at the decode step's ``rows``."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    return {name: check_int4(gen, dev, rows, k2, n) for name, (k2, n) in MESH_K6_SHAPES.items()}
+
+
+def mesh_adopt_reading(gen: torch.Generator, dev: torch.device, cfg: VLMConfig, pool_rows: int, lanes: int,
+                       park_len: int, cache_len: int) -> dict:
+    """K4 at a data group's own pool (``pool_rows`` rows) and stage lanes,
+    bit for bit against its plain version."""
+    hkv, d = cfg.decoder.num_kv_heads, cfg.decoder.head_dim
+    pool_k, pool_v = (torch.randn(pool_rows, hkv, cache_len, d, generator=gen, device=dev).to(torch.bfloat16)
+                      for _ in range(2))
+    src_k, src_v = (torch.randn(lanes, hkv, park_len, d, generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+    rows = torch.randperm(pool_rows, generator=torch.Generator().manual_seed(7))[:lanes].to(torch.int32).to(dev)
+    ref_k, ref_v = pool_k.clone(), pool_v.clone()
+    adopt_rows(pool_k, src_k, rows, lanes, park_len, pool_v, src_v)
+    adopt_rows_reference(ref_k, src_k, rows, lanes, park_len)
+    adopt_rows_reference(ref_v, src_v, rows, lanes, park_len)
+    torch.cuda.synchronize()
+    err = max((pool_k.float() - ref_k.float()).abs().max().item(), (pool_v.float() - ref_v.float()).abs().max().item())
+    if err:
+        raise AssertionError(f"mesh: adopt_rows at a group's pool differs from its plain version by {err}")
+    bound_ms, bound_by = bound(2 * 2 * lanes * hkv * park_len * d * 2, 0)
+    return {"max_abs_err": err, "tol": 0,
+            "ms": time_ms(lambda: adopt_rows(pool_k, src_k, rows, lanes, park_len, pool_v, src_v)),
+            "plain_ms": time_ms(lambda: (adopt_rows_reference(ref_k, src_k, rows, lanes, park_len),
+                                         adopt_rows_reference(ref_v, src_v, rows, lanes, park_len))),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": f"group pool bf16 [{pool_rows},{hkv},{cache_len},{d}] x2, {lanes} lanes of {park_len}"}
+
+
+def mesh_batcher_tokens(engine: InferenceEngine, requests: list, slots: int, depth: int) -> dict[int, list[int]]:
+    batcher = ContinuousBatcher(engine, slots=slots, queue_depth=depth)
+    for request in requests:
+        batcher.submit(request)
+    return {c.request_id: c.token_ids for c in batcher.run()}
+
+
+def mesh_phase(seed: int, dev: torch.device, tokenizer, grammar, smi: str) -> tuple[list[dict], dict, dict]:
+    """Main path 13 (see the constants above). Returns the lines, the
+    launches summed over every rank of every run, and the kernel readings
+    at the per-rank shapes."""
+    lines, readings = [], {}
+    total = dict.fromkeys(counts(), 0)
+
+    def add(per_rank: list[dict]) -> None:
+        for got in per_rank:
+            for name in total:
+                total[name] += got[name]
+
+    rng = np.random.default_rng(seed + 13)
+    cfg = base_config(tokenizer.vocab_size)
+    layers, enc_layers = cfg.decoder.num_layers, cfg.encoder.num_layers
+    serving = dict(max_new_tokens=MESH_NEW_TOKENS, temperature=0.0, seed=seed, tokenizer=tokenizer,
+                   param_dtype="bfloat16", quantize="int8", kv_quant="int8", max_forced_run=2)
+    clips = rng.integers(0, 256, (2, cfg.encoder.num_frames, 256, 256, 3), dtype=np.uint8)
+
+    # (a) The 1-rank engine, then the same weights on two model ranks.
+    one = InferenceEngine(cfg, device=dev, **serving)
+    one.dfa = grammar
+    calls: list = []
+    with recorded_calls(one, calls):
+        one.generate(clips, [PROMPT] * 2)
+    t0 = time.perf_counter()
+    mesh = build_mesh({"data": 1, "model": 2}, devices=[dev, dev], timeout_s=MESH_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    run_start = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        engine = InferenceEngine(cfg, mesh=mesh, device=dev, **serving)
+        engine.dfa = grammar
+        engine_s = time.perf_counter() - t0
+        found: dict = {}
+        with path_decode_inputs(found):
+            line, call = mesh_serve(engine, clips, "base_tp2")
+        parted = parted_rows(one, calls[0], call["ids"], call["status"], "mesh base_tp2")
+        logit_gaps = mesh_logit_gaps(engine, one, calls[0], "mesh base_tp2")
+        mesh_launch_check(line["per_rank"], {
+            "flash_attention": enc_layers + layers, "write_cache_rows": layers * (1 + line["decode_steps"]),
+            "decode_attention": layers * line["decode_steps"], "decode_attention_update": 0, "int4_matmul": 0,
+        }, "base_tp2")
+        add(line["per_rank"])
+        prompt_bucket = engine._prompt_bucket([PROMPT], with_video=True)
+        gen = torch.Generator(device=dev).manual_seed(seed + 29)
+        readings["flash_attention"] = check_flash(gen, dev, 2, cfg.decoder.num_heads // 2, 1,
+                                                  cfg.video_tokens + prompt_bucket, causal=True)
+        decode_line = path_decode_readings(seed, found, "mesh")
+        lines.append(dict(line, seconds=time.perf_counter() - run_start, backend=mesh.backend, ranks=mesh.size,
+                          devices=[str(d) for d in mesh.devices],
+                          spawn_seconds=spawn_s, engine_seconds=engine_s, decoder_layers=layers,
+                          rank_heads=cfg.decoder.num_heads // 2, rank_kv_heads=cfg.decoder.num_kv_heads // 2,
+                          parted_rows=parted, one_rank_tokens=[len(r) for r in calls[0]["ids"]], **logit_gaps,
+                          card=smi))
+        lines.append(decode_line)
+
+        # The analyzer on the same engine: the base (b) settings of the
+        # analyzer phase, with the note's fields at half of (b)'s budgets.
+        for name, value in (("dfa", engine.wrap_grammar(note_dfa(engine.byte_vocab, scale=MESH_ANALYZER_SCALE))),
+                            ("structure_bias", ANALYZER_BASE_BIAS), ("max_new_tokens", ANALYZER_BASE_MAX_NEW),
+                            ("temperature", 0.7)):
+            setattr(engine, name, value)
+        with tempfile.TemporaryDirectory(prefix="vtx_mesh_") as tmp:
+            workdir = Path(tmp)
+            log = LogLines()
+            logger = logging.getLogger("vtx.chip_smoke.mesh")
+            logger.handlers, logger.propagate = [log], False
+            logger.setLevel(logging.INFO)
+            config = analyzer_config(workdir, checkpoint_dir=None)
+            analyzer = ContentAnalyzer(config, APICounter(config["system"]["max_api_calls"]), logger, engine=engine)
+            short = workdir / "short.npzv"
+            write_npzv(short, rng.integers(0, 256, (ANALYZER_CLIP_FRAMES, ANALYZER_FRAME_SIZE, ANALYZER_FRAME_SIZE, 3),
+                                           dtype=np.uint8), ANALYZER_CLIP_FPS)
+            mesh.run_all(rank_reset)
+            run_start = time.perf_counter()
+            line, _ = analyzer_run(analyzer, log, short, "mesh_tp2", smi)
+            per_rank = mesh.run_all(rank_counts)
+            add(per_rank)
+            if any(got["decode_attention"] != per_rank[0]["decode_attention"] for got in per_rank):
+                raise AssertionError(f"mesh analyzer: ranks ran different decode steps: {per_rank}")
+            lines.append(dict(line, phase="mesh", run="analyzer_tp2", seconds=time.perf_counter() - run_start,
+                              per_rank=per_rank))
+        del analyzer, engine, one
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) 7b int4 on the same two ranks: K6 at every decode step of every
+        # rank; tokens and logits held to the 1-rank engine as in (a).
+        run_start = time.perf_counter()
+        cfg7 = base_config(tokenizer.vocab_size, "7b")
+        cfg7 = replace(cfg7, decoder=replace(cfg7.decoder, num_layers=MESH_INT4_LAYERS))
+        serving7 = dict(serving, quantize="int4", max_new_tokens=MESH_INT4_NEW_TOKENS)
+        side = cfg7.encoder.image_size
+        clips7 = rng.integers(0, 256, (2, cfg7.encoder.num_frames, side, side, 3), dtype=np.uint8)
+        one = InferenceEngine(cfg7, device=dev, **serving7)
+        one.dfa = grammar
+        calls = []
+        with recorded_calls(one, calls):
+            one.generate(clips7, [PROMPT] * 2)
+        engine = InferenceEngine(cfg7, mesh=mesh, device=dev, **serving7)
+        engine.dfa = grammar
+        line, call = mesh_serve(engine, clips7, "7b_int4_tp2")
+        parted = parted_rows(one, calls[0], call["ids"], call["status"], "mesh 7b_int4_tp2")
+        logit_gaps = mesh_logit_gaps(engine, one, calls[0], "mesh 7b_int4_tp2")
+        del one
+        steps = line["decode_steps"]
+        mesh_launch_check(line["per_rank"], {"int4_matmul": 7 * MESH_INT4_LAYERS * steps,
+                                             "decode_attention": MESH_INT4_LAYERS * steps}, "7b_int4_tp2")
+        add(line["per_rank"])
+        shapes = {name: dict(reading, shape=f"x [6, {2 * k2}] @ int4 [{k2}, {n}]")
+                  for (name, reading), (k2, n) in zip(mesh_k6_readings(seed, dev, 6).items(),
+                                                      MESH_K6_SHAPES.values())}
+        readings["int4_matmul"] = shapes
+        k6_lines = {name: {key: r[key] for key in ("shape", "max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
+                                                    "library_ms") if key in r} for name, r in shapes.items()}
+        lines.append(dict(line, seconds=time.perf_counter() - run_start, decoder_layers=MESH_INT4_LAYERS,
+                          parted_rows=parted, one_rank_tokens=[len(r) for r in calls[0]["ids"]], **logit_gaps,
+                          k6_shapes=k6_lines, card=smi))
+        del engine
+    except BaseException:
+        mesh.close()
+        raise
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) Two data groups through the batcher (bf16 pool: K1, K2 and K4 in
+    # the stage, K5 at every decode step).
+    bcfg = replace(cfg, decoder=replace(cfg.decoder, num_layers=SERVING_LAYERS))
+    batch = dict(max_new_tokens=MESH_BATCHER_NEW_TOKENS, temperature=0.0, seed=seed, tokenizer=tokenizer,
+                 param_dtype="bfloat16", quantize="int8", max_forced_run=2)
+    requests = [Request(i, rng.integers(0, 256, (cfg.encoder.num_frames, 256, 256, 3), dtype=np.uint8),
+                        f"{PROMPT}（片段 {i + 1}）") for i in range(MESH_BATCHER_REQUESTS)]
+    depth = 2 * MESH_BATCHER_SLOTS
+    run_start = t0 = time.perf_counter()
+    # The same two ranks (their world is still up): new groups, no new process.
+    mesh = build_mesh({"data": 2, "model": 1}, timeout_s=MESH_TIMEOUT_S)
+    regroup_s = time.perf_counter() - t0
+    try:
+        engine = InferenceEngine(bcfg, mesh=mesh, device=dev, **batch)
+        engine.dfa = grammar
+        found = {}
+        mesh.run_all(rank_reset)
+        steps_before = engine.stats.decode_steps
+        t0 = time.perf_counter()
+        with path_decode_inputs(found):
+            got = mesh_batcher_tokens(engine, requests, MESH_BATCHER_SLOTS, depth)
+        wall = time.perf_counter() - t0
+        per_rank = mesh.run_all(rank_counts)
+        add(per_rank)
+        for rank in per_rank:
+            if not rank["adopt_rows"] or not rank["decode_attention_update"] or rank["decode_attention"]:
+                raise AssertionError(f"mesh batcher_dp2: rank {rank['rank']} launches {rank}")
+        steps = engine.stats.decode_steps - steps_before
+        lines.append({"phase": "mesh", "run": "batcher_dp2", "shape": mesh.shape, "backend": mesh.backend,
+                      "devices": [str(d) for d in mesh.devices], "regroup_seconds": regroup_s,
+                      "decoder_layers": SERVING_LAYERS, "requests": len(got), "decode_steps": steps,
+                      "wall_seconds": wall, "ms_per_step": wall * 1e3 / steps if steps else 0.0,
+                      "collectives": mesh.collectives, "per_rank": per_rank, "card": smi})
+        lines.append(path_decode_readings(seed, found, "mesh_batcher"))
+        del engine
+    finally:
+        mesh.close()
+    # Each group's requests (the stage's lanes in order, split in halves)
+    # through a 1-rank batcher of the group's slots and ring.
+    one = InferenceEngine(bcfg, device=dev, **batch)
+    one.dfa = grammar
+    per_group = MESH_BATCHER_REQUESTS // 2
+    want = {}
+    for g in range(2):
+        want.update(mesh_batcher_tokens(one, requests[g * per_group:(g + 1) * per_group], MESH_BATCHER_SLOTS // 2,
+                                        depth // 2))
+    if got != want:
+        differ = sorted(i for i in want if got.get(i) != want[i])
+        raise AssertionError(f"mesh batcher_dp2: requests {differ} differ from the 1-rank batcher of their group")
+    lines[-2].update(tokens_equal_one_rank_groups=True, seconds=time.perf_counter() - run_start)
+    gen = torch.Generator(device=dev).manual_seed(seed + 37)
+    park_len = bcfg.video_tokens + 256
+    pool_len = 128 * math.ceil((park_len + MESH_BATCHER_NEW_TOKENS + 2 * 3 + 17) / 128)
+    readings["adopt_rows"] = mesh_adopt_reading(gen, dev, bcfg, (MESH_BATCHER_SLOTS + depth) // 2, per_group,
+                                                park_len, pool_len)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lines, total, readings
+
+
+# The shim's fixed-point colour conversion against the numpy decode's float
+# one, the largest difference over every (y, u, v): 2, in green, where the
+# shim floors the sum of two chroma terms (``tests/test_torch_native_reader.py``).
+Y4M_SHIM_TOL = 2
+
+
+def native_reader_check(workdir: Path, smi: str) -> dict:
+    """A ``.y4m`` read on this machine takes the C++ shim's route (the route
+    counter) and its frames equal the numpy decode's within ``Y4M_SHIM_TOL``."""
+    frames = np.random.default_rng(5).integers(0, 256, (24, 256, 256, 3), dtype=np.uint8)
+    path = workdir / "clip.y4m"
+    write_y4m(path, frames, fps=8.0)
+    before = dict(Y4M_ROUTES)
+    t0 = time.perf_counter()
+    native = read_frames(path, 16)
+    native_s = time.perf_counter() - t0
+    if Y4M_ROUTES["native"] != before["native"] + 1:
+        raise AssertionError(f"native_reader: the read took the numpy route ({Y4M_ROUTES}, was {before})")
+    with mock.patch.object(native_reader, "y4m_decode_frames", lambda data, indices, pooled=False: None):
+        t0 = time.perf_counter()
+        plain = read_frames(path, 16)
+        numpy_s = time.perf_counter() - t0
+    diff = int(np.abs(native.astype(int) - plain.astype(int)).max())
+    if diff > Y4M_SHIM_TOL or Y4M_ROUTES["numpy"] != before["numpy"] + 1:
+        raise AssertionError(f"native_reader: frames differ from the numpy decode by {diff}")
+    return {"phase": "native_reader", "route": "native", "routes": dict(Y4M_ROUTES), "max_abs_diff": diff,
+            "tol": Y4M_SHIM_TOL,
+            "frames": list(native.shape), "native_ms": native_s * 1e3, "numpy_ms": numpy_s * 1e3,
+            "library": str(native_reader._lib_path().relative_to(REPO)), "card": smi}
 
 
 def main() -> None:
@@ -4572,7 +5010,7 @@ def run(seed: int) -> None:
     del engine, batch_engine, found
     torch.cuda.empty_cache()
 
-    # Main path 3, training: five base-width steps through K7a-c.
+    # Main path 3, training: three base-width steps through K7a-c.
     with tempfile.TemporaryDirectory(prefix="vtx_train_") as workdir:
         train_lines, trained = train_phase(dev, Path(workdir))
     for line in train_lines:
@@ -4601,6 +5039,29 @@ def run(seed: int) -> None:
                     "ragged_worst_ratio"):
             if key in result:
                 kernels[name][f"7b_{key}"] = result[key]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Main path 13, serving over a mesh of two ranks on this card: base at
+    # full depth on model 2 (then the analyzer on it), 7b int4 on model 2,
+    # two data groups through the batcher; K1-K6 at the per-rank shapes.
+    t0 = time.perf_counter()
+    mesh_lines, meshed, mesh_readings = mesh_phase(seed, dev, tokenizer, grammar, smi)
+    for line in mesh_lines:
+        emit(line)
+        if line["phase"] == "path_decode":
+            note_path_decode(kernels, line)
+    for key, value in mesh_readings["flash_attention"].items():
+        kernels["flash_attention"][f"mesh_tp2_{key}"] = value
+    for name, reading in mesh_readings["int4_matmul"].items():
+        for key in ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "library_ms", "shape"):
+            if key in reading:
+                kernels["int4_matmul"][f"mesh_{name}_{key}"] = reading[key]
+    for key, value in mesh_readings["adopt_rows"].items():
+        kernels["adopt_rows"][f"mesh_dp2_{key}"] = value
+    with tempfile.TemporaryDirectory(prefix="vtx_y4m_") as workdir:
+        emit(native_reader_check(Path(workdir), smi))
+    emit({"phase": "mesh_done", "seconds": time.perf_counter() - t0})
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4680,7 +5141,7 @@ def run(seed: int) -> None:
     launches = {name: served[name] + batch_launched[name] + trained[name] + int4_served[name] + api_launched[name]
                 + grounded[name] + analyzed[name] + piped[name] + trained_grounded[name] + trained_staged[name]
                 + content_launched[name] + real_launched[name] + qwen_launched[name] + spec_launched[name]
-                for name in served}
+                + meshed[name] for name in served}
     if launches["mha_reference_on_card"]:
         raise AssertionError(f"plain attention ran {launches['mha_reference_on_card']} times on a CUDA tensor")
 

@@ -12,8 +12,8 @@ preprocess counters, ``data_parallel``, the batcher's ``dfa``/``spec``) and
 the analyzer's own engine construction: the ``device`` argument, a failed
 restore, the constant synthetic weights, the speculative draft of
 ``engine.draft`` (attached; a missing checkpoint serves the plain loop; a
-device error leaves, F10), and the settings the port does not serve yet,
-which raise ``NotImplementedError``.
+device error leaves, F10), and the mesh the port does not serve yet (a
+model axis above the kv heads), which raises ``ValueError``.
 """
 
 import copy
@@ -244,10 +244,12 @@ def clip_frames(seed: int, t: int = 24, h: int = 16, w: int = 20) -> np.ndarray:
 class TestContainers:
     @pytest.mark.parametrize("suffix", [".npzv", ".y4m"])
     def test_read_and_probe_windows(self, tmp_path, suffix, monkeypatch):
-        """``.y4m`` frames equal the JAX package's numpy decode, the route it
-        takes when its C++ shim (``video/native_reader.py``, not ported) is
-        absent; its shim's fixed-point colour conversion is within 1 of it."""
+        """``.y4m`` frames equal the JAX package's on both routes: the C++
+        shim's (each package builds its own copy, ``video/native_reader.py``)
+        exactly, and with both shims off the numpy decode's; the shim's
+        fixed-point colour conversion is within 1 of the numpy decode."""
         from video_transformer_tpu.video import native_reader
+        from video_transformer_tpu_torch.video import native_reader as p_native_reader
 
         frames = clip_frames(1)
         for mod, name in ((containers, "p"), (j_containers, "j")):
@@ -260,7 +262,10 @@ class TestContainers:
         windows = [(4, 0.0, None), (8, 1.0, 3.5), (3, 5.5, 6.0), (16, 0.0, 2.0), (4, 9.0, 12.0),
                    (1, 2.25, 2.5), (4, 0.0, -1.0)]
         shim = [j_containers.read_frames(path, num, start=start, end=end) for num, start, end in windows]
+        for (num, start, end), with_shim in zip(windows, shim):
+            np.testing.assert_array_equal(containers.read_frames(path, num, start=start, end=end), with_shim)
         monkeypatch.setattr(native_reader, "y4m_decode_frames", lambda data, indices, pooled=False: None)
+        monkeypatch.setattr(p_native_reader, "y4m_decode_frames", lambda data, indices, pooled=False: None)
         for (num, start, end), with_shim in zip(windows, shim):
             got = containers.read_frames(path, num, start=start, end=end)
             want = j_containers.read_frames(path, num, start=start, end=end)
@@ -568,14 +573,19 @@ def capture_logger(name):
 
 class TestAnalyzerEngine:
     @pytest.mark.parametrize("engine_cfg,item", [
-        ({"mesh": {"data": 1, "model": 2}}, "item 9"),
-        ({"mesh": {"data": 4, "model": 1}}, "item 9"),
+        ({"mesh": {"data": 1, "model": 2}}, "item 12"),
+        ({"mesh": {"data": 4, "model": 2}}, "item 12"),
     ], ids=["mesh_model", "mesh_data"])
     def test_unported_settings_raise(self, tmp_path, engine_cfg, item):
+        """A mesh serves (``tests/test_torch_tp.py``), but a model axis that
+        does not divide the tiny decoder's one head is refused with
+        ``ValueError`` before any rank starts: the port splits the KV cache
+        by head and does not yet replicate it (JAX does)."""
         analyzer = ContentAnalyzer(analyzer_config(tmp_path, **engine_cfg), counter.APICounter(5), device="cpu")
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=item):
             analyzer.engine
         assert analyzer._engine is None
+        assert not torch.distributed.is_initialized()
 
     def test_draft_attaches_from_the_config(self, tmp_path):
         """``engine.draft.model_preset`` attaches the preset at the

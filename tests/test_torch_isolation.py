@@ -51,6 +51,8 @@ SLICE_MODULES = (
 QWEN_MODULES = ("models.qwen_vit", "models.port", "models.hf_tokenizer", "models.synth_vocab")
 # Speculative decoding's serving transform: the projection fusion.
 SPEC_MODULES = ("models.fuse",)
+# Serving over a mesh, and the native .y4m reader.
+MESH_MODULES = ("parallel.mesh", "parallel.sharding", "video.native_reader")
 
 _ISOLATED_IMPORT = """
 import importlib, pkgutil, sys
@@ -109,6 +111,11 @@ with tempfile.TemporaryDirectory() as tmp:
     path.write_text(json.dumps({{"model": {{"type": "BPE", "vocab": vocab, "merges": []}},
                                 "added_tokens": [{{"content": "<|endoftext|>", "id": 94}}]}}))
     assert HfTokenizer(path).encode_branch == "merge_units"  # tokenizers refused: the merge-unit branch
+from video_transformer_tpu_torch.parallel.mesh import build_mesh, serve, maybe_initialize_distributed
+from video_transformer_tpu_torch.parallel.sharding import PARTITION_RULES, shard_model
+import torch.distributed as dist
+assert build_mesh({{"data": 1, "model": 1}}, devices=["cpu"]).size == 1 and not dist.is_initialized()
+assert inspect.signature(InferenceEngine).parameters["mesh"].default is None
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
@@ -121,7 +128,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     result = subprocess.run(
         [sys.executable, "-c", _ISOLATED_IMPORT.format(
             refused=REFUSED,
-            analyzer=ANALYZER_MODULES + PIPELINE_MODULES + SLICE_MODULES + QWEN_MODULES + SPEC_MODULES)],
+            analyzer=ANALYZER_MODULES + PIPELINE_MODULES + SLICE_MODULES + QWEN_MODULES + SPEC_MODULES
+            + MESH_MODULES)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert result.returncode == 0, result.stderr[-2000:]

@@ -1,0 +1,213 @@
+"""The port's mesh and sharding rules against the JAX package's (CPU, no ranks).
+
+``parallel/mesh.py``'s shape resolution on JAX's cases
+(``tests/test_engine.py::TestMesh``) and its env contract in torchrun's
+terms; ``parallel/sharding.py``'s ``spec_for_path`` equal to JAX's for
+every leaf of a micro model (float, int8 and int4 serving trees); a rank's
+shard equal to the matching slice of the 1-rank weights, quantized whole
+first; a 1 x 1 mesh that makes no process group. The multi-rank paths are
+in ``tests/test_torch_tp.py``.
+"""
+
+from dataclasses import replace
+
+import pytest
+import torch
+
+from video_transformer_tpu.parallel.mesh import mesh_shape_from_config as j_mesh_shape
+from video_transformer_tpu.parallel.sharding import spec_for_path as j_spec_for_path
+from video_transformer_tpu_torch.models.config import DecoderConfig, EncoderConfig, VLMConfig
+from video_transformer_tpu_torch.models.quant import quantize_decoder
+from video_transformer_tpu_torch.models.vlm import VideoLM
+from video_transformer_tpu_torch.parallel.engine import InferenceEngine
+from video_transformer_tpu_torch.parallel.mesh import (
+    Mesh,
+    build_mesh,
+    choose_backend,
+    distributed_init_kwargs,
+    mesh_devices,
+    mesh_shape_from_config,
+)
+from video_transformer_tpu_torch.parallel.sharding import check_divisible, shard_model, spec_for_path
+from video_transformer_tpu_torch.weights import _init_param, cast_weights, random_params
+
+
+def micro_config(**decoder) -> VLMConfig:
+    """JAX ``tests/test_engine.py::micro_config``'s geometry."""
+    return VLMConfig(
+        name="micro",
+        encoder=EncoderConfig(hidden_dim=64, num_layers=1, num_heads=2, head_dim=32, mlp_dim=128, image_size=32,
+                              patch_size=16, tubelet_t=2, num_frames=4),
+        decoder=DecoderConfig(vocab_size=512, hidden_dim=64, num_layers=2, num_heads=2, num_kv_heads=2, head_dim=32,
+                              mlp_dim=128, max_seq_len=1024, **decoder),
+        dtype="float32",
+    )
+
+
+class TestMeshShape:
+    @pytest.mark.parametrize("cfg,n,want", [
+        ({"data": -1, "model": 2}, 8, (4, 2)), ({}, 8, (8, 1)), ({"data": 2, "model": 4}, 8, (2, 4)),
+        ({"model": 0}, 4, (4, 1)), (None, 1, (1, 1)),
+    ])
+    def test_resolution_equals_jax(self, cfg, n, want):
+        assert mesh_shape_from_config(cfg, n) == j_mesh_shape(cfg, n) == want
+
+    @pytest.mark.parametrize("cfg", [{"model": 3}, {"data": 3, "model": 2}])
+    def test_invalid_mesh_raises_as_in_jax(self, cfg):
+        with pytest.raises(ValueError):
+            j_mesh_shape(cfg, 8)
+        with pytest.raises(ValueError):
+            mesh_shape_from_config(cfg, 8)
+
+    def test_backend_rule(self):
+        cuda = [torch.device("cuda", i) for i in range(4)]
+        assert choose_backend(cuda) == "nccl"
+        assert choose_backend([torch.device("cuda", 0)] * 2) == "gloo"  # NCCL refuses two ranks on one card
+        assert choose_backend([torch.device("cpu")] * 4) == "gloo"
+
+    def test_cpu_ranks_follow_the_config(self):
+        assert mesh_devices("cpu", {"data": -1, "model": 2}) == [torch.device("cpu")] * 2
+        assert mesh_devices("cpu", {"data": 2, "model": 2}) == [torch.device("cpu")] * 4
+        assert mesh_devices("cpu", None) == [torch.device("cpu")]
+
+    def test_one_by_one_mesh_makes_no_process_group(self):
+        mesh = build_mesh({"data": -1, "model": 1}, devices=["cpu"])
+        assert (mesh.data, mesh.model, mesh.size) == (1, 1, 1) and not mesh.is_controller
+        assert not torch.distributed.is_initialized()
+        engine = InferenceEngine(micro_config(), max_new_tokens=2, temperature=0.0, device="cpu", mesh=mesh)
+        assert engine.mesh is None and engine.data_parallel == 1
+        assert not torch.distributed.is_initialized()
+
+    def test_a_model_as_params_is_refused_on_a_mesh(self):
+        """Each rank makes its own weights; a VideoLM would cross whole."""
+        mesh = Mesh(1, 2, [torch.device("cpu")] * 2)
+        model = random_params(micro_config(), torch.Generator().manual_seed(0), "cpu")
+        with pytest.raises(ValueError, match="a function each rank calls"):
+            InferenceEngine(micro_config(), params=model, device="cpu", mesh=mesh)
+        assert not torch.distributed.is_initialized()
+
+
+class TestEnvContract:
+    """JAX's cases (``tests/test_multihost.py``) in torchrun's terms."""
+
+    def test_absent_address_means_single_process(self):
+        assert distributed_init_kwargs({}) is None
+        assert distributed_init_kwargs({"WORLD_SIZE": "4", "RANK": "0"}) is None
+        assert distributed_init_kwargs({"MASTER_ADDR": "h"}) is None
+        assert distributed_init_kwargs({"MASTER_ADDR": "h", "WORLD_SIZE": "1", "RANK": "0"}) is None
+
+    def test_explicit_topology(self):
+        kwargs = distributed_init_kwargs({"MASTER_ADDR": "host", "MASTER_PORT": "8476", "WORLD_SIZE": "4",
+                                          "RANK": "2", "LOCAL_RANK": "1"})
+        assert kwargs == {"host": "host", "port": 8476, "world_size": 4, "rank": 2, "local_rank": 1}
+        assert distributed_init_kwargs({"MASTER_ADDR": "h", "WORLD_SIZE": "2", "RANK": "1"})["port"] == 29500
+
+    @pytest.mark.parametrize("env", [
+        {"MASTER_ADDR": "h", "WORLD_SIZE": "2"}, {"MASTER_ADDR": "h", "RANK": "0"},
+    ])
+    def test_half_specified_topology_rejected(self, env):
+        with pytest.raises(ValueError, match="set together"):
+            distributed_init_kwargs(env)
+
+    def test_non_integer_topology_rejected(self):
+        with pytest.raises(ValueError, match="integers"):
+            distributed_init_kwargs({"MASTER_ADDR": "h", "WORLD_SIZE": "two", "RANK": "0"})
+
+    def test_rank_out_of_range_rejected(self):
+        with pytest.raises(ValueError, match="outside"):
+            distributed_init_kwargs({"MASTER_ADDR": "h", "WORLD_SIZE": "2", "RANK": "2"})
+
+
+def _model(cfg: VLMConfig, quant: str | None):
+    model = random_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    return quantize_decoder(model, quant) if quant else model
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+def test_spec_for_path_equals_jax_on_every_leaf(quant):
+    """Every leaf of a served micro tree (the port's names are JAX's paths
+    joined by dots; scales are the ``quant`` collection's leaves), with q/k/v
+    biases and an untied head."""
+    model = _model(micro_config(qkv_bias=True, tied_embeddings=False), quant)
+    names = list(model.state_dict())
+    assert any(n.endswith("lm_head") for n in names) and any(n.endswith("q.bias") for n in names)
+    if quant:
+        assert any(n.endswith("down.scale") for n in names)
+    for name in names:
+        path = tuple(name.split("."))
+        assert spec_for_path(path) == tuple(j_spec_for_path(path)), name
+
+
+def _rank_mesh(rank: int, data: int = 1, model: int = 2) -> Mesh:
+    """A rank's view of a mesh with no process group: enough to shard."""
+    return Mesh(data, model, [torch.device("cpu")] * (data * model), rank=rank)
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("rank", [0, 1])
+def test_shard_is_the_slice_of_the_whole_weights(quant, rank):
+    """Quantize whole, then shard: column-parallel kernels, biases and
+    scales split on the output dim; row-parallel kernels split on the input
+    dim (an int4 carrier [K/2, N] in whole packed rows) and keep the whole
+    kernel's scales; the untied head splits its vocab; the rest is whole."""
+    cfg = micro_config(qkv_bias=True, tied_embeddings=False)
+    whole = _model(cfg, quant).state_dict()
+    part = shard_model(_model(cfg, quant), _rank_mesh(rank)).state_dict()
+    assert list(part) == list(whole)
+    for name, tensor in whole.items():
+        spec = spec_for_path(tuple(name.split(".")))
+        got = part[name]
+        if name.startswith("decoder.") and "model" in spec:
+            dim = spec.index("model")
+            want = tensor.chunk(2, dim=dim)[rank]
+        else:
+            want = tensor
+        assert got.dtype == tensor.dtype and torch.equal(got, want), name
+    block = shard_model(_model(cfg, quant), _rank_mesh(rank)).decoder.layer_0
+    assert (block.attn.heads, block.attn.kv_heads) == (1, 1)
+
+
+def test_quantizing_a_shard_would_change_row_parallel_scales():
+    """Why the order is quantize, then shard: a row-parallel kernel's
+    per-output-channel scale is its amax over all K rows; a half of the rows
+    has its own, smaller amax."""
+    model = random_params(micro_config(), torch.Generator().manual_seed(0), "cpu")
+    kernel = model.decoder.layer_0.mlp.down.kernel.detach()
+    whole = kernel.abs().amax(dim=0)
+    halves = [half.abs().amax(dim=0) for half in kernel.chunk(2, dim=0)]
+    assert torch.equal(torch.maximum(*halves), whole)
+    assert not torch.equal(halves[0], whole) and not torch.equal(halves[1], whole)
+
+
+def test_layered_random_weights_equal_the_whole_draw():
+    """``random_params`` draws block by block what a draw over the whole
+    model makes (flax's init of each parameter, in the order of the model
+    built whole), in the same order; ``place_block`` sees each block once,
+    cast, in layer order, and what it returns is the model's block."""
+    cfg = micro_config(qkv_bias=True, tied_embeddings=False)
+    generator = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        reference = VideoLM(cfg)
+        for name, param in reference.named_parameters():
+            _init_param(name, param, generator)
+    whole = cast_weights(reference, torch.bfloat16).state_dict()
+    seen = []
+
+    def place(block):
+        seen.append((block.attn.layer_idx, {p.dtype for p in block.parameters()}))
+        return block
+
+    for place_block in (None, place):
+        layered = random_params(cfg, torch.Generator().manual_seed(5), "cpu", torch.bfloat16,
+                                place_block=place_block).state_dict()
+        assert list(layered) == list(whole)
+        assert all(torch.equal(layered[k], whole[k]) for k in whole)
+    assert seen == [(i, {torch.bfloat16}) for i in range(cfg.decoder.num_layers)]
+
+
+def test_model_axis_must_divide_the_heads():
+    check_divisible(micro_config().decoder, 2)
+    with pytest.raises(ValueError, match="item 12"):
+        check_divisible(replace(micro_config().decoder, num_kv_heads=1), 2)
+    with pytest.raises(ValueError, match="num_heads"):
+        check_divisible(micro_config().decoder, 4)

@@ -371,10 +371,14 @@ class TestEngineSizing:
             ((1024 - 96 - 2 * 16 - 17) // 128) * 128
         assert plain._prompt_bucket(long_prompt, with_video=False) == ((1024 - 96 - 2 * 3 - 17) // 128) * 128
 
-    def test_caches_are_per_model_and_in_the_compute_dtype(self, spec_pair, caplog):
+    def test_caches_are_per_model_and_in_the_compute_dtype(self, spec_pair, caplog, monkeypatch):
         """Both caches follow the compute dtype whatever ``kv_quant`` says
         (as JAX's speculative program makes them); ``kv_quant`` is logged
-        as unused; each cache is sized by its own model's video tokens."""
+        as unused; each cache is sized by its own model's video tokens. The
+        logger propagates to caplog here whatever an earlier test in the
+        same worker set up (the CLI and training tests' logger setup turns
+        propagation off)."""
+        monkeypatch.setattr(logging.getLogger("video_transformer"), "propagate", True)
         engine = port_engine(spec_pair[0], max_new_tokens=16, kv_quant="int8")
         with caplog.at_level(logging.INFO, logger="video_transformer"):
             engine.attach_draft(DRAFT, spec_tokens=4)

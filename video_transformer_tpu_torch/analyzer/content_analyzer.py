@@ -21,8 +21,11 @@ state and per-segment outputs are cached to disk as JSON. Greedy, the
 decoding (``InferenceEngine.attach_draft``) as the JAX analyzer does: a
 missing or unfit draft checkpoint logs ``event=engine_draft_failed`` and
 serves the plain loop, while an error of torch or the device leaves the
-analyzer (F10, ROADMAP.md §3). Not ported (``NotImplementedError``, ROADMAP.md
-§1): a mesh of more than one device (item 9).
+analyzer (F10, ROADMAP.md §3). ``engine.mesh`` builds the engine on
+``parallel/mesh.py::build_mesh`` as the JAX analyzer does: on the card one
+rank per visible card (``data: -1``, the shipped setting, takes them all),
+on the CPU as many CPU ranks as the config's axes name; batches and the
+batcher's slots scale with the data axis.
 """
 
 from __future__ import annotations
@@ -151,8 +154,9 @@ class ContentAnalyzer:
 
             from ..models.config import get_preset
             from ..parallel.engine import InferenceEngine
+            from ..parallel.mesh import build_mesh, mesh_devices, mesh_shape_from_config
+            from ..parallel.sharding import check_divisible
 
-            self._refuse_unported()
             preset = get_preset(self.engine_config.get("model_preset", "tiny"))
             tokenizer = None
             tok_cfg = self.engine_config.get("tokenizer") or {}
@@ -179,35 +183,25 @@ class ContentAnalyzer:
                 # Rehearsal-only (full-pipeline dry runs at real geometry):
                 # constant 0.01 bf16 weights built on the HOST through the
                 # meta model, so no f32 tree and no RNG program is ever
-                # made; the engine then casts, quantizes and places them.
-                import torch
+                # made; each rank builds its own, then the engine casts,
+                # quantizes and places them.
+                from functools import partial
 
-                from ..models.vlm import VideoLM
-                from ..weights import from_state_dict
+                from ..weights import constant_params
 
-                with torch.device("meta"):
-                    struct = VideoLM(preset).state_dict()
-                params = from_state_dict(
-                    {
-                        name: torch.full(
-                            leaf.shape,
-                            0.01,
-                            dtype=torch.bfloat16
-                            if leaf.dtype == torch.float32
-                            else leaf.dtype,
-                        )
-                        for name, leaf in struct.items()
-                    },
-                    preset,
-                    device="cpu",
-                )
+                params = partial(constant_params, preset)
                 self.logger.info(
                     "event=engine_synthetic_weights preset="
                     f"{self.engine_config.get('model_preset')}"
                 )
+            mesh_config = self.engine_config.get("mesh")
+            devices = mesh_devices(self.device, mesh_config)
+            # Refuse a model axis the decoder cannot split before any rank starts.
+            check_divisible(preset.decoder, mesh_shape_from_config(mesh_config, len(devices))[1])
             self._engine = InferenceEngine(
                 preset,
                 params=params,
+                mesh=build_mesh(mesh_config, devices=devices),
                 max_new_tokens=int(self.engine_config.get("max_new_tokens", 3072)),
                 temperature=float(self.engine_config.get("temperature", 0.7)),
                 structure_bias=float(self.engine_config.get("structure_bias", 1.5)),
@@ -273,18 +267,6 @@ class ContentAnalyzer:
                     self._engine.detach_draft()
                     self.logger.warning(f"event=engine_draft_failed error={exc}")
         return self._engine
-
-    def _refuse_unported(self) -> None:
-        """Raise for the engine settings the port does not serve yet, before
-        anything is built (each names its ROADMAP.md §1 item)."""
-        mesh = self.engine_config.get("mesh") or {}
-        for axis in ("data", "model"):
-            size = int(mesh.get(axis, 1) or 1) if isinstance(mesh, dict) else 1
-            if size > 1:
-                raise NotImplementedError(
-                    f"engine.mesh.{axis} = {size}: the port serves on one device "
-                    "(ROADMAP.md §1 item 9, parallelism over torch.distributed)"
-                )
 
     # -- public API ----------------------------------------------------------
 
@@ -796,7 +778,7 @@ class ContentAnalyzer:
 
         # Per-device batch width: decode throughput rises with batch
         # (weight reads amortize across rows), bounded by the KV cache's
-        # share of device memory. data_parallel is 1 in the port.
+        # share of device memory.
         long_video = self.analyzer_config.get("long_video", {}) or {}
         per_chip = int(long_video.get("segment_batch_per_chip", 32) or 32)
         chunk_size = max(self.engine.data_parallel, 1) * per_chip

@@ -13,7 +13,12 @@ This package's own copy of the JAX package's ``cli.py``. ``--config`` takes
 the port's JSON config (``utils/config.json`` by default; a YAML path is
 refused with the JSON file's name: the card machine has no ``yaml``).
 ``--device`` (default ``cuda``) places the engine; ``cpu`` runs the
-kernels' plain versions. There is one device, so no distributed start-up.
+kernels' plain versions. The config's ``engine.mesh`` serves over ranks
+(``parallel/mesh.py``): with no launcher the analyzer's ``build_mesh`` starts
+the other ranks itself; under ``torchrun`` ``main`` first joins the world
+(``maybe_initialize_distributed``, before any engine is built), rank 0 runs
+the program and every other rank serves its calls (``serve``) until rank 0
+closes the mesh at exit.
 An error from torch or naming CUDA propagates out of ``main`` (exit code 1
 and its traceback under ``python -m``); the exit codes are otherwise the
 JAX CLI's (``tests/test_torch_cli.py``).
@@ -177,6 +182,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    # Join a torchrun world when its env contract is present (a no-op for a
+    # single process), before any mesh or engine is built.
+    import torch.distributed as dist
+
+    from .parallel.mesh import maybe_initialize_distributed, serve
+
+    if maybe_initialize_distributed() and dist.get_rank() != 0:
+        serve()
+        return 0
     try:
         return VideoTransformerCLI(args).run()
     except KeyboardInterrupt:

@@ -9,7 +9,11 @@ and attends the valid prefix through K3 (``ops/decode_attention.py``), or
 does both through K5 when the cache is bf16. A ``rows`` entry [B] int32
 maps each logical row to its physical cache row (the batcher's paged pool);
 an ``active`` entry [B] bool leaves padding rows out of the int8 scales'
-calibration. Without a cache (training) the
+calibration. On a mesh (``parallel/sharding.py::shard_model``) a block
+attends over its rank's heads and all-reduces the products of ``out`` and
+``down`` over the ``model`` axis, an int8 cache's scales take the MAX of
+every data group's amax (the global batch's, as in JAX), and an untied
+head's vocab shards are all-gathered. Without a cache (training) the
 blocks attend causally through ``ops/attention.py`` (K7a-c under autograd),
 and ``remat`` recomputes each block in the backward pass. Parameter names
 follow the JAX package's parameter paths (``layer_0.attn.q.kernel``). A
@@ -49,9 +53,12 @@ def init_kv_cache(
     dtype: torch.dtype,
     quant: bool = False,
     device: str | torch.device = "cuda",
+    kv_heads: int | None = None,
 ) -> Cache:
-    """An empty KV cache: per-layer k/v lists of [B, Hkv, max_len, D]."""
-    shape = (batch, config.num_kv_heads, max_len, config.head_dim)
+    """An empty KV cache: per-layer k/v lists of [B, Hkv, max_len, D];
+    ``kv_heads`` is a mesh rank's share of the kv heads (default: all)."""
+    kv_heads = kv_heads or config.num_kv_heads
+    shape = (batch, kv_heads, max_len, config.head_dim)
     kv_dtype = torch.int8 if quant else dtype
     cache: Cache = {
         "k": [torch.zeros(shape, dtype=kv_dtype, device=device) for _ in range(config.num_layers)],
@@ -61,7 +68,7 @@ def init_kv_cache(
     if quant:
         for name in ("k_scale", "v_scale"):
             cache[name] = [
-                torch.full((config.num_kv_heads,), 1e-6, dtype=torch.float32, device=device)
+                torch.full((kv_heads,), 1e-6, dtype=torch.float32, device=device)
                 for _ in range(config.num_layers)
             ]
     return cache
@@ -81,6 +88,9 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.layer_idx = layer_idx
+        # This rank's heads and the mesh (parallel/sharding.py::shard_block).
+        self.heads, self.kv_heads = cfg.num_heads, cfg.num_kv_heads
+        self.mesh = None
         q_dim = cfg.num_heads * cfg.head_dim
         kv_dim = cfg.num_kv_heads * cfg.head_dim
         # Qwen2 decoders carry q/k/v biases, added after the quantization
@@ -94,15 +104,16 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         dtype = x.dtype
+        heads, kv_heads, mesh = self.heads, self.kv_heads, self.mesh
         if "qkv" in self._modules:
             # Serve-time fused projection (models/fuse.py): one product, split.
-            kv_dim = cfg.num_kv_heads * cfg.head_dim
-            q, k, v = self.qkv(x, dtype).split([cfg.num_heads * cfg.head_dim, kv_dim, kv_dim], dim=-1)
+            kv_dim = kv_heads * cfg.head_dim
+            q, k, v = self.qkv(x, dtype).split([heads * cfg.head_dim, kv_dim, kv_dim], dim=-1)
         else:
             q, k, v = self.q(x, dtype), self.k(x, dtype), self.v(x, dtype)
-        q = q.reshape(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
-        k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
-        v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+        q = q.reshape(b, s, heads, cfg.head_dim).transpose(1, 2)
+        k = k.reshape(b, s, kv_heads, cfg.head_dim).transpose(1, 2)
+        v = v.reshape(b, s, kv_heads, cfg.head_dim).transpose(1, 2)
         cos, sin = rope
         q = apply_rope(q, positions, cos, sin).contiguous()
         k = apply_rope(k, positions, cos, sin).contiguous()
@@ -131,8 +142,12 @@ class Attention(nn.Module):
                     if active is not None:
                         k_abs = torch.where(active[:, None, None, None], k_abs, 0)
                         v_abs = torch.where(active[:, None, None, None], v_abs, 0)
-                    k_scale = torch.maximum(k_scale, 1.5 * k_abs.amax(dim=(0, 2, 3)) / 127.0)
-                    v_scale = torch.maximum(v_scale, 1.5 * v_abs.amax(dim=(0, 2, 3)) / 127.0)
+                    k_amax, v_amax = k_abs.amax(dim=(0, 2, 3)), v_abs.amax(dim=(0, 2, 3))
+                    if mesh is not None and mesh.data > 1:
+                        # Every data group's rows: the global batch's amax (exact).
+                        k_amax, v_amax = mesh.all_reduce(torch.stack([k_amax, v_amax]), "data", op="max")
+                    k_scale = torch.maximum(k_scale, 1.5 * k_amax / 127.0)
+                    v_scale = torch.maximum(v_scale, 1.5 * v_amax / 127.0)
                     cache["k_scale"][i] = k_scale
                     cache["v_scale"][i] = v_scale
                 # K2 writes the block in one launch (on the CPU its plain
@@ -141,8 +156,10 @@ class Attention(nn.Module):
                 out = flash_attention(q, k, v, causal=True)
             else:
                 out = decode_attention_update(q, k_layer, v_layer, k, v, index, rows, k_scale, v_scale)
-        out = out.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
-        return self.out(out, dtype), cache
+        out = self.out(out.transpose(1, 2).reshape(b, s, heads * cfg.head_dim), dtype)
+        if mesh is not None:
+            out = mesh.all_reduce(out, "model")  # row-parallel partial sums
+        return out, cache
 
 
 class SwiGLU(nn.Module):
@@ -151,6 +168,7 @@ class SwiGLU(nn.Module):
         self.gate = QDense(cfg.hidden_dim, cfg.mlp_dim)
         self.up = QDense(cfg.hidden_dim, cfg.mlp_dim)
         self.down = QDense(cfg.mlp_dim, cfg.hidden_dim)
+        self.mesh = None  # parallel/sharding.py::shard_block
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
@@ -158,7 +176,8 @@ class SwiGLU(nn.Module):
             gate, up = self.gateup(x, dtype).chunk(2, dim=-1)
         else:
             gate, up = self.gate(x, dtype), self.up(x, dtype)
-        return self.down(F.silu(gate) * up, dtype)
+        out = self.down(F.silu(gate) * up, dtype)
+        return out if self.mesh is None else self.mesh.all_reduce(out, "model")
 
 
 class DecoderBlock(nn.Module):
@@ -187,6 +206,11 @@ class Decoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.remat = False
+        # A mesh rank's kv heads and mesh, and whether its lm_head is a
+        # vocab shard (parallel/sharding.py::shard_model).
+        self.kv_heads = cfg.num_kv_heads
+        self.mesh = None
+        self.head_sharded = False
         self.embed = nn.Module()
         self.embed.embedding = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.hidden_dim))
         for i in range(cfg.num_layers):
@@ -228,6 +252,8 @@ class Decoder(nn.Module):
             x = x[torch.arange(b, device=x.device), logits_at.long()][:, None, :]
         head = self.embed.embedding if cfg.tied_embeddings else self.lm_head
         logits = torch.einsum("bsh,vh->bsv", x.float(), head.float())
+        if self.head_sharded:
+            logits = self.mesh.all_gather(logits, "model", dim=-1)
         if cache is not None:
             cache["index"] = cache["index"] + s
         return logits, cache

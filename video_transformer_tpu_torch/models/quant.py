@@ -25,6 +25,7 @@ __all__ = [
     "quantize_decoder_int4",
     "quantize_decoder_int8",
     "quantize_kernel",
+    "quantize_module",
     "unpack_int4",
 ]
 
@@ -55,25 +56,35 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def quantize_decoder(model: nn.Module, mode: str = "int8") -> nn.Module:
-    """Quantize, in place, every block dense layer of ``model.decoder``.
+def quantize_module(module: nn.Module, mode: str = "int8") -> nn.Module:
+    """Quantize, in place, every dense layer of ``module`` named in
+    ``QUANTIZED_DENSE_NAMES`` (a decoder, or one of its blocks).
 
     ``mode`` "int8" keeps an int8 kernel [in, out], "int4" a packed uint8
     kernel [in/2, out]; either stays a parameter (without grad) under its
     name, beside an f32 ``scale`` [out]. The scale comes from the kernel as
     it is stored (after any ``param_dtype`` cast), as the JAX engine casts
-    before it quantizes. Idempotent: int8 and uint8 kernels are left alone.
+    before it quantizes, and from the whole kernel: a mesh shards after it
+    quantizes (``parallel/sharding.py``). Idempotent: int8 and uint8
+    kernels are left alone.
     """
     qmax = _QUANT_QMAX[mode]
-    for name, module in model.decoder.named_modules():
-        if not isinstance(module, Dense) or name.rsplit(".", 1)[-1] not in QUANTIZED_DENSE_NAMES:
+    for name, dense in module.named_modules():
+        if not isinstance(dense, Dense) or name.rsplit(".", 1)[-1] not in QUANTIZED_DENSE_NAMES:
             continue
-        if module.kernel.dtype in (torch.int8, torch.uint8):
+        if dense.kernel.dtype in (torch.int8, torch.uint8):
             continue
-        kernel, module.scale = quantize_kernel(module.kernel, qmax)
+        kernel, dense.scale = quantize_kernel(dense.kernel, qmax)
         if mode == "int4":
             kernel = pack_int4(kernel)
-        module.kernel = nn.Parameter(kernel, requires_grad=False)
+        dense.kernel = nn.Parameter(kernel, requires_grad=False)
+    return module
+
+
+def quantize_decoder(model: nn.Module, mode: str = "int8") -> nn.Module:
+    """Quantize, in place, every block dense layer of ``model.decoder``
+    (``quantize_module``); returns ``model``."""
+    quantize_module(model.decoder, mode)
     return model
 
 

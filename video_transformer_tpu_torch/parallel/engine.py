@@ -49,17 +49,30 @@ Each entry point opens the JAX engine's tracing span (``utils/tracing.py``):
 each is also an NVTX range. A span closes after the host has read the
 call's results back from the device.
 
-Not ported: data parallelism (one device, so a batch pads only to
-``batch_bucket``, and ``data_parallel`` is 1).
+A mesh (``InferenceEngine(..., mesh=build_mesh(...))``, ``parallel/mesh.py``)
+serves over ``data`` x ``model`` ranks. Every rank runs each call in
+lockstep: a batch pads to a multiple of the data axis (of ``batch_bucket``
+rounded up to it), each data group prefills and decodes its own rows, and
+the results are gathered in row order; within a group the model ranks hold
+``parallel/sharding.py``'s shards (the serving transform casts, quantizes
+the whole kernels, then shards) and see the same all-reduced logits and the
+same seeded generator, so they make the same host decisions. ``model`` must
+divide ``num_heads`` and ``num_kv_heads`` (the KV cache splits by head), and
+the projection fusion is dropped when ``model`` is above 1
+(``event=fuse_projections_dropped``), as in JAX. A draft is replicated on
+every rank. On rank 0 each public call is also sent to the worker ranks
+(``parallel/mesh.py::replicated``); the controller's session objects name the workers'
+carries by handle. A 1 x 1 mesh is no mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -68,12 +81,14 @@ from ..models.config import VLMConfig
 from ..models.fuse import fuse_projections as fuse_model
 from ..models.lm import init_kv_cache
 from ..models.port import load_qwen2vl_dir
-from ..models.quant import quantize_decoder
+from ..models.quant import quantize_decoder, quantize_module
 from ..models.tokenizer import ByteTokenizer
 from ..models.vlm import VideoLM
 from ..ops.preprocess import preprocess_frames
 from ..utils.tracing import tracer
 from ..weights import cast_weights, flatten_tree, from_jax_params, from_state_dict, load_npz, random_params
+from .mesh import DATA_AXIS, Mesh, replicated
+from .sharding import check_divisible, shard_block, shard_model
 
 __all__ = ["InferenceEngine", "EngineStats", "EngineSession", "params_checkpoints", "resolve_params_dir"]
 
@@ -166,7 +181,8 @@ class EngineSession:
 
 
 class InferenceEngine:
-    """Owns the model on one device and runs ``generate``/``generate_text``."""
+    """Owns the model on one device (or a mesh rank's share of it) and runs
+    ``generate``/``generate_text``."""
 
     def __init__(
         self,
@@ -177,22 +193,51 @@ class InferenceEngine:
         structure_bias: float = 0.0,
         max_forced_run: int = 2,
         seed: int = 0,
-        params: VideoLM | None = None,
+        params: VideoLM | Callable[[], VideoLM] | None = None,
         tokenizer: Any = None,
         param_dtype: str | None = None,
         quantize: str | None = None,
         kv_quant: str | None = None,
         fuse_projections: bool = False,
         device: str | torch.device = "cuda",
+        mesh: Mesh | None = None,
     ):
         """``params`` is a VideoLM (``weights.from_jax_params`` or
-        ``weights.random_params``); None makes seeded random weights on
-        ``device`` (``restore`` then loads trained ones). ``param_dtype``
+        ``weights.random_params``), or a function of no arguments that
+        returns one (a module-level function or a ``functools.partial`` of
+        one, such as ``weights.constant_params``); None makes seeded random
+        weights on ``device`` (``restore`` then loads trained ones). ``param_dtype``
         casts the float weights, ``quantize`` ("int8" or "int4") then
         quantizes the decoder's dense layers, ``fuse_projections`` then
         fuses each block's q/k/v and gate/up (``models/fuse.py``), and
         ``kv_quant="int8"`` stores the KV cache in int8 (not while a draft
-        is attached)."""
+        is attached). ``mesh`` serves over its ranks (see the module
+        docstring); each rank takes its mesh device, whatever ``device``
+        says. On a mesh every rank makes its own weights: random ones a block
+        at a time, or by calling the ``params`` function; a VideoLM is
+        refused (it would cross to every rank whole), as is done with
+        trained weights through ``restore``, where each rank reads the
+        checkpoint."""
+        args = {name: value for name, value in locals().items() if name not in ("self", "__class__")}
+        mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if mesh is not None:
+            check_divisible(config.decoder, mesh.model)  # before any rank builds
+            if isinstance(params, torch.nn.Module):
+                raise ValueError(
+                    "on a mesh, params is a function each rank calls (or None, then restore() a checkpoint), "
+                    "not a model"
+                )
+        object.__setattr__(self, "mesh", mesh)
+        new = mesh.controlled(("new", type(self), (), args)) if mesh else contextlib.nullcontext()
+        with new:
+            self._init(**{k: v for k, v in args.items() if k != "mesh"})
+            if mesh:
+                mesh.register(self)
+        self._ready = True
+
+    def _init(self, config, dfa, max_new_tokens, temperature, structure_bias, max_forced_run, seed, params,
+              tokenizer, param_dtype, quantize, kv_quant, fuse_projections, device):
+        mesh = self.mesh
         if quantize not in (None, "int8", "int4"):
             raise ValueError(f"unsupported quantize mode: {quantize!r}")
         if kv_quant not in (None, "int8"):
@@ -201,8 +246,14 @@ class InferenceEngine:
             raise ValueError(
                 f"tokenizer vocab {tokenizer.vocab_size} != decoder vocab {config.decoder.vocab_size}"
             )
+        if mesh is not None:
+            if fuse_projections and mesh.model > 1:
+                logging.getLogger("video_transformer").info(
+                    f"event=fuse_projections_dropped model={mesh.model}: a fused product does not shard"
+                )
+                fuse_projections = False
         self.config = config
-        self.device = torch.device(device)
+        self.device = mesh.device if mesh is not None else torch.device(device)
         self.dfa = dfa
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
@@ -216,8 +267,16 @@ class InferenceEngine:
         self.stats = EngineStats()
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         if params is None:
-            params = random_params(config, self._generator, self.device, self.param_dtype or torch.float32)
+            params = random_params(
+                config, self._generator, self.device, self.param_dtype or torch.float32,
+                place_block=self._place_block if mesh is not None else None,
+            )
+        elif not isinstance(params, torch.nn.Module):
+            params = params()
         self.model = self._place(params)
+        if mesh is not None and mesh.data_index:
+            # Each data group samples its rows from a stream of its own.
+            self._generator.manual_seed(seed + 1_000_003 * mesh.data_index)
         self._tables: dict[int, Any] = {}
         self._forced: dict[int, tuple[torch.Tensor, ...]] = {}
         # Speculative decoding (attach_draft): None serves the plain loop.
@@ -225,20 +284,41 @@ class InferenceEngine:
         self.draft_config: VLMConfig | None = None
         self.spec_tokens = 0
 
+    def __setattr__(self, name: str, value: Any) -> None:
+        """On a mesh's rank 0, a public attribute set outside any call (such
+        as ``engine.dfa = ...``) is made on every rank."""
+        mesh = self.__dict__.get("mesh")
+        if mesh is not None and mesh.is_controller and self.__dict__.get("_ready") and not name.startswith("_"):
+            with mesh.controlled(("call", self, "__setattr__", (name, value), {})):
+                object.__setattr__(self, name, value)
+            return
+        object.__setattr__(self, name, value)
+
+    def _place_block(self, block):
+        """A mesh rank's transform of one decoder block that
+        ``random_params`` has drawn and cast: quantize it whole, then shard."""
+        if self.quantize:
+            quantize_module(block, self.quantize)
+        return shard_block(block, self.mesh)
+
     def _place(self, model: VideoLM) -> VideoLM:
         """The serving transform, in the JAX engine's order: the
-        ``param_dtype`` cast, then quantization, then the projection fusion
-        (a new module; the caller's keeps its layout), then the device."""
+        ``param_dtype`` cast, then quantization, then (on a mesh) this
+        rank's shards, then the projection fusion (a new module; the
+        caller's keeps its layout), then the device."""
         if self.param_dtype is not None:
             cast_weights(model, self.param_dtype)
         if self.quantize:
             quantize_decoder(model, self.quantize)
+        if self.mesh is not None:
+            shard_model(model, self.mesh)
         if self.fuse_projections:
             model = fuse_model(model)
         return model.to(self.device).eval()
 
     # -- speculative decoding ------------------------------------------------------
 
+    @replicated
     def attach_draft(
         self,
         config: VLMConfig,
@@ -286,6 +366,7 @@ class InferenceEngine:
         if checkpoint is not None:
             self.restore_draft(checkpoint)
 
+    @replicated
     def detach_draft(self) -> None:
         """Return to the plain decode loop; sessions of the speculative era
         cannot be continued after it."""
@@ -304,6 +385,7 @@ class InferenceEngine:
             model = fuse_model(model)
         return model.to(self.device).eval()
 
+    @replicated
     def restore_draft(self, checkpoint_path: str | Path) -> None:
         """Load the draft's trained weights from what ``restore`` takes (a
         converted ``.npz``, a ``params_N/params.pt`` or a parent of such
@@ -329,6 +411,7 @@ class InferenceEngine:
         frames_t = torch.as_tensor(np.ascontiguousarray(frames)).to(self.device)
         return preprocess_frames(frames_t, self.draft_config.encoder, self.draft_model.compute_dtype)
 
+    @replicated
     def restore(self, checkpoint_path: str | Path) -> None:
         """Load trained weights, then re-apply the serving transform.
 
@@ -465,9 +548,12 @@ class InferenceEngine:
     def _pad_and_tokenize(
         self, prompts: list[str], b_real: int, prompt_len: int, batch_bucket: int | None = None
     ) -> tuple[int, np.ndarray]:
-        """Prompt tokens [B, prompt_len], the batch rounded up to
-        ``batch_bucket`` with empty prompts (one device: no other quantum)."""
-        b_padded = _round_up(max(b_real, 1), batch_bucket or 1)
+        """Prompt tokens [B, prompt_len], the batch rounded up with empty
+        prompts to the data axis (or to ``batch_bucket`` rounded up to it)."""
+        quantum = self.data_parallel
+        if batch_bucket:
+            quantum = _round_up(batch_bucket, self.data_parallel)
+        b_padded = _round_up(max(b_real, 1), quantum)
         padded = prompts + [""] * (b_padded - b_real)
         overflow = sum(1 for p in prompts if len(self.tokenizer.encode(p)) + 1 > prompt_len)
         if overflow:
@@ -583,9 +669,28 @@ class InferenceEngine:
 
     @property
     def data_parallel(self) -> int:
-        """Data-axis width: the port serves on one device."""
-        return 1
+        """Data-axis width: 1 without a mesh."""
+        return self.mesh.data if self.mesh is not None else 1
 
+    def _local_rows(self, b: int) -> slice:
+        """This rank's data group's rows of a padded batch of ``b``."""
+        if self.mesh is None:
+            return slice(0, b)
+        per = b // self.mesh.data
+        return slice(self.mesh.data_index * per, (self.mesh.data_index + 1) * per)
+
+    def _gather_rows(self, tokens, out_pos, complete, steps: int):
+        """Every data group's decode results in row order, and the most
+        steps a group took (the length of the global loop)."""
+        mesh = self.mesh
+        if mesh is None or mesh.data == 1:
+            return tokens, out_pos, complete, steps
+        packed = torch.cat([tokens, out_pos[:, None], complete[:, None].long()], dim=1)
+        packed = mesh.all_gather(packed, DATA_AXIS, dim=0)
+        most = mesh.all_reduce(torch.tensor([steps], dtype=torch.long, device=tokens.device), DATA_AXIS, op="max")
+        return packed[:, :-2], packed[:, -2], packed[:, -1].bool(), int(most.item())
+
+    @replicated
     def preprocess(self, frames) -> torch.Tensor:
         """uint8 [B, T, H, W, 3] frames -> patches on the device, in the
         compute dtype, timed into stats (after a device sync)."""
@@ -610,6 +715,7 @@ class InferenceEngine:
 
     # -- generate ----------------------------------------------------------------
 
+    @replicated
     @torch.no_grad()
     def generate(
         self,
@@ -657,6 +763,7 @@ class InferenceEngine:
                 session_rounds, return_status, return_tokens, return_session,
             )
 
+    @replicated
     @torch.no_grad()
     def generate_text(
         self,
@@ -686,6 +793,7 @@ class InferenceEngine:
                 session_rounds, return_status, return_tokens, return_session,
             )
 
+    @replicated
     @torch.no_grad()
     def continue_session(self, session: EngineSession) -> tuple[list[str], list[bool], list[list[int]]]:
         """One decode-only round over a session's live cache: no prefill.
@@ -712,6 +820,7 @@ class InferenceEngine:
                 tokens, out_pos, complete, steps, session.logits, session.cache, session.state, session.done = (
                     self._decode(session.logits, session.cache, session.state, session.done, session.dfa)
                 )
+            tokens, out_pos, complete, steps = self._gather_rows(tokens, out_pos, complete, steps)
             tokens, out_pos, complete = tokens.cpu().numpy(), out_pos.cpu().numpy(), complete.cpu().numpy()
         session.rounds_left -= 1
         b_real = session.b_real
@@ -734,9 +843,15 @@ class InferenceEngine:
         rounds = session_rounds if return_session else 0
         if rounds:
             rounds = self._max_session_rounds(prompt_width, with_video, rounds, dfa)
-        b = tokens_in.shape[0]
         dev = self.device
         cache_len = self._cache_len(prompt_width, with_video, dfa, rounds)
+        # This data group's rows (all of them without a mesh).
+        rows = self._local_rows(tokens_in.shape[0])
+        tokens_in, lengths, states = tokens_in[rows], lengths[rows], states[rows]
+        if with_video:
+            frames = frames[rows]
+        b = tokens_in.shape[0]
+        local_real = min(max(b_real - rows.start, 0), b)
 
         spec = self.draft_model is not None
         start = time.perf_counter()
@@ -744,13 +859,13 @@ class InferenceEngine:
         # as the JAX engine's speculative program makes them.
         cache = init_kv_cache(
             self.config.decoder, b, cache_len, self.model.compute_dtype,
-            quant=self.kv_quant == "int8" and not spec, device=dev,
+            quant=self.kv_quant == "int8" and not spec, device=dev, kv_heads=self.model.decoder.kv_heads,
         )
-        if b != b_real:
+        if b != local_real:
             # Batch padding takes no part in the int8 KV scales: the JAX
             # engine lets pad rows raise them, which changes the real rows'
             # tokens against the unpadded call.
-            cache["active"] = torch.arange(b, device=dev) < b_real
+            cache["active"] = torch.arange(b, device=dev) < local_real
         tokens_t = torch.from_numpy(tokens_in).to(dev)
         lengths_t = torch.from_numpy(lengths).to(dev)
         if with_video:
@@ -762,7 +877,7 @@ class InferenceEngine:
             # The draft prefills the same prompt block, with its own view of the clips.
             draft_cache = init_kv_cache(
                 self.draft_config.decoder, b, self._cache_len(prompt_width, with_video, dfa, rounds, self.draft_config),
-                self.draft_model.compute_dtype, device=dev,
+                self.draft_model.compute_dtype, device=dev, kv_heads=self.draft_model.decoder.kv_heads,
             )
             if with_video:
                 _, draft_cache = self.draft_model.prefill(self._draft_patches(frames), tokens_t, draft_cache, lengths_t)
@@ -772,7 +887,7 @@ class InferenceEngine:
         prefill_seconds = time.perf_counter() - start
         state = torch.from_numpy(states).to(dev)
         # Batch-padding rows start done: frozen from step 0.
-        done = torch.arange(b, device=dev) >= b_real
+        done = torch.arange(b, device=dev) >= local_real
         if dfa is not None:
             done = done | (state == dfa.accept)
         if spec:
@@ -785,6 +900,7 @@ class InferenceEngine:
             tokens, out_pos, complete, steps, logits, cache, state, done = self._decode(
                 logits, cache, state, done, dfa
             )
+        tokens, out_pos, complete, steps = self._gather_rows(tokens, out_pos, complete, steps)
         tokens, out_pos, complete = tokens.cpu().numpy(), out_pos.cpu().numpy(), complete.cpu().numpy()
 
         self.stats.generate_calls += 1
@@ -809,6 +925,9 @@ class InferenceEngine:
                     cache=cache, logits=logits, state=state, done=done,
                     b_real=b_real, dfa=dfa, rounds_left=rounds, draft_cache=draft_cache,
                 )
+                if self.mesh is not None:
+                    # Every rank keeps its carry; rank 0's session names them.
+                    self.mesh.register(session)
             out += (session,)
         return out if len(out) > 1 else texts
 

@@ -29,10 +29,19 @@ Two refill modes:
   sizing and an early exit. It is the parity oracle.
 
 The pool is in the compute dtype, so on the card each decode step writes
-and attends through K5 (``decode_attention_update`` on a bf16 cache). One
-device: no mesh, no sharding, no data-axis grouping, so a stage's width is
-its request count and no stage has pad lanes (the JAX batcher pads a stage
-only to divide its data axis).
+and attends through K5 (``decode_attention_update`` on a bf16 cache).
+
+On a mesh (the engine's, ``parallel/mesh.py``) the slots and the pool's
+physical rows split into ``n_groups`` = data-axis groups (``_group_rows``):
+``slots`` and ``queue_depth`` must divide the axis, as in JAX. Each group's
+ranks hold only its rows (the pool's kv heads split over ``model``), stage
+the lanes of the stage that fall to the group (a stage's lane count is its
+request count rounded up to the groups, the rest pad lanes) into its own
+free rows, and refill its own slots from its own ring, so that no KV row
+crosses a group; a greedy request's tokens do not depend on the slot it
+runs in. The host gathers every group's completions after each chunk, in
+group order. Without a mesh there is one group: a stage's width is its
+request count and no stage has pad lanes.
 
 Speculative decoding composes (device refill only, as in JAX): with a draft
 attached to the engine (``attach_draft``), each step of the chunk loop is
@@ -48,6 +57,8 @@ batcher's.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import heapq
 import time
 from dataclasses import dataclass, field
@@ -58,6 +69,7 @@ import torch
 
 from ..models.lm import init_kv_cache
 from ..ops.decode_attention import adopt_rows
+from .mesh import DATA_AXIS, replicated
 
 __all__ = ["ContinuousBatcher", "Request", "Completion"]
 
@@ -119,7 +131,20 @@ class ContinuousBatcher:
     _submit_seq: int = 0
     _submit_time: dict[int, float] = field(default_factory=dict)
 
+    @property
+    def mesh(self):
+        return self.engine.mesh
+
     def __post_init__(self):
+        """On a mesh's rank 0 the construction is replayed on every rank."""
+        mesh = self.mesh
+        args = {f.name: getattr(self, f.name) for f in dataclasses.fields(self) if not f.name.startswith("_")}
+        with mesh.controlled(("new", type(self), (), args)) if mesh else contextlib.nullcontext():
+            self._setup()
+        if mesh is not None:
+            mesh.register(self)
+
+    def _setup(self):
         engine = self.engine
         cfg = engine.config
         # Speculative decoding rides along when the engine has a draft attached.
@@ -157,6 +182,15 @@ class ContinuousBatcher:
         self._slots = [_Slot() for _ in range(self.slots)]
         if self.queue_depth <= 0:
             self.queue_depth = 2 * self.slots
+        self.n_groups = max(engine.data_parallel, 1)
+        if self.slots % self.n_groups or self.queue_depth % self.n_groups:
+            raise ValueError(
+                f"slots ({self.slots}) and queue_depth ({self.queue_depth}) must divide the data axis ({self.n_groups})"
+            )
+        # This rank's data group and its share of the slots and the ring.
+        self.group = engine.mesh.data_index if engine.mesh is not None else 0
+        self.local_slots = self.slots // self.n_groups
+        self.local_depth = self.queue_depth // self.n_groups
         self._close_bias = engine.close_bias_array()
         # The columns one step writes: the fast-forward block, or the draft block.
         self._cols = torch.arange(self.spec_k or self.block_width, device=engine.device)[None, :]
@@ -172,38 +206,56 @@ class ContinuousBatcher:
         Host-driven mode: ``slots`` physical rows, identity addressing.
         Device refill: ``slots + queue_depth`` rows addressed through
         ``rows``; slot i starts on row i and the rest are free for staging.
+        A rank holds its group's ``_group_rows`` only, indexed from 0, and
+        its group's slots: logical slot i of group g is local slot
+        ``i - g * local_slots``, first on the group's i-th local row.
         """
         engine = self.engine
         cfg = engine.config
         dev = engine.device
+        n = self.local_slots
         self.total_rows = self.slots + self.queue_depth if self.device_refill else self.slots
-        pool = init_kv_cache(cfg.decoder, self.total_rows, self.cache_len, engine.model.compute_dtype,
-                             device=dev)
+        self.local_rows = self.total_rows // self.n_groups
+        pool = init_kv_cache(cfg.decoder, self.local_rows, self.cache_len, engine.model.compute_dtype,
+                             device=dev, kv_heads=engine.model.decoder.kv_heads)
         self.cache = {
             "k": pool["k"],
             "v": pool["v"],
             # Logical per-slot fill counts (the rows table owns physical addressing).
-            "index": torch.zeros((self.slots,), dtype=torch.int32, device=dev),
+            "index": torch.zeros((n,), dtype=torch.int32, device=dev),
         }
-        self._rows_host = np.arange(self.slots, dtype=np.int32)
+        self._rows_host = np.arange(n, dtype=np.int32)
         if self.device_refill:
-            self.rows = torch.arange(self.slots, dtype=torch.int32, device=dev)
+            self.rows = torch.arange(n, dtype=torch.int32, device=dev)
             self.cache["rows"] = self.rows
         if self.spec:
             # The draft's pool: the same physical rows, through the same table.
             dcfg = engine.draft_config
-            dpool = init_kv_cache(dcfg.decoder, self.total_rows, self.draft_cache_len,
-                                  engine.draft_model.compute_dtype, device=dev)
+            dpool = init_kv_cache(dcfg.decoder, self.local_rows, self.draft_cache_len,
+                                  engine.draft_model.compute_dtype, device=dev,
+                                  kv_heads=engine.draft_model.decoder.kv_heads)
             self.dcache = {"k": dpool["k"], "v": dpool["v"], "rows": self.rows,
-                           "index": torch.zeros((self.slots,), dtype=torch.int32, device=dev)}
+                           "index": torch.zeros((n,), dtype=torch.int32, device=dev)}
         eos = engine.tokenizer.EOS
-        self.state = torch.full((self.slots,), self.dfa.start if self.dfa else 0, dtype=torch.long, device=dev)
-        self.logits = torch.zeros((self.slots, cfg.decoder.vocab_size), dtype=torch.float32, device=dev)
-        self.tokens_out = torch.full((self.slots, self.out_width), eos, dtype=torch.long, device=dev)
-        self.out_pos = torch.zeros((self.slots,), dtype=torch.long, device=dev)
+        self.state = torch.full((n,), self.dfa.start if self.dfa else 0, dtype=torch.long, device=dev)
+        self.logits = torch.zeros((n, cfg.decoder.vocab_size), dtype=torch.float32, device=dev)
+        self.tokens_out = torch.full((n, self.out_width), eos, dtype=torch.long, device=dev)
+        self.out_pos = torch.zeros((n,), dtype=torch.long, device=dev)
         # Empty slots sit "done" so the decode freezes them. With a draft,
         # ``logits`` holds the processed log-distribution (the spec carry).
-        self.done = torch.ones((self.slots,), dtype=torch.bool, device=dev)
+        self.done = torch.ones((n,), dtype=torch.bool, device=dev)
+
+    def _group_rows(self, group: int) -> range:
+        """Physical pool rows (of ``total_rows``) that data group ``group`` owns."""
+        per = self.total_rows // self.n_groups
+        return range(group * per, (group + 1) * per)
+
+    def _groups(self, obj: Any) -> list[Any]:
+        """Every data group's ``obj``, in group order (without a mesh: [obj])."""
+        mesh = self.engine.mesh
+        if mesh is None or mesh.data == 1:
+            return [obj]
+        return mesh.gather_objects(obj, DATA_AXIS)
 
     def _init_ring_state(self):
         """The parked-request ring and the completion buffer.
@@ -218,7 +270,7 @@ class ContinuousBatcher:
         """
         engine = self.engine
         dev = engine.device
-        depth = self.queue_depth
+        depth = self.local_depth
         self._q_index = torch.zeros((depth,), dtype=torch.int32, device=dev)
         self._q_dindex = torch.zeros((depth,), dtype=torch.int32, device=dev)  # the draft's (speculative only)
         self._q_logits = torch.zeros((depth, engine.config.decoder.vocab_size), dtype=torch.float32, device=dev)
@@ -226,15 +278,15 @@ class ContinuousBatcher:
         self._q_phys = torch.zeros((depth,), dtype=torch.int32, device=dev)
         self._q_head = 0  # host-side: the host counts every refill it issues
         self._q_tail = 0
-        self._slot_req = torch.full((self.slots,), -1, dtype=torch.long, device=dev)
-        comp_rows = self.slots + depth
+        self._slot_req = torch.full((self.local_slots,), -1, dtype=torch.long, device=dev)
+        comp_rows = self.local_slots + depth
         self._comp_tokens = torch.full((comp_rows, self.out_width), engine.tokenizer.EOS, dtype=torch.long,
                                        device=dev)
         self._comp_meta = torch.full((comp_rows, 3), -1, dtype=torch.long, device=dev)
         self._staged_total = 0
         # Worst case one fast slot serves every parked request in turn; the
         # loop exits early once everything is done.
-        self._device_steps = (depth + 1) * (self.max_new + 1) + self.slots
+        self._device_steps = (depth + 1) * (self.max_new + 1) + self.local_slots
 
     # -- the decode step ---------------------------------------------------------
 
@@ -301,14 +353,21 @@ class ContinuousBatcher:
 
     def _decode_chunk(self, n_steps: int) -> np.ndarray:
         """Host-driven chunk: up to ``n_steps`` steps, stopping once every
-        slot is done. Returns the status pack (done, out_pos, state, steps)."""
+        slot is done. Returns the status pack (done, out_pos, state, steps)
+        of every slot, each group's gathered in group order."""
         steps = 0
         while steps < n_steps and not bool(self.done.all()):
             self._step()
             steps += 1
-        return torch.stack([
+        status = torch.stack([
             self.done.long(), self.out_pos, self.state, torch.full_like(self.out_pos, steps),
         ]).cpu().numpy()
+        return status if self.n_groups == 1 else np.concatenate(self._groups(status), axis=1)
+
+    def _all_tokens(self) -> np.ndarray:
+        """Every slot's output buffer, each group's in group order."""
+        tokens = self.tokens_out.cpu().numpy()
+        return tokens if self.n_groups == 1 else np.concatenate(self._groups(tokens))
 
     # -- host-driven prefill -----------------------------------------------------
 
@@ -324,7 +383,8 @@ class ContinuousBatcher:
         patches = engine.preprocess(request.frames[None])
         prompt = engine.tokenizer.encode_array(request.prompt, self.prompt_len, add_bos=True)
         bucket = min(_round_up(len(engine.tokenizer.encode(request.prompt)) + 1, 128), self.prompt_len)
-        scratch = init_kv_cache(cfg.decoder, 1, self.cache_len, engine.model.compute_dtype, device=dev)
+        scratch = init_kv_cache(cfg.decoder, 1, self.cache_len, engine.model.compute_dtype, device=dev,
+                                kv_heads=engine.model.decoder.kv_heads)
         first_logits, scratch = engine.model.prefill(
             patches, torch.from_numpy(prompt[None]).to(dev), scratch,
             torch.tensor([bucket], dtype=torch.int32, device=dev),
@@ -341,11 +401,12 @@ class ContinuousBatcher:
     # -- device refill -------------------------------------------------------------
 
     def _free_rows(self) -> list[int]:
-        """Pool rows no slot references. Chunks drain the ring, so at stage
-        time the live rows are the slots' current rows (``_rows_host``,
-        refreshed from the status pack after every chunk)."""
+        """This group's pool rows (local numbers) that no slot references.
+        Chunks drain the ring, so at stage time the live rows are the slots'
+        current rows (``_rows_host``, refreshed from the status pack after
+        every chunk)."""
         live = set(int(r) for r in self._rows_host)
-        return [r for r in range(self.total_rows) if r not in live]
+        return [r for r in range(self.local_rows) if r not in live]
 
     @torch.no_grad()
     def _stage(self) -> None:
@@ -353,28 +414,49 @@ class ContinuousBatcher:
         batched preprocess and prefill into a scratch cache, then K4 adopts
         each lane's park region into a free pool row. ``lengths`` marks each
         row's own round_up(tokens + 1, 128) bucket inside the shared prompt
-        block."""
+        block.
+
+        With data groups the stage's lanes are its request count rounded up
+        to the groups (JAX ``serving.py:1015``); lane i falls to group
+        ``i // (lanes / n_groups)``, which prefills its lanes (pad lanes:
+        zero frames and prompt, bucket 128) and adopts its real ones into
+        its own free rows. Every rank pops the same requests."""
         assert self._ring_occupancy() == 0, "stage with a non-empty ring: chunks are expected to drain it"
         free = self._free_rows()
-        take = min(len(self._queue), self.queue_depth, len(free))
+        take = min(len(self._queue), self.queue_depth, len(free) * self.n_groups)
         if take <= 0:
             return
         engine = self.engine
         dev = engine.device
         requests = [heapq.heappop(self._queue)[2] for _ in range(take)]
+        self._staged_total += take
+        if self.n_groups > 1:
+            lanes = min(_round_up(take, self.n_groups), self.queue_depth)
+            per_group = lanes // self.n_groups
+            requests = requests[self.group * per_group : (self.group + 1) * per_group]
+            take = len(requests)
+            if take == 0:
+                return
+            width = per_group
+        else:
+            width = take
         frames = np.stack([r.frames for r in requests])
+        if width > take:
+            frames = np.concatenate([frames, np.zeros((width - take,) + frames.shape[1:], frames.dtype)])
         patches = engine.preprocess(frames)
-        prompts = np.zeros((take, self.prompt_len), np.int32)
-        buckets = np.zeros((take,), np.int32)
+        prompts = np.zeros((width, self.prompt_len), np.int32)
+        buckets = np.full((width,), min(128, self.prompt_len), np.int32)
         reqs = np.zeros((take,), np.int64)
         for i, request in enumerate(requests):
             prompts[i] = engine.tokenizer.encode_array(request.prompt, self.prompt_len, add_bos=True)
             n_tokens = len(engine.tokenizer.encode(request.prompt)) + 1
             buckets[i] = min(_round_up(n_tokens, 128), self.prompt_len)
             reqs[i] = request.request_id
-        scratch = init_kv_cache(engine.config.decoder, take, self.park_len, engine.model.compute_dtype, device=dev)
+        scratch = init_kv_cache(engine.config.decoder, width, self.park_len, engine.model.compute_dtype, device=dev,
+                                kv_heads=engine.model.decoder.kv_heads)
         prompts_t, buckets_t = torch.from_numpy(prompts).to(dev), torch.from_numpy(buckets).to(dev)
         first_logits, scratch = engine.model.prefill(patches, prompts_t, scratch, buckets_t)
+        first_logits = first_logits[:take]
         target_rows = torch.tensor(free[:take], dtype=torch.int32, device=dev)
         for pool_k, pool_v, filled_k, filled_v in zip(self.cache["k"], self.cache["v"], scratch["k"], scratch["v"]):
             adopt_rows(pool_k, filled_k, target_rows, take, self.park_len, pool_v, filled_v)
@@ -383,22 +465,21 @@ class ContinuousBatcher:
             # The draft's prefill, parked in its own pool at the same rows;
             # the ring keeps the processed start-state distribution.
             draft = engine.draft_model
-            dscratch = init_kv_cache(engine.draft_config.decoder, take, self.draft_park_len, draft.compute_dtype,
-                                     device=dev)
+            dscratch = init_kv_cache(engine.draft_config.decoder, width, self.draft_park_len, draft.compute_dtype,
+                                     device=dev, kv_heads=draft.decoder.kv_heads)
             _, dscratch = draft.prefill(engine._draft_patches(frames), prompts_t, dscratch, buckets_t)
             for pool_k, pool_v, filled_k, filled_v in zip(self.dcache["k"], self.dcache["v"], dscratch["k"],
                                                           dscratch["v"]):
                 adopt_rows(pool_k, filled_k, target_rows, take, self.draft_park_len, pool_v, filled_v)
-            self._q_dindex[:take] = dscratch["index"]
+            self._q_dindex[:take] = dscratch["index"][:take]
             start = torch.full((take,), self.dfa.start if self.dfa else 0, dtype=torch.long, device=dev)
             first_logits = engine._process(first_logits, start, self.dfa, self.table, self._close_bias)
         # Ring positions rebase to 0..take-1 (the ring is empty: see the assert).
-        self._q_index[:take] = scratch["index"]
+        self._q_index[:take] = scratch["index"][:take]
         self._q_logits[:take] = first_logits
         self._q_req[:take] = torch.from_numpy(reqs).to(dev)
         self._q_phys[:take] = target_rows
         self._q_head, self._q_tail = 0, take
-        self._staged_total += take
 
     def _ring_occupancy(self) -> int:
         return self._q_tail - self._q_head
@@ -414,7 +495,7 @@ class ContinuousBatcher:
         complete = self.state[slot] == self.dfa.accept if self.dfa is not None else self.done[slot]
         meta = torch.stack([self._slot_req[slot], self.out_pos[slot], complete.long()], dim=1)
         self._comp_meta[comp_count] = torch.where(live[:, None], meta, self._comp_meta[comp_count])
-        qi = self._q_head % self.queue_depth
+        qi = self._q_head % self.local_depth
         self.rows[slot] = self._q_phys[qi : qi + 1]
         self.cache["index"][slot] = self._q_index[qi : qi + 1]
         if self.spec:
@@ -438,7 +519,7 @@ class ContinuousBatcher:
         steps = 0
         while steps < self._device_steps:
             n_done = int(self.done.sum())  # the one host read per period
-            if n_done == self.slots and self._q_head >= self._q_tail:
+            if n_done == self.local_slots and self._q_head >= self._q_tail:
                 break
             for _ in range(min(n_done, self._q_tail - self._q_head)):
                 comp_count = self._refill_one(comp_count)
@@ -450,7 +531,7 @@ class ContinuousBatcher:
                          torch.full_like(self.out_pos, steps), self.rows.long()]).flatten(),
             comp_count,
         ]).cpu().numpy()
-        return status[:-1].reshape(6, self.slots), int(status[-1])
+        return status[:-1].reshape(6, self.local_slots), int(status[-1])
 
     def _emit(self, req_id: int, ids: list[int], complete: bool) -> Completion:
         now = time.perf_counter()
@@ -473,11 +554,13 @@ class ContinuousBatcher:
 
         # Adopt slots prefilled through the host-path API (_fill_slots).
         host_filled = [(i, s.request_id) for i, s in enumerate(self._slots) if s.request_id is not None]
+        lo = self.group * self.local_slots
         for i, req_id in host_filled:
-            if int(self._slot_req[i]) < 0:
-                self._slot_req[i] = req_id
+            if lo <= i < lo + self.local_slots and int(self._slot_req[i - lo]) < 0:
+                self._slot_req[i - lo] = req_id
             self._slots[i].request_id = None
-        if not self._queue and self._ring_occupancy() == 0 and not bool((self._slot_req >= 0).any()):
+        busy = self._groups(self._ring_occupancy() > 0 or bool((self._slot_req >= 0).any()))
+        if not self._queue and not any(busy):
             return []
 
         stats = self.engine.stats
@@ -487,27 +570,38 @@ class ContinuousBatcher:
             status, comp_n = self._refill_chunk()
             stats.generate_calls += 1
             stats.generate_seconds += time.perf_counter() - chunk_start
+            records = []
             if comp_n:
                 meta = self._comp_meta[:comp_n].cpu().numpy()
                 toks = self._comp_tokens[:comp_n].cpu().numpy()
-                for (req_id, out_pos, complete), tok_row in zip(meta, toks):
-                    publish(self._emit(int(req_id), tok_row[:out_pos].tolist(), bool(complete)))
+                records = [(int(req_id), tok_row[:out_pos].tolist(), bool(complete))
+                           for (req_id, out_pos, complete), tok_row in zip(meta, toks)]
             done_np, out_pos_np, state_np, slot_req_np, steps_np, rows_np = status
             # The free set at the next stage derives from this row map.
             self._rows_host = rows_np.astype(np.int32)
-            stats.decode_steps += int(steps_np[0])
             live = int((slot_req_np >= 0).sum())
             unfinished = int(((slot_req_np >= 0) & (done_np == 0)).sum())
-            queued = self._ring_occupancy() > 0 or bool(self._queue)
-            if not queued and unfinished == 0:
+            # Every group's evictions, steps and counts (group order).
+            groups = self._groups((records, int(steps_np[0]), live, unfinished, self._ring_occupancy()))
+            for group_records, *_ in groups:
+                for req_id, ids, complete in group_records:
+                    publish(self._emit(req_id, ids, complete))
+            stats.decode_steps += max(g[1] for g in groups)
+            queued = any(g[4] > 0 for g in groups) or bool(self._queue)
+            if not queued and sum(g[3] for g in groups) == 0:
                 # Final harvest: finished slots that were never evicted.
-                if live:
-                    tokens = self.tokens_out.cpu().numpy()
-                    for i in range(self.slots):
-                        if slot_req_np[i] < 0:
-                            continue
-                        complete = int(state_np[i]) == self.dfa.accept if self.dfa is not None else True
-                        publish(self._emit(int(slot_req_np[i]), tokens[i, : out_pos_np[i]].tolist(), complete))
+                if sum(g[2] for g in groups):
+                    final = []
+                    if live:
+                        tokens = self.tokens_out.cpu().numpy()
+                        for i in range(self.local_slots):
+                            if slot_req_np[i] < 0:
+                                continue
+                            complete = int(state_np[i]) == self.dfa.accept if self.dfa is not None else True
+                            final.append((int(slot_req_np[i]), tokens[i, : out_pos_np[i]].tolist(), complete))
+                    for group_final in self._groups(final):
+                        for req_id, ids, complete in group_final:
+                            publish(self._emit(req_id, ids, complete))
                     self._slot_req.fill_(-1)
                 break
             if not drain and not queued:
@@ -516,6 +610,7 @@ class ContinuousBatcher:
 
     # -- scheduler -----------------------------------------------------------------
 
+    @replicated
     def submit(self, request: Request) -> None:
         heapq.heappush(self._queue, (-request.priority, self._submit_seq, request))
         self._submit_seq += 1
@@ -528,11 +623,13 @@ class ContinuousBatcher:
                 "host-path slot prefill has no draft prefill; speculative batching stages requests through the "
                 "device ring (submit + run)"
             )
+        lo = self.group * self.local_slots
         for i, slot in enumerate(self._slots):
             if slot.request_id is not None or not self._queue:
                 continue
             _, _, request = heapq.heappop(self._queue)
-            self._prefill_slot(i, int(self._rows_host[i]), request)
+            if lo <= i < lo + self.local_slots:  # the slot's group prefills it
+                self._prefill_slot(i - lo, int(self._rows_host[i - lo]), request)
             slot.request_id = request.request_id
             slot.started = time.perf_counter()
             slot.first_token_at = 0.0
@@ -545,7 +642,7 @@ class ContinuousBatcher:
 
     def _harvest(self, status: np.ndarray) -> list[Completion]:
         done, out_pos, state, steps = status
-        self.engine.stats.decode_steps += int(steps[0])
+        self.engine.stats.decode_steps += int(steps.max())
         now = time.perf_counter()
         tokens = None
         results: list[Completion] = []
@@ -557,7 +654,7 @@ class ContinuousBatcher:
             if not done[i]:
                 continue
             if tokens is None:
-                tokens = self.tokens_out.cpu().numpy()
+                tokens = self._all_tokens()
             ids = tokens[i, : out_pos[i]].tolist()
             complete = int(state[i]) == self.dfa.accept if self.dfa is not None else True
             submitted = self._submit_time.pop(slot.request_id, slot.started)
@@ -569,9 +666,16 @@ class ContinuousBatcher:
         return results
 
     def run(self, on_complete: Callable[[Completion], None] | None = None, drain: bool = True) -> list[Completion]:
-        """Drive the scheduler until the queue and all slots drain."""
-        if self.device_refill:
-            return self._run_device(on_complete, drain)
+        """Drive the scheduler until the queue and all slots drain. On a
+        mesh the workers run it too (``on_complete`` is rank 0's alone)."""
+        mesh = self.mesh
+        with mesh.controlled(("call", self, "run", (), {"drain": drain})) if mesh else contextlib.nullcontext():
+            if self.device_refill:
+                return self._run_device(on_complete, drain)
+            return self._run_host(on_complete, drain)
+
+    def _run_host(self, on_complete: Callable[[Completion], None] | None, drain: bool) -> list[Completion]:
+        """The host-driven loop: fill empty slots, decode a chunk, harvest."""
         all_results: list[Completion] = []
         while self._queue or any(s.request_id is not None for s in self._slots):
             self._fill_slots()

@@ -11,8 +11,9 @@ binary). Supported sources:
   (uint8 [T, H, W, 3]) and ``fps`` (float). Fast, exact, used by tests,
   and benchmarks.
 - ``.y4m``: uncompressed YUV4MPEG2 (420) — the standard raw interchange
-  format every encoder can emit. Decoded with numpy: the JAX package's
-  C++ fast path (``video/native_reader.py``) is not ported.
+  format every encoder can emit. Decoded by the C++ shim
+  (``video/native_reader.py``, over an mmap of the stream) when it builds,
+  else with numpy; ``Y4M_ROUTES`` counts the reads of each route.
 - anything else (``.mp4``...): delegated to ffmpeg when the binary exists.
 
 All readers express *time-range + frame-count* access so long-video segments
@@ -179,7 +180,31 @@ def _parse_y4m_header(path: Path) -> _Y4MLayout:
     return _Y4MLayout(width, height, fps, len(header), frame_size, int(num_frames))
 
 
+Y4M_ROUTES = {"native": 0, "numpy": 0}
+"""``.y4m`` reads taken by the C++ shim and by the numpy decoder."""
+
+
 def _read_y4m_frames(path: Path, indices: np.ndarray) -> np.ndarray:
+    # The C++ shim decodes and converts in one pass over an mmap of the
+    # stream: only the pages of the selected frames are read.
+    import mmap
+
+    from .native_reader import y4m_decode_frames
+
+    with open(path, "rb") as f:
+        try:
+            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        except (ValueError, OSError):  # an empty file, or a file system without mmap
+            mm = None
+        if mm is not None:
+            with mm:
+                native = y4m_decode_frames(mm, np.asarray(indices))
+        else:
+            native = y4m_decode_frames(f.read(), np.asarray(indices))
+    if native is not None:
+        Y4M_ROUTES["native"] += 1
+        return native
+    Y4M_ROUTES["numpy"] += 1
     # Seek to each selected frame only: the pages of the others are never
     # read.
     layout = _parse_y4m_header(path)

@@ -16,9 +16,10 @@ reads it back into the nested tree that ``from_jax_params`` takes.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from pathlib import Path
-from typing import Any, Iterable, Iterator
+from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -26,8 +27,8 @@ import torch
 from .models.config import VLMConfig
 from .models.vlm import VideoLM
 
-__all__ = ["cast_weights", "flatten_tree", "from_jax_params", "from_state_dict", "load_npz", "random_params",
-           "save_npz", "to_tensor"]
+__all__ = ["cast_weights", "constant_params", "flatten_tree", "from_jax_params", "from_state_dict", "load_npz",
+           "random_params", "save_npz", "to_tensor"]
 
 NPZ_INDEX_KEY = "__index__"
 _NPZ_DTYPES = ("float32", "bfloat16", "int8", "uint8")  # what the JAX trees hold
@@ -189,12 +190,25 @@ def load_npz(path: str | Path) -> dict:
     return tree
 
 
+def _init_param(name: str, param: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's init of one parameter, drawn from ``generator``: lecun normal
+    (truncated at two standard deviations) for dense kernels, normal(0.02)
+    for the embedding and lm_head; the rest keeps its constructor's value."""
+    if name.endswith(".kernel"):
+        fan_in = param.shape[0]
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        torch.nn.init.trunc_normal_(param, 0.0, std, -2 * std, 2 * std, generator=generator)
+    elif name.endswith("embedding") or name.endswith("lm_head"):
+        param.normal_(0.0, 0.02, generator=generator)
+
+
 @torch.no_grad()
 def random_params(
     config: VLMConfig,
     generator: torch.Generator,
     device: str | torch.device = "cuda",
     dtype: torch.dtype = torch.float32,
+    place_block: Callable[[torch.nn.Module], torch.nn.Module] | None = None,
 ) -> VideoLM:
     """A VideoLM with seeded weights at flax's init scales, made on ``device``.
 
@@ -203,18 +217,56 @@ def random_params(
     biases (the Qwen2 q/k/v and every dense layer of a ported vision
     tower) and LayerNorm offsets: zeros. ``generator`` must live
     on ``device``. Weights are stored in ``dtype`` (the serving config's
-    ``param_dtype``).
+    ``param_dtype``). The draws follow the order of the whole model's
+    parameters.
+
+    The decoder is made one block at a time: each block is drawn in f32,
+    cast, then handed to ``place_block`` (a mesh rank's quantize-then-shard;
+    by default kept as it is) before the next is drawn, so that no more
+    than the rest of the model and one f32 block are ever held beside the
+    placed blocks.
     """
+    from .models.lm import DecoderBlock
+
+    with torch.device("meta"):
+        names = [name for name, _ in VideoLM(config).named_parameters()]
+    trunk = dataclasses.replace(config, decoder=dataclasses.replace(config.decoder, num_layers=0))
     with torch.device(device):
-        model = VideoLM(config)
-    for name, param in model.named_parameters():
-        if name.endswith(".kernel"):
-            fan_in = param.shape[0]
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            torch.nn.init.trunc_normal_(param, 0.0, std, -2 * std, 2 * std, generator=generator)
-        elif name.endswith("embedding") or name.endswith("lm_head"):
-            param.normal_(0.0, 0.02, generator=generator)
+        model = VideoLM(trunk)
+    trunk_params = dict(model.named_parameters())
+    for name in names:
+        if not name.startswith("decoder.layer_"):
+            _init_param(name, trunk_params[name], generator)
+            continue
+        i = int(name.split(".")[1].split("_")[1])
+        if hasattr(model.decoder, f"layer_{i}"):
+            continue
+        with torch.device(device):
+            block = DecoderBlock(config.decoder, i)
+        for sub, param in block.named_parameters():
+            _init_param(sub, param, generator)
+        block = cast_weights(block, dtype)
+        model.decoder.add_module(f"layer_{i}", place_block(block) if place_block else block)
+    model.config, model.decoder.cfg = config, config.decoder
+    # The module order of the model built whole: embed, the blocks, final_norm.
+    modules = model.decoder._modules
+    order = ["embed"] + [f"layer_{i}" for i in range(config.decoder.num_layers)] + ["final_norm"]
+    model.decoder._modules = type(modules)((key, modules[key]) for key in order)
     return cast_weights(model, dtype).to(device)
+
+
+def constant_params(config: VLMConfig, value: float = 0.01) -> VideoLM:
+    """A VideoLM of ``config`` on the CPU whose float leaves all hold
+    ``value`` in bfloat16 (rehearsal weights at real geometry): each leaf is
+    made from the meta model's shape, so no f32 tree is built and nothing
+    is drawn."""
+    with torch.device("meta"):
+        struct = VideoLM(config).state_dict()
+    leaves = {
+        name: torch.full(leaf.shape, value, dtype=torch.bfloat16 if leaf.dtype == torch.float32 else leaf.dtype)
+        for name, leaf in struct.items()
+    }
+    return from_state_dict(leaves, config, device="cpu")
 
 
 @torch.no_grad()
