@@ -207,6 +207,22 @@ every projection takes K6, then training gradients), then:
   line: a ``.y4m`` read takes the C++ shim's route (the route counter) and
   its frames are within 2 of the numpy decode's (the two conversions'
   largest difference over every (y, u, v));
+- trains over the same two ranks before their world closes (``train_mesh``):
+  ``base`` at full width, ``TRAIN_MESH_LAYERS`` decoder layers and the
+  12-layer encoder, batch 2 of 1,024 video and 2,048 text positions, on
+  ``{"model": 2}``, ``{"data": 2}`` and a 2-stage pipe under GPipe and
+  1F1B (2 microbatches), ``TRAIN_MESH_STEPS`` steps each through
+  ``Trainer.step``: the first step's loss and every gradient leaf that it
+  applies against the 1-rank trainer's on the same
+  seeded weights and batch, K7a-c (and 1F1B's K1) launches per rank as the
+  design predicts, nothing plain on the card, the replicated leaves
+  bit-equal on every rank after the steps, ms a step, collectives a step
+  and each rank's peak GiB; GPipe against 1F1B at batch 4 and 4
+  microbatches (1F1B's peak below GPipe's on every rank); ``ring_attention``
+  on a 2-rank ``cp`` mesh against ``mha_reference`` and ``moe_swiglu`` on a
+  2-rank ``expert`` mesh against the dense evaluation, with gradients; then
+  K7a-c at a mesh rank's shapes (4 q heads over 1 kv head; batch 1) and
+  K1 at a 1F1B microbatch's;
 - prints the tracer's summary of every engine call of the run (the spans
   ``engine.preprocess``, ``engine.generate``, ``engine.generate_text`` and
   ``engine.continue_session``) and runs one ``device_trace`` around a short
@@ -311,13 +327,17 @@ from video_transformer_tpu_torch.train.eval_grounding import eval_inputs, run_ev
 from video_transformer_tpu_torch.train.eval_real import run_real_eval, stage_out_of_bank
 from video_transformer_tpu_torch.train.grounded import render_topic_clip, stage_grounded_corpus
 from video_transformer_tpu_torch.train.run import build_parser, make_prompt_sampler, prepare, setup_logging
-from video_transformer_tpu_torch.train.trainer import distillation_loss
+from video_transformer_tpu_torch.train.trainer import TrainConfig, Trainer, distillation_loss
 from video_transformer_tpu_torch.utils.config import load_config
 from video_transformer_tpu_torch.utils.logger import LOGGER_NAME
 from video_transformer_tpu_torch.utils.counter import APICounter
 from video_transformer_tpu_torch.utils import tracing as tracing_module
 from video_transformer_tpu_torch.utils.tracing import WINDOW_PAD_S, device_trace, tracer
-from video_transformer_tpu_torch.parallel.mesh import build_mesh
+from video_transformer_tpu_torch.parallel.context_parallel import build_cp_mesh, ring_attention
+from video_transformer_tpu_torch.parallel.expert_parallel import EXPERT_AXIS, build_expert_mesh, init_moe_params, moe_swiglu
+from video_transformer_tpu_torch.parallel.mesh import MODEL_AXIS, build_mesh
+from video_transformer_tpu_torch.parallel.pipeline_parallel import build_pipe_mesh
+from video_transformer_tpu_torch.parallel.sharding import spec_for_path
 from video_transformer_tpu_torch.video import native_reader
 from video_transformer_tpu_torch.video.containers import Y4M_ROUTES, read_frames, write_npzv, write_y4m
 from video_transformer_tpu_torch.weights import from_jax_params, random_params
@@ -4612,11 +4632,18 @@ def mesh_adopt_reading(gen: torch.Generator, dev: torch.device, cfg: VLMConfig, 
     if err:
         raise AssertionError(f"mesh: adopt_rows at a group's pool differs from its plain version by {err}")
     bound_ms, bound_by = bound(2 * 2 * lanes * hkv * park_len * d * 2, 0)
+    valid = rows.long()
+
+    def library_adopt():
+        ref_k[valid, :, :park_len] = src_k
+        ref_v[valid, :, :park_len] = src_v
+
     return {"max_abs_err": err, "tol": 0,
             "ms": time_ms(lambda: adopt_rows(pool_k, src_k, rows, lanes, park_len, pool_v, src_v)),
             "plain_ms": time_ms(lambda: (adopt_rows_reference(ref_k, src_k, rows, lanes, park_len),
                                          adopt_rows_reference(ref_v, src_v, rows, lanes, park_len))),
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": time_ms(library_adopt),
+            "library": "two index_put_ (dst[rows, :, :park_len] = src), k and v",
             "shape": f"group pool bf16 [{pool_rows},{hkv},{cache_len},{d}] x2, {lanes} lanes of {park_len}"}
 
 
@@ -4625,6 +4652,328 @@ def mesh_batcher_tokens(engine: InferenceEngine, requests: list, slots: int, dep
     for request in requests:
         batcher.submit(request)
     return {c.request_id: c.token_ids for c in batcher.run()}
+
+
+# -- training over a mesh (main path 14) -------------------------------------------
+#
+# On the mesh phase's two ranks of this card, before it closes their world:
+# base at full width, ``TRAIN_MESH_LAYERS`` of its 24 decoder layers and the
+# whole 12-layer encoder, seeded random f32 weights, bf16 compute, the BPE
+# vocabulary, batch 2 of 1,024 video and 2,048 text positions (prompt masks
+# of 256 and 0 positions). (a) ``{"model": 2}``, (b) ``{"data": 2}``, (c) a
+# 2-stage pipe at 2 microbatches under GPipe and 1F1B: ``TRAIN_MESH_STEPS``
+# steps through ``Trainer.step`` with the launches counted from 0 on every
+# rank (``train_mesh_launches``, nothing plain on the card); in the first
+# each rank holds the gradients that the step applies, and its loss,
+# against the 1-rank trainer's on the same seeded weights and batch (the
+# loss within ``TRAIN_MESH_LOSS_TOL`` relative, every leaf within
+# ``GRAD_REL_TOL`` x its largest 1-rank gradient); after the last the
+# replicated leaves are bit-equal on every rank. (d) GPipe against
+# 1F1B at batch 4 and 4 microbatches, one step each, each rank's peak GiB.
+# (e) ``ring_attention`` on a 2-rank ``cp`` mesh, q/k/v [2, 8, 4096, 128]
+# bf16, causal and not, with gradients, against ``mha_reference`` on the
+# whole sequence. (f) ``moe_swiglu`` on a 2-rank ``expert`` mesh, 8 experts
+# of hidden 1,024 and MLP 4,096, each rank's 4 resident, f32, with
+# gradients, against the dense evaluation. K7a-c are held at the per-rank
+# shapes, and K1 at 1F1B's (its no-grad waves attend a microbatch).
+TRAIN_MESH_LAYERS = 4
+TRAIN_MESH_STEPS = 1  # one step a run keeps the phase inside its 30 s
+TRAIN_MESH_TEXT = 2048
+TRAIN_MESH_PROMPT = 256
+TRAIN_MESH_SEED = 17
+TRAIN_MESH_LOSS_TOL = 1e-2  # |mesh - 1 rank| / |1 rank|, the step-1 loss
+RING_SHAPE = (2, 8, 4096, 128)
+# bf16 ring against bf16 mha_reference: max|got - want| over max|want|, the
+# output and each gradient (JAX's own bf16 ring test holds 3e-2).
+RING_TOL = 3e-2
+MOE_EXPERTS, MOE_HIDDEN, MOE_MLP, MOE_TOKENS = 8, 1024, 4096, 2048
+# f32 experts on two ranks against the dense sum: the order of the sum moves it.
+MOE_TOL = 1e-4
+
+
+def train_mesh_launches(cfg: VLMConfig, per_rank_layers: int, n_micro: int, schedule: str | None) -> dict:
+    """The launches a step of one rank by the design: K7a-c once an encoder
+    layer and once a decoder layer a rank holds (a pipeline stage's once a
+    microbatch); 1F1B's primal forward and recompute wave attend without
+    grad, through K1, twice a stage layer a microbatch."""
+    dec = per_rank_layers * n_micro
+    k7 = cfg.encoder.num_layers + dec
+    return {"flash_fwd_lse": k7, "flash_bwd_dq": k7, "flash_bwd_dkv": k7,
+            "flash_attention": 2 * dec if schedule == "1f1b" else 0, "reference_backwards": 0}
+
+
+def train_mesh_batch(cfg: VLMConfig, batch: int, seed: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    patches, tokens = synthetic_batch(rng, cfg, batch, TRAIN_MESH_TEXT, prompt=make_prompt_sampler("compact"),
+                                      prompt_len=TRAIN_MESH_PROMPT)
+    prompt_lens = np.array([TRAIN_MESH_PROMPT if i % 2 == 0 else 0 for i in range(batch)], np.int32)
+    return patches, tokens, prompt_lens
+
+
+_ONE_RANK: dict = {}  # a rank's 1-rank reference: batch -> (loss, {leaf: whole gradient})
+
+
+def rank_release() -> None:
+    """Free this rank's 1-rank reference and its cached blocks."""
+    _ONE_RANK.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def rank_arm(trainer, patches, tokens, prompt_lens) -> None:
+    """On every rank, before the mesh's first step: the 1-rank trainer's
+    loss and whole gradients on the same seeded weights and batch (drawn on
+    this rank's card once a batch and kept), then the launches and the peak
+    counted from 0, and ``apply`` wrapped to keep the gradients that the
+    step applies."""
+    key = (patches.shape, int(np.asarray(tokens).sum()))
+    if key not in _ONE_RANK:  # every run starts from the same seeded weights: one reference a batch
+        _ONE_RANK.clear()
+        ref = Trainer(trainer.config, trainer.train_config, seed=TRAIN_MESH_SEED, device=trainer.device)
+        ref_metrics, ref_grads = ref.loss_and_grads(patches, tokens, prompt_lens)
+        _ONE_RANK[key] = (ref_metrics["loss"].item(),
+                          dict(zip([n for n, p in ref.model.named_parameters() if p.requires_grad], ref_grads)))
+        del ref, ref_grads
+    _ONE_RANK["key"] = key
+    kept = {}
+
+    def apply(metrics, grads):
+        kept["grads"] = grads
+        return type(trainer).apply(trainer, metrics, grads)
+
+    trainer.apply, trainer.kept = apply, kept
+    rank_reset()
+
+
+def rank_grad_check(trainer, step: dict) -> dict:
+    """On every rank, after the mesh's first step: the gradients it applied
+    (each leaf against the part of the 1-rank trainer's whole gradient that
+    this rank holds) and its loss against the 1-rank trainer's."""
+    mesh = trainer.mesh
+    one_rank_loss, whole = _ONE_RANK[_ONE_RANK["key"]]
+    grads = trainer.kept.pop("grads")
+    del trainer.apply, trainer.kept
+    names = [n for n, p in trainer.model.named_parameters() if p.requires_grad]
+    worst, worst_name = 0.0, ""
+    for name, got, axis in zip(names, grads, trainer._split):
+        want = whole[name]
+        if axis == MODEL_AXIS:
+            dim = spec_for_path(tuple(name.split("."))).index(MODEL_AXIS)
+            want = want.chunk(mesh.model, dim=dim)[mesh.model_index]
+        ratio = ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1e-30)).item()
+        if not ratio <= worst:
+            worst, worst_name = ratio, name
+    return {"rank": mesh.rank, "loss": step["loss"], "one_rank_loss": one_rank_loss, "tokens": step["tokens"],
+            "grad_norm": step["grad_norm"], "leaves": len(names), "worst_grad_ratio": worst,
+            "worst_grad": worst_name}
+
+
+def rank_replicas(trainer) -> dict:
+    """Two integer sums of each leaf's bits (plain and position-weighted,
+    int64) and the axis that splits it: equal sums on two ranks mean equal
+    bits."""
+    out = {}
+    for (name, p), axis in zip([(n, p) for n, p in trainer.model.named_parameters() if p.requires_grad],
+                               trainer._split):
+        bits = p.detach().contiguous().view(torch.int32).reshape(-1).long()
+        weights = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out[name] = (axis, bits.sum().item(), (bits * weights).sum().item())
+    return {"rank": trainer.mesh.rank, "model_index": trainer.mesh.model_index, "sums": out}
+
+
+def replicas_equal(per_rank: list[dict]) -> int:
+    """The replicated leaves compared across ranks (and a model shard across
+    the data groups that hold it); raises on a difference. Returns the
+    number of leaves compared."""
+    compared = 0
+    for rank in per_rank[1:]:
+        for name, (axis, *sums) in rank["sums"].items():
+            peers = [r for r in per_rank if axis is None or (axis == MODEL_AXIS
+                                                              and r["model_index"] == rank["model_index"])]
+            for other in peers:
+                if other is not rank and other["sums"][name][1:] != tuple(sums):
+                    raise AssertionError(f"train_mesh: leaf {name} differs between ranks {other['rank']} and "
+                                         f"{rank['rank']} after the steps")
+            compared += len(peers) > 1
+    return compared
+
+
+def train_mesh_run(cfg: VLMConfig, mesh, label: str, tc: TrainConfig, batch: tuple, want: dict,
+                   smi: str) -> tuple[dict, dict]:
+    """One mesh shape: the steps through ``Trainer.step`` with launches,
+    collectives, ms and peak GiB, the first step's gradients checked after
+    it; the replicas compared after the last."""
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, tc, seed=TRAIN_MESH_SEED, mesh=mesh)
+    setup_s = time.perf_counter() - t0
+    mesh.run_all(rank_arm, trainer, *batch)
+    before = mesh.collectives
+    metrics, step_ms, checks = [], [], None
+    for _ in range(TRAIN_MESH_STEPS):
+        start = time.perf_counter()
+        metrics.append(trainer.step(*batch))
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        checks = checks or mesh.run_all(rank_grad_check, trainer, metrics[0])
+    collectives = mesh.collectives - before
+    for got in checks:
+        gap = abs(got["loss"] - got["one_rank_loss"]) / abs(got["one_rank_loss"])
+        got["loss_gap"] = gap
+        if not gap <= TRAIN_MESH_LOSS_TOL or not got["worst_grad_ratio"] <= GRAD_REL_TOL:
+            raise AssertionError(f"train_mesh {label}: rank {got['rank']} loss gap {gap}, gradient "
+                                 f"{got['worst_grad']} at {got['worst_grad_ratio']} x max (tolerances "
+                                 f"{TRAIN_MESH_LOSS_TOL}, {GRAD_REL_TOL})")
+    per_rank = mesh.run_all(rank_counts)
+    mesh_launch_check(per_rank, {k: TRAIN_MESH_STEPS * n for k, n in want.items()}, f"train {label}")
+    compared = replicas_equal(mesh.run_all(rank_replicas, trainer))
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics):
+        raise AssertionError(f"train_mesh {label}: non-finite metrics {metrics}")
+    del trainer
+    gc.collect()
+    # step_ms: Trainer.step on rank 0, from the call to the host's metrics.
+    return {"phase": "train_mesh", "run": label, "shape": mesh.shape, "seconds": time.perf_counter() - t0,
+            "setup_seconds": setup_s,
+            "grad_check": checks, "loss_tol": TRAIN_MESH_LOSS_TOL, "grad_tol": GRAD_REL_TOL,
+            "steps": metrics, "step_ms": step_ms, "collectives_per_step": collectives / TRAIN_MESH_STEPS,
+            "replicated_leaves_bit_equal": compared, "per_rank": per_rank, "launches_per_step_per_rank": want,
+            "card": smi}, per_rank
+
+
+def rank_ring(mesh, causal: bool, shape: tuple) -> dict:
+    """``ring_attention`` fwd + bwd on this rank (seeded bf16 inputs, the
+    same on every rank); on rank 0 also ``mha_reference`` on the whole
+    sequence with the same output gradient, and the gaps."""
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_MESH_SEED)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(4))
+    inputs = [t.requires_grad_() for t in (q, k, v)]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = ring_attention(*inputs, mesh, causal=causal)
+    grads = torch.autograd.grad(out, inputs, dout)
+    torch.cuda.synchronize()
+    result = {"rank": mesh.rank, "ms": (time.perf_counter() - start) * 1e3,
+              "sums": [t.float().sum().item() for t in (out, *grads)]}
+    if mesh.rank == 0:
+        want = mha_reference(*inputs, causal=causal)
+        want_grads = torch.autograd.grad(want, inputs, dout)
+        result["gaps"] = {name: ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                          for name, g, w in zip(("out", "dq", "dk", "dv"), (out, *grads), (want, *want_grads))}
+    return result
+
+
+def rank_moe(mesh, experts: int, hidden: int, mlp: int, tokens: int) -> dict:
+    """``moe_swiglu`` fwd + bwd with this rank's experts resident (f32); on
+    rank 0 also the dense evaluation of every expert, and the gaps."""
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_MESH_SEED)
+    whole = init_moe_params(gen, hidden, mlp, experts, device=dev)
+    x = torch.randn(2, tokens // 2, hidden, generator=gen, device=dev)
+    per = experts // mesh.axis_size(EXPERT_AXIS)
+    lo = mesh.axis_index(EXPERT_AXIS) * per
+    mine = {n: (t if n == "router" else t[lo:lo + per]).clone().requires_grad_() for n, t in whole.items()}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out, aux = moe_swiglu(mine, x, mesh)
+    grads = torch.autograd.grad(out.square().mean() + 0.01 * aux, list(mine.values()))
+    torch.cuda.synchronize()
+    result = {"rank": mesh.rank, "ms": (time.perf_counter() - start) * 1e3, "aux": aux.item(),
+              "out_sum": out.sum().item()}
+    if mesh.rank == 0:
+        dense = {n: t.clone().requires_grad_() for n, t in whole.items()}
+        want, want_aux = moe_swiglu(dense, x)
+        want_grads = torch.autograd.grad(want.square().mean() + 0.01 * want_aux, list(dense.values()))
+        gaps = {"out": ((out - want).abs().max() / want.abs().max()).item(),
+                "aux": abs(aux.item() - want_aux.item()) / abs(want_aux.item())}
+        for name, g, w in zip(mine, grads, want_grads):
+            w = w if name == "router" else w[lo:lo + per]
+            gaps[f"d{name}"] = ((g - w).abs().max() / w.abs().max()).item()
+        result["gaps"] = gaps
+    return result
+
+
+def train_mesh_phase(seed: int, dev: torch.device, tokenizer, smi: str) -> tuple[list[dict], dict, dict]:
+    """Main path 14 (see the constants above) on the running two-rank
+    world. Returns the lines, the launches summed over every rank of every
+    run and K7a-c's readings at the per-rank shapes."""
+    lines, total = [], dict.fromkeys(counts(), 0)
+    start = time.perf_counter()
+    cfg = base_config(tokenizer.vocab_size)
+    cfg = replace(cfg, decoder=replace(cfg.decoder, num_layers=TRAIN_MESH_LAYERS))
+    layers = cfg.decoder.num_layers
+    batch = train_mesh_batch(cfg, 2, seed + 41)
+    tc = TrainConfig(learning_rate=1e-4, warmup_steps=1, total_steps=10, prompt_len=TRAIN_MESH_PROMPT)
+    runs = [("tp2", {"data": 1, "model": 2}, tc, train_mesh_launches(cfg, layers, 1, None)),
+            ("dp2", {"data": 2, "model": 1}, tc, train_mesh_launches(cfg, layers, 1, None))]
+    runs += [(f"pp2_{s}", "pipe", replace(tc, pp_microbatches=2, pp_schedule=s),
+              train_mesh_launches(cfg, layers // 2, 2, s)) for s in ("gpipe", "1f1b")]
+    for label, shape, config, want in runs:
+        mesh = build_pipe_mesh(2, timeout_s=MESH_TIMEOUT_S) if shape == "pipe" else \
+            build_mesh(shape, timeout_s=MESH_TIMEOUT_S)
+        line, per_rank = train_mesh_run(cfg, mesh, label, config, batch, want, smi)
+        lines.append(line)
+        for got in per_rank:
+            for name in total:
+                total[name] += got[name]
+
+    mesh.run_all(rank_release)
+
+    # (d) Activation memory: GPipe against 1F1B at 4 microbatches.
+    wide = train_mesh_batch(cfg, 4, seed + 43)
+    peaks = {}
+    for schedule in ("gpipe", "1f1b"):
+        trainer = Trainer(cfg, replace(tc, pp_microbatches=4, pp_schedule=schedule), seed=TRAIN_MESH_SEED, mesh=mesh)
+        mesh.run_all(rank_reset)
+        t0 = time.perf_counter()
+        metrics = trainer.step(*wide)
+        ms = (time.perf_counter() - t0) * 1e3
+        per_rank = mesh.run_all(rank_counts)
+        mesh_launch_check(per_rank, train_mesh_launches(cfg, layers // 2, 4, schedule), f"train pp2_{schedule}_m4")
+        for got in per_rank:
+            for name in total:
+                total[name] += got[name]
+        peaks[schedule] = {"peak_gib": [got["peak_gib"] for got in per_rank], "step_ms": ms, "loss": metrics["loss"]}
+        del trainer
+        gc.collect()
+    if not all(a < b for a, b in zip(peaks["1f1b"]["peak_gib"], peaks["gpipe"]["peak_gib"])):
+        raise AssertionError(f"train_mesh: 1F1B's peak is not below GPipe's on every rank: {peaks}")
+    lines.append({"phase": "train_mesh", "run": "pp2_memory", "batch": 4, "n_micro": 4, **peaks, "card": smi})
+
+    # (e) Ring attention and (f) expert parallelism on the same two ranks.
+    mesh = build_cp_mesh(2, timeout_s=MESH_TIMEOUT_S)
+    for causal in (True, False):
+        ranks = mesh.run_all(rank_ring, mesh, causal, RING_SHAPE)
+        gaps = ranks[0]["gaps"]
+        if any(r["sums"] != ranks[0]["sums"] for r in ranks) or not max(gaps.values()) <= RING_TOL:
+            raise AssertionError(f"train_mesh ring causal={causal}: gaps {gaps} (tol {RING_TOL}), sums "
+                                 f"{[r['sums'] for r in ranks]}")
+        lines.append({"phase": "train_mesh", "run": f"ring_causal_{causal}", "shape": mesh.shape,
+                      "qkv": list(RING_SHAPE), "gaps_over_max": gaps, "tol": RING_TOL,
+                      "ms": [r["ms"] for r in ranks], "card": smi})
+    mesh = build_expert_mesh(2, timeout_s=MESH_TIMEOUT_S)
+    ranks = mesh.run_all(rank_moe, mesh, MOE_EXPERTS, MOE_HIDDEN, MOE_MLP, MOE_TOKENS)
+    gaps = ranks[0]["gaps"]
+    if not max(gaps.values()) <= MOE_TOL or len({(r["aux"], r["out_sum"]) for r in ranks}) != 1:
+        raise AssertionError(f"train_mesh moe: gaps {gaps} (tol {MOE_TOL}), ranks {ranks}")
+    lines.append({"phase": "train_mesh", "run": "moe", "shape": mesh.shape,
+                  "experts": MOE_EXPERTS, "hidden": MOE_HIDDEN, "mlp": MOE_MLP, "tokens": MOE_TOKENS,
+                  "gaps_over_max": gaps, "tol": MOE_TOL, "ms": [r["ms"] for r in ranks], "card": smi})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K7a-c at the per-rank shapes: a model rank's 4 q heads over 1 kv head,
+    # a data or pipe rank's batch of 1, and a data rank's encoder; K1 at a
+    # 1F1B microbatch's (its primal forward and recompute wave).
+    gen = torch.Generator(device=dev).manual_seed(seed + 47)
+    seq = cfg.video_tokens + TRAIN_MESH_TEXT
+    dec, enc = cfg.decoder, cfg.encoder
+    readings = {"tp2": check_flash_train(gen, dev, 2, dec.num_heads // 2, dec.num_kv_heads // 2, seq, True),
+                "dp2": check_flash_train(gen, dev, 1, dec.num_heads, dec.num_kv_heads, seq, True),
+                "dp2_encoder": check_flash_train(gen, dev, 1, enc.num_heads, enc.num_heads, enc.tokens_per_clip,
+                                                 False),
+                "pp2_1f1b": {"flash_attention": check_flash(gen, dev, 1, dec.num_heads, dec.num_kv_heads, seq,
+                                                            causal=True)}}
+    lines.append({"phase": "train_mesh_done", "seconds": time.perf_counter() - start, "card": smi})
+    return lines, total, readings
 
 
 def mesh_phase(seed: int, dev: torch.device, tokenizer, grammar, smi: str) -> tuple[list[dict], dict, dict]:
@@ -4788,6 +5137,12 @@ def mesh_phase(seed: int, dev: torch.device, tokenizer, grammar, smi: str) -> tu
                       "collectives": mesh.collectives, "per_rank": per_rank, "card": smi})
         lines.append(path_decode_readings(seed, found, "mesh_batcher"))
         del engine
+        gc.collect()
+        # Main path 14: training over the same two ranks, before their world closes.
+        train_lines, trained, readings["train"] = train_mesh_phase(seed, dev, tokenizer, smi)
+        lines.extend(train_lines)
+        for name in total:
+            total[name] += trained[name]
     finally:
         mesh.close()
     # Each group's requests (the stage's lanes in order, split in halves)
@@ -5059,6 +5414,12 @@ def run(seed: int) -> None:
                 kernels["int4_matmul"][f"mesh_{name}_{key}"] = reading[key]
     for key, value in mesh_readings["adopt_rows"].items():
         kernels["adopt_rows"][f"mesh_dp2_{key}"] = value
+    for shape, results in mesh_readings["train"].items():  # K7a-c at a mesh rank's shapes
+        for name, result in results.items():
+            for key in ("max_abs_err", "worst_ratio", "bit_identical_runs", "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "shape"):
+                if key in result:
+                    kernels[name][f"mesh_{shape}_{key}"] = result[key]
     with tempfile.TemporaryDirectory(prefix="vtx_y4m_") as workdir:
         emit(native_reader_check(Path(workdir), smi))
     emit({"phase": "mesh_done", "seconds": time.perf_counter() - t0})

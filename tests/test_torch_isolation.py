@@ -51,8 +51,9 @@ SLICE_MODULES = (
 QWEN_MODULES = ("models.qwen_vit", "models.port", "models.hf_tokenizer", "models.synth_vocab")
 # Speculative decoding's serving transform: the projection fusion.
 SPEC_MODULES = ("models.fuse",)
-# Serving over a mesh, and the native .y4m reader.
-MESH_MODULES = ("parallel.mesh", "parallel.sharding", "video.native_reader")
+# Serving over a mesh, and the native .y4m reader; training over a mesh.
+MESH_MODULES = ("parallel.mesh", "parallel.sharding", "video.native_reader", "parallel.pipeline_parallel",
+                "parallel.context_parallel", "parallel.expert_parallel")
 
 _ISOLATED_IMPORT = """
 import importlib, pkgutil, sys

@@ -80,7 +80,7 @@ class TestMeshShape:
 
     def test_a_model_as_params_is_refused_on_a_mesh(self):
         """Each rank makes its own weights; a VideoLM would cross whole."""
-        mesh = Mesh(1, 2, [torch.device("cpu")] * 2)
+        mesh = Mesh({"data": 1, "model": 2}, [torch.device("cpu")] * 2)
         model = random_params(micro_config(), torch.Generator().manual_seed(0), "cpu")
         with pytest.raises(ValueError, match="a function each rank calls"):
             InferenceEngine(micro_config(), params=model, device="cpu", mesh=mesh)
@@ -140,7 +140,7 @@ def test_spec_for_path_equals_jax_on_every_leaf(quant):
 
 def _rank_mesh(rank: int, data: int = 1, model: int = 2) -> Mesh:
     """A rank's view of a mesh with no process group: enough to shard."""
-    return Mesh(data, model, [torch.device("cpu")] * (data * model), rank=rank)
+    return Mesh({"data": data, "model": model}, [torch.device("cpu")] * (data * model), rank=rank)
 
 
 @pytest.mark.parametrize("quant", [None, "int8", "int4"])

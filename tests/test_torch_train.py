@@ -13,7 +13,8 @@ Same seeds, same numpy inputs, tiny preset in float32:
   the JAX ``Trainer`` on a one-device ("data", "model") mesh, per step and in
   every parameter afterwards, with and without remat plus accumulation;
 - the CLI runs end to end on the CPU, checkpoints round-trip, and the
-  options that are not ported raise.
+  mesh options build their meshes (training over them:
+  ``tests/test_torch_train_mesh.py``).
 
 Tolerances are stated beside each check.
 """
@@ -47,6 +48,7 @@ from video_transformer_tpu_torch.models.bpe import BpeTokenizer
 from video_transformer_tpu_torch.models.config import get_preset
 from video_transformer_tpu_torch.models.quant import quantize_decoder_int8
 from video_transformer_tpu_torch.models.tokenizer import ByteTokenizer
+from video_transformer_tpu_torch.parallel.mesh import Mesh
 from video_transformer_tpu_torch.train import run
 from video_transformer_tpu_torch.train.data import synthetic_batch
 from video_transformer_tpu_torch.train.trainer import (
@@ -58,6 +60,7 @@ from video_transformer_tpu_torch.train.trainer import (
     lr_schedule,
 )
 from video_transformer_tpu_torch.weights import cast_weights, from_jax_params, random_params
+from torch_mesh_ranks import stage_layers
 
 torch.set_num_threads(2)
 
@@ -313,9 +316,13 @@ def test_checkpoint_round_trip_and_init_from(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--data", "staged"], ["--grounded"], ["--tp", "2"], ["--pp", "2"]])
 def test_unported_options_raise(tmp_path, flags):
-    """``--tp``/``--pp`` above 1 are not ported and raise. ``--data`` and
-    ``--grounded`` are ported: they prepare their batch iterators
-    (``tests/test_torch_train_data.py`` holds the batches to JAX's)."""
+    """Every option is ported. ``--data`` and ``--grounded`` prepare their
+    batch iterators (``tests/test_torch_train_data.py`` holds the batches to
+    JAX's). ``--tp 2`` and ``--pp 2`` build their meshes of two CPU ranks:
+    the tiny preset's one kv head does not split over ``model`` (ROADMAP.md
+    §1 item 12) and raises before any rank builds; its two layers make two
+    pipeline stages, and the batch rounds up to ``--pp-micro``
+    (``tests/test_torch_train_mesh.py`` holds both meshes to JAX)."""
     if flags[0] in ("--data", "--grounded"):
         from video_transformer_tpu_torch.train.grounded import stage_grounded_corpus
 
@@ -329,11 +336,29 @@ def test_unported_options_raise(tmp_path, flags):
         assert patches.shape[:2] == (2, config.video_tokens) and tokens.shape == (2, args.text_len)
         assert blocks.tolist() == [args.prompt_len] * 2  # the prompt block, clamped to half the text
         return
-    args = run.build_parser().parse_args(["--device", "cpu", *flags])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        run.prepare(args, run.setup_logging(tmp_path))
+    args = run.build_parser().parse_args(["--device", "cpu", "--text-len", str(TEXT_LEN), "--batch", "3", *flags])
+    mesh = run.build_train_mesh(args, run.setup_logging(tmp_path))
+    try:
+        if flags[0] == "--tp":
+            assert mesh.shape == {"data": 1, "model": 2} and args.batch == 3
+            with pytest.raises(ValueError, match="item 12"):
+                Trainer(get_preset("tiny"), device="cpu", mesh=mesh)
+        else:
+            assert mesh.shape == {"pipe": 2} and args.batch == 4  # rounded up to --pp-micro (4)
+            trainer = Trainer(get_preset("tiny"), TrainConfig(pp_microbatches=args.pp_micro), device="cpu",
+                              mesh=mesh)
+            assert [list(r) for r in mesh.run_all(stage_layers, trainer)] == [[0], [1]]
+    finally:
+        mesh.close()
 
 
 def test_trainer_rejects_a_mesh():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Trainer(get_preset("tiny"), device="cpu", mesh=object())
+    """On a mesh every rank makes its own weights: a VideoLM as ``model``
+    would cross whole and is refused, as are stages that do not divide the
+    layers; both before any rank builds."""
+    model = random_params(get_preset("tiny"), torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="a function each rank calls"):
+        Trainer(get_preset("tiny"), device="cpu", model=model, mesh=Mesh({"data": 1, "model": 2}, [torch.device("cpu")] * 2))
+    with pytest.raises(ValueError, match="pipeline stages"):
+        Trainer(get_preset("tiny"), device="cpu", mesh=Mesh({"pipe": 3}, [torch.device("cpu")] * 3))
+    assert not torch.distributed.is_initialized()

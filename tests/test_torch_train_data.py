@@ -356,6 +356,8 @@ def test_cli_trains_on_staged_pairs(tmp_path):
 
 
 def test_cli_refuses_tp_and_pp_only(tmp_path):
-    args = run.build_parser().parse_args(["--tp", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="--tp/--pp"):
+    """``--tp`` and ``--pp`` together exit, as JAX's CLI does; each alone is
+    ported (``tests/test_torch_train_mesh.py``)."""
+    args = run.build_parser().parse_args(["--tp", "2", "--pp", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="mutually exclusive"):
         run.prepare(args, LOGGER)

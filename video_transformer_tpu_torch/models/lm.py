@@ -13,7 +13,13 @@ calibration. On a mesh (``parallel/sharding.py::shard_model``) a block
 attends over its rank's heads and all-reduces the products of ``out`` and
 ``down`` over the ``model`` axis, an int8 cache's scales take the MAX of
 every data group's amax (the global batch's, as in JAX), and an untied
-head's vocab shards are all-gathered. Without a cache (training) the
+head's vocab shards are all-gathered. Those collectives are the
+differentiable ones of ``parallel/mesh.py``: each block's normed input
+enters its column-parallel q/k/v and gate/up through ``copy_to_axis`` (the
+backward sums the ranks' partial gradients), ``out`` and ``down`` leave
+through ``reduce_from_axis``, and the head's vocab shards through
+``gather_from_axis`` after a ``copy_to_axis``, so that a replicated leaf's
+gradient is whole on every model rank. Without a cache (training) the
 blocks attend causally through ``ops/attention.py`` (K7a-c under autograd),
 and ``remat`` recomputes each block in the backward pass. Parameter names
 follow the JAX package's parameter paths (``layer_0.attn.q.kernel``). A
@@ -35,6 +41,7 @@ from ..ops.attention import flash_attention
 from ..ops.decode_attention import decode_attention_update, write_cache_rows
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rope, rope_angles
+from ..parallel.mesh import MODEL_AXIS, copy_to_axis, gather_from_axis, reduce_from_axis
 from .config import DecoderConfig
 from .vit import Dense
 
@@ -105,6 +112,7 @@ class Attention(nn.Module):
         b, s, _ = x.shape
         dtype = x.dtype
         heads, kv_heads, mesh = self.heads, self.kv_heads, self.mesh
+        x = copy_to_axis(x, mesh, MODEL_AXIS)
         if "qkv" in self._modules:
             # Serve-time fused projection (models/fuse.py): one product, split.
             kv_dim = kv_heads * cfg.head_dim
@@ -157,9 +165,7 @@ class Attention(nn.Module):
             else:
                 out = decode_attention_update(q, k_layer, v_layer, k, v, index, rows, k_scale, v_scale)
         out = self.out(out.transpose(1, 2).reshape(b, s, heads * cfg.head_dim), dtype)
-        if mesh is not None:
-            out = mesh.all_reduce(out, "model")  # row-parallel partial sums
-        return out, cache
+        return reduce_from_axis(out, mesh, MODEL_AXIS), cache  # row-parallel partial sums
 
 
 class SwiGLU(nn.Module):
@@ -172,12 +178,12 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
+        x = copy_to_axis(x, self.mesh, MODEL_AXIS)
         if "gateup" in self._modules:  # fused (models/fuse.py)
             gate, up = self.gateup(x, dtype).chunk(2, dim=-1)
         else:
             gate, up = self.gate(x, dtype), self.up(x, dtype)
-        out = self.down(F.silu(gate) * up, dtype)
-        return out if self.mesh is None else self.mesh.all_reduce(out, "model")
+        return reduce_from_axis(self.down(F.silu(gate) * up, dtype), self.mesh, MODEL_AXIS)
 
 
 class DecoderBlock(nn.Module):
@@ -251,9 +257,11 @@ class Decoder(nn.Module):
         if logits_at is not None:
             x = x[torch.arange(b, device=x.device), logits_at.long()][:, None, :]
         head = self.embed.embedding if cfg.tied_embeddings else self.lm_head
+        if self.head_sharded:
+            x = copy_to_axis(x, self.mesh, MODEL_AXIS)
         logits = torch.einsum("bsh,vh->bsv", x.float(), head.float())
         if self.head_sharded:
-            logits = self.mesh.all_gather(logits, "model", dim=-1)
+            logits = gather_from_axis(logits, self.mesh, MODEL_AXIS, -1)
         if cache is not None:
             cache["index"] = cache["index"] + s
         return logits, cache

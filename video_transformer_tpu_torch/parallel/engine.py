@@ -87,7 +87,7 @@ from ..models.vlm import VideoLM
 from ..ops.preprocess import preprocess_frames
 from ..utils.tracing import tracer
 from ..weights import cast_weights, flatten_tree, from_jax_params, from_state_dict, load_npz, random_params
-from .mesh import DATA_AXIS, Mesh, replicated
+from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, replicated
 from .sharding import check_divisible, shard_block, shard_model
 
 __all__ = ["InferenceEngine", "EngineStats", "EngineSession", "params_checkpoints", "resolve_params_dir"]
@@ -221,6 +221,8 @@ class InferenceEngine:
         args = {name: value for name, value in locals().items() if name not in ("self", "__class__")}
         mesh = mesh if mesh is not None and mesh.size > 1 else None
         if mesh is not None:
+            if set(mesh.shape) - {DATA_AXIS, MODEL_AXIS}:
+                raise ValueError(f"the engine serves over a (data, model) mesh, not {mesh.shape}")
             check_divisible(config.decoder, mesh.model)  # before any rank builds
             if isinstance(params, torch.nn.Module):
                 raise ValueError(

@@ -12,6 +12,25 @@ The port's counterpart of the JAX package's ``parallel/mesh.py``. Two axes:
 Rank ``r`` sits at data index ``r // model`` and model index ``r % model``,
 the row-major order of JAX's ``make_mesh`` over ``(data, model)``.
 
+One-axis meshes (training): ``build_pipe_mesh`` (``pipe``: pipeline
+stages, ``parallel/pipeline_parallel.py``), ``build_cp_mesh`` (``cp``: the
+sequence, ``parallel/context_parallel.py``) and ``build_expert_mesh``
+(``expert``: MoE experts, ``parallel/expert_parallel.py``), JAX's 1-D
+meshes, over the same worlds and the same control plane; rank ``r`` sits at
+index ``r`` of the axis.
+
+Autograd. ``Mesh.all_reduce``, ``all_gather`` and ``ppermute`` are
+invisible to autograd; training goes through their differentiable forms:
+the Megatron pair ``copy_to_axis`` (forward identity, backward all-reduce:
+at the input of a column-parallel region, whose ranks each use part of a
+replicated tensor) and ``reduce_from_axis`` (forward all-reduce, backward
+identity: the partial sums of a row-parallel output), ``gather_from_axis``
+(forward all-gather, backward this rank's part) and ``permute_on_axis``
+(backward the inverse permutation). Every rank computes the replicated
+loss, so a gradient arriving at a replicated tensor is already whole:
+``torch.distributed.nn.functional.all_reduce``, whose backward
+all-reduces again, would multiply it by the axis size.
+
 Ranks. ``build_mesh(config, devices)`` names one ``torch.device`` a rank;
 the default is one rank per visible card, as JAX's default is every
 device (the CPU alone when no card is visible). Without a launcher the
@@ -26,6 +45,10 @@ the CPU. The rule depends on ``devices`` alone; the choice is logged
 (``event=mesh_built``). The collectives are ``all_reduce`` and
 ``all_gather`` on both backends: gloo takes CUDA tensors for both
 (``tools/gloo_cuda_probe.py``), staging them through the host itself.
+``ppermute`` is an all_gather from which each rank takes its source's
+part: gloo aborts the process on an ``isend`` of a CUDA tensor (the probe,
+on an H100: ``writev ... Bad address``), and one route serves every
+backend.
 
 Execution. Inside the engine every rank runs the same method with the same
 arguments (SPMD). Outside it the program stays single-controller, as in
@@ -50,7 +73,9 @@ import dataclasses
 import functools
 import gc
 import io
+import itertools
 import logging
+import math
 import multiprocessing
 import os
 import pickle
@@ -64,23 +89,36 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
+    "CP_AXIS",
     "DATA_AXIS",
+    "EXPERT_AXIS",
     "MODEL_AXIS",
     "Mesh",
     "MeshWorkerError",
+    "PIPE_AXIS",
+    "build_cp_mesh",
+    "build_expert_mesh",
     "build_mesh",
+    "build_pipe_mesh",
     "choose_backend",
+    "copy_to_axis",
     "default_devices",
     "distributed_init_kwargs",
+    "gather_from_axis",
     "maybe_initialize_distributed",
     "mesh_devices",
     "mesh_shape_from_config",
+    "permute_on_axis",
+    "reduce_from_axis",
     "replicated",
     "serve",
 ]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
+CP_AXIS = "cp"
+EXPERT_AXIS = "expert"
 DEFAULT_TIMEOUT_S = 600.0
 _log = logging.getLogger("video_transformer")
 
@@ -279,18 +317,23 @@ def _spawn_world(devices: list[torch.device], backend: str, timeout_s: float) ->
 
 
 class Mesh:
-    """This rank's view of a (data, model) mesh: its device, its data and
-    model groups, the collectives the model needs, and (on rank 0 of a world
-    it controls) the channel to the worker ranks."""
+    """This rank's view of a mesh: its device, its group on each axis, the
+    collectives the model needs, and (on rank 0 of a world it controls) the
+    channel to the worker ranks.
 
-    def __init__(self, data: int, model: int, devices: list[torch.device], backend: str | None = None,
+    ``axes`` names the axes and their sizes in row-major order
+    (``{DATA_AXIS: d, MODEL_AXIS: m}``, or ``{PIPE_AXIS: n}`` for a
+    pipeline's stages). ``data`` and ``model`` are the sizes of those two
+    axes (1 where the mesh has no such axis)."""
+
+    def __init__(self, axes: Mapping[str, int], devices: list[torch.device], backend: str | None = None,
                  rank: int = 0, timeout_s: float = DEFAULT_TIMEOUT_S):
-        self.data, self.model = int(data), int(model)
+        self.axes = {k: int(v) for k, v in axes.items()}
         self.devices = list(devices)
         self.backend = backend
         self.rank = int(rank)
         self.timeout_s = float(timeout_s)
-        self.data_group = self.model_group = None
+        self.groups: dict[str, Any] = dict.fromkeys(self.axes)
         self._depth = 0
         self._next_handle = 0
         self._objects: dict[int, Any] = {}  # workers: the replayed objects
@@ -299,39 +342,59 @@ class Mesh:
         self._drops: list[int] = []
         self._closed = False
         self.collectives = 0
-        """Collectives this rank has issued on the data and model groups."""
+        """Collectives this rank has issued on the mesh's groups."""
 
     def _make_groups(self) -> None:
-        """The data and model groups. Every rank of the world creates every
-        group, in one order (a ``new_group`` rule)."""
+        """The group of each axis: the ranks that differ from this one on
+        that axis alone. Every rank of the world creates every group, in one
+        order (a ``new_group`` rule): axis by axis, the groups in the order
+        of the other axes' indices."""
         timeout = timedelta(seconds=self.timeout_s)
-        if self.size > 1:
-            for m in range(self.model):
-                group = dist.new_group([d * self.model + m for d in range(self.data)], timeout=timeout)
-                if m == self.model_index:
-                    self.data_group = group
-            for d in range(self.data):
-                group = dist.new_group([d * self.model + m for m in range(self.model)], timeout=timeout)
-                if d == self.data_index:
-                    self.model_group = group
+        if self.size == 1:
+            return
+        for axis in self.axes:
+            for ranks in self._axis_groups(axis):
+                group = dist.new_group(ranks, timeout=timeout)
+                if self.rank in ranks:
+                    self.groups[axis] = group
+
+    def _axis_groups(self, axis: str) -> list[list[int]]:
+        """Every group of ``axis``, each its ranks in axis order."""
+        names, sizes = list(self.axes), list(self.axes.values())
+        strides = [math.prod(sizes[i + 1:]) for i in range(len(sizes))]
+        a = names.index(axis)
+        others = [range(n) if i != a else range(1) for i, n in enumerate(sizes)]
+        groups = []
+        for coords in itertools.product(*others):
+            base = sum(c * s for c, s in zip(coords, strides))
+            groups.append([base + j * strides[a] for j in range(sizes[a])])
+        return groups
 
     # -- shape -------------------------------------------------------------
 
     @property
+    def data(self) -> int:
+        return self.axes.get(DATA_AXIS, 1)
+
+    @property
+    def model(self) -> int:
+        return self.axes.get(MODEL_AXIS, 1)
+
+    @property
     def size(self) -> int:
-        return self.data * self.model
+        return math.prod(self.axes.values())
 
     @property
     def shape(self) -> dict[str, int]:
-        return {DATA_AXIS: self.data, MODEL_AXIS: self.model}
+        return dict(self.axes)
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.model
+        return self.axis_index(DATA_AXIS)
 
     @property
     def model_index(self) -> int:
-        return self.rank % self.model
+        return self.axis_index(MODEL_AXIS)
 
     @property
     def device(self) -> torch.device:
@@ -343,19 +406,25 @@ class Mesh:
         return self.rank == 0 and self.size > 1 and not self._closed
 
     def __repr__(self) -> str:
-        return (f"Mesh(data={self.data}, model={self.model}, rank={self.rank}, backend={self.backend}, "
-                f"devices={[str(d) for d in self.devices]})")
+        axes = ", ".join(f"{k}={v}" for k, v in self.axes.items())
+        return f"Mesh({axes}, rank={self.rank}, backend={self.backend}, devices={[str(d) for d in self.devices]})"
 
     # -- collectives (the data plane) ------------------------------------------------
 
     def _group(self, axis: str):
-        return self.data_group if axis == DATA_AXIS else self.model_group
+        return self.groups[axis]
 
     def axis_size(self, axis: str) -> int:
-        return self.data if axis == DATA_AXIS else self.model
+        """The size of ``axis``; 1 for an axis the mesh does not have."""
+        return self.axes.get(axis, 1)
 
     def axis_index(self, axis: str) -> int:
-        return self.data_index if axis == DATA_AXIS else self.model_index
+        """This rank's index on ``axis`` (0 for an axis the mesh does not have)."""
+        if axis not in self.axes:
+            return 0
+        sizes = list(self.axes.values())
+        a = list(self.axes).index(axis)
+        return self.rank // math.prod(sizes[a + 1:]) % sizes[a]
 
     def all_reduce(self, tensor: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
         """The reduction of ``tensor`` over ``axis`` (a new tensor of its
@@ -381,6 +450,21 @@ class Mesh:
         dist.all_gather(parts, tensor, group=self._group(axis))
         self.collectives += 1
         return torch.cat(parts, dim=dim)
+
+    def ppermute(self, tensor: torch.Tensor, axis: str, perm: list[tuple[int, int]]) -> torch.Tensor:
+        """JAX's ``lax.ppermute``: the ``tensor`` of the rank that sends to
+        this one under ``perm`` ((source, destination) axis indices), or
+        zeros where none does. One all_gather (see the module docstring)."""
+        n = self.axis_size(axis)
+        sources = {dst: src for src, dst in perm}
+        src = sources.get(self.axis_index(axis))
+        if n == 1:
+            return tensor.clone() if src == 0 else torch.zeros_like(tensor)
+        tensor = tensor.contiguous()
+        parts = [torch.empty_like(tensor) for _ in range(n)]
+        dist.all_gather(parts, tensor, group=self._group(axis))
+        self.collectives += 1
+        return parts[src] if src is not None else torch.zeros_like(tensor)
 
     def gather_objects(self, obj: Any, axis: str = DATA_AXIS) -> list[Any]:
         """Every rank's ``obj`` along ``axis``, in rank order."""
@@ -481,9 +565,10 @@ class Mesh:
 
     def close(self) -> None:
         """Stop the workers (they leave ``serve``), join the processes this
-        rank started and leave the world. Idempotent."""
+        rank started and leave the world. Idempotent; a no-op once the world
+        is left (another mesh on it was closed)."""
         global _PROCESS
-        if self._closed or self.size == 1:
+        if self._closed or self.size == 1 or _PROCESS is None:
             self._closed = True
             return
         if self.rank == 0:
@@ -498,6 +583,84 @@ class Mesh:
         if dist.is_initialized():
             dist.destroy_process_group()
         _PROCESS = None
+
+
+# -- differentiable collectives (training) -------------------------------------------
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_reduce(grad.contiguous(), ctx.axis), None, None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.width = mesh, axis, dim, x.shape[dim]
+        return mesh.all_gather(x, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = ctx.mesh.axis_index(ctx.axis) * ctx.width
+        return grad.narrow(ctx.dim, start, ctx.width), None, None, None
+
+
+class _PermuteOnAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.mesh, ctx.axis, ctx.perm = mesh, axis, perm
+        return mesh.ppermute(x, axis, perm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse = [(dst, src) for src, dst in ctx.perm]
+        return ctx.mesh.ppermute(grad.contiguous(), ctx.axis, inverse), None, None, None
+
+
+def copy_to_axis(x: torch.Tensor, mesh: Mesh | None, axis: str) -> torch.Tensor:
+    """Megatron's f: the identity, whose backward all-reduces the gradient
+    over ``axis`` (the input of a region whose ranks each use part of ``x``)."""
+    if mesh is None or mesh.axis_size(axis) == 1:
+        return x
+    return _CopyToAxis.apply(x, mesh, axis)
+
+
+def reduce_from_axis(x: torch.Tensor, mesh: Mesh | None, axis: str) -> torch.Tensor:
+    """Megatron's g: the all-reduce of ``x`` over ``axis`` (the ranks'
+    partial sums), whose backward is the identity."""
+    if mesh is None or mesh.axis_size(axis) == 1:
+        return x
+    return _ReduceFromAxis.apply(x, mesh, axis)
+
+
+def gather_from_axis(x: torch.Tensor, mesh: Mesh | None, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated on ``dim`` in axis order; the
+    backward takes this rank's part of the (replicated) gradient."""
+    if mesh is None or mesh.axis_size(axis) == 1:
+        return x
+    return _GatherFromAxis.apply(x, mesh, axis, dim)
+
+
+def permute_on_axis(x: torch.Tensor, mesh: Mesh, axis: str, perm: list[tuple[int, int]]) -> torch.Tensor:
+    """``Mesh.ppermute``, differentiable: the backward sends the gradient
+    back along the inverse permutation (JAX's transpose of ``ppermute``)."""
+    return _PermuteOnAxis.apply(x, mesh, axis, perm)
 
 
 def replicated(method: Callable) -> Callable:
@@ -538,35 +701,74 @@ def build_mesh(
     ``timeout_s`` bounds every collective and every wait for a worker.
     """
     if dist.is_initialized() and _PROCESS is not None:
-        world = _PROCESS.world
-        data, model = mesh_shape_from_config(mesh_config, world)
-        if _PROCESS.rank != 0:
-            raise RuntimeError("worker ranks serve rank 0's calls: call serve(), not build_mesh()")
-        return _controller_mesh(data, model, [_PROCESS.device] * world, _PROCESS.backend, timeout_s)
+        data, model = mesh_shape_from_config(mesh_config, _PROCESS.world)
+        return _build({DATA_AXIS: data, MODEL_AXIS: model}, None, timeout_s)
     devices = [_normalize(d) for d in (devices if devices is not None else default_devices())]
     data, model = mesh_shape_from_config(mesh_config, len(devices))
-    if data * model == 1:
-        return Mesh(1, 1, devices)
+    return _build({DATA_AXIS: data, MODEL_AXIS: model}, devices, timeout_s)
+
+
+def _build_1d(axis: str, n: int, devices, timeout_s: float) -> Mesh:
+    """A one-axis mesh of ``n`` ranks: the first ``n`` of ``devices``
+    (default: one rank per visible card), or the running world's ranks."""
+    if dist.is_initialized() and _PROCESS is not None:
+        have = _PROCESS.world
+        if have != n:
+            raise ValueError(f"need {n} devices, have {have}" if have < n else
+                             f"a {axis} mesh spans its world: {n} ranks asked of a world of {have}")
+        return _build({axis: n}, None, timeout_s)
+    devices = [_normalize(d) for d in (devices if devices is not None else default_devices())]
+    if len(devices) < n:
+        raise ValueError(f"need {n} devices, have {len(devices)}")
+    return _build({axis: n}, devices[:n], timeout_s)
+
+
+def build_pipe_mesh(n_stages: int, devices: list[torch.device | str] | None = None,
+                    timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
+    """A 1-D ("pipe",) mesh of ``n_stages`` ranks (JAX's ``build_pipe_mesh``)."""
+    return _build_1d(PIPE_AXIS, n_stages, devices, timeout_s)
+
+
+def build_cp_mesh(n_shards: int, devices: list[torch.device | str] | None = None,
+                  timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
+    """A 1-D ("cp",) mesh of ``n_shards`` ranks (JAX's ``build_cp_mesh``)."""
+    return _build_1d(CP_AXIS, n_shards, devices, timeout_s)
+
+
+def build_expert_mesh(n_devices: int, devices: list[torch.device | str] | None = None,
+                      timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
+    """A 1-D ("expert",) mesh of ``n_devices`` ranks (JAX's ``build_expert_mesh``)."""
+    return _build_1d(EXPERT_AXIS, n_devices, devices, timeout_s)
+
+
+def _build(axes: dict[str, int], devices: list[torch.device] | None, timeout_s: float) -> Mesh:
+    """The mesh of ``axes`` on the running world (``devices`` None), or on
+    a world of ``devices`` started here; a mesh of one rank starts nothing."""
+    if devices is None:
+        if _PROCESS.rank != 0:
+            raise RuntimeError("worker ranks serve rank 0's calls: call serve(), not build_mesh()")
+        world = _PROCESS.world
+        return _controller_mesh(axes, [_PROCESS.device] * world, _PROCESS.backend, timeout_s)
+    if math.prod(axes.values()) == 1:
+        return Mesh(axes, devices)
     backend = choose_backend(devices)
     _spawn_world(devices, backend, timeout_s)
     atexit.register(_close_at_exit)
-    return _controller_mesh(data, model, devices, backend, timeout_s)
+    return _controller_mesh(axes, devices, backend, timeout_s)
 
 
-def _controller_mesh(data: int, model: int, devices, backend: str, timeout_s: float) -> Mesh:
+def _controller_mesh(axes: dict[str, int], devices, backend: str, timeout_s: float) -> Mesh:
     """Rank 0's mesh. The workers build their side (the same groups, made in
     the same order) from the ``mesh`` message, sent before rank 0 makes its
     groups; each answers with the device it holds."""
     global _CURRENT
-    mesh = Mesh(data, model, devices, backend, rank=0, timeout_s=timeout_s)
-    seq = mesh._send(("mesh", data, model, [str(d) for d in devices], backend, timeout_s))
+    mesh = Mesh(axes, devices, backend, rank=0, timeout_s=timeout_s)
+    seq = mesh._send(("mesh", axes, [str(d) for d in devices], backend, timeout_s))
     mesh._make_groups()
     mesh.devices = [devices[0]] + [torch.device(d) for d in mesh._settle(seq, failed=False)]
     _CURRENT = mesh
-    _log.info(
-        f"event=mesh_built data={data} model={model} backend={backend} "
-        f"devices={','.join(str(d) for d in mesh.devices)}"
-    )
+    shape = " ".join(f"{k}={v}" for k, v in axes.items())
+    _log.info(f"event=mesh_built {shape} backend={backend} devices={','.join(str(d) for d in mesh.devices)}")
     return mesh
 
 
@@ -579,7 +781,7 @@ def _close_at_exit() -> None:
     if _CURRENT is not None and not _CURRENT._closed:
         _CURRENT.close()
     elif _PROCESS is not None and _PROCESS.rank == 0:
-        mesh = Mesh(_PROCESS.world, 1, [_PROCESS.device] * _PROCESS.world, _PROCESS.backend,
+        mesh = Mesh({DATA_AXIS: _PROCESS.world}, [_PROCESS.device] * _PROCESS.world, _PROCESS.backend,
                     timeout_s=_PROCESS.timeout_s)
         mesh.close()
 
@@ -614,13 +816,13 @@ def serve() -> None:
                 _put(store, f"out/{seq}/{proc.rank}", pickle.dumps((True, None)))
                 break
             if op == "mesh":
-                _, data, model, devices, backend, timeout_s = message
+                _, axes, devices, backend, timeout_s = message
                 if mesh is not None:  # a new mesh on this world: the old one's objects go
                     mesh._objects.clear()
                     gc.collect()
                 mine = [torch.device(d) for d in devices]
                 mine[proc.rank] = proc.device
-                mesh = Mesh(data, model, mine, backend, rank=proc.rank, timeout_s=timeout_s)
+                mesh = Mesh(axes, mine, backend, rank=proc.rank, timeout_s=timeout_s)
                 mesh._make_groups()
                 value = str(proc.device)
             elif op == "new":
@@ -638,6 +840,8 @@ def serve() -> None:
             ok, value = False, traceback.format_exc()
             _log.warning(f"event=mesh_worker_raised rank={proc.rank} seq={seq}\n{value}")
         _put(store, f"out/{seq}/{proc.rank}", pickle.dumps((ok, value), protocol=pickle.HIGHEST_PROTOCOL))
+        # Hold nothing of this message while the next one's drops are freed.
+        message = value = target = args = kwargs = fn = cls = None
     if mesh is not None:
         mesh._objects.clear()
         mesh._closed = True

@@ -1,6 +1,7 @@
 """Training driver CLI.
 
-Distills (clip, teacher-note) pairs into the VideoLM on one device. Data
+Distills (clip, teacher-note) pairs into the VideoLM, on one device or
+over a mesh. Data
 comes from a staging directory (``--data``: <id>.<ext> + <id>.note.json
 pairs, see train/data.py), from grounded topic-signature pairs rendered on
 the host (``--grounded``, train/grounded.py) or, when neither is given, from
@@ -15,7 +16,16 @@ plus ``--device`` (``cuda`` by default; ``cpu`` runs the plain versions of
 the kernels). With ``--tokenizer``, notes are tokenized by the note grammar's
 ``encode_aligned``. For the same arguments the staged and grounded batches
 equal the JAX training CLI's (patches preprocessed in float32 on the trainer's
-device). ``--tp``/``--pp`` above 1 are not ported and raise.
+device).
+
+The mesh, as JAX's CLI builds it: ``--pp N`` trains on a ("pipe",) mesh of
+N stages (``--pp-micro`` microbatches, the batch rounded up to them,
+``--pp-schedule``); otherwise a (data, model) mesh with ``--tp`` on
+``model`` and ``data`` over the remaining ranks (the batch rounded up to
+``data``). The ranks are one a visible card on CUDA, and on ``--device
+cpu`` as many CPU ranks as ``--tp`` or ``--pp`` name; this process is rank 0
+and starts the others. Under ``torchrun`` every process joins the world and
+the ranks other than 0 serve rank 0's calls. ``--pp`` with ``--tp`` exits.
 """
 
 from __future__ import annotations
@@ -35,6 +45,8 @@ from ..models.config import get_preset
 from ..models.tokenizer import ByteTokenizer
 from ..ops.preprocess import preprocess_frames
 from ..parallel.engine import resolve_params_dir
+from ..parallel.mesh import (build_mesh, build_pipe_mesh, default_devices, maybe_initialize_distributed,
+                             mesh_devices, serve)
 from .data import distillation_records, synthetic_batch
 from .trainer import TrainConfig, Trainer
 
@@ -264,16 +276,16 @@ def _synthetic_batches(config, batch, text_len, dfa, prompt, prompt_len):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description="train/distill the VideoLM (PyTorch, one device)")
+    parser = argparse.ArgumentParser(description="train/distill the VideoLM (PyTorch)")
     parser.add_argument("--preset", default="tiny", choices=["tiny", "base", "7b", "qwen2vl-7b"])
     parser.add_argument("--steps", type=int, default=100)
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--text-len", type=int, default=2048)
     parser.add_argument("--lr", type=float, default=3e-4)
     parser.add_argument("--accum", type=int, default=1)
-    parser.add_argument("--tp", type=int, default=1, help="model-axis size (not ported: 1 only)")
-    parser.add_argument("--pp", type=int, default=1, help="pipeline stages (not ported: 1 only)")
-    parser.add_argument("--pp-micro", type=int, default=4, help="GPipe microbatches (read with --pp only)")
+    parser.add_argument("--tp", type=int, default=1, help="model-axis size (tensor parallelism)")
+    parser.add_argument("--pp", type=int, default=1, help="pipeline stages (exclusive with --tp)")
+    parser.add_argument("--pp-micro", type=int, default=4, help="pipeline microbatches (read with --pp only)")
     parser.add_argument("--pp-schedule", default="gpipe", choices=["gpipe", "1f1b"],
                         help="pipeline backward schedule (read with --pp only)")
     parser.add_argument("--remat", action="store_true")
@@ -325,11 +337,29 @@ def setup_logging(log_dir: str | Path) -> logging.Logger:
     return logger
 
 
+def build_train_mesh(args: argparse.Namespace, logger: logging.Logger):
+    """The mesh of JAX's training CLI, and the batch rounded up to what it
+    divides into (``args.batch`` is adjusted)."""
+    if args.pp > 1:
+        if args.tp > 1:
+            raise SystemExit("--pp and --tp are mutually exclusive")
+        devices = [args.device] * args.pp if torch.device(args.device).type == "cpu" else default_devices()
+        mesh = build_pipe_mesh(args.pp, devices)
+        round_to = args.pp_micro
+    else:
+        mesh = build_mesh({"model": args.tp}, mesh_devices(args.device, {"model": args.tp}))
+        round_to = mesh.data
+    if args.batch % round_to:
+        args.batch = _round_up(args.batch, round_to)
+        logger.info(f"batch rounded up to {args.batch} (divisor {round_to})")
+    logger.info(f"mesh: {mesh.shape} preset={args.preset}")
+    return mesh
+
+
 def prepare(args: argparse.Namespace, logger: logging.Logger):
-    """The CLI's set-up: config, trainer and the batch iterator. Adjusts
-    ``args`` (prompt_len, text_len) as the JAX training CLI does."""
-    if args.tp > 1 or args.pp > 1:
-        raise NotImplementedError("--tp/--pp above 1 are not ported (ROADMAP: Parallelism)")
+    """The CLI's set-up: config, mesh, trainer and the batch iterator.
+    Adjusts ``args`` (prompt_len, text_len, batch) as the JAX training CLI
+    does."""
     if args.prompt_len >= args.text_len:
         args.prompt_len = args.text_len // 2
         logger.info(f"prompt_len clamped to {args.prompt_len} (text_len {args.text_len})")
@@ -354,6 +384,7 @@ def prepare(args: argparse.Namespace, logger: logging.Logger):
         args.text_len += 128 - total % 128
         logger.info(f"text_len aligned to {args.text_len} (seq multiple of 128)")
     logger.info(f"device: {args.device} preset={args.preset}")
+    mesh = build_train_mesh(args, logger)
 
     trainer = Trainer(
         config,
@@ -364,8 +395,11 @@ def prepare(args: argparse.Namespace, logger: logging.Logger):
             accum_steps=args.accum,
             remat=args.remat,
             prompt_len=args.prompt_len,
+            pp_microbatches=args.pp_micro,
+            pp_schedule=args.pp_schedule,
         ),
         device=args.device,
+        mesh=mesh,
     )
     prompt = make_prompt_sampler(args.prompt_profile) if args.prompt_len > 0 else None
     if args.data:
@@ -401,9 +435,19 @@ def prepare(args: argparse.Namespace, logger: logging.Logger):
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    if maybe_initialize_distributed() and torch.distributed.get_rank() != 0:
+        serve()  # a torchrun worker: replay rank 0's calls until it stops the mesh
+        return 0
     logger = setup_logging(args.log_dir)
     _, trainer, batches = prepare(args, logger)
+    try:
+        return _train(args, logger, trainer, batches)
+    finally:
+        if trainer.mesh is not None:
+            trainer.mesh.close()
 
+
+def _train(args, logger, trainer, batches) -> int:
     start = time.perf_counter()
     tokens_seen = 0
     for step in range(1, args.steps + 1):

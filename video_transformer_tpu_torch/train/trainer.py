@@ -1,4 +1,4 @@
-"""Distillation training on one device.
+"""Distillation training on one device or over a mesh.
 
 The counterpart of the JAX package's ``train/trainer.py``: (clip, teacher
 note) pairs train the VideoLM with next-token cross-entropy on the text
@@ -15,11 +15,34 @@ nothing but the moments), ``decay_steps`` counts the warmup, the clip has
 no epsilon, and accumulation averages the micro-gradients before the clip.
 The ``grad_norm`` metric is the raw micro-step norm. Checkpoints are
 ``params_{step}/params.pt`` state dicts (orbax is not available on the
-card machine). Mesh and pipeline parallelism are not ported.
+card machine).
+
+On a mesh (``parallel/mesh.py``), JAX's two layouts:
+
+- ``(data, model)``: each rank holds its ``PARTITION_RULES`` shard of the
+  model (``parallel/sharding.py::shard_model``; the blocks' collectives are
+  the differentiable ones of ``models/lm.py``) and its data group's rows of
+  the batch. The loss divides by the masked token count of the whole batch
+  (all-reduced over ``data``), and the gradients are summed over ``data``
+  in buckets of ``GRAD_BUCKET_BYTES``, so a step equals the 1-rank step on
+  the whole batch.
+- ``("pipe",)``: each rank holds its stage's blocks
+  (``parallel/pipeline_parallel.py``) and the whole batch, split into
+  ``pp_microbatches`` microbatches, under ``pp_schedule``.
+
+The global norm sums a split leaf's squares over its axis and counts a
+replicated leaf once; a replicated leaf's gradient is whole and the same
+on every rank, so the replicas stay bit-equal. Every rank makes its own
+weights (a seeded draw that it then cuts, a ``model`` function that it
+calls, or ``restore_checkpoint``); ``step``, ``save_checkpoint`` and
+``restore_checkpoint`` replay on every rank (``parallel/mesh.py::
+replicated``); a checkpoint holds the whole model in the 1-rank layout,
+written once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from pathlib import Path
@@ -31,7 +54,10 @@ import torch
 from ..models.config import VLMConfig
 from ..models.tokenizer import ByteTokenizer
 from ..models.vlm import VideoLM
-from ..weights import random_params
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, Mesh, replicated
+from ..parallel.pipeline_parallel import SCHEDULES, pipeline_vlm_logits, shard_stages, stage_range
+from ..parallel.sharding import check_divisible, shard_block, shard_model, spec_for_path
+from ..weights import from_state_dict, random_params
 
 __all__ = [
     "AdamW",
@@ -60,6 +86,17 @@ class TrainConfig:
     prompt_len: int = 0
     """Width of the serving prompt block at the start of each sequence
     (masked out of the loss; aligns train positions with inference)."""
+    pp_microbatches: int = 4
+    """Microbatches a step on a "pipe" mesh (the batch must divide by it;
+    utilization n_micro / (n_micro + stages - 1))."""
+    pp_schedule: str = "gpipe"
+    """Pipeline backward schedule: "gpipe" (each microbatch's graph kept,
+    O(n_micro) activations a stage) or "1f1b" (the recompute and backward
+    waves, O(stages))."""
+
+
+GRAD_BUCKET_BYTES = 64 << 20
+"""Gradients summed over ``data`` a bucket at a time (one all-reduce each)."""
 
 
 def lr_schedule(config: TrainConfig) -> Callable[[int], float]:
@@ -94,9 +131,11 @@ class AdamW:
     of updates applied so far.
     """
 
-    def __init__(self, params, config: TrainConfig):
+    def __init__(self, params, config: TrainConfig, norm: Callable | None = None):
         self.params = [p for p in params if p.requires_grad]
         self.config = config
+        self.norm = norm or global_norm
+        """The clip's global norm (a mesh's sums split leaves over their axis)."""
         self.schedule = lr_schedule(config)
         self.inner = torch.optim.AdamW(
             self.params, lr=0.0, betas=(config.b1, config.b2), eps=1e-8,
@@ -107,8 +146,10 @@ class AdamW:
         self.acc: list[torch.Tensor] | None = None
 
     @torch.no_grad()
-    def update(self, grads: list[torch.Tensor]) -> bool:
-        """One micro-step; returns whether the parameters were updated."""
+    def update(self, grads: list[torch.Tensor], norm: torch.Tensor | None = None) -> bool:
+        """One micro-step; returns whether the parameters were updated.
+        ``norm`` is the gradients' global norm when the caller has it (used
+        without accumulation, where the clip's norm is the micro-step's)."""
         k = self.config.accum_steps
         if k > 1:
             if self.acc is None:
@@ -119,7 +160,8 @@ class AdamW:
             if self.mini_step < k:
                 return False
             grads, self.acc, self.mini_step = self.acc, None, 0
-        norm = global_norm(grads)
+        if norm is None or k > 1:
+            norm = self.norm(grads)
         factor = torch.where(norm < self.config.max_grad_norm, 1.0, self.config.max_grad_norm / norm)
         for p, g in zip(self.params, grads):
             p.grad = g * factor.to(g.dtype)
@@ -137,15 +179,21 @@ def distillation_loss(
     tokens: torch.Tensor,  # [B, St] teacher text (BOS ... EOS PAD*)
     pad_id: int = ByteTokenizer.PAD,
     prompt_lens: torch.Tensor | None = None,  # [B] per-row prompt block widths
+    logits_fn: Callable | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Next-token CE on text positions; video tokens condition only.
 
     ``prompt_lens`` masks each row's serving prompt block (positions
     0..prompt_lens[i]) out of the loss, per row, as the serving engine sizes
-    each prompt's block to its own bucket.
+    each prompt's block to its own bucket. ``logits_fn(model, patches,
+    tokens)`` overrides the forward (the pipeline's). On a mesh with a
+    ``data`` axis the rows are this data group's: the loss divides by the
+    masked count of every group's rows, so that the groups' gradients sum
+    to the whole batch's, and the metrics are the whole batch's.
     """
     video_tokens = model.config.video_tokens
-    logits = model(patches, tokens)  # [B, Nv + St, V]
+    logits = logits_fn(model, patches, tokens) if logits_fn else model(patches, tokens)  # [B, Nv + St, V]
     # Position Nv + k - 1 predicts text token k (inputs are [video, text]).
     text_logits = logits[:, video_tokens - 1 : -1, :]
     mask = (tokens != pad_id).float()
@@ -154,18 +202,28 @@ def distillation_loss(
         mask = mask * (positions >= prompt_lens[:, None]).float()
     log_probs = torch.log_softmax(text_logits.float(), dim=-1)
     token_ll = log_probs.gather(-1, tokens.long()[..., None])[..., 0]
+    correct = ((text_logits.argmax(dim=-1) == tokens) * mask).sum()
+    ll_sum = (token_ll * mask).sum()
+    if mesh is not None and mesh.axis_size(DATA_AXIS) > 1:
+        count, ll_total, correct = mesh.all_reduce(torch.stack([mask.sum(), ll_sum.detach(), correct]), DATA_AXIS)
+        denom = count.clamp(min=1.0)
+        loss = -ll_sum / denom
+        return loss, {"loss": -ll_total / denom, "accuracy": correct / denom, "tokens": count}
     denom = mask.sum().clamp(min=1.0)
-    loss = -(token_ll * mask).sum() / denom
-    accuracy = ((text_logits.argmax(dim=-1) == tokens) * mask).sum() / denom
-    return loss, {"loss": loss.detach(), "accuracy": accuracy, "tokens": mask.sum()}
+    loss = -ll_sum / denom
+    return loss, {"loss": loss.detach(), "accuracy": correct / denom, "tokens": mask.sum()}
 
 
 class Trainer:
-    """Owns the model, the optimizer and the step count on one device.
+    """Owns the model (or a mesh rank's share of it), the optimizer and the
+    step count.
 
     ``model`` defaults to seeded random f32 weights (``weights.random_params``
-    with a generator seeded by ``seed``). ``mesh`` is the JAX trainer's
-    (data, model) or pipe mesh: not ported, so anything but None raises.
+    with a generator seeded by ``seed``); a VideoLM, or on a mesh a function
+    of no arguments that each rank calls (a VideoLM would cross to every
+    rank whole). ``mesh`` is JAX's trainer's: a (data, model) mesh or a
+    ("pipe",) mesh (``build_pipe_mesh``); each rank takes its mesh device,
+    whatever ``device`` says. A mesh of one rank is no mesh.
     """
 
     def __init__(
@@ -174,41 +232,149 @@ class Trainer:
         train_config: TrainConfig | None = None,
         seed: int = 0,
         device: str | torch.device = "cuda",
-        model: VideoLM | None = None,
-        mesh=None,
+        model: VideoLM | Callable[[], VideoLM] | None = None,
+        mesh: Mesh | None = None,
     ):
+        args = {name: value for name, value in locals().items() if name not in ("self", "__class__")}
+        mesh = mesh if mesh is not None and mesh.size > 1 else None
+        train_config = train_config or TrainConfig()
         if mesh is not None:
-            raise NotImplementedError("mesh and pipeline parallelism are not ported (ROADMAP: Parallelism)")
-        self.device = torch.device(device)
-        self.train_config = train_config or TrainConfig()
+            if isinstance(model, torch.nn.Module):
+                raise ValueError("on a mesh, model is a function each rank calls (or None: seeded weights), "
+                                 "not a model")
+            if PIPE_AXIS in mesh.shape:
+                stage_range(model_config.decoder.num_layers, mesh)  # raises unless the stages divide the layers
+                if train_config.pp_schedule not in SCHEDULES:
+                    raise ValueError(f"unknown pipeline schedule: {train_config.pp_schedule!r}")
+            else:
+                check_divisible(model_config.decoder, mesh.model)  # before any rank builds
+        self.mesh = mesh
+        with mesh.controlled(("new", type(self), (), args)) if mesh else contextlib.nullcontext():
+            self._init(model_config, train_config, seed, device, model)
+            if mesh:
+                mesh.register(self)
+
+    def _init(self, model_config, train_config, seed, device, model):
+        mesh = self.mesh
+        self.config = model_config
+        self.train_config = train_config
+        self.device = mesh.device if mesh is not None else torch.device(device)
+        self.use_pp = mesh is not None and PIPE_AXIS in mesh.shape
         if model is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
-            model = random_params(model_config, generator, device=self.device, dtype=torch.float32)
-        self.model = model.to(self.device)
-        self.model.decoder.remat = self.train_config.remat
-        self.optimizer = AdamW(self.model.parameters(), self.train_config)
+            model = random_params(model_config, generator, device=self.device, dtype=torch.float32,
+                                  place_block=self._place_block if mesh is not None else None)
+        elif not isinstance(model, torch.nn.Module):
+            model = model()
+        self.model = self._place(model).to(self.device)
+        # On a pipe mesh the stages apply per-block remat themselves.
+        self.model.decoder.remat = train_config.remat and not self.use_pp
+        self._logits_fn = None
+        if self.use_pp:
+            n_micro = max(train_config.pp_microbatches, 1)
+            self._logits_fn = lambda m, patches, tokens: pipeline_vlm_logits(
+                m, patches, tokens, mesh, n_micro, remat=train_config.remat, schedule=train_config.pp_schedule)
+        with torch.device("meta"):
+            whole = {name: tuple(p.shape) for name, p in VideoLM(model_config).named_parameters()}
+        # The leaves that a mesh axis splits (their squares sum over it).
+        self._split = [self._split_axis(name, tuple(p.shape), whole) for name, p in self.model.named_parameters()
+                       if p.requires_grad]
+        self.optimizer = AdamW(self.model.parameters(), train_config, norm=self._global_norm)
         self.step_count = 0
+
+    # -- placement -------------------------------------------------------------
+
+    def _place_block(self, block):
+        """A mesh rank's share of one freshly drawn block: its shard, or on
+        a pipe mesh the block if it is this stage's (None otherwise)."""
+        if self.use_pp:
+            keep = stage_range(self.config.decoder.num_layers, self.mesh)
+            return block if block.attn.layer_idx in keep else None
+        return shard_block(block, self.mesh)
+
+    def _place(self, model: VideoLM) -> VideoLM:
+        """This rank's share of a whole (or already placed) model, in place."""
+        if self.mesh is None:
+            return model
+        return shard_stages(model, self.mesh) if self.use_pp else shard_model(model, self.mesh)
+
+    def _split_axis(self, name: str, shape: tuple, whole: dict) -> str | None:
+        if self.mesh is None:
+            return None
+        if self.use_pp:
+            return PIPE_AXIS if name.startswith("decoder.layer_") else None
+        return MODEL_AXIS if shape != whole[name] else None
+
+    # -- the step ----------------------------------------------------------------
 
     def _tensor(self, array) -> torch.Tensor:
         if isinstance(array, torch.Tensor):  # patches preprocessed on the device
             return array.to(self.device)
         return torch.as_tensor(np.asarray(array)).to(self.device)
 
+    def _global_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        """optax.global_norm of the whole model's gradients: a split leaf's
+        squares summed over its axis, a replicated leaf's once."""
+        if self.mesh is None:
+            return global_norm(grads)
+        squares = {None: torch.zeros((), device=self.device)}
+        for g, axis in zip(grads, self._split):
+            squares[axis] = squares.get(axis, 0.0) + torch.linalg.vector_norm(g.float()).square()
+        total = squares.pop(None)
+        for axis, part in squares.items():
+            total = total + self.mesh.all_reduce(part, axis)
+        return total.sqrt()
+
+    def _sum_over_data(self, grads: tuple[torch.Tensor, ...]) -> list[torch.Tensor]:
+        """Every data group's gradients summed, in buckets of
+        ``GRAD_BUCKET_BYTES`` (one all-reduce a bucket)."""
+        out: list[torch.Tensor] = []
+        bucket: list[torch.Tensor] = []
+        size = 0
+        for i, g in enumerate(grads):
+            bucket.append(g)
+            size += g.numel() * g.element_size()
+            if size >= GRAD_BUCKET_BYTES or i == len(grads) - 1:
+                flat = self.mesh.all_reduce(torch.cat([t.reshape(-1) for t in bucket]), DATA_AXIS)
+                out.extend(part.view_as(t) for part, t in zip(flat.split([t.numel() for t in bucket]), bucket))
+                bucket, size = [], 0
+        return out
+
+    def loss_and_grads(self, patches, tokens, prompt_lens=None) -> tuple[dict, list[torch.Tensor]]:
+        """The step's metrics (tensors) and this rank's gradients, summed
+        over ``data``, before any update. On a mesh every rank calls it with
+        the whole batch and takes its rows (``step`` replays it)."""
+        tokens = self._tensor(tokens)
+        if prompt_lens is None:
+            prompt_lens = np.full((tokens.shape[0],), self.train_config.prompt_len, np.int32)
+        patches, prompt_lens = self._tensor(patches), self._tensor(prompt_lens)
+        data = self.mesh.axis_size(DATA_AXIS) if self.mesh is not None else 1
+        if data > 1:
+            b = tokens.shape[0]
+            if b % data:
+                raise ValueError(f"batch {b} must divide over {data} data groups")
+            rows = slice(self.mesh.data_index * (b // data), (self.mesh.data_index + 1) * (b // data))
+            patches, tokens, prompt_lens = patches[rows], tokens[rows], prompt_lens[rows]
+        loss, metrics = distillation_loss(self.model, patches, tokens, ByteTokenizer.PAD, prompt_lens,
+                                          logits_fn=self._logits_fn, mesh=self.mesh)
+        grads = torch.autograd.grad(loss, self.optimizer.params)
+        return metrics, (self._sum_over_data(grads) if data > 1 else list(grads))
+
+    @replicated
     def step(self, patches, tokens, prompt_lens=None) -> dict[str, float]:
         """One optimization micro-step; returns host-side metrics.
 
         ``prompt_lens`` [B] = per-row prompt block widths to mask from the
-        loss; defaults to the uniform TrainConfig.prompt_len.
+        loss; defaults to the uniform TrainConfig.prompt_len. On a mesh the
+        metrics are the whole batch's.
         """
-        tokens = self._tensor(tokens)
-        if prompt_lens is None:
-            prompt_lens = np.full((tokens.shape[0],), self.train_config.prompt_len, np.int32)
-        loss, metrics = distillation_loss(
-            self.model, self._tensor(patches), tokens, ByteTokenizer.PAD, self._tensor(prompt_lens)
-        )
-        grads = torch.autograd.grad(loss, self.optimizer.params)
-        metrics["grad_norm"] = global_norm(grads)
-        self.optimizer.update(grads)
+        return self.apply(*self.loss_and_grads(patches, tokens, prompt_lens))
+
+    def apply(self, metrics: dict, grads: list[torch.Tensor]) -> dict[str, float]:
+        """The rest of ``step`` after ``loss_and_grads``: the grad norm, the
+        optimizer's micro-step and the metrics on the host."""
+        metrics["grad_norm"] = self._global_norm(grads)
+        self.optimizer.update(grads, metrics["grad_norm"])
         self.step_count += 1
         names = list(metrics)
         values = torch.stack([metrics[n].float() for n in names]).tolist()
@@ -216,22 +382,60 @@ class Trainer:
 
     # -- checkpointing ---------------------------------------------------------
 
+    def _whole_state(self) -> dict[str, torch.Tensor]:
+        """The whole model's state in the 1-rank layout and order (on a mesh
+        every rank gathers the split leaves)."""
+        state = self.model.state_dict()
+        if self.mesh is None:
+            return {k: v.detach().cpu() for k, v in state.items()}
+        with torch.device("meta"):
+            names = list(VideoLM(self.config).state_dict())
+        mesh = self.mesh
+        if self.use_pp:
+            keep = self.model.decoder.stage_layers
+            per = len(keep)
+            for j, i in enumerate(keep):
+                prefix = f"decoder.layer_{i}."
+                for name in [k for k in state if k.startswith(prefix)]:
+                    parts = mesh.all_gather(state.pop(name)[None], PIPE_AXIS, dim=0)
+                    for s in range(mesh.axis_size(PIPE_AXIS)):
+                        state[f"decoder.layer_{s * per + j}.{name[len(prefix):]}"] = parts[s]
+        else:
+            with torch.device("meta"):
+                whole = VideoLM(self.config).state_dict()
+            for name, t in list(state.items()):
+                if tuple(t.shape) != tuple(whole[name].shape):
+                    spec = spec_for_path(tuple(name.split(".")))
+                    state[name] = mesh.all_gather(t, MODEL_AXIS, dim=spec.index(MODEL_AXIS))
+        return {k: state[k].detach().cpu() for k in names}
+
+    @replicated
     def save_checkpoint(self, directory: str | Path) -> Path:
-        """Write ``directory/params_{step}/params.pt`` (kept if it exists)."""
+        """Write ``directory/params_{step}/params.pt`` (kept if it exists):
+        the whole model, in the 1-rank layout, written once (by rank 0 of a
+        mesh)."""
         target = Path(directory).resolve() / f"params_{self.step_count}"
-        if not target.exists():
+        state = self._whole_state() if self.mesh is not None or not target.exists() else None
+        if (self.mesh is None or self.mesh.rank == 0) and not target.exists():
             tmp = target.with_name(target.name + ".tmp")
             tmp.mkdir(parents=True, exist_ok=True)
-            state = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
             torch.save(state, tmp / "params.pt")
             tmp.rename(target)
         return target
 
+    @replicated
     def restore_checkpoint(self, path: str | Path) -> None:
-        """Load a ``params_N`` directory; the step count continues from N."""
+        """Load a ``params_N`` directory (a whole model; on a mesh each rank
+        keeps its share); the step count continues from N."""
         resolved = Path(path).resolve()
-        state = torch.load(resolved / "params.pt", map_location=self.device, weights_only=True)
-        self.model.load_state_dict(state)
+        state = torch.load(resolved / "params.pt", map_location="cpu", weights_only=True)
+        placed = self._place(from_state_dict(state, self.config, device="cpu")).state_dict()
+        own = self.model.state_dict()
+        if set(placed) != set(own):
+            raise KeyError(f"checkpoint {resolved} does not fit: {sorted(set(placed) ^ set(own))[:4]}")
+        with torch.no_grad():
+            for name, tensor in own.items():
+                tensor.copy_(placed[name])
         name = resolved.name
         if name.startswith("params_") and name.split("_")[-1].isdigit():
             self.step_count = int(name.split("_")[-1])

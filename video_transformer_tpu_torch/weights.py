@@ -27,7 +27,8 @@ import torch
 from .models.config import VLMConfig
 from .models.vlm import VideoLM
 
-__all__ = ["cast_weights", "constant_params", "flatten_tree", "from_jax_params", "from_state_dict", "load_npz",
+__all__ = ["cast_weights", "constant_params", "flatten_tree", "from_jax_moe_params", "from_jax_params",
+           "from_state_dict", "load_npz",
            "random_params", "save_npz", "to_tensor"]
 
 NPZ_INDEX_KEY = "__index__"
@@ -118,6 +119,15 @@ def from_jax_params(
         for name, leaf in flatten_tree(variables.get(collection, {}))
     )
     return _build(items, config, device, "JAX")
+
+
+def from_jax_moe_params(params: dict, device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """A JAX ``parallel/expert_parallel.py::init_moe_params`` dict (numpy leaves) as the port's tensors,
+    trainable (float leaves require grad)."""
+    unknown = set(params) - {"router", "gate", "up", "down"}
+    if unknown:
+        raise KeyError(f"unknown MoE leaves {sorted(unknown)}")
+    return {name: to_tensor(leaf).to(device).requires_grad_() for name, leaf in params.items()}
 
 
 def from_state_dict(
@@ -222,9 +232,10 @@ def random_params(
 
     The decoder is made one block at a time: each block is drawn in f32,
     cast, then handed to ``place_block`` (a mesh rank's quantize-then-shard;
-    by default kept as it is) before the next is drawn, so that no more
-    than the rest of the model and one f32 block are ever held beside the
-    placed blocks.
+    by default kept as it is; None drops the block, as a pipeline stage
+    drops the other stages' blocks) before the next is drawn, so that no
+    more than the rest of the model and one f32 block are ever held beside
+    the placed blocks.
     """
     from .models.lm import DecoderBlock
 
@@ -234,23 +245,28 @@ def random_params(
     with torch.device(device):
         model = VideoLM(trunk)
     trunk_params = dict(model.named_parameters())
+    drawn: set[int] = set()
     for name in names:
         if not name.startswith("decoder.layer_"):
             _init_param(name, trunk_params[name], generator)
             continue
         i = int(name.split(".")[1].split("_")[1])
-        if hasattr(model.decoder, f"layer_{i}"):
+        if i in drawn:
             continue
+        drawn.add(i)
         with torch.device(device):
             block = DecoderBlock(config.decoder, i)
         for sub, param in block.named_parameters():
             _init_param(sub, param, generator)
         block = cast_weights(block, dtype)
-        model.decoder.add_module(f"layer_{i}", place_block(block) if place_block else block)
+        placed = place_block(block) if place_block else block
+        if placed is not None:
+            model.decoder.add_module(f"layer_{i}", placed)
     model.config, model.decoder.cfg = config, config.decoder
     # The module order of the model built whole: embed, the blocks, final_norm.
     modules = model.decoder._modules
-    order = ["embed"] + [f"layer_{i}" for i in range(config.decoder.num_layers)] + ["final_norm"]
+    order = ["embed"] + [f"layer_{i}" for i in range(config.decoder.num_layers) if f"layer_{i}" in modules]
+    order += ["final_norm"]
     model.decoder._modules = type(modules)((key, modules[key]) for key in order)
     return cast_weights(model, dtype).to(device)
 
