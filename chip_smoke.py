@@ -65,7 +65,11 @@ every projection takes K6, then training gradients), then:
   at the vision tower's head_dim 80 ([clips x 8, 16, 256, 80] non-causal,
   timed beside SDPA, and at the ragged shapes causal and not; head_dim 96
   must raise), the tiny Qwen geometry's logits on the card against the
-  CPU's (random biases; K1 in every tower block), and an HF checkpoint
+  CPU's (random biases; K1 in every tower block), a training step's
+  gradients through 2 tower blocks at full width into the tiny decoder
+  against the CPU's f32 ones (``qwen_train``: every leaf within 4e-2 x its
+  max; K1 once a block forward, one ``mha_reference`` recompute a block in
+  the backward, none in the forward), and an HF checkpoint
   round trip at full width and 2 tower blocks and decoder layers (HF-named
   state written as two safetensors shards and an index by the smoke's own
   writer, ``engine.restore(dir)``: weights and prefill logits equal to an
@@ -196,7 +200,12 @@ every projection takes K6, then training gradients), then:
   on the same mesh engine; ``7b`` at full width and ``MESH_INT4_LAYERS``
   layers, int4, on the same two ranks (K6 7 times a layer a step on each
   rank), held to the 1-rank engine in the same way, with K6 held at its
-  five per-rank shapes; then ``{"data": 2,
+  five per-rank shapes; two decoders whose heads the axis does not divide
+  (the plan of heads of ``parallel/sharding.py``): the trained tiny
+  checkpoint, bf16 (rank 0 attends with the one q head, rank 1 holds the
+  kv head and launches no decoder attention kernel; tokens against 1
+  rank's), and base's width over one kv head, 4 layers, int8 (4 q heads a
+  rank over the replicated kv head; logits as above); then ``{"data": 2,
   "model": 1}`` through ``ContinuousBatcher`` (4 slots, 6 requests, two
   data groups), whose tokens must equal a 1-rank batcher's over each
   group's requests. Every rank's launches are counted from 0 a run (none
@@ -211,11 +220,13 @@ every projection takes K6, then training gradients), then:
   ``base`` at full width, ``TRAIN_MESH_LAYERS`` decoder layers and the
   12-layer encoder, batch 2 of 1,024 video and 2,048 text positions, on
   ``{"model": 2}``, ``{"data": 2}`` and a 2-stage pipe under GPipe and
-  1F1B (2 microbatches), ``TRAIN_MESH_STEPS`` steps each through
-  ``Trainer.step``: the first step's loss and every gradient leaf that it
-  applies against the 1-rank trainer's on the same
-  seeded weights and batch, K7a-c (and 1F1B's K1) launches per rank as the
-  design predicts, nothing plain on the card, the replicated leaves
+  1F1B (2 microbatches), and the ``tiny`` preset on ``{"model": 2}`` (its
+  one q head on rank 0, its kv head on both: k/v gradients summed over the
+  two, the k/v leaves bit-equal after the step), ``TRAIN_MESH_STEPS``
+  steps each through ``Trainer.step``: the first step's loss and every
+  gradient leaf that it applies against the 1-rank trainer's on the same
+  seeded weights and batch, K7a-c (and 1F1B's K1; the tiny encoder's K1
+  and recompute) launches per rank as the design predicts, nothing plain on the card, the replicated leaves
   bit-equal on every rank after the steps, ms a step, collectives a step
   and each rank's peak GiB; GPipe against 1F1B at batch 4 and 4
   microbatches (1F1B's peak below GPipe's on every rank); ``ring_attention``
@@ -258,6 +269,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -337,7 +349,7 @@ from video_transformer_tpu_torch.parallel.context_parallel import build_cp_mesh,
 from video_transformer_tpu_torch.parallel.expert_parallel import EXPERT_AXIS, build_expert_mesh, init_moe_params, moe_swiglu
 from video_transformer_tpu_torch.parallel.mesh import MODEL_AXIS, build_mesh
 from video_transformer_tpu_torch.parallel.pipeline_parallel import build_pipe_mesh
-from video_transformer_tpu_torch.parallel.sharding import spec_for_path
+from video_transformer_tpu_torch.parallel.sharding import shard_tensor, spec_for_path
 from video_transformer_tpu_torch.video import native_reader
 from video_transformer_tpu_torch.video.containers import Y4M_ROUTES, read_frames, write_npzv, write_y4m
 from video_transformer_tpu_torch.weights import from_jax_params, random_params
@@ -444,6 +456,31 @@ def emit(obj: dict) -> None:
     if "phase" in obj:
         obj = {**obj, "t": time.perf_counter() - _START}
     print(json.dumps(obj, ensure_ascii=False), flush=True)
+
+
+def in_background(fn, *args, **kwargs):
+    """Start ``fn(*args, **kwargs)`` in a thread of this process. Returns a
+    function that waits for it and gives back ``(value, seconds it ran)``,
+    or raises what it raised."""
+    out: dict = {}
+
+    def body() -> None:
+        t0 = time.perf_counter()
+        try:
+            out["value"] = fn(*args, **kwargs)
+        except BaseException as exc:  # handed to the waiter
+            out["error"] = exc
+        out["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=body, name=f"smoke-{fn.__name__}", daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out["value"], out["seconds"]
+    return wait
 
 
 def time_ms(fn, warmup: int = 3, reps: int = 10, rounds: int = 20) -> float:
@@ -1728,7 +1765,10 @@ def watch_plain_writes():
     """Count in ``PLAIN_ON_CARD`` each call of ``quantize_kv``,
     ``update_cache_rows`` or ``mha_reference`` on a CUDA tensor that goes
     through the port's modules' names (the port's own calls; the smoke's
-    comparisons call the functions it imported)."""
+    comparisons call the functions it imported). The flash attention's
+    recompute backward (``reference_backwards``) is such a call, so on the
+    card ``mha_reference`` may run exactly as often as that count, and in
+    no forward."""
     def watched(name, fn):
         def call(x, *args, **kwargs):
             PLAIN_ON_CARD[name] += x.device.type == "cuda"
@@ -2434,6 +2474,73 @@ def qwen_reference_phase(seed: int, dev: torch.device) -> dict:
             "tol": tol, "logit_scale": scale, "k1_launches": launched["flash_attention"]}
 
 
+QWEN_TRAIN_DEPTH = 2  # tower blocks of the training check (of 32), at full width
+QWEN_TRAIN_TEXT = 256  # text tokens: 512 merged video tokens + 256 = 768 decoder positions (K7a-c)
+
+
+def qwen_train_check(seed: int, dev: torch.device, smi: str) -> tuple[dict, dict[str, int]]:
+    """One training step's gradients through the Qwen2-VL tower at full
+    width (embed 1280, 16 heads at head_dim 80, two 16-frame 224 px clips:
+    K1 at [16, 16, 256, 80]) and ``QWEN_TRAIN_DEPTH`` blocks, into the tiny
+    preset's decoder (its width is the merger's output): seeded f32
+    weights, the distillation loss, bf16 compute on the card against f32 on
+    the CPU. Every gradient leaf within ``GRAD_REL_TOL`` x its max of the
+    CPU's. The tower's attention takes JAX's route at head_dim 80: K1 once a
+    block forward, one recompute through ``mha_reference`` a block in the
+    backward (``reference_backwards``), none in the forward; the decoder's
+    K7a-c once a layer. Returns the line and the launches."""
+    full, dec = get_preset("qwen2vl-7b"), get_preset("tiny").decoder
+    cfg = VLMConfig(name="qwen2vl-7b-tower-train", encoder=replace(full.encoder, depth=QWEN_TRAIN_DEPTH,
+                                                                     hidden_size=dec.hidden_dim), decoder=dec)
+    enc = cfg.encoder
+    cpu_model = random_params(cfg, torch.Generator(device="cpu").manual_seed(seed), device="cpu")
+    cpu_model.config = replace(cfg, dtype="float32")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    gpu_model.config = cfg
+    rng = np.random.default_rng(seed)
+    patches = torch.from_numpy(rng.standard_normal((QWEN_CLIPS, enc.tokens_per_clip, enc.patch_dim),
+                                                   dtype=np.float32))
+    tokens = torch.from_numpy(rng.integers(3, dec.vocab_size, (QWEN_CLIPS, QWEN_TRAIN_TEXT)).astype(np.int32))
+    results = {}
+    for name, model in (("cpu", cpu_model), ("gpu", gpu_model)):
+        device = next(model.parameters()).device
+        params = dict(model.named_parameters())
+        reset_counts()
+        t0 = time.perf_counter()
+        loss, _ = distillation_loss(model, patches.to(device), tokens.to(device))
+        forward = counts()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        results[name] = (loss.item(), {n: g.float().cpu() for n, g in zip(params, grads)}, forward, counts(),
+                         time.perf_counter() - t0)
+    cpu_loss, cpu_grads, _, _, cpu_s = results["cpu"]
+    gpu_loss, gpu_grads, forward, launched, gpu_s = results["gpu"]
+    depth, layers = enc.depth, dec.num_layers
+    want_forward = {"flash_attention": depth, "flash_fwd_lse": layers, "mha_reference_on_card": 0}
+    want = {"flash_attention": depth, "reference_backwards": depth, "mha_reference_on_card": depth,
+            "flash_fwd_lse": layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    if any(forward[k] != n for k, n in want_forward.items()) or any(launched[k] != n for k, n in want.items()):
+        raise AssertionError(f"qwen_train: forward {forward}, step {launched}; expected {want_forward}, {want}")
+    worst, worst_name = 0.0, ""
+    for n, w in cpu_grads.items():
+        ratio = ((gpu_grads[n] - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+        if not ratio <= worst:
+            worst, worst_name = ratio, n
+    if not math.isfinite(gpu_loss) or not worst <= GRAD_REL_TOL:
+        raise AssertionError(f"qwen_train: leaf {worst_name} off the CPU's by {worst} x its max (tolerance "
+                             f"{GRAD_REL_TOL}), loss {gpu_loss} against {cpu_loss}")
+    groups = enc.grid[0]
+    line = {"phase": "qwen_train", "preset": cfg.name, "vision_depth": depth, "embed_dim": enc.embed_dim,
+            "vision_heads": enc.num_heads, "vision_head_dim": enc.head_dim,
+            "k1_shape": [QWEN_CLIPS * groups, enc.num_heads, enc.tokens_per_clip // groups, enc.head_dim],
+            "decoder": "tiny", "text_tokens": QWEN_TRAIN_TEXT, "loss_card": gpu_loss, "loss_cpu_f32": cpu_loss,
+            "leaves": len(cpu_grads), "worst_leaf_ratio": worst, "worst_leaf": worst_name, "tol": GRAD_REL_TOL,
+            "metric": "max|g_card - g_cpu| / max|g_cpu| a leaf", "launches": {k: launched[k] for k in want},
+            "card_seconds": gpu_s, "cpu_seconds": cpu_s, "card": smi}
+    return line, launched
+
+
 def hf_state_dict(cfg: VLMConfig, gen: torch.Generator, dev: torch.device) -> dict[str, torch.Tensor]:
     """A Qwen2-VL state dict of ``cfg``'s geometry under the hub's names,
     seeded (normal, std 0.02) on the card, then on the host: bf16 matrices
@@ -2587,6 +2694,8 @@ def qwen2vl_phase(seed: int, dev: torch.device, smi: str) -> tuple[dict, dict[st
     t0 = time.perf_counter()
     k1 = qwen_kernel_phase(seed + 11, dev, cfg)
     emit(dict(qwen_reference_phase(seed, dev), seconds=time.perf_counter() - t0))
+    train_line, trained = qwen_train_check(seed + 14, dev, smi)
+    emit(train_line)
     with tempfile.TemporaryDirectory(prefix="vtx_qwen_vocab_") as workdir:
         t0 = time.perf_counter()
         vocab_path = write_synth_qwen_vocab(Path(workdir) / "tokenizer.json", vocab_size=cfg.decoder.vocab_size)
@@ -2681,7 +2790,8 @@ def qwen2vl_phase(seed: int, dev: torch.device, smi: str) -> tuple[dict, dict[st
         "text_head": texts[0][:48], "card": smi,
     })
     k1["launches"] = got["flash_attention"]
-    return k1, launched
+    k1["train_launches"] = trained["flash_attention"]
+    return k1, {name: launched[name] + trained[name] for name in launched}
 
 
 # -- engine API phase (main path 5) ---------------------------------------------
@@ -3417,7 +3527,7 @@ def framework_log(log: LogLines):
         logger.handlers, logger.propagate = saved
 
 
-def pipeline_cli_base(workdir: Path, rng: np.random.Generator, smi: str) -> tuple[dict, dict[str, int]]:
+def pipeline_cli_base(workdir: Path, frames: np.ndarray, smi: str) -> tuple[dict, dict[str, int]]:
     """(a): ``cli.main(["--url", clip, "--config", config.json])`` at full
     base width and ``ANALYZER_BASE_LAYERS`` layers; the line and the
     launches."""
@@ -3429,8 +3539,7 @@ def pipeline_cli_base(workdir: Path, rng: np.random.Generator, smi: str) -> tupl
     config_path = workdir / "config.json"
     config_path.write_text(json.dumps(config, ensure_ascii=False, indent=1), encoding="utf-8")
     clip = workdir / "lecture.npzv"
-    write_npzv(clip, rng.integers(0, 256, (ANALYZER_CLIP_FRAMES, ANALYZER_FRAME_SIZE, ANALYZER_FRAME_SIZE, 3),
-                                  dtype=np.uint8), ANALYZER_CLIP_FPS)
+    write_npzv(clip, frames, ANALYZER_CLIP_FPS)
     log, record = LogLines(), {}
     reset_counts()
     torch.cuda.synchronize()
@@ -3473,12 +3582,13 @@ def pipeline_cli_base(workdir: Path, rng: np.random.Generator, smi: str) -> tupl
     return line, launched
 
 
-def pipeline_cli_tiny(workdir: Path, rng: np.random.Generator, smi: str) -> dict:
+def pipeline_cli_tiny(workdir: Path, rng: np.random.Generator, smi: str):
     """(b): the trained tiny checkpoint through ``python -m
     video_transformer_tpu_torch --batch LIST --sharded`` in a fresh process,
     then through ``cli.main`` with the same arguments in this process,
     which must skip both clips (a second fresh process took 12.7 s to
-    start and skip)."""
+    start and skip). Starts the fresh process and returns a function that
+    waits for it, makes the second run and returns the line."""
     config = analyzer_config(workdir, model_preset="tiny", checkpoint_dir=str(TINY_WEIGHTS), temperature=0.0,
                              max_new_tokens=GROUNDING_MAX_NEW)
     workdir.mkdir(parents=True)
@@ -3494,15 +3604,24 @@ def pipeline_cli_tiny(workdir: Path, rng: np.random.Generator, smi: str) -> dict
     listing.write_text("# grounded topics\n" + "\n".join(map(str, clips)) + "\n", encoding="utf-8")
     args = ["--batch", str(listing), "--sharded", "--config", str(config_path)]
     start = time.perf_counter()
-    done = subprocess.run([sys.executable, "-m", "video_transformer_tpu_torch", *args], cwd=REPO,
-                          env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True, text=True,
-                          timeout=PIPELINE_CLI_TIMEOUT)
+    with open(workdir / "stdout.txt", "w") as out, open(workdir / "stderr.txt", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "video_transformer_tpu_torch", *args], cwd=REPO,
+                                env=dict(os.environ, PYTHONPATH=str(REPO)), stdout=out, stderr=err)
+    BACKGROUND.append(proc)
+    return functools.partial(pipeline_cli_tiny_again, proc, start, args, config, clips, smi)
+
+
+def pipeline_cli_tiny_again(proc: subprocess.Popen, start: float, args: list[str], config: dict, clips: list[Path],
+                            smi: str) -> dict:
+    """(b)'s fresh process waited for, then the second run in this process."""
+    code = proc.wait(timeout=PIPELINE_CLI_TIMEOUT - (time.perf_counter() - start))
     seconds = time.perf_counter() - start
-    if done.returncode != 0:
-        raise AssertionError(f"pipeline (b) first: exit {done.returncode}\n{done.stdout[-2000:]}\n"
-                             f"{done.stderr[-4000:]}")
-    runs = [{"run": "first", "process": "fresh", "seconds": seconds, "exit_code": done.returncode,
-             "stdout": [line for line in done.stdout.splitlines() if line.strip("= ")]}]
+    workdir = clips[0].parent
+    stdout, stderr = ((workdir / name).read_text(errors="replace") for name in ("stdout.txt", "stderr.txt"))
+    if code != 0:
+        raise AssertionError(f"pipeline (b) first: exit {code}\n{stdout[-2000:]}\n{stderr[-4000:]}")
+    runs = [{"run": "first", "process": "fresh", "seconds": seconds, "exit_code": code,
+             "stdout": [line for line in stdout.splitlines() if line.strip("= ")]}]
     out, log = io.StringIO(), LogLines()
     start = time.perf_counter()
     with contextlib.redirect_stdout(out), framework_log(log):
@@ -3555,16 +3674,17 @@ def pipeline_phase(seed: int, smi: str) -> tuple[list[dict], dict[str, int]]:
     """Main path 8 (see the constants above): (a), (b) and the watch scan.
     Returns the lines and the launches of (a) and the scan."""
     rng = np.random.default_rng(seed)
-    lines = []
     with tempfile.TemporaryDirectory(prefix="vtx_pipeline_") as tmp:
         workdir = Path(tmp)
-        line, launched = pipeline_cli_base(workdir / "base", rng, smi)
-        lines.append(line)
+        # (b)'s fresh process runs while this one runs (a) and the scan.
+        frames = rng.integers(0, 256, (ANALYZER_CLIP_FRAMES, ANALYZER_FRAME_SIZE, ANALYZER_FRAME_SIZE, 3),
+                              dtype=np.uint8)
+        tiny_again = pipeline_cli_tiny(workdir / "cli", rng, smi)
+        base_line, launched = pipeline_cli_base(workdir / "base", frames, smi)
         gc.collect()
         torch.cuda.empty_cache()
-        lines.append(pipeline_cli_tiny(workdir / "cli", rng, smi))
-        line, watched = pipeline_watch(workdir / "watch", rng, smi)
-        lines.append(line)
+        watch_line, watched = pipeline_watch(workdir / "watch", rng, smi)
+        lines = [base_line, tiny_again(), watch_line]
     gc.collect()
     torch.cuda.empty_cache()
     return lines, {name: launched[name] + watched[name] for name in launched}
@@ -4492,7 +4612,7 @@ MESH_BATCHER_NEW_TOKENS = 16
 MESH_LOGIT_TOL = 5e-2
 MESH_TIMEOUT_S = 120.0
 MESH_INT4_LAYERS = 2  # of 7b's 28
-MESH_ANALYZER_SCALE = ANALYZER_BASE_SCALE / 2  # the note's field budgets: at 0.25 a note took 107 steps of 134-213 ms
+MESH_ANALYZER_SCALE = ANALYZER_BASE_SCALE / 2  # the note's field budgets: at 24 layers 96-107 steps of 131-213 ms
 MESH_INT4_NEW_TOKENS = 16
 MESH_BATCHER_SLOTS, MESH_BATCHER_REQUESTS = 4, 6  # two groups of 2 slots, one stage of 3 lanes each
 # 7b's products on a model axis of 2, (K/2, N) of the packed int4 kernels.
@@ -4520,14 +4640,16 @@ def rank_counts() -> dict:
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
-def mesh_launch_check(per_rank: list[dict], want: dict[str, int], label: str) -> None:
-    """Every rank launched each kernel of ``want`` exactly so often, and
-    nothing plain on the card. Raises otherwise."""
+def mesh_launch_check(per_rank: list[dict], want: dict[str, int] | list[dict[str, int]], label: str) -> None:
+    """Every rank launched each kernel of ``want`` exactly so often (a list:
+    one dict a rank, in rank order, where the plan of heads gives the ranks
+    different shares), and nothing plain on the card. Raises otherwise."""
     plain = ("quantize_kv_on_card", "update_cache_rows_on_card", "mha_reference_on_card", "reference_backwards")
-    for got in per_rank:
-        bad = {k: got[k] for k in want if got[k] != want[k]} | {k: got[k] for k in plain if got[k]}
+    for i, got in enumerate(per_rank):
+        mine = want[i] if isinstance(want, list) else want
+        bad = {k: got[k] for k in mine if got[k] != mine[k]} | {k: got[k] for k in plain if got[k] and k not in mine}
         if bad:
-            raise AssertionError(f"mesh {label}: rank {got['rank']} launches {bad}, expected {want} and no plain")
+            raise AssertionError(f"mesh {label}: rank {got['rank']} launches {bad}, expected {mine} and no plain")
 
 
 def mesh_serve(engine: InferenceEngine, clips: np.ndarray, label: str) -> tuple[dict, dict]:
@@ -4606,6 +4728,74 @@ def mesh_logit_gaps(engine: InferenceEngine, one: InferenceEngine, call: dict, l
     return out
 
 
+def rank_heads(engine: InferenceEngine) -> tuple[int, int]:
+    """This rank's q and kv heads a decoder layer (its plan of heads)."""
+    attn = engine.model.decoder.layer_0.attn
+    return attn.heads, attn.kv_heads
+
+
+def mesh_uneven_runs(seed: int, dev: torch.device, mesh, tokenizer, grammar, serving: dict, clips: np.ndarray,
+                     rng: np.random.Generator, smi: str) -> list[dict]:
+    """Two decoders whose heads the ``model: 2`` axis does not divide, each
+    against the 1-rank engine on the same weights and inputs: (i) the
+    trained tiny checkpoint (1 q and 1 kv head), bf16 greedy: rank 0 holds
+    the q head and attends, rank 1 holds the kv head and launches no
+    decoder attention kernel (K1 in its encoder only); its tokens equal 1
+    rank's, or part at a printed near tie; (ii) base's width with one kv
+    head (each rank 4 q heads over the replicated kv head, its int8 cache
+    a copy), 4 layers, int8 weights and KV: logits within ``MESH_LOGIT_TOL``
+    x max|logit| of 1 rank's, K1-K3 alike on both ranks. Returns the lines."""
+    lines = []
+    tiny = base_config(tokenizer.vocab_size, "tiny")
+    tiny_serving = dict(max_new_tokens=MESH_NEW_TOKENS, temperature=0.0, seed=seed, tokenizer=tokenizer,
+                        param_dtype="bfloat16", max_forced_run=2)
+    side = tiny.encoder.image_size
+    tiny_clips = rng.integers(0, 256, (2, tiny.encoder.num_frames, side, side, 3), dtype=np.uint8)
+    kv1 = base_config(tokenizer.vocab_size)
+    kv1 = replace(kv1, decoder=replace(kv1.decoder, num_kv_heads=1, num_layers=SERVING_LAYERS))
+    for label, cfg, settings, frames in (("tiny_tp2", tiny, tiny_serving, tiny_clips),
+                                         ("base_kv1_tp2", kv1, serving, clips)):
+        run_start = time.perf_counter()
+        engines = []
+        for on_mesh in (None, mesh):
+            engine = InferenceEngine(cfg, mesh=on_mesh, device=dev, **settings)
+            if cfg is tiny:
+                engine.restore(TINY_WEIGHTS)
+            engine.dfa = grammar
+            engines.append(engine)
+        one, engine = engines
+        calls: list = []
+        with recorded_calls(one, calls):
+            one.generate(frames, [PROMPT] * len(frames))
+        line, call = mesh_serve(engine, frames, label)
+        parted = parted_rows(one, calls[0], call["ids"], call["status"], f"mesh {label}")
+        steps, layers, enc = line["decode_steps"], cfg.decoder.num_layers, cfg.encoder.num_layers
+        heads = mesh.run_all(rank_heads, engine)
+        if cfg is tiny:
+            gaps = {}
+            attends = {"flash_attention": enc + layers, "write_cache_rows": layers,
+                       "decode_attention_update": layers * steps, "decode_attention": 0}
+            idle = {"flash_attention": enc, "write_cache_rows": 0, "decode_attention_update": 0,
+                    "decode_attention": 0}
+            want = [attends if q else idle for q, _ in heads]
+            if sorted(q for q, _ in heads) != [0, 1] or any(kv != 1 for _, kv in heads):
+                raise AssertionError(f"mesh {label}: rank heads {heads}, expected (1, 1) and (0, 1)")
+        else:
+            gaps = mesh_logit_gaps(engine, one, calls[0], f"mesh {label}")
+            want = {"flash_attention": enc + layers, "write_cache_rows": layers * (1 + steps),
+                    "decode_attention": layers * steps, "decode_attention_update": 0}
+        mesh_launch_check(line["per_rank"], want, label)
+        lines.append(dict(line, seconds=time.perf_counter() - run_start, decoder_layers=layers,
+                          heads=cfg.decoder.num_heads, kv_heads=cfg.decoder.num_kv_heads,
+                          rank_heads=[list(h) for h in heads], tokens_equal_one_rank=call["ids"] == calls[0]["ids"],
+                          parted_rows=parted, one_rank_tokens=[len(r) for r in calls[0]["ids"]], **gaps,
+                          weights="tiny .npz" if cfg is tiny else "random, seeded",
+                          settings={k: settings.get(k) for k in ("param_dtype", "quantize", "kv_quant")}, card=smi))
+        del one, engine, engines
+        gc.collect()
+    return lines
+
+
 def mesh_k6_readings(seed: int, dev: torch.device, rows: int) -> dict:
     """K6 against its plain version at the five per-rank shapes of 7b on a
     model axis of 2, at the decode step's ``rows``."""
@@ -4682,6 +4872,7 @@ TRAIN_MESH_TEXT = 2048
 TRAIN_MESH_PROMPT = 256
 TRAIN_MESH_SEED = 17
 TRAIN_MESH_LOSS_TOL = 1e-2  # |mesh - 1 rank| / |1 rank|, the step-1 loss
+TRAIN_MESH_TINY_TEXT, TRAIN_MESH_TINY_PROMPT = 224, 64  # the tiny run: 32 video + 224 text positions
 RING_SHAPE = (2, 8, 4096, 128)
 # bf16 ring against bf16 mha_reference: max|got - want| over max|want|, the
 # output and each gradient (JAX's own bf16 ring test holds 3e-2).
@@ -4702,11 +4893,12 @@ def train_mesh_launches(cfg: VLMConfig, per_rank_layers: int, n_micro: int, sche
             "flash_attention": 2 * dec if schedule == "1f1b" else 0, "reference_backwards": 0}
 
 
-def train_mesh_batch(cfg: VLMConfig, batch: int, seed: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+def train_mesh_batch(cfg: VLMConfig, batch: int, seed: int, text: int = TRAIN_MESH_TEXT,
+                     prompt: int = TRAIN_MESH_PROMPT) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     rng = np.random.default_rng(seed)
-    patches, tokens = synthetic_batch(rng, cfg, batch, TRAIN_MESH_TEXT, prompt=make_prompt_sampler("compact"),
-                                      prompt_len=TRAIN_MESH_PROMPT)
-    prompt_lens = np.array([TRAIN_MESH_PROMPT if i % 2 == 0 else 0 for i in range(batch)], np.int32)
+    patches, tokens = synthetic_batch(rng, cfg, batch, text, prompt=make_prompt_sampler("compact"),
+                                      prompt_len=prompt)
+    prompt_lens = np.array([prompt if i % 2 == 0 else 0 for i in range(batch)], np.int32)
     return patches, tokens, prompt_lens
 
 
@@ -4728,7 +4920,6 @@ def rank_arm(trainer, patches, tokens, prompt_lens) -> None:
     step applies."""
     key = (patches.shape, int(np.asarray(tokens).sum()))
     if key not in _ONE_RANK:  # every run starts from the same seeded weights: one reference a batch
-        _ONE_RANK.clear()
         ref = Trainer(trainer.config, trainer.train_config, seed=TRAIN_MESH_SEED, device=trainer.device)
         ref_metrics, ref_grads = ref.loss_and_grads(patches, tokens, prompt_lens)
         _ONE_RANK[key] = (ref_metrics["loss"].item(),
@@ -4757,9 +4948,11 @@ def rank_grad_check(trainer, step: dict) -> dict:
     worst, worst_name = 0.0, ""
     for name, got, axis in zip(names, grads, trainer._split):
         want = whole[name]
-        if axis == MODEL_AXIS:
-            dim = spec_for_path(tuple(name.split("."))).index(MODEL_AXIS)
-            want = want.chunk(mesh.model, dim=dim)[mesh.model_index]
+        if axis == MODEL_AXIS:  # this rank's part by its plan of heads
+            ranges = trainer._model_ranges(name, tuple(want.shape))[mesh.model_index]
+            want = shard_tensor(want, spec_for_path(tuple(name.split("."))), ranges)
+        if not want.numel():  # a rank with no q heads holds empty q and out leaves
+            continue
         ratio = ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1e-30)).item()
         if not ratio <= worst:
             worst, worst_name = ratio, name
@@ -4768,24 +4961,41 @@ def rank_grad_check(trainer, step: dict) -> dict:
             "worst_grad": worst_name}
 
 
+def bit_sums(t: torch.Tensor) -> tuple[int, int]:
+    """Two integer sums of a tensor's bits (plain and position-weighted,
+    int64): equal sums on two ranks mean equal bits."""
+    bits = t.detach().contiguous().view(torch.int32).reshape(-1).long()
+    weights = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return bits.sum().item(), (bits * weights).sum().item()
+
+
 def rank_replicas(trainer) -> dict:
-    """Two integer sums of each leaf's bits (plain and position-weighted,
-    int64) and the axis that splits it: equal sums on two ranks mean equal
-    bits."""
-    out = {}
-    for (name, p), axis in zip([(n, p) for n, p in trainer.model.named_parameters() if p.requires_grad],
-                               trainer._split):
-        bits = p.detach().contiguous().view(torch.int32).reshape(-1).long()
-        weights = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
-        out[name] = (axis, bits.sum().item(), (bits * weights).sum().item())
-    return {"rank": trainer.mesh.rank, "model_index": trainer.mesh.model_index, "sums": out}
+    """Each leaf's ``bit_sums`` and the axis that splits it; for a k/v leaf
+    whose kv heads have several holders, each kv head's columns' sums too."""
+    named = [(n, p) for n, p in trainer.model.named_parameters() if p.requires_grad]
+    out = {name: (axis, *bit_sums(p)) for (name, p), axis in zip(named, trainer._split)}
+    heads, d = {}, trainer.config.decoder.head_dim
+    for i, (dim, _) in trainer._kv.items():
+        name, p = named[i]
+        for t, j in enumerate(trainer._plan().kv_heads):
+            heads[f"{name}[kv head {j}]"] = bit_sums(p.narrow(dim, t * d, d))
+    return {"rank": trainer.mesh.rank, "model_index": trainer.mesh.model_index, "sums": out, "kv_heads": heads}
 
 
 def replicas_equal(per_rank: list[dict]) -> int:
     """The replicated leaves compared across ranks (and a model shard across
-    the data groups that hold it); raises on a difference. Returns the
-    number of leaves compared."""
+    the data groups that hold it, a kv head's columns across its holders);
+    raises on a difference. Returns the number of leaves and kv heads
+    compared."""
     compared = 0
+    held: dict[str, list[tuple[int, tuple]]] = {}
+    for rank in per_rank:
+        for key, sums in rank["kv_heads"].items():
+            held.setdefault(key, []).append((rank["rank"], sums))
+    for key, holders in held.items():
+        if any(sums != holders[0][1] for _, sums in holders):
+            raise AssertionError(f"train_mesh: {key} differs between its holders {holders} after the steps")
+        compared += len(holders) > 1
     for rank in per_rank[1:]:
         for name, (axis, *sums) in rank["sums"].items():
             peers = [r for r in per_rank if axis is None or (axis == MODEL_AXIS
@@ -4823,7 +5033,9 @@ def train_mesh_run(cfg: VLMConfig, mesh, label: str, tc: TrainConfig, batch: tup
                                  f"{got['worst_grad']} at {got['worst_grad_ratio']} x max (tolerances "
                                  f"{TRAIN_MESH_LOSS_TOL}, {GRAD_REL_TOL})")
     per_rank = mesh.run_all(rank_counts)
-    mesh_launch_check(per_rank, {k: TRAIN_MESH_STEPS * n for k, n in want.items()}, f"train {label}")
+    steps = [{k: TRAIN_MESH_STEPS * n for k, n in w.items()} for w in want] if isinstance(want, list) else \
+        {k: TRAIN_MESH_STEPS * n for k, n in want.items()}
+    mesh_launch_check(per_rank, steps, f"train {label}")
     compared = replicas_equal(mesh.run_all(rank_replicas, trainer))
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics):
         raise AssertionError(f"train_mesh {label}: non-finite metrics {metrics}")
@@ -4902,14 +5114,27 @@ def train_mesh_phase(seed: int, dev: torch.device, tokenizer, smi: str) -> tuple
     layers = cfg.decoder.num_layers
     batch = train_mesh_batch(cfg, 2, seed + 41)
     tc = TrainConfig(learning_rate=1e-4, warmup_steps=1, total_steps=10, prompt_len=TRAIN_MESH_PROMPT)
-    runs = [("tp2", {"data": 1, "model": 2}, tc, train_mesh_launches(cfg, layers, 1, None)),
-            ("dp2", {"data": 2, "model": 1}, tc, train_mesh_launches(cfg, layers, 1, None))]
-    runs += [(f"pp2_{s}", "pipe", replace(tc, pp_microbatches=2, pp_schedule=s),
+    # The tiny preset on model: 2: rank 0 holds its one q head, both ranks
+    # its kv head (the plan of heads); 32 video + 224 text positions. Its
+    # encoder's 32 positions take K1 and the recompute backward (JAX's
+    # route: not a multiple of 128) on both ranks; the decoder's K7a-c run
+    # on rank 0 alone.
+    tiny = get_preset("tiny")
+    tiny_batch = train_mesh_batch(tiny, 2, seed + 45, text=TRAIN_MESH_TINY_TEXT, prompt=TRAIN_MESH_TINY_PROMPT)
+    enc = tiny.encoder.num_layers
+    tiny_launches = [{"flash_fwd_lse": n, "flash_bwd_dq": n, "flash_bwd_dkv": n, "flash_attention": enc,
+                      "reference_backwards": enc, "mha_reference_on_card": enc}
+                     for n in (tiny.decoder.num_layers, 0)]
+    runs = [("tp2", cfg, {"data": 1, "model": 2}, tc, batch, train_mesh_launches(cfg, layers, 1, None)),
+            ("tiny_tp2", tiny, {"data": 1, "model": 2}, replace(tc, prompt_len=TRAIN_MESH_TINY_PROMPT), tiny_batch,
+             tiny_launches),
+            ("dp2", cfg, {"data": 2, "model": 1}, tc, batch, train_mesh_launches(cfg, layers, 1, None))]
+    runs += [(f"pp2_{s}", cfg, "pipe", replace(tc, pp_microbatches=2, pp_schedule=s), batch,
               train_mesh_launches(cfg, layers // 2, 2, s)) for s in ("gpipe", "1f1b")]
-    for label, shape, config, want in runs:
+    for label, run_cfg, shape, config, run_batch, want in runs:
         mesh = build_pipe_mesh(2, timeout_s=MESH_TIMEOUT_S) if shape == "pipe" else \
             build_mesh(shape, timeout_s=MESH_TIMEOUT_S)
-        line, per_rank = train_mesh_run(cfg, mesh, label, config, batch, want, smi)
+        line, per_rank = train_mesh_run(run_cfg, mesh, label, config, run_batch, want, smi)
         lines.append(line)
         for got in per_rank:
             for name in total:
@@ -4976,10 +5201,11 @@ def train_mesh_phase(seed: int, dev: torch.device, tokenizer, smi: str) -> tuple
     return lines, total, readings
 
 
-def mesh_phase(seed: int, dev: torch.device, tokenizer, grammar, smi: str) -> tuple[list[dict], dict, dict]:
-    """Main path 13 (see the constants above). Returns the lines, the
-    launches summed over every rank of every run, and the kernel readings
-    at the per-rank shapes."""
+def mesh_phase(seed: int, dev: torch.device, tokenizer, grammar, spawned, smi: str) -> tuple[list[dict], dict, dict]:
+    """Main path 13 (see the constants above), on the ``{"data": 1, "model":
+    2}`` world that ``spawned`` (``in_background(build_mesh, ...)``) waits
+    for. Returns the lines, the launches summed over every rank of every
+    run, and the kernel readings at the per-rank shapes."""
     lines, readings = [], {}
     total = dict.fromkeys(counts(), 0)
 
@@ -4995,15 +5221,18 @@ def mesh_phase(seed: int, dev: torch.device, tokenizer, grammar, smi: str) -> tu
                    param_dtype="bfloat16", quantize="int8", kv_quant="int8", max_forced_run=2)
     clips = rng.integers(0, 256, (2, cfg.encoder.num_frames, 256, 256, 3), dtype=np.uint8)
 
-    # (a) The 1-rank engine, then the same weights on two model ranks.
-    one = InferenceEngine(cfg, device=dev, **serving)
-    one.dfa = grammar
-    calls: list = []
-    with recorded_calls(one, calls):
-        one.generate(clips, [PROMPT] * 2)
-    t0 = time.perf_counter()
-    mesh = build_mesh({"data": 1, "model": 2}, devices=[dev, dev], timeout_s=MESH_TIMEOUT_S)
-    spawn_s = time.perf_counter() - t0
+    # (a) The 1-rank engine (while the world may still be starting), then the
+    # same weights on two model ranks.
+    try:
+        one = InferenceEngine(cfg, device=dev, **serving)
+        one.dfa = grammar
+        calls: list = []
+        with recorded_calls(one, calls):
+            one.generate(clips, [PROMPT] * 2)
+    finally:
+        t0 = time.perf_counter()
+        mesh, spawn_s = spawned()
+        spawn_wait_s = time.perf_counter() - t0
     run_start = time.perf_counter()
     try:
         t0 = time.perf_counter()
@@ -5027,7 +5256,8 @@ def mesh_phase(seed: int, dev: torch.device, tokenizer, grammar, smi: str) -> tu
         decode_line = path_decode_readings(seed, found, "mesh")
         lines.append(dict(line, seconds=time.perf_counter() - run_start, backend=mesh.backend, ranks=mesh.size,
                           devices=[str(d) for d in mesh.devices],
-                          spawn_seconds=spawn_s, engine_seconds=engine_s, decoder_layers=layers,
+                          spawn_seconds=spawn_s, spawn_wait_seconds=spawn_wait_s, engine_seconds=engine_s,
+                          decoder_layers=layers,
                           rank_heads=cfg.decoder.num_heads // 2, rank_kv_heads=cfg.decoder.num_kv_heads // 2,
                           parted_rows=parted, one_rank_tokens=[len(r) for r in calls[0]["ids"]], **logit_gaps,
                           card=smi))
@@ -5096,6 +5326,13 @@ def mesh_phase(seed: int, dev: torch.device, tokenizer, grammar, smi: str) -> tu
                           parted_rows=parted, one_rank_tokens=[len(r) for r in calls[0]["ids"]], **logit_gaps,
                           k6_shapes=k6_lines, card=smi))
         del engine
+        gc.collect()
+
+        # A model axis that does not divide the heads, on the same two ranks.
+        uneven = mesh_uneven_runs(seed, dev, mesh, tokenizer, grammar, serving, clips, rng, smi)
+        for line in uneven:
+            add(line["per_rank"])
+        lines.extend(uneven)
     except BaseException:
         mesh.close()
         raise
@@ -5130,11 +5367,13 @@ def mesh_phase(seed: int, dev: torch.device, tokenizer, grammar, smi: str) -> tu
             if not rank["adopt_rows"] or not rank["decode_attention_update"] or rank["decode_attention"]:
                 raise AssertionError(f"mesh batcher_dp2: rank {rank['rank']} launches {rank}")
         steps = engine.stats.decode_steps - steps_before
-        lines.append({"phase": "mesh", "run": "batcher_dp2", "shape": mesh.shape, "backend": mesh.backend,
-                      "devices": [str(d) for d in mesh.devices], "regroup_seconds": regroup_s,
-                      "decoder_layers": SERVING_LAYERS, "requests": len(got), "decode_steps": steps,
-                      "wall_seconds": wall, "ms_per_step": wall * 1e3 / steps if steps else 0.0,
-                      "collectives": mesh.collectives, "per_rank": per_rank, "card": smi})
+        batcher_line = {"phase": "mesh", "run": "batcher_dp2", "shape": mesh.shape, "backend": mesh.backend,
+                        "devices": [str(d) for d in mesh.devices], "regroup_seconds": regroup_s,
+                        "decoder_layers": SERVING_LAYERS, "requests": len(got), "decode_steps": steps,
+                        "wall_seconds": wall, "ms_per_step": wall * 1e3 / steps if steps else 0.0,
+                        "collectives": mesh.collectives, "per_rank": per_rank, "card": smi}
+        batcher_s = time.perf_counter() - run_start
+        lines.append(batcher_line)
         lines.append(path_decode_readings(seed, found, "mesh_batcher"))
         del engine
         gc.collect()
@@ -5147,6 +5386,7 @@ def mesh_phase(seed: int, dev: torch.device, tokenizer, grammar, smi: str) -> tu
         mesh.close()
     # Each group's requests (the stage's lanes in order, split in halves)
     # through a 1-rank batcher of the group's slots and ring.
+    ref_start = time.perf_counter()
     one = InferenceEngine(bcfg, device=dev, **batch)
     one.dfa = grammar
     per_group = MESH_BATCHER_REQUESTS // 2
@@ -5157,7 +5397,9 @@ def mesh_phase(seed: int, dev: torch.device, tokenizer, grammar, smi: str) -> tu
     if got != want:
         differ = sorted(i for i in want if got.get(i) != want[i])
         raise AssertionError(f"mesh batcher_dp2: requests {differ} differ from the 1-rank batcher of their group")
-    lines[-2].update(tokens_equal_one_rank_groups=True, seconds=time.perf_counter() - run_start)
+    # The run's seconds: the mesh's sweep and the 1-rank batchers' (the
+    # training runs come between them, while the world is still up).
+    batcher_line.update(tokens_equal_one_rank_groups=True, seconds=batcher_s + time.perf_counter() - ref_start)
     gen = torch.Generator(device=dev).manual_seed(seed + 37)
     park_len = bcfg.video_tokens + 256
     pool_len = 128 * math.ceil((park_len + MESH_BATCHER_NEW_TOKENS + 2 * 3 + 17) / 128)
@@ -5231,18 +5473,9 @@ def run(seed: int) -> None:
           "find_spec": {name: importlib.util.find_spec(name) is not None for name in ("PIL", "requests", "yt_dlp")},
           "dejavu_sans": Path("/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf").exists()})
 
-    t0 = time.perf_counter()
-    _lib.library()
-    emit({"phase": "build", "nvcc_seconds": _lib.build_seconds, "load_seconds": time.perf_counter() - t0,
-          "k6_ptxas": k6_ptxas(_lib.build_log), "k3_k5_ptxas": decode_ptxas(_lib.build_log),
-          "k2_ptxas": k2_ptxas(_lib.build_log)})
-    ptxas = [line for line in _lib.build_log.splitlines()
-             if any(word in line for word in ("Function properties", "registers", "spill", "setmaxnreg", "wgmma"))]
-    emit({"phase": "ptxas", "lines": ptxas})
-    sass_dir = tempfile.TemporaryDirectory(prefix="vtx_sass_")
-    sass_out = Path(sass_dir.name) / "sass.txt"
-    sass = start_sass(sass_out)
-
+    # The kernels build (one nvcc a source) while this thread sets up path
+    # 1's engine and the note grammar, which launch no kernel.
+    built = in_background(_lib.library)
     t0 = time.perf_counter()
     tokenizer = BpeTokenizer.load(TOKENIZER)
     cfg = base_config(tokenizer.vocab_size)
@@ -5264,8 +5497,21 @@ def run(seed: int) -> None:
         loaded = TokenGrammar(note_dfa(engine.byte_vocab), tokenizer)
     if not np.array_equal(loaded.allowed_bits, engine.dfa.allowed_bits):
         raise AssertionError("setup: the grammar's cached bitset differs from the one built")
+    t3 = time.perf_counter()
+    _, library_s = built()
+    if _lib.library.cache_info().misses != 1:
+        raise AssertionError("setup: a kernel was called while the kernels were building")
+    emit({"phase": "build", "nvcc_seconds": _lib.build_seconds, "load_seconds": library_s,
+          "wait_seconds": time.perf_counter() - t3, "k6_ptxas": k6_ptxas(_lib.build_log),
+          "k3_k5_ptxas": decode_ptxas(_lib.build_log), "k2_ptxas": k2_ptxas(_lib.build_log)})
+    ptxas = [line for line in _lib.build_log.splitlines()
+             if any(word in line for word in ("Function properties", "registers", "spill", "setmaxnreg", "wgmma"))]
+    emit({"phase": "ptxas", "lines": ptxas})
+    sass_dir = tempfile.TemporaryDirectory(prefix="vtx_sass_")
+    sass_out = Path(sass_dir.name) / "sass.txt"
+    sass = start_sass(sass_out)
     emit({"phase": "setup", "engine_seconds": t1 - t0, "grammar_seconds": t2 - t1,
-          "grammar_cached_seconds": time.perf_counter() - t2,
+          "grammar_cached_seconds": t3 - t2, "during_build": True,
           "grammar_bits_seconds": {"first": bits_seconds[0], "from_cache": bits_seconds[1],
                                    "first_was": "built" if set(cache_dir.glob("bits_*.npz")) - cached_before
                                    else "loaded (cache already there)"},
@@ -5382,7 +5628,11 @@ def run(seed: int) -> None:
     emit({"phase": "train_data_done", "seconds": time.perf_counter() - t0})
 
     # Main path 4, int4 serving at 7b width: K6 at every decode step, K1-K3.
+    # Main path 13's world of two ranks starts meanwhile, in a thread (its
+    # rank 1 is a process of its own, seconds from the card); nothing
+    # between here and there builds a mesh.
     torch.cuda.empty_cache()
+    spawned = in_background(build_mesh, {"data": 1, "model": 2}, devices=[dev, dev], timeout_s=MESH_TIMEOUT_S)
     int4_kernels, int4_served = int4_serving_phase(seed, dev, tokenizer, grammar)
     for name, result in int4_kernels.items():  # K1-K3 at the 7b shapes, beside the base ones
         for key in ("max_abs_err", "tol", "worst_ratio", "shifted_mask_ratio", "ms", "device_ms", "host_us",
@@ -5401,7 +5651,7 @@ def run(seed: int) -> None:
     # full depth on model 2 (then the analyzer on it), 7b int4 on model 2,
     # two data groups through the batcher; K1-K6 at the per-rank shapes.
     t0 = time.perf_counter()
-    mesh_lines, meshed, mesh_readings = mesh_phase(seed, dev, tokenizer, grammar, smi)
+    mesh_lines, meshed, mesh_readings = mesh_phase(seed, dev, tokenizer, grammar, spawned, smi)
     for line in mesh_lines:
         emit(line)
         if line["phase"] == "path_decode":
@@ -5434,7 +5684,7 @@ def run(seed: int) -> None:
     qwen_k1, qwen_launched = qwen2vl_phase(seed, dev, smi)
     for key in ("max_abs_err", "tol", "worst_ratio", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape", "ragged_worst_ratio", "ragged_min_shifted_mask_ratio", "launches",
-                "head_dim_96"):
+                "train_launches", "head_dim_96"):
         kernels["flash_attention"][f"qwen_vit_{key}"] = qwen_k1[key]
     emit({"phase": "qwen2vl_done", "seconds": time.perf_counter() - t0})
     gc.collect()
@@ -5503,8 +5753,9 @@ def run(seed: int) -> None:
                 + grounded[name] + analyzed[name] + piped[name] + trained_grounded[name] + trained_staged[name]
                 + content_launched[name] + real_launched[name] + qwen_launched[name] + spec_launched[name]
                 + meshed[name] for name in served}
-    if launches["mha_reference_on_card"]:
-        raise AssertionError(f"plain attention ran {launches['mha_reference_on_card']} times on a CUDA tensor")
+    if launches["mha_reference_on_card"] != launches["reference_backwards"]:  # only the recompute backward's
+        raise AssertionError(f"plain attention ran {launches['mha_reference_on_card']} times on a CUDA tensor, "
+                             f"{launches['reference_backwards']} of them recompute backwards")
 
     sources = {
         "flash_attention": ("csrc/flash_fwd.cuh", "video_transformer_tpu/ops/attention.py:56"),

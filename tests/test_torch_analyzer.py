@@ -572,19 +572,34 @@ def capture_logger(name):
 
 
 class TestAnalyzerEngine:
-    @pytest.mark.parametrize("engine_cfg,item", [
-        ({"mesh": {"data": 1, "model": 2}}, "item 12"),
-        ({"mesh": {"data": 4, "model": 2}}, "item 12"),
+    @pytest.mark.parametrize("engine_cfg", [
+        {"mesh": {"data": 1, "model": 2}},
+        {"mesh": {"data": 2, "model": 2}},
     ], ids=["mesh_model", "mesh_data"])
-    def test_unported_settings_raise(self, tmp_path, engine_cfg, item):
-        """A mesh serves (``tests/test_torch_tp.py``), but a model axis that
-        does not divide the tiny decoder's one head is refused with
-        ``ValueError`` before any rank starts: the port splits the KV cache
-        by head and does not yet replicate it (JAX does)."""
-        analyzer = ContentAnalyzer(analyzer_config(tmp_path, **engine_cfg), counter.APICounter(5), device="cpu")
-        with pytest.raises(ValueError, match=item):
-            analyzer.engine
-        assert analyzer._engine is None
+    def test_unported_settings_raise(self, tmp_path, engine_cfg):
+        """A model axis that does not divide the tiny decoder's one head
+        serves: the analyzer builds its engine on CPU ranks
+        of the config's mesh, rank 0 holds the q head, both model ranks its
+        kv head, and greedy tokens equal the 1 x 1 analyzer's engine's."""
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            analyzer = ContentAnalyzer(analyzer_config(tmp_path / "mesh", max_new_tokens=24, **engine_cfg),
+                                       counter.APICounter(5), device="cpu")
+            engine = analyzer.engine
+            try:
+                assert engine.mesh.shape == engine_cfg["mesh"]
+                attn = engine.model.decoder.layer_0.attn
+                assert (attn.heads, attn.kv_heads) == (1, 1)
+                clips = np.random.default_rng(0).integers(0, 255, (3, 4, 64, 64, 3), dtype=np.uint8)
+                got = engine.generate(clips, ["a", "bb", "ccc"], return_tokens=True)
+            finally:
+                engine.mesh.close()
+            one = ContentAnalyzer(analyzer_config(tmp_path / "one", max_new_tokens=24), counter.APICounter(5),
+                                  device="cpu").engine
+            assert got[-1] == one.generate(clips, ["a", "bb", "ccc"], return_tokens=True)[-1]
+        finally:
+            torch.set_num_threads(threads)
         assert not torch.distributed.is_initialized()
 
     def test_draft_attaches_from_the_config(self, tmp_path):

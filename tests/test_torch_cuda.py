@@ -34,6 +34,7 @@ import torch
 
 from chip_smoke import (
     DECODE_ROW_SHAPES,
+    GRAD_REL_TOL,
     INT4_FUSED_SHAPES,
     INT4_SHAPES,
     REL_TOL,
@@ -52,7 +53,8 @@ from chip_smoke import (
     split_edge_index,
 )
 from video_transformer_tpu_torch.ops import decode_attention as decode_module
-from video_transformer_tpu_torch.ops.attention import flash_attention
+from video_transformer_tpu_torch.ops.attention import flash_attention, mha_reference
+from video_transformer_tpu_torch.ops.flash_bwd import flash_fwd_lse
 from video_transformer_tpu_torch.ops.int4_matmul import int4_matmul
 from video_transformer_tpu_torch.ops.decode_attention import (
     _scaled_reference,
@@ -746,14 +748,23 @@ def test_flash_attention_at_head_dim_80_matches_plain(cuda, causal, b, h, sq, sk
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_other_head_dims_on_the_card(cuda):
-    """Head_dim 96 raises on a CUDA tensor (never the plain version), and a
-    CUDA tensor at head_dim 80 with grad raises: K7a-c take 128 only."""
+    """Head_dim 96 raises on a CUDA tensor (never the plain version). A
+    CUDA tensor at head_dim 80 with grad takes JAX's route: K1 forward once,
+    then one recompute through ``mha_reference`` in the backward (K7a-c take
+    128 only), whose gradients equal the plain version's."""
     x = torch.zeros(2, 2, 128, 96, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim 96"):
         flash_attention(x, x, x, causal=False)
-    y = torch.zeros(2, 2, 128, 80, device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        flash_attention(y, y, y, causal=True)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    y = randn(gen, 2, 2, 128, 80, device=cuda).requires_grad_()
+    k1, ref, k7a = flash_attention.launches, flash_attention.reference_backwards, flash_fwd_lse.launches
+    out = flash_attention(y, y, y, causal=True)
+    (grad,) = torch.autograd.grad(out.float().square().sum(), y)
+    assert flash_attention.launches == k1 + 1 and flash_attention.reference_backwards == ref + 1
+    assert flash_fwd_lse.launches == k7a
+    z = y.detach().requires_grad_()
+    (want,) = torch.autograd.grad(mha_reference(z, z, z, causal=True).float().square().sum(), z)
+    assert (grad.float() - want.float()).abs().max() <= GRAD_REL_TOL * want.float().abs().max()
 
 
 @pytest.mark.cuda

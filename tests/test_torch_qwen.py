@@ -221,8 +221,8 @@ def test_prefill_and_decode_with_biases_equal_jax(jax_vars, dtype, kv_quant, tol
 def test_training_at_head_dim_80_equals_jax_grad(jax_vars):
     """Teacher-forced cross entropy through the tower (head_dim 80) and the
     decoder on the CPU: the loss and each parameter's gradient equal
-    ``jax.grad`` of the same loss (the plain attention's backward here; K7a-c
-    take head_dim 128, and the card raises at 80)."""
+    ``jax.grad`` of the same loss (the plain attention's backward, here and,
+    after K1's forward, on the card: K7a-c take head_dim 128)."""
     cfg, j_cfg = configs()
     rng = np.random.default_rng(4)
     patches = rng.standard_normal((2, cfg.encoder.tokens_per_clip, cfg.encoder.patch_dim)).astype(np.float32)

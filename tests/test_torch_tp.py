@@ -15,7 +15,10 @@ geometry of JAX's ``tests/test_engine.py``, so tokens must be equal:
 - a session round (``return_session``, ``continue_session``) against JAX's;
 - ``ContinuousBatcher`` with two data groups, device refill and the
   host-driven loop, against JAX's batcher on the same mesh;
-- ``model: 2`` over one kv head raises ``ValueError`` before any call.
+- a ``model`` axis that does not divide the heads (the plan of heads of
+  ``parallel/sharding.py``): the tiny preset's geometry (1 q and 1 kv head)
+  and 6 q over 3 kv heads on ``model: 2``, then, on a ``model: 4`` mesh
+  built on the running 4-rank world, 8 q and 6 q heads over 2 kv heads.
 
 On the ``data: 2`` world, against the 1-rank port on the same seeded
 weights: the int8 KV scales (the MAX over both groups, within float32
@@ -29,6 +32,7 @@ The analyzer and ``python -m video_transformer_tpu_torch`` on a mesh are in
 ``tests/test_torch_mesh_entry.py``.
 """
 
+import dataclasses
 import functools
 import tempfile
 import time
@@ -43,12 +47,13 @@ import torch.distributed as dist
 from video_transformer_tpu.models.config import DecoderConfig as JDecoder
 from video_transformer_tpu.models.config import EncoderConfig as JEncoder
 from video_transformer_tpu.models.config import VLMConfig as JVLM
+from video_transformer_tpu.models.config import get_preset as j_get_preset
 from video_transformer_tpu.ops.constrained import DfaBuilder as JDfaBuilder
 from video_transformer_tpu.parallel.engine import InferenceEngine as JEngine
 from video_transformer_tpu.parallel.mesh import build_mesh as j_build_mesh
 from video_transformer_tpu.parallel.serving import ContinuousBatcher as JBatcher
 from video_transformer_tpu.parallel.serving import Request as JRequest
-from video_transformer_tpu_torch.models.config import DecoderConfig, EncoderConfig, VLMConfig
+from video_transformer_tpu_torch.models.config import DecoderConfig, EncoderConfig, VLMConfig, get_preset
 from video_transformer_tpu_torch.ops.constrained import DfaBuilder
 from video_transformer_tpu_torch.parallel.engine import InferenceEngine
 from video_transformer_tpu_torch.parallel.mesh import MeshWorkerError, build_mesh
@@ -60,6 +65,16 @@ MAX_NEW = 40
 PROMPTS = ["a", "bb", "ccc"]
 DP2TP2 = {"data": 2, "model": 2}
 TP2 = {"data": 1, "model": 2}
+TP4 = {"data": 1, "model": 4}
+# Decoders whose heads the model axis does not divide: (mesh, preset or
+# micro, decoder fields). The tiny preset's geometry runs at float32, as the
+# micro one does, so that greedy tokens are exact.
+UNEVEN = {
+    "tiny_tp2": (TP2, "tiny", {}),
+    "6q3kv_tp2": (TP2, "micro", {"num_heads": 6, "num_kv_heads": 3}),
+    "8q2kv_tp4": (TP4, "micro", {"num_heads": 8, "num_kv_heads": 2}),
+    "6q2kv_tp4": (TP4, "micro", {"num_heads": 6, "num_kv_heads": 2}),
+}
 
 
 def micro(cls_vlm, cls_enc, cls_dec, **decoder):
@@ -90,9 +105,14 @@ def requests(cls, n: int = 7, seed: int = 0):
     return [cls(i, rng.integers(0, 255, (4, 32, 32, 3), dtype=np.uint8), f"analyze {i}") for i in range(n)]
 
 
-def j_engine(shape, quantize=None, **decoder):
+def tiny(get):
+    return dataclasses.replace(get("tiny"), dtype="float32")
+
+
+def j_engine(shape, quantize=None, config=None, **decoder):
     n = shape["data"] * shape["model"]
-    return JEngine(micro(JVLM, JEncoder, JDecoder, **decoder), mesh=j_build_mesh(shape, devices=jax.devices()[:n]),
+    config = config or micro(JVLM, JEncoder, JDecoder, **decoder)
+    return JEngine(config, mesh=j_build_mesh(shape, devices=jax.devices()[:n]),
                    dfa=dfa(JDfaBuilder), max_new_tokens=MAX_NEW, temperature=0.0, quantize=quantize, seed=0,
                    compilation_cache_dir=None)
 
@@ -102,7 +122,7 @@ def port_engine(mesh, jax_engine=None, **kwargs):
     JAX engine's float weights written as a converted checkpoint (on a mesh
     every rank reads it and keeps its shard)."""
     decoder = kwargs.pop("decoder", {})
-    cfg = micro(VLMConfig, EncoderConfig, DecoderConfig, **decoder)
+    cfg = kwargs.pop("config", None) or micro(VLMConfig, EncoderConfig, DecoderConfig, **decoder)
     kwargs = {"max_new_tokens": MAX_NEW, "temperature": 0.0, **kwargs}
     engine = InferenceEngine(cfg, dfa=dfa(DfaBuilder), device="cpu", mesh=mesh, **kwargs)
     if jax_engine is not None:
@@ -153,11 +173,16 @@ def _collective_after_worker_fails():
 
 def _jax_checks(shape: dict, full: bool) -> tuple[dict, dict]:
     """JAX's tokens on ``shape`` (with ``full``: int8 weights and both
-    batchers too), and its engines."""
+    batchers too; the uneven cases of ``UNEVEN`` on it and on TP4), and its
+    engines."""
     engines = {"float": j_engine(shape)}
     if full:
         engines["int8"] = j_engine(shape, quantize="int8")
         engines["untied"] = j_engine(shape, qkv_bias=True, tied_embeddings=False)
+    for case, (case_shape, kind, decoder) in UNEVEN.items():
+        if (case_shape == TP4) == full:
+            config = tiny(j_get_preset) if kind == "tiny" else None
+            engines[case] = j_engine(case_shape, config=config, **decoder)
     out = {name: generate(engine) for name, engine in engines.items()}
     if full:
         out["batcher"] = {r: run_batcher(engines["float"], JBatcher, JRequest, r) for r in (True, False)}
@@ -186,11 +211,13 @@ def _world_checks(shape: dict, full: bool) -> dict:
             # JAX's int8 engine quantizes the float engine's draw (the same seed).
             out["int8"] = generate(port_engine(mesh, engines["float"], quantize="int8"))
             out["batcher"] = {r: run_batcher(engine, ContinuousBatcher, Request, r) for r in (True, False)}
-        else:
-            with pytest.raises(ValueError, match="item 12"):
-                port_engine(mesh, decoder={"num_kv_heads": 1})
-            out["refused_kv_heads"] = True
-            out["after_refusal"] = generate(engine)
+            # A model: 4 mesh on the running world: new groups over the same ranks.
+            mesh = build_mesh(TP4, timeout_s=120)
+        for case, (case_shape, kind, decoder) in UNEVEN.items():
+            if case_shape == mesh.shape:
+                geometry = {"config": tiny(get_preset)} if kind == "tiny" else {"decoder": decoder}
+                out[case] = generate(port_engine(mesh, engines[case], **geometry))
+        if not full:
             cfg = micro(VLMConfig, EncoderConfig, DecoderConfig)
             builder = functools.partial(jax_model, jax_leaves(engines["float"]), cfg)
             out["builder"] = generate(port_engine(mesh, params=builder))
@@ -310,9 +337,15 @@ def test_a_second_mesh_regroups_the_running_world(worlds):
     assert tokens == generate(port_engine(None))
 
 
-def test_model_axis_above_the_kv_heads_is_refused(worlds):
-    assert worlds["tp2"]["refused_kv_heads"]
-    assert worlds["tp2"]["after_refusal"] == worlds["tp2"]["float"]
+@pytest.mark.parametrize("case", list(UNEVEN))
+def test_model_axis_above_the_kv_heads_is_refused(worlds, case):
+    """A model axis that does not divide the heads gives JAX's greedy
+    tokens on the same mesh shape (the plan of heads: a rank with no q
+    heads, replicated kv heads, or an MHA layout)."""
+    world = "dp2tp2" if UNEVEN[case][0] == TP4 else "tp2"
+    got, want = worlds[world][case], worlds[world]["jax"][case]
+    assert got[2] == want[2] and got[1] == want[1] and got[0] == want[0]
+    assert any(len(ids) > 3 for ids in got[2])
 
 
 def test_a_failing_worker_fails_rank_0(worlds):

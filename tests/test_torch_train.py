@@ -319,8 +319,9 @@ def test_unported_options_raise(tmp_path, flags):
     """Every option is ported. ``--data`` and ``--grounded`` prepare their
     batch iterators (``tests/test_torch_train_data.py`` holds the batches to
     JAX's). ``--tp 2`` and ``--pp 2`` build their meshes of two CPU ranks:
-    the tiny preset's one kv head does not split over ``model`` (ROADMAP.md
-    §1 item 12) and raises before any rank builds; its two layers make two
+    on ``model: 2`` the tiny preset's one q head lies on rank 0 and its kv
+    head on both (the plan of heads), and a step's loss and grad norm are
+    the 1-rank trainer's on the same seeded weights; its two layers make two
     pipeline stages, and the batch rounds up to ``--pp-micro``
     (``tests/test_torch_train_mesh.py`` holds both meshes to JAX)."""
     if flags[0] in ("--data", "--grounded"):
@@ -341,8 +342,12 @@ def test_unported_options_raise(tmp_path, flags):
     try:
         if flags[0] == "--tp":
             assert mesh.shape == {"data": 1, "model": 2} and args.batch == 3
-            with pytest.raises(ValueError, match="item 12"):
-                Trainer(get_preset("tiny"), device="cpu", mesh=mesh)
+            tiny = get_preset("tiny")
+            batch = synthetic_batch(np.random.default_rng(0), tiny, 2, TEXT_LEN)
+            got = Trainer(tiny, device="cpu", mesh=mesh).step(*batch)
+            want = Trainer(tiny, device="cpu").step(*batch)
+            assert got["tokens"] == want["tokens"]
+            np.testing.assert_allclose([got["loss"], got["grad_norm"]], [want["loss"], want["grad_norm"]], rtol=1e-3)
         else:
             assert mesh.shape == {"pipe": 2} and args.batch == 4  # rounded up to --pp-micro (4)
             trainer = Trainer(get_preset("tiny"), TrainConfig(pp_microbatches=args.pp_micro), device="cpu",

@@ -23,14 +23,21 @@ JAX's. Also:
   weights, at the same tolerances;
 - the mesh's checkpoint restored into a 1-rank ``Trainer`` and an
   ``InferenceEngine`` (equal leaves);
-- ``model: 2`` over one kv head refused with ``ValueError`` before any
-  rank builds;
+- a ``model`` axis that does not divide the heads, against JAX's
+  ``Trainer`` on the same mesh shape: the tiny preset's geometry (1 q and
+  1 kv head, float32) on the 4-rank ``{"data": 2, "model": 2}`` mesh (one
+  model rank holds no q head), 6 q over 3 kv heads on the same mesh (a kv
+  copy a q head: kv heads (0, 0, 1) and (1, 2, 2), copies within a rank
+  and across ranks), and 8 q over 2 kv heads on a ``model: 4`` mesh built
+  on the running world (two holders a kv head); every copy of a kv head's
+  columns bit-equal, within a rank and across ranks, after the steps;
 - the training CLI under ``torchrun`` with ``--tp 2`` (a 2-head tiny
   decoder) and with ``--pp 2 --pp-micro 2`` (the tiny preset), and
   the batch rounded up to what the mesh divides it into (``--tp`` with
   ``--pp`` exiting is ``tests/test_torch_train_data.py``'s).
 """
 
+import dataclasses
 import functools
 import os
 import subprocess
@@ -47,12 +54,13 @@ import torch.distributed as dist
 from video_transformer_tpu.models.config import DecoderConfig as JDecoder
 from video_transformer_tpu.models.config import EncoderConfig as JEncoder
 from video_transformer_tpu.models.config import VLMConfig as JVLM
+from video_transformer_tpu.models.config import get_preset as j_get_preset
 from video_transformer_tpu.parallel.mesh import build_mesh as j_build_mesh
 from video_transformer_tpu.parallel.pipeline_parallel import build_pipe_mesh as j_build_pipe_mesh
 from video_transformer_tpu.train.data import synthetic_batch
 from video_transformer_tpu.train.trainer import TrainConfig as JTrainConfig
 from video_transformer_tpu.train.trainer import Trainer as JTrainer
-from video_transformer_tpu_torch.models.config import DecoderConfig, EncoderConfig, VLMConfig
+from video_transformer_tpu_torch.models.config import DecoderConfig, EncoderConfig, VLMConfig, get_preset
 from video_transformer_tpu_torch.parallel.engine import InferenceEngine
 from video_transformer_tpu_torch.parallel.mesh import build_mesh, build_pipe_mesh
 from video_transformer_tpu_torch.train import run
@@ -87,10 +95,23 @@ UNTIED = micro(VLMConfig, EncoderConfig, DecoderConfig, tied_embeddings=False, q
 J_UNTIED = micro(JVLM, JEncoder, JDecoder, tied_embeddings=False, qkv_bias=True)
 VARIANT = dict(accum_steps=2, remat=True)
 VARIANT_STEPS = 4  # two updates, the first at lr 0
+# Decoders whose heads the model axis does not divide: (mesh, port config, JAX config).
+TP4 = {"data": 1, "model": 4}
+UNEVEN = {
+    "tiny_dp2tp2": ({"data": 2, "model": 2}, dataclasses.replace(get_preset("tiny"), dtype="float32"),
+                    dataclasses.replace(j_get_preset("tiny"), dtype="float32")),
+    # Neither divides the other: each rank holds a kv copy a q head, rank 0
+    # kv heads (0, 0, 1) and rank 1 (1, 2, 2).
+    "6q3kv_dp2tp2": ({"data": 2, "model": 2}, micro(VLMConfig, EncoderConfig, DecoderConfig, num_heads=6,
+                                                    num_kv_heads=3),
+                     micro(JVLM, JEncoder, JDecoder, num_heads=6, num_kv_heads=3)),
+    "8q2kv_tp4": (TP4, micro(VLMConfig, EncoderConfig, DecoderConfig, num_heads=8, num_kv_heads=2),
+                  micro(JVLM, JEncoder, JDecoder, num_heads=8, num_kv_heads=2)),
+}
 
 
-def batches():
-    return [synthetic_batch(np.random.default_rng(10 + i), J_CFG, batch=4, text_len=48) for i in range(STEPS)]
+def batches(config=J_CFG):
+    return [synthetic_batch(np.random.default_rng(10 + i), config, batch=4, text_len=48) for i in range(STEPS)]
 
 
 def to_np(tree):
@@ -108,7 +129,7 @@ def jax_run(mesh, config=J_CFG, n: int = STEPS, **extra) -> tuple[dict, list[dic
     """JAX's initial weights, its metrics a step and its final weights."""
     trainer = JTrainer(config, mesh, JTrainConfig(**TC, **extra), seed=0)
     init = to_np(trainer.params)
-    data = batches()
+    data = batches(config)
     metrics = [trainer.step(*data[i % STEPS], PROMPT_LENS) for i in range(n)]
     return init, metrics, flat(to_np(trainer.params)["params"])
 
@@ -126,18 +147,30 @@ def read_checkpoint(path: Path) -> dict:
     return torch.load(path / "params.pt", map_location="cpu", weights_only=True)
 
 
-def steps(trainer, n: int = STEPS) -> list[dict]:
-    data = batches()
+def steps(trainer, n: int = STEPS, config=J_CFG) -> list[dict]:
+    data = batches(config)
     return [trainer.step(*data[i % STEPS], PROMPT_LENS) for i in range(n)]
 
 
-def dp_tp_world(init: dict, variant_init: dict, root: Path) -> dict:
+def uneven_run(mesh, case: str, init: dict, root: Path) -> dict:
+    """The case's trainer on ``mesh`` from JAX's initial weights: metrics a
+    step, every rank's leaves and the checkpoint."""
+    _, cfg, j_cfg = UNEVEN[case]
+    trainer = Trainer(cfg, TrainConfig(**TC), mesh=mesh, model=functools.partial(from_jax_params, init, cfg,
+                                                                                  device="cpu"))
+    out = {"metrics": steps(trainer, config=j_cfg)}
+    out["ranks"] = mesh.run_all(trainer_leaves, trainer)
+    out["checkpoint"] = trainer.save_checkpoint(root / case)
+    return out
+
+
+def dp_tp_world(init: dict, variant_init: dict, uneven_init: dict, root: Path) -> dict:
     out: dict = {}
     mesh = build_mesh({"data": 2, "model": 2}, ["cpu"] * 4, timeout_s=120)
     try:
         out["shape"], out["backend"] = mesh.shape, mesh.backend
-        with pytest.raises(ValueError, match="item 12"):
-            Trainer(micro(VLMConfig, EncoderConfig, DecoderConfig, num_kv_heads=1), TrainConfig(**TC), mesh=mesh)
+        for case in ("tiny_dp2tp2", "6q3kv_dp2tp2"):
+            out[case] = uneven_run(mesh, case, uneven_init[case], root)
         trainer = Trainer(CFG, TrainConfig(**TC), mesh=mesh,
                           model=functools.partial(from_jax_params, init, CFG, device="cpu"))
         out["metrics"] = steps(trainer)
@@ -148,6 +181,9 @@ def dp_tp_world(init: dict, variant_init: dict, root: Path) -> dict:
         out["variant"] = steps(trainer, VARIANT_STEPS)
         out["variant_checkpoint"] = trainer.save_checkpoint(root / "variant")
         out["variant_ranks"] = mesh.run_all(trainer_leaves, trainer)
+        # A model: 4 mesh on the running world: new groups over the same ranks.
+        mesh = build_mesh(TP4, timeout_s=120)
+        out["8q2kv_tp4"] = uneven_run(mesh, "8q2kv_tp4", uneven_init["8q2kv_tp4"], root)
     finally:
         mesh.close()
     return out
@@ -178,12 +214,16 @@ def worlds(tmp_path_factory):
         init, j_dp, j_dp_final = jax_run(j_mesh)
         variant_init, j_variant, j_variant_final = jax_run(j_mesh, J_UNTIED, VARIANT_STEPS, **VARIANT)
         j_pipe = jax_run(j_build_pipe_mesh(2), **PIPE)[1:]
+        j_uneven = {case: jax_run(j_build_mesh(shape, devices=jax.devices()[:4]), j_cfg)
+                    for case, (shape, _, j_cfg) in UNEVEN.items()}
         start = write_checkpoint(init, root / "start")
         one = Trainer(UNTIED, TrainConfig(**TC, **VARIANT), device="cpu",
                       model=from_jax_params(variant_init, UNTIED, device="cpu"))
         one_variant = (steps(one, VARIANT_STEPS), {k: v.detach().clone() for k, v in one.model.state_dict().items()})
-        return {"jax": {"dp2tp2": (j_dp, j_dp_final), "variant": (j_variant, j_variant_final), "pipe": j_pipe},
-                "one_variant": one_variant, "dp2tp2": dp_tp_world(init, variant_init, root),
+        return {"jax": {"dp2tp2": (j_dp, j_dp_final), "variant": (j_variant, j_variant_final), "pipe": j_pipe,
+                        **{case: run[1:] for case, run in j_uneven.items()}},
+                "one_variant": one_variant,
+                "dp2tp2": dp_tp_world(init, variant_init, {case: run[0] for case, run in j_uneven.items()}, root),
                 "pipe": pipe_world(start, root)}
     finally:
         torch.set_num_threads(threads)
@@ -206,7 +246,16 @@ def check_params(state: dict, want: dict) -> None:
 
 def check_replicas(ranks: list[dict]) -> None:
     """Whole leaves bit-equal on every rank; a split leaf bit-equal on the
-    ranks that hold the same part (the data groups of a model index)."""
+    ranks that hold the same part (the data groups of a model index); the
+    columns of a kv head bit-equal on every rank that holds the head."""
+    d = ranks[0]["head_dim"]
+    for name in ranks[0]["kv_leaves"]:
+        heads: dict[int, torch.Tensor] = {}
+        for rank in ranks:
+            for t, j in enumerate(rank["kv_heads"]):
+                part = rank["leaves"][name][..., t * d:(t + 1) * d]
+                assert j not in heads or torch.equal(part, heads[j]), (name, j, rank["rank"])
+                heads.setdefault(j, part)
     for rank in ranks[1:]:
         for name, leaf in rank["leaves"].items():
             split, other = rank["split"][name], ranks[0]
@@ -227,6 +276,17 @@ def test_data_and_model_axes_equal_jax(worlds):
     check_params(read_checkpoint(out["checkpoint"]), final)
 
 
+@pytest.mark.parametrize("case", list(UNEVEN))
+def test_model_axis_that_does_not_divide_the_heads_equals_jax(worlds, case):
+    """JAX's ``Trainer`` on the same mesh shape and weights: the loss, the
+    grad norm (a replicated kv head counted once) and the parameters after
+    the steps (each kv head's gradient summed over its holders)."""
+    out = worlds["dp2tp2"][case]
+    want, final = worlds["jax"][case]
+    check_metrics(out["metrics"], want)
+    check_params(read_checkpoint(out["checkpoint"]), final)
+
+
 @pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
 def test_pipe_trainer_equals_jax(worlds, schedule):
     out = worlds["pipe"][schedule]
@@ -236,10 +296,15 @@ def test_pipe_trainer_equals_jax(worlds, schedule):
     check_params(read_checkpoint(out["checkpoint"]), final)
 
 
-@pytest.mark.parametrize("world", ["dp2tp2", "variant", "gpipe", "1f1b"])
+@pytest.mark.parametrize("world", ["dp2tp2", "variant", "gpipe", "1f1b", *UNEVEN])
 def test_replicated_leaves_stay_bit_equal(worlds, world):
     if world in ("gpipe", "1f1b"):
         ranks = worlds["pipe"][world]["ranks"]
+    elif world in UNEVEN:
+        ranks = worlds["dp2tp2"][world]["ranks"]
+        assert ranks[0]["kv_leaves"] and len(ranks) == 4
+        if world == "6q3kv_dp2tp2":  # two copies of a kv head on each rank, compared below
+            assert [tuple(r["kv_heads"]) for r in ranks] == [(0, 0, 1), (1, 2, 2)] * 2
     else:
         ranks = worlds["dp2tp2"]["ranks" if world == "dp2tp2" else "variant_ranks"]
     assert len(ranks) == (2 if world in ("gpipe", "1f1b") else 4)

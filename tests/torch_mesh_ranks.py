@@ -41,11 +41,15 @@ def pipe_stage_run(mesh, leaves, layers, tokens, n_micro, schedule, remat, cut) 
 
 
 def trainer_leaves(trainer) -> dict:
-    """This rank's parameters and the axis that splits each (None: whole)."""
+    """This rank's parameters, the axis that splits each (None: whole), its
+    plan's kv heads and the leaves whose kv heads have several holders."""
     named = [(n, p) for n, p in trainer.model.named_parameters() if p.requires_grad]
+    kv_heads = trainer._plan().kv_heads if trainer.mesh.model > 1 else ()
     return {"rank": trainer.mesh.rank, "model_index": trainer.mesh.model_index,
             "leaves": {n: p.detach().clone() for n, p in named},
-            "split": {n: axis for (n, _), axis in zip(named, trainer._split)}}
+            "split": {n: axis for (n, _), axis in zip(named, trainer._split)},
+            "kv_heads": kv_heads, "kv_leaves": [named[i][0] for i in trainer._kv],
+            "head_dim": trainer.config.decoder.head_dim}
 
 
 def cp_run(mesh, q, k, v, causal: bool, grad: bool) -> dict:

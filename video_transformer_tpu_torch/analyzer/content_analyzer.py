@@ -154,8 +154,7 @@ class ContentAnalyzer:
 
             from ..models.config import get_preset
             from ..parallel.engine import InferenceEngine
-            from ..parallel.mesh import build_mesh, mesh_devices, mesh_shape_from_config
-            from ..parallel.sharding import check_divisible
+            from ..parallel.mesh import build_mesh, mesh_devices
 
             preset = get_preset(self.engine_config.get("model_preset", "tiny"))
             tokenizer = None
@@ -196,8 +195,6 @@ class ContentAnalyzer:
                 )
             mesh_config = self.engine_config.get("mesh")
             devices = mesh_devices(self.device, mesh_config)
-            # Refuse a model axis the decoder cannot split before any rank starts.
-            check_divisible(preset.decoder, mesh_shape_from_config(mesh_config, len(devices))[1])
             self._engine = InferenceEngine(
                 preset,
                 params=params,

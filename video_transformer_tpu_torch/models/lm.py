@@ -10,7 +10,9 @@ does both through K5 when the cache is bf16. A ``rows`` entry [B] int32
 maps each logical row to its physical cache row (the batcher's paged pool);
 an ``active`` entry [B] bool leaves padding rows out of the int8 scales'
 calibration. On a mesh (``parallel/sharding.py::shard_model``) a block
-attends over its rank's heads and all-reduces the products of ``out`` and
+attends over its rank's heads (the plan's, which need not be an even share:
+a rank with no q heads adds zeros and launches no attention kernel) and
+all-reduces the products of ``out`` and
 ``down`` over the ``model`` axis, an int8 cache's scales take the MAX of
 every data group's amax (the global batch's, as in JAX), and an untied
 head's vocab shards are all-gathered. Those collectives are the
@@ -63,8 +65,8 @@ def init_kv_cache(
     kv_heads: int | None = None,
 ) -> Cache:
     """An empty KV cache: per-layer k/v lists of [B, Hkv, max_len, D];
-    ``kv_heads`` is a mesh rank's share of the kv heads (default: all)."""
-    kv_heads = kv_heads or config.num_kv_heads
+    ``kv_heads`` is a mesh rank's count of kv heads (default: all)."""
+    kv_heads = config.num_kv_heads if kv_heads is None else kv_heads
     shape = (batch, kv_heads, max_len, config.head_dim)
     kv_dtype = torch.int8 if quant else dtype
     cache: Cache = {
@@ -113,6 +115,11 @@ class Attention(nn.Module):
         dtype = x.dtype
         heads, kv_heads, mesh = self.heads, self.kv_heads, self.mesh
         x = copy_to_axis(x, mesh, MODEL_AXIS)
+        if heads == 0:
+            # No q heads on this rank: zeros into out's all-reduce, which
+            # every rank joins (the empty slice keeps x's gradient path).
+            out = x.new_zeros(b, s, cfg.hidden_dim, dtype=dtype) + x.narrow(-1, 0, 0).sum(-1, keepdim=True)
+            return reduce_from_axis(out, mesh, MODEL_AXIS), cache
         if "qkv" in self._modules:
             # Serve-time fused projection (models/fuse.py): one product, split.
             kv_dim = kv_heads * cfg.head_dim

@@ -11,13 +11,13 @@ CUDA tensor raises.
 
 ``flash_attention`` is differentiable, with the dispatch of the JAX
 package's ``custom_vjp`` (``_flash_diff_fwd`` / ``_flash_diff_bwd``): when
-autograd records and ``supports_flash_bwd`` holds, the forward is K7a and
-the backward K7b + K7c (``ops/flash_bwd.py``) from the saved O and LSE;
-when it records and the shape is not supported, the forward is K1 and the
+autograd records, head_dim is 128 and ``supports_flash_bwd`` holds, the
+forward is K7a and the backward K7b + K7c (``ops/flash_bwd.py``) from the
+saved O and LSE. Otherwise, when it records, the forward is K1 and the
 backward recomputes through ``mha_reference`` (counted in
-``flash_attention.reference_backwards``); without grad, K1 alone. K7a-c
-take head_dim 128 only, so a CUDA tensor of another head_dim with grad
-raises (training through the Qwen2-VL tower is ROADMAP.md §1 item 10).
+``flash_attention.reference_backwards``): the shapes the JAX package sends
+to its XLA reference, ``Sq != Sk`` and head_dim 80 (training through the
+Qwen2-VL tower). Without grad, K1 alone.
 """
 
 from __future__ import annotations
@@ -81,13 +81,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        if q.device.type == "cuda" and q.shape[3] != 128:
-            raise NotImplementedError(
-                f"flash_attention with grad at head_dim {q.shape[3]}: the training kernels K7a-c take 128 "
-                "(training through the Qwen2-VL tower is ROADMAP.md §1 item 10)"
-            )
         ctx.causal = causal
-        if supports_flash_bwd(q.shape[2], k.shape[2]):
+        # Chosen by shape before any launch, head_dim first: K7a-c take 128 only.
+        if q.shape[3] == 128 and supports_flash_bwd(q.shape[2], k.shape[2]):
             out, lse = flash_fwd_lse(q, k, v, causal)
             ctx.save_for_backward(q, k, v, out, lse)
         else:

@@ -56,10 +56,12 @@ rounded up to it), each data group prefills and decodes its own rows, and
 the results are gathered in row order; within a group the model ranks hold
 ``parallel/sharding.py``'s shards (the serving transform casts, quantizes
 the whole kernels, then shards) and see the same all-reduced logits and the
-same seeded generator, so they make the same host decisions. ``model`` must
-divide ``num_heads`` and ``num_kv_heads`` (the KV cache splits by head), and
-the projection fusion is dropped when ``model`` is above 1
-(``event=fuse_projections_dropped``), as in JAX. A draft is replicated on
+same seeded generator, so they make the same host decisions. ``model`` need
+not divide the heads: each rank's KV cache holds its plan's kv heads
+(``parallel/sharding.py::head_plan``; a kv head shared by several ranks is
+replicated on them, as JAX replicates the cache), and the projection
+fusion is dropped when ``model`` is above 1 (``event=fuse_projections_dropped``),
+as in JAX. A draft is replicated on
 every rank. On rank 0 each public call is also sent to the worker ranks
 (``parallel/mesh.py::replicated``); the controller's session objects name the workers'
 carries by handle. A 1 x 1 mesh is no mesh.
@@ -88,7 +90,7 @@ from ..ops.preprocess import preprocess_frames
 from ..utils.tracing import tracer
 from ..weights import cast_weights, flatten_tree, from_jax_params, from_state_dict, load_npz, random_params
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, replicated
-from .sharding import check_divisible, shard_block, shard_model
+from .sharding import shard_block, shard_model
 
 __all__ = ["InferenceEngine", "EngineStats", "EngineSession", "params_checkpoints", "resolve_params_dir"]
 
@@ -223,7 +225,6 @@ class InferenceEngine:
         if mesh is not None:
             if set(mesh.shape) - {DATA_AXIS, MODEL_AXIS}:
                 raise ValueError(f"the engine serves over a (data, model) mesh, not {mesh.shape}")
-            check_divisible(config.decoder, mesh.model)  # before any rank builds
             if isinstance(params, torch.nn.Module):
                 raise ValueError(
                     "on a mesh, params is a function each rank calls (or None, then restore() a checkpoint), "

@@ -9,7 +9,8 @@ keyed by the port's parameter names (the JAX paths joined by dots); a spec
 is a tuple of axis names (None: not split), JAX's ``PartitionSpec`` as a
 tuple.
 
-``shard_model`` applies them to this rank's copy of a ``VideoLM``, in place:
+``shard_model`` applies them to this rank's copy of a ``VideoLM``, in place,
+cutting each split leaf by the rank's ``HeadPlan`` (``head_plan``):
 
 - column shards: q/k/v/gate/up kernels, their biases and their int8 or int4
   per-output-channel scales;
@@ -27,10 +28,33 @@ tuple.
 The serving transform runs in this order: cast, quantize the full kernel,
 then shard (``InferenceEngine._place``); quantizing a shard would change a
 row-parallel kernel's scales, and the tokens.
+
+The plan of heads. The ``model`` axis need not divide the heads. A rank's
+q heads always form whole GQA groups over the kv heads it holds (K1, K2, K3
+and K5 take ``Hq % Hkv == 0``):
+
+- ``model`` divides ``num_kv_heads``: an even split of both;
+- ``num_kv_heads`` divides ``model``: each kv head is replicated on the
+  ``model / num_kv_heads`` ranks in a row, which split its group of q heads
+  as evenly as the count allows (7b's 7 q heads a kv head at ``model: 8``:
+  4 and 3; the tiny preset's one head at ``model: 2``: 1 and 0);
+- neither: a contiguous, even +-1 range of q heads a rank, and one copy of
+  the matching kv head for each (an MHA layout on the rank).
+
+``mlp_dim`` splits even +-1 in units of 256 (K6 takes gate/up and down at
+N and K/2 multiples of 128: 7b at ``model: 8`` gets 2,560 and 2,304), in
+pairs (a packed int4 row) where it has fewer than one such unit a rank. A rank
+with no q heads attends to nothing: its part of ``out``'s all-reduce is
+zeros (``models/lm.py``). When a kv head has more than one holder
+(``kv_replicated``), the training step sums its gradient over them
+(``train/trainer.py``). JAX's layout differs (its GSPMD splits the columns
+evenly and its engine replicates the KV cache when ``model`` does not
+divide the kv heads); the sums are the same.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any
 
 import torch
@@ -38,7 +62,19 @@ from torch import nn
 
 from .mesh import MODEL_AXIS, Mesh
 
-__all__ = ["PARTITION_RULES", "check_divisible", "shard_block", "shard_model", "shard_tensor", "spec_for_path"]
+__all__ = [
+    "PARTITION_RULES",
+    "HeadPlan",
+    "MLP_UNITS",
+    "head_plan",
+    "kv_replicated",
+    "leaf_ranges",
+    "shard_block",
+    "shard_model",
+    "shard_tensor",
+    "spec_for_path",
+    "unshard_tensor",
+]
 
 Spec = tuple[Any, ...]
 
@@ -84,43 +120,114 @@ def spec_for_path(path: tuple[str, ...]) -> Spec:
     return ()
 
 
-def shard_tensor(tensor: torch.Tensor, spec: Spec, index: int, size: int) -> torch.Tensor:
-    """Part ``index`` of ``size`` of ``tensor`` along the dim that ``spec``
-    puts on the model axis (a contiguous copy, so that the whole tensor can
-    be freed); the tensor itself when the spec splits nothing."""
-    if size == 1 or MODEL_AXIS not in spec:
+@dataclass(frozen=True)
+class HeadPlan:
+    """One model rank's share of a decoder block (global indices)."""
+
+    q_heads: range
+    kv_heads: tuple[int, ...]
+    """The global kv head of each of the rank's kv heads, in order."""
+    mlp: range
+
+
+# The MLP's split units, the first that divides ``mlp_dim`` into at least one
+# a rank: 256 hidden units (K6's 128 output channels of gate/up, 128 packed
+# rows of down), else a packed int4 row pair, else one unit.
+MLP_UNITS = (256, 2, 1)
+
+
+def _even(n: int, parts: int, i: int) -> range:
+    """Part ``i`` of ``range(n)`` cut into ``parts`` contiguous ranges whose
+    lengths differ by at most one (the longer ones first)."""
+    per, extra = divmod(n, parts)
+    start = i * per + min(i, extra)
+    return range(start, start + per + (i < extra))
+
+
+def head_plan(num_heads: int, num_kv_heads: int, mlp_dim: int, size: int, index: int) -> HeadPlan:
+    """Rank ``index`` of ``size`` model ranks: its q heads, kv heads and MLP
+    units (see the module docstring)."""
+    group = num_heads // num_kv_heads
+    if num_kv_heads % size == 0:
+        q_heads = _even(num_heads, size, index)
+        kv_heads = tuple(_even(num_kv_heads, size, index))
+    elif size % num_kv_heads == 0:
+        share = size // num_kv_heads
+        kv = index // share
+        part = _even(group, share, index % share)
+        q_heads = range(kv * group + part.start, kv * group + part.stop)
+        kv_heads = (kv,)
+    else:
+        q_heads = _even(num_heads, size, index)
+        kv_heads = tuple(h // group for h in q_heads)
+    unit = next(u for u in MLP_UNITS if mlp_dim % u == 0 and mlp_dim // u >= size)
+    units = _even(mlp_dim // unit, size, index)
+    return HeadPlan(q_heads, kv_heads, range(units.start * unit, units.stop * unit))
+
+
+def kv_replicated(num_kv_heads: int, size: int) -> bool:
+    """Whether some kv head has more than one holder on ``size`` model ranks."""
+    return size > 1 and num_kv_heads % size != 0
+
+
+def leaf_ranges(path: tuple[str, ...], shape: tuple[int, ...], cfg, plan: HeadPlan) -> list[tuple[int, int]] | None:
+    """The ranges of the model-split dim of a decoder block's leaf that
+    ``plan``'s rank holds (their parts concatenated in order), or None for
+    a leaf that the model axis does not split. ``shape`` is the whole
+    leaf's; a packed int4 kernel's rows count pairs of input units."""
+    spec = spec_for_path(path)
+    if MODEL_AXIS not in spec:
+        return None
+    d = cfg.head_dim
+    layer = path[-2]
+    if layer in ("q", "out"):
+        ranges = [(plan.q_heads.start * d, plan.q_heads.stop * d)]
+    elif layer in ("k", "v"):
+        ranges = [(j * d, (j + 1) * d) for j in plan.kv_heads]
+    else:  # gate, up, down
+        ranges = [(plan.mlp.start, plan.mlp.stop)]
+    full = {"q": cfg.num_heads * d, "out": cfg.num_heads * d, "k": cfg.num_kv_heads * d,
+            "v": cfg.num_kv_heads * d}.get(layer, cfg.mlp_dim)
+    packed = shape[spec.index(MODEL_AXIS)] * 2 == full
+    return [(a // 2, b // 2) for a, b in ranges] if packed else ranges
+
+
+def shard_tensor(tensor: torch.Tensor, spec: Spec, ranges: list[tuple[int, int]] | None) -> torch.Tensor:
+    """The parts ``ranges`` of ``tensor`` along the dim that ``spec`` puts on
+    the model axis, concatenated (a contiguous copy, so that the whole
+    tensor can be freed); the tensor itself when ``ranges`` is None."""
+    if ranges is None:
         return tensor
     dim = spec.index(MODEL_AXIS)
-    if tensor.shape[dim] % size:
-        raise ValueError(f"dim {dim} of a {tuple(tensor.shape)} tensor does not split over {size} model ranks")
-    return tensor.chunk(size, dim=dim)[index].contiguous().clone()
+    parts = [tensor.narrow(dim, start, stop - start) for start, stop in ranges]
+    return torch.cat(parts, dim=dim).contiguous().clone() if parts else tensor.narrow(dim, 0, 0).clone()
 
 
-def check_divisible(cfg, size: int) -> None:
-    """Raise ``ValueError`` unless the model axis divides the decoder's
-    heads, kv heads and MLP width. JAX replicates the KV cache when the
-    axis does not divide the kv heads (its ``engine.py:676-678``); the port
-    splits the cache by head and does not yet (ROADMAP.md §1 item 12)."""
-    for what, count in (("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads), ("mlp_dim", cfg.mlp_dim)):
-        if count % size:
-            raise ValueError(
-                f"{what} = {count} does not divide the model axis ({size}): the port splits the KV cache by "
-                "head and does not replicate it yet (ROADMAP.md §1 item 12)"
-            )
+def unshard_tensor(parts: list[torch.Tensor], ranges: list[list[tuple[int, int]]], dim: int,
+                   whole: torch.Tensor) -> torch.Tensor:
+    """``shard_tensor``'s inverse: every rank's part (``parts[r]`` holding
+    ``ranges[r]``) written into ``whole`` (a replicated range is written by
+    each holder, with equal values)."""
+    for part, rank_ranges in zip(parts, ranges):
+        at = 0
+        for start, stop in rank_ranges:
+            whole.narrow(dim, start, stop - start).copy_(part.narrow(dim, at, stop - start))
+            at += stop - start
+    return whole
 
 
 @torch.no_grad()
-def _shard_leaves(module: nn.Module, mesh: Mesh) -> None:
-    """Replace each of ``module``'s parameters and buffers by this rank's
-    part, by the spec of its path."""
-    index, size = mesh.model_index, mesh.model
-    for name, tensor in list(module.state_dict(keep_vars=True).items()):
-        spec = spec_for_path(tuple(name.split(".")))
-        part = shard_tensor(tensor.detach(), spec, index, size)
-        if part is tensor:
+def _shard_leaves(block: nn.Module, cfg, plan: HeadPlan) -> None:
+    """Replace each of a decoder block's parameters and buffers by this
+    rank's part, by the spec of its path and ``plan``."""
+    for name, tensor in list(block.state_dict(keep_vars=True).items()):
+        path = tuple(name.split("."))
+        ranges = leaf_ranges(path, tuple(tensor.shape), cfg, plan)
+        if ranges is None:
             continue
+        part = shard_tensor(tensor.detach(), spec_for_path(path), ranges)
         owner_name, _, leaf = name.rpartition(".")
-        owner = module.get_submodule(owner_name)
+        owner = block.get_submodule(owner_name)
         if leaf in owner._parameters:
             part = nn.Parameter(part, requires_grad=tensor.requires_grad)
         setattr(owner, leaf, part)
@@ -128,18 +235,17 @@ def _shard_leaves(module: nn.Module, mesh: Mesh) -> None:
 
 def shard_block(block: nn.Module, mesh: Mesh) -> nn.Module:
     """This rank's part of one decoder block, in place: its attention over
-    ``num_heads / model`` heads and ``num_kv_heads / model`` kv heads, its
-    MLP over ``mlp_dim / model`` hidden units, and the mesh on which the
-    block reduces ``out`` and ``down`` (and, for an int8 cache, the KV
-    scales over ``data``). Idempotent."""
+    the plan's q and kv heads, its MLP over the plan's hidden units, and the
+    mesh on which the block reduces ``out`` and ``down`` (and, for an int8
+    cache, the KV scales over ``data``). Idempotent."""
     if getattr(block, "_mesh_sharded", False) or mesh.size == 1:
         return block
     cfg = block.attn.cfg
-    size = mesh.model
-    check_divisible(cfg, size)
-    _shard_leaves(block, mesh)
-    block.attn.heads = cfg.num_heads // size
-    block.attn.kv_heads = cfg.num_kv_heads // size
+    plan = head_plan(cfg.num_heads, cfg.num_kv_heads, cfg.mlp_dim, mesh.model, mesh.model_index)
+    if mesh.model > 1:
+        _shard_leaves(block, cfg, plan)
+    block.attn.heads = len(plan.q_heads)
+    block.attn.kv_heads = len(plan.kv_heads)
     block.attn.mesh = mesh
     block.mlp.mesh = mesh
     block._mesh_sharded = True
@@ -155,11 +261,13 @@ def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
     cfg = decoder.cfg
     for i in range(cfg.num_layers):
         shard_block(getattr(decoder, f"layer_{i}"), mesh)
-    decoder.kv_heads = cfg.num_kv_heads // mesh.model
+    decoder.kv_heads = decoder.layer_0.attn.kv_heads
     decoder.mesh = mesh
     if not cfg.tied_embeddings and cfg.vocab_size % mesh.model == 0 and mesh.model > 1:
+        per = cfg.vocab_size // mesh.model
         decoder.lm_head = nn.Parameter(
-            shard_tensor(decoder.lm_head.detach(), spec_for_path(("lm_head",)), mesh.model_index, mesh.model),
+            shard_tensor(decoder.lm_head.detach(), spec_for_path(("lm_head",)),
+                         [(mesh.model_index * per, (mesh.model_index + 1) * per)]),
             requires_grad=decoder.lm_head.requires_grad,
         )
         decoder.head_sharded = True

@@ -20,19 +20,25 @@ card machine).
 On a mesh (``parallel/mesh.py``), JAX's two layouts:
 
 - ``(data, model)``: each rank holds its ``PARTITION_RULES`` shard of the
-  model (``parallel/sharding.py::shard_model``; the blocks' collectives are
-  the differentiable ones of ``models/lm.py``) and its data group's rows of
-  the batch. The loss divides by the masked token count of the whole batch
-  (all-reduced over ``data``), and the gradients are summed over ``data``
-  in buckets of ``GRAD_BUCKET_BYTES``, so a step equals the 1-rank step on
-  the whole batch.
+  model, cut by its plan of heads (``parallel/sharding.py::shard_model``;
+  the blocks' collectives are the differentiable ones of ``models/lm.py``)
+  and its data group's rows of the batch. The loss divides by the masked
+  token count of the whole batch (all-reduced over ``data``), and the
+  gradients are summed over ``data`` in buckets of ``GRAD_BUCKET_BYTES``,
+  so a step equals the 1-rank step on the whole batch. Where ``model`` does
+  not divide the kv heads, a kv head's k/v columns live on several ranks,
+  each of which computes only its own q heads' share of their gradient:
+  one all-reduce over ``model`` sums the shares (each rank adds its copies
+  into a buffer of every kv head, zeros elsewhere), so every copy takes the
+  whole gradient.
 - ``("pipe",)``: each rank holds its stage's blocks
   (``parallel/pipeline_parallel.py``) and the whole batch, split into
   ``pp_microbatches`` microbatches, under ``pp_schedule``.
 
 The global norm sums a split leaf's squares over its axis and counts a
-replicated leaf once; a replicated leaf's gradient is whole and the same
-on every rank, so the replicas stay bit-equal. Every rank makes its own
+replicated leaf once (a replicated kv head's columns on their first holder
+only); a replicated leaf's gradient is whole and the same on every rank, so
+the replicas stay bit-equal. Every rank makes its own
 weights (a seeded draw that it then cuts, a ``model`` function that it
 calls, or ``restore_checkpoint``); ``step``, ``save_checkpoint`` and
 ``restore_checkpoint`` replay on every rank (``parallel/mesh.py::
@@ -56,7 +62,15 @@ from ..models.tokenizer import ByteTokenizer
 from ..models.vlm import VideoLM
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, Mesh, replicated
 from ..parallel.pipeline_parallel import SCHEDULES, pipeline_vlm_logits, shard_stages, stage_range
-from ..parallel.sharding import check_divisible, shard_block, shard_model, spec_for_path
+from ..parallel.sharding import (
+    head_plan,
+    kv_replicated,
+    leaf_ranges,
+    shard_block,
+    shard_model,
+    spec_for_path,
+    unshard_tensor,
+)
 from ..weights import from_state_dict, random_params
 
 __all__ = [
@@ -123,13 +137,18 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
 class AdamW:
     """The JAX package's ``make_optimizer``: optax's
     ``MultiSteps(chain(clip_by_global_norm, adamw(schedule)))`` over
-    ``params``, with ``torch.optim.AdamW`` doing the moment update.
+    ``params``.
 
     ``update(grads)`` takes one micro-step's gradients. With
     ``accum_steps = k`` it averages k of them (Welford, as MultiSteps does)
     and applies on the k-th; the learning rate is the schedule at the count
-    of updates applied so far.
+    of updates applied so far. The update is optax's ``adamw`` written out
+    in a few in-place list ops: bias-corrected first and second moments,
+    ``m_hat / (sqrt(v_hat) + eps)``, plus the decoupled weight decay
+    ``weight_decay * p``, the sum scaled by the scheduled learning rate.
     """
+
+    eps = 1e-8
 
     def __init__(self, params, config: TrainConfig, norm: Callable | None = None):
         self.params = [p for p in params if p.requires_grad]
@@ -137,11 +156,9 @@ class AdamW:
         self.norm = norm or global_norm
         """The clip's global norm (a mesh's sums split leaves over their axis)."""
         self.schedule = lr_schedule(config)
-        self.inner = torch.optim.AdamW(
-            self.params, lr=0.0, betas=(config.b1, config.b2), eps=1e-8,
-            weight_decay=config.weight_decay,
-        )
-        self.count = 0  # updates applied (the inner optimizer's step count)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0  # updates applied
         self.mini_step = 0
         self.acc: list[torch.Tensor] | None = None
 
@@ -150,7 +167,8 @@ class AdamW:
         """One micro-step; returns whether the parameters were updated.
         ``norm`` is the gradients' global norm when the caller has it (used
         without accumulation, where the clip's norm is the micro-step's)."""
-        k = self.config.accum_steps
+        config = self.config
+        k = config.accum_steps
         if k > 1:
             if self.acc is None:
                 self.acc = [torch.zeros_like(g) for g in grads]
@@ -162,13 +180,20 @@ class AdamW:
             grads, self.acc, self.mini_step = self.acc, None, 0
         if norm is None or k > 1:
             norm = self.norm(grads)
-        factor = torch.where(norm < self.config.max_grad_norm, 1.0, self.config.max_grad_norm / norm)
-        for p, g in zip(self.params, grads):
-            p.grad = g * factor.to(g.dtype)
-        for group in self.inner.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.inner.step()
-        self.inner.zero_grad(set_to_none=True)
+        factor = torch.where(norm < config.max_grad_norm, 1.0, config.max_grad_norm / norm)
+        grads = torch._foreach_mul([g.float() for g in grads], factor.float())
+        lr, t = self.schedule(self.count), self.count + 1
+        torch._foreach_mul_(self.mu, config.b1)
+        torch._foreach_add_(self.mu, grads, alpha=1 - config.b1)
+        torch._foreach_mul_(self.nu, config.b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - config.b2)
+        denom = torch._foreach_div(self.nu, 1 - config.b2**t)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        step = torch._foreach_div(self.mu, 1 - config.b1**t)
+        torch._foreach_div_(step, denom)
+        torch._foreach_add_(step, self.params, alpha=config.weight_decay)
+        torch._foreach_add_(self.params, step, alpha=-lr)
         self.count += 1
         return True
 
@@ -246,8 +271,6 @@ class Trainer:
                 stage_range(model_config.decoder.num_layers, mesh)  # raises unless the stages divide the layers
                 if train_config.pp_schedule not in SCHEDULES:
                     raise ValueError(f"unknown pipeline schedule: {train_config.pp_schedule!r}")
-            else:
-                check_divisible(model_config.decoder, mesh.model)  # before any rank builds
         self.mesh = mesh
         with mesh.controlled(("new", type(self), (), args)) if mesh else contextlib.nullcontext():
             self._init(model_config, train_config, seed, device, model)
@@ -276,9 +299,17 @@ class Trainer:
                 m, patches, tokens, mesh, n_micro, remat=train_config.remat, schedule=train_config.pp_schedule)
         with torch.device("meta"):
             whole = {name: tuple(p.shape) for name, p in VideoLM(model_config).named_parameters()}
+        named = [(name, p) for name, p in self.model.named_parameters() if p.requires_grad]
         # The leaves that a mesh axis splits (their squares sum over it).
-        self._split = [self._split_axis(name, tuple(p.shape), whole) for name, p in self.model.named_parameters()
-                       if p.requires_grad]
+        self._split = [self._split_axis(name, whole) for name, _ in named]
+        # The leaves whose kv heads have several holders: {index: (dim, own)},
+        # ``own`` the local heads whose squares this rank counts.
+        self._kv = {}
+        if mesh is not None and not self.use_pp and kv_replicated(model_config.decoder.num_kv_heads, mesh.model):
+            own = self._own_kv_heads()
+            self._kv = {i: (spec_for_path(tuple(name.split("."))).index(MODEL_AXIS), own)
+                        for i, (name, _) in enumerate(named)
+                        if name.startswith("decoder.layer_") and name.split(".")[-2] in ("k", "v")}
         self.optimizer = AdamW(self.model.parameters(), train_config, norm=self._global_norm)
         self.step_count = 0
 
@@ -298,12 +329,45 @@ class Trainer:
             return model
         return shard_stages(model, self.mesh) if self.use_pp else shard_model(model, self.mesh)
 
-    def _split_axis(self, name: str, shape: tuple, whole: dict) -> str | None:
+    def _plan(self, index: int | None = None):
+        """The plan of heads of model rank ``index`` (default: this rank's)."""
+        cfg, mesh = self.config.decoder, self.mesh
+        index = mesh.model_index if index is None else index
+        return head_plan(cfg.num_heads, cfg.num_kv_heads, cfg.mlp_dim, mesh.model, index)
+
+    def _own_kv_heads(self) -> list[int]:
+        """This rank's local kv heads that no earlier holder holds (the
+        copies whose squares the global norm counts)."""
+        first: dict[int, tuple[int, int]] = {}
+        for r in range(self.mesh.model):
+            for t, j in enumerate(self._plan(r).kv_heads):
+                first.setdefault(j, (r, t))
+        me = self.mesh.model_index
+        return [t for t, j in enumerate(self._plan().kv_heads) if first[j] == (me, t)]
+
+    def _model_ranges(self, name: str, shape: tuple) -> list | None:
+        """Every model rank's ranges of a leaf split over ``model`` (None:
+        a leaf the axis does not split)."""
+        if self.mesh.model == 1:
+            return None
+        if name == "decoder.lm_head":
+            if not self.model.decoder.head_sharded:
+                return None
+            per = shape[0] // self.mesh.model
+            return [[(r * per, (r + 1) * per)] for r in range(self.mesh.model)]
+        if not name.startswith("decoder.layer_"):
+            return None
+        path, cfg = tuple(name.split(".")), self.config.decoder
+        if leaf_ranges(path, shape, cfg, self._plan()) is None:
+            return None
+        return [leaf_ranges(path, shape, cfg, self._plan(r)) for r in range(self.mesh.model)]
+
+    def _split_axis(self, name: str, whole: dict) -> str | None:
         if self.mesh is None:
             return None
         if self.use_pp:
             return PIPE_AXIS if name.startswith("decoder.layer_") else None
-        return MODEL_AXIS if shape != whole[name] else None
+        return MODEL_AXIS if self._model_ranges(name, whole[name]) is not None else None
 
     # -- the step ----------------------------------------------------------------
 
@@ -318,7 +382,11 @@ class Trainer:
         if self.mesh is None:
             return global_norm(grads)
         squares = {None: torch.zeros((), device=self.device)}
-        for g, axis in zip(grads, self._split):
+        d = self.config.decoder.head_dim
+        for i, (g, axis) in enumerate(zip(grads, self._split)):
+            if i in self._kv:
+                dim, own = self._kv[i]
+                g = torch.cat([g.narrow(dim, t * d, d) for t in own], dim=dim) if own else g.narrow(dim, 0, 0)
             squares[axis] = squares.get(axis, 0.0) + torch.linalg.vector_norm(g.float()).square()
         total = squares.pop(None)
         for axis, part in squares.items():
@@ -340,6 +408,28 @@ class Trainer:
                 bucket, size = [], 0
         return out
 
+    def _sum_kv_replicas(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Each kv head's gradient summed over its holders (one all-reduce
+        over ``model`` of a buffer of every kv head), back into every copy."""
+        if not self._kv:
+            return grads
+        d, heads = self.config.decoder.head_dim, self._plan().kv_heads
+        bufs = []
+        for i, (dim, _) in self._kv.items():
+            g = grads[i]
+            shape = list(g.shape)
+            shape[dim] = self.config.decoder.num_kv_heads * d
+            buf = g.new_zeros(shape)
+            for t, j in enumerate(heads):
+                buf.narrow(dim, j * d, d).add_(g.narrow(dim, t * d, d))
+            bufs.append(buf)
+        flat = self.mesh.all_reduce(torch.cat([b.reshape(-1) for b in bufs]), MODEL_AXIS)
+        for (i, (dim, _)), part, buf in zip(self._kv.items(), flat.split([b.numel() for b in bufs]), bufs):
+            whole = part.view_as(buf)
+            grads[i] = torch.cat([whole.narrow(dim, j * d, d) for j in heads], dim=dim) if heads \
+                else grads[i]
+        return grads
+
     def loss_and_grads(self, patches, tokens, prompt_lens=None) -> tuple[dict, list[torch.Tensor]]:
         """The step's metrics (tensors) and this rank's gradients, summed
         over ``data``, before any update. On a mesh every rank calls it with
@@ -357,8 +447,12 @@ class Trainer:
             patches, tokens, prompt_lens = patches[rows], tokens[rows], prompt_lens[rows]
         loss, metrics = distillation_loss(self.model, patches, tokens, ByteTokenizer.PAD, prompt_lens,
                                           logits_fn=self._logits_fn, mesh=self.mesh)
-        grads = torch.autograd.grad(loss, self.optimizer.params)
-        return metrics, (self._sum_over_data(grads) if data > 1 else list(grads))
+        params = self.optimizer.params
+        # A rank with no q heads uses none of its attention leaves: zeros.
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, torch.autograd.grad(loss, params, allow_unused=True))]
+        grads = self._sum_over_data(grads) if data > 1 else grads
+        return metrics, self._sum_kv_replicas(grads)
 
     @replicated
     def step(self, patches, tokens, prompt_lens=None) -> dict[str, float]:
@@ -404,9 +498,18 @@ class Trainer:
             with torch.device("meta"):
                 whole = VideoLM(self.config).state_dict()
             for name, t in list(state.items()):
-                if tuple(t.shape) != tuple(whole[name].shape):
-                    spec = spec_for_path(tuple(name.split(".")))
-                    state[name] = mesh.all_gather(t, MODEL_AXIS, dim=spec.index(MODEL_AXIS))
+                shape = tuple(whole[name].shape)
+                ranges = self._model_ranges(name, shape)
+                if ranges is None:
+                    continue
+                # Parts of unequal widths: each padded to the widest, gathered, then placed.
+                dim = spec_for_path(tuple(name.split("."))).index(MODEL_AXIS)
+                padded = list(t.shape)
+                padded[dim] = max(sum(b - a for a, b in r) for r in ranges)
+                buf = t.new_zeros(padded)
+                buf.narrow(dim, 0, t.shape[dim]).copy_(t)
+                parts = mesh.all_gather(buf[None], MODEL_AXIS, dim=0)
+                state[name] = unshard_tensor(list(parts), ranges, dim, t.new_empty(shape))
         return {k: state[k].detach().cpu() for k in names}
 
     @replicated
