@@ -43,6 +43,18 @@ every projection takes K6, then training gradients), then:
   first-token logits against ``engine.generate``'s and the first wave's
   tokens against ``engine.generate`` at the batcher's batch of 8, and
   profiles a short sweep;
+- runs the decode loop on both of its routes (``decode_graph``): the
+  engine's and the batcher's decode steps replayed as CUDA graphs (the
+  route every entry point takes on one card, ``parallel/graphs.py``)
+  against the plain per-step loop (``engine._plain_decode``), on base at
+  full width and 4 decoder layers (the serving engine; then at 0.7 from one
+  seed) and all 24 (int8, the note grammar, three requests of 64 tokens),
+  on the batcher above (eager, graph, graph) and on the 7b int4 engine
+  below: tokens, completion flags and steps bit for bit equal,
+  each kernel's counter moving by its launches a step x the steps launched
+  (a graph's steps past the loop's end, ``idle_steps``, launch too; every
+  launch check of the smoke counts them), and each route's ms a step, busy
+  share, capture seconds, graphs, replays, idle steps and peak GiB;
 - trains three steps of ``python -m video_transformer_tpu_torch.train.run``'s
   code path at the full ``base`` width (seeded random f32 weights, bf16
   compute, BPE vocabulary, batch 2, 1,024 video + 2,048 text positions),
@@ -323,7 +335,7 @@ from video_transformer_tpu_torch.ops.flash_bwd import (
 from video_transformer_tpu_torch.ops.int4_matmul import INT4_WIDTHS, int4_matmul, int4_matmul_reference, unpack_int4
 from video_transformer_tpu_torch.ops.preprocess import preprocess_frames
 from video_transformer_tpu_torch.ops.token_grammar import TokenGrammar, token_transition_table
-from video_transformer_tpu_torch.parallel.engine import InferenceEngine
+from video_transformer_tpu_torch.parallel.engine import InferenceEngine, _copy_cache
 from video_transformer_tpu_torch.parallel.serving import ContinuousBatcher, Request
 from video_transformer_tpu_torch.pipeline.auditor import QualityAuditor
 from video_transformer_tpu_torch.pipeline.downloader import VideoDownloader
@@ -1789,6 +1801,14 @@ def reset_counts() -> None:
         PLAIN_ON_CARD[name] = 0
 
 
+def launched_steps(stats) -> int:
+    """The decode steps an engine's loops launched kernels for: the live
+    ones (``decode_steps``, the JAX engine's count) and the idle ones that
+    a decode graph ran past a loop's end (``idle_steps``), which launch the
+    same kernels and change nothing."""
+    return stats.decode_steps + stats.idle_steps
+
+
 def counts() -> dict[str, int]:
     out = {kernel.__name__: kernel.launches for kernel in ALL_KERNELS}
     out["reference_backwards"] = flash_attention.reference_backwards
@@ -1996,7 +2016,8 @@ def check_complete(grammar, row: int, ids: list[int]) -> None:
 def serve(engine: InferenceEngine, frames: np.ndarray) -> list[dict]:
     """One generate call; per-row results checked against the grammar."""
     stats = engine.stats
-    before = (stats.prefill_seconds, stats.generate_seconds, stats.decode_steps, stats.tokens_generated)
+    before = (stats.prefill_seconds, stats.generate_seconds, stats.decode_steps, stats.tokens_generated,
+              stats.idle_steps)
     torch.cuda.reset_peak_memory_stats()
     texts, status, ids = engine.generate(
         frames, [PROMPT] * len(frames), return_status=True, return_tokens=True
@@ -2005,6 +2026,7 @@ def serve(engine: InferenceEngine, frames: np.ndarray) -> list[dict]:
     total_s = stats.generate_seconds - before[1]
     steps = stats.decode_steps - before[2]
     tokens = stats.tokens_generated - before[3]
+    idle = stats.idle_steps - before[4]
     out = []
     for row, (text, done, row_ids) in enumerate(zip(texts, status, ids)):
         if not 0 < len(row_ids) <= MAX_NEW_TOKENS + 2:
@@ -2015,8 +2037,8 @@ def serve(engine: InferenceEngine, frames: np.ndarray) -> list[dict]:
             json.loads(text)
         out.append({
             "phase": "request", "batch": len(frames), "row": row, "tokens": len(row_ids),
-            "complete": done, "prefill_ms": prefill_s * 1e3, "decode_steps": steps,
-            "call_tokens": tokens, "call_seconds": total_s,
+            "complete": done, "prefill_ms": prefill_s * 1e3, "decode_steps": steps, "idle_steps": idle,
+            "decode_route": stats.decode_route, "call_tokens": tokens, "call_seconds": total_s,
             "tokens_per_s": tokens / total_s if total_s else 0.0,
             "decode_tokens_per_s": tokens / (total_s - prefill_s) if total_s > prefill_s else 0.0,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -2080,7 +2102,8 @@ def batcher_phase(engine: InferenceEngine, clips: np.ndarray, prompts: list[str]
             "tokens": sum(c.tokens for c in completions),
             "tokens_per_s": sum(c.tokens for c in completions) / wall, "decode_steps": steps,
             "ms_per_step": wall * 1e3 / steps, "complete": sum(c.complete for c in completions),
-            "launches": launched}
+            "decode_route": batcher.stats.decode_route, "graphs_captured": batcher.stats.graphs_captured,
+            "replays": batcher.stats.replays, "launches": launched}
 
     # engine.generate on the same clips and prompts, wave by wave, its prefill logits kept.
     captured = []
@@ -2257,7 +2280,195 @@ def decode_step_launches(engine: InferenceEngine, seed: int, cache_len: int, ste
             "step_ms": [step_ms[0], step_ms[3]], "parent_step_ms": step_ms[1:3]}
 
 
-def int4_serving_phase(seed: int, dev: torch.device, tokenizer, grammar) -> tuple[dict, dict]:
+# -- the decode graphs against the plain loop (decode_graph) ----------------------
+
+DECODE_GRAPH_LAYERS = 24  # base's full decoder depth for the decode graphs' base run
+DECODE_GRAPH_DEEP_TOKENS = 64  # its budget: four chunks, a capture and replays (the eager loop ~50 ms a step)
+DECODE_GRAPH_TEMPERATURE = 0.7  # the shipped engine.temperature: one seed, both routes
+DECODE_GRAPH_SAMPLED_TOKENS = 48  # the sampled pair's budget (three chunks)
+DECODE_GRAPH_SEED = 7
+DECODE_GRAPH_PROFILED_STEPS = 2  # eager steps under the profiler for a step's kernel ms (~3,800 kernels at 24 layers)
+ROUTE_STATS = ("decode_steps", "idle_steps", "generate_seconds", "prefill_seconds", "graphs_captured",
+               "capture_seconds", "replays")
+
+
+def step_launches(engine: InferenceEngine) -> dict[str, int]:
+    """Each kernel's launches in one decode step of ``engine`` (K5 on a bf16
+    cache, K2 + K3 on an int8 one; K6 in each int4 projection)."""
+    layers = engine.config.decoder.num_layers
+    out = ({"decode_attention_update": layers} if engine.kv_quant is None
+           else {"write_cache_rows": layers, "decode_attention": layers})
+    if engine.quantize == "int4":
+        out["int4_matmul"] = (4 if engine.fuse_projections else 7) * layers
+    return out
+
+
+def route_call(engine: InferenceEngine, clips: np.ndarray, prompts: list[str], plain: bool) -> dict:
+    """One ``generate`` on the plain per-step loop or on the decode graphs,
+    with the launches counted from 0: each kernel's counter must move by its
+    launches a step x the steps launched (live and idle), plus the
+    prefill's K2."""
+    engine._plain_decode = plain
+    stats = engine.stats
+    before = {key: getattr(stats, key) for key in ROUTE_STATS}
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        start = time.perf_counter()
+        _, status, ids = engine.generate(clips, prompts, return_status=True, return_tokens=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    finally:
+        engine._plain_decode = False
+    launched = counts()
+    moved = {key: getattr(stats, key) - before[key] for key in ROUTE_STATS}
+    ran = moved["decode_steps"] + moved["idle_steps"]
+    want = {name: n * ran for name, n in step_launches(engine).items()}
+    want["write_cache_rows"] = want.get("write_cache_rows", 0) + engine.config.decoder.num_layers
+    got = {name: launched[name] for name in want}
+    route = "eager" if plain else "graph"
+    if got != want or stats.decode_route != route or (plain and moved["idle_steps"]):
+        raise AssertionError(f"decode_graph {route}: launches {got} for {ran} steps launched, expected {want} "
+                             f"(route {stats.decode_route})")
+    decode_s = moved["generate_seconds"] - moved["prefill_seconds"]
+    return {"route": route, "ids": ids, "status": status, "steps": moved["decode_steps"],
+            "idle_steps": moved["idle_steps"], "wall_s": wall, "ms_per_step": decode_s * 1e3 / moved["decode_steps"],
+            "ms_per_launched_step": decode_s * 1e3 / ran, "graphs_captured": moved["graphs_captured"],
+            "capture_s": moved["capture_seconds"], "replays": moved["replays"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def step_kernel_ms(fn, steps: int) -> float:
+    """Kernel ms a decode step: the kernels' time that torch.profiler
+    (device activity only) records over ``fn``, which launches ``steps``
+    steps eagerly, divided by them. A graph replays the same kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total / 1e3 for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / steps
+
+
+def decode_graph_line(engine: InferenceEngine, clips: np.ndarray, label: str, smi: str,
+                      sampled: bool = False) -> dict:
+    """Main path 14 on one engine: the plain loop, then the decode graphs
+    (a first call that warms up and captures, then a call of replays only).
+    Greedy tokens, completion flags and live steps must be equal bit for
+    bit on every call. Each route's busy share is the kernel ms of a step
+    (``step_kernel_ms`` over ``DECODE_GRAPH_PROFILED_STEPS`` steps launched
+    eagerly on the key's carry after the call, past the loop's end: the
+    kernels a replay runs, at the call's last extent) over the route's ms a
+    launched step; the graph's replay ms a step (CUDA events around its
+    replays, the kernels and the gaps between them) is given beside it.
+    With ``sampled`` the same engine then decodes at 0.7
+    from one seed on each route (``DECODE_GRAPH_SAMPLED_TOKENS`` a row),
+    whose tokens and steps must be equal too."""
+    prompts = [PROMPT] * len(clips)
+    eager = route_call(engine, clips, prompts, plain=True)
+    first = route_call(engine, clips, prompts, plain=False)
+    graph = route_call(engine, clips, prompts, plain=False)
+    calls = (eager, first, graph)
+    if any((c["ids"], c["status"], c["steps"]) != (eager["ids"], eager["status"], eager["steps"]) for c in calls):
+        raise AssertionError(f"decode_graph {label}: the graph route's tokens differ from the plain loop's: "
+                             f"{[[len(r) for r in c['ids']] for c in calls]}, steps {[c['steps'] for c in calls]}")
+    if not first["graphs_captured"] or graph["graphs_captured"] or not graph["replays"]:
+        raise AssertionError(f"decode_graph {label}: captures {first['graphs_captured']} then "
+                             f"{graph['graphs_captured']}, replays {graph['replays']}")
+    entry = engine._graphs[next(reversed(engine._graphs))]  # the key the calls replayed
+    kernel_ms = step_kernel_ms(lambda: [engine._decode_step(entry.carry) for _ in range(DECODE_GRAPH_PROFILED_STEPS)],
+                               DECODE_GRAPH_PROFILED_STEPS)
+    replay_ms = time_ms(entry.graph.replay, warmup=1, reps=2, rounds=3) / entry.graph.n
+    line = {"phase": "decode_graph", "run": label, "preset": engine.config.name,
+            "decoder_layers": engine.config.decoder.num_layers, "weights": engine.quantize,
+            "kv_cache": engine.kv_quant or "bfloat16", "batch": len(clips), "max_new_tokens": engine.max_new_tokens,
+            "decode_steps": eager["steps"], "tokens": [len(r) for r in eager["ids"]], "complete": eager["status"],
+            "tokens_equal": True, "launches_per_step": step_launches(engine), "card": smi}
+    for name, timed in (("eager", eager), ("graph", graph)):
+        line[name] = {key: timed[key] for key in ("ms_per_step", "ms_per_launched_step", "wall_s", "idle_steps",
+                                                  "replays", "peak_gib")}
+        line[name]["busy_share"] = kernel_ms / timed["ms_per_launched_step"]
+    line["kernel_ms_per_step"] = kernel_ms
+    line["graph"]["replay_ms_per_step"] = replay_ms
+    line["graph"]["first_call"] = {key: first[key] for key in ("ms_per_step", "wall_s", "graphs_captured",
+                                                                "capture_s", "replays", "idle_steps", "peak_gib")}
+    # What a session round adds on the graph route: its own cache copied
+    # into the key's before the loop and back after it (k/v, scales, index).
+    static = entry.carry.cache
+    own = {name: [t.clone() for t in static[name]] for name in ("k", "v", "k_scale", "v_scale") if name in static}
+    own["index"] = static["index"].clone()
+    copied = sum(t.numel() * t.element_size() for name in ("k", "v", "k_scale", "v_scale") for t in own.get(name, ()))
+    line["session_copy"] = {"bytes": copied + own["index"].numel() * 4,
+                            "ms": time_ms(lambda: _copy_cache(static, own), warmup=1, reps=5, rounds=5),
+                            "copies_a_round": 2}
+    del own
+    if sampled:
+        cap, temperature = engine.max_new_tokens, engine.temperature
+        engine.max_new_tokens, engine.temperature = DECODE_GRAPH_SAMPLED_TOKENS, DECODE_GRAPH_TEMPERATURE
+        try:
+            draws = []
+            for plain in (True, False, False):
+                engine._generator.manual_seed(DECODE_GRAPH_SEED)
+                draws.append(route_call(engine, clips, prompts, plain=plain))
+        finally:
+            engine.max_new_tokens, engine.temperature = cap, temperature
+        if any((d["ids"], d["steps"]) != (draws[0]["ids"], draws[0]["steps"]) for d in draws):
+            raise AssertionError(f"decode_graph {label}: at {DECODE_GRAPH_TEMPERATURE} the routes drew "
+                                 f"{[[len(r) for r in d['ids']] for d in draws]}")
+        line["sampled"] = {"temperature": DECODE_GRAPH_TEMPERATURE, "seed": DECODE_GRAPH_SEED,
+                           "max_new_tokens": DECODE_GRAPH_SAMPLED_TOKENS, "tokens": [len(r) for r in draws[0]["ids"]],
+                           "decode_steps": draws[0]["steps"], "graph_replays": draws[2]["replays"],
+                           "tokens_equal": True}
+    return line
+
+
+def decode_graph_batcher_line(engine: InferenceEngine, clips: np.ndarray, prompts: list[str], slots: int,
+                              smi: str) -> dict:
+    """Main path 14 on the batcher: the same sweep through ``slots`` slots
+    on the plain loop and on the decode graphs (the refill periods
+    replayed), eager, graph (its first period eager, then a capture), graph;
+    every request's tokens must be equal, and K5's counter must move by a
+    launch a layer for every step."""
+    layers = engine.config.decoder.num_layers
+    runs = []
+    for plain in (True, False, False):
+        engine._plain_decode = plain
+        try:
+            batcher = ContinuousBatcher(engine, slots=slots)
+            for i, clip in enumerate(clips):
+                batcher.submit(Request(i, clip, prompts[i]))
+            steps0 = engine.stats.decode_steps
+            reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            done = {c.request_id: c.token_ids for c in batcher.run()}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        finally:
+            engine._plain_decode = False
+        steps = engine.stats.decode_steps - steps0
+        launched = counts()["decode_attention_update"]
+        if launched != layers * steps or batcher.stats.idle_steps:
+            raise AssertionError(f"decode_graph batcher: K5 {launched} for {steps} steps")
+        runs.append({"route": batcher.stats.decode_route, "tokens": done, "steps": steps, "wall_s": wall,
+                     "ms_per_step": wall * 1e3 / steps, "graphs_captured": batcher.stats.graphs_captured,
+                     "capture_s": batcher.stats.capture_seconds, "replays": batcher.stats.replays,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if any((r["tokens"], r["steps"]) != (runs[0]["tokens"], runs[0]["steps"]) for r in runs) \
+            or [r["route"] for r in runs] != ["eager", "graph", "graph"]:
+        raise AssertionError(f"decode_graph batcher: routes {[r['route'] for r in runs]} disagree")
+    keys = ("ms_per_step", "wall_s", "graphs_captured", "capture_s", "replays", "peak_gib")
+    return {"phase": "decode_graph", "run": "batcher", "decoder_layers": layers, "slots": slots,
+            "requests": len(clips), "decode_steps": runs[0]["steps"], "tokens_equal": True,
+            "eager": [{key: r[key] for key in keys} for r in runs if r["route"] == "eager"],
+            "graph": [{key: r[key] for key in keys} for r in runs if r["route"] == "graph"], "card": smi}
+
+
+def int4_serving_phase(seed: int, dev: torch.device, tokenizer, grammar, smi: str) -> tuple[dict, dict]:
     """Main path 4: int4 serving at the full ``7b`` width and
     ``INT4_SERVING_LAYERS`` of its decoder layers. Builds the engine
     (seeded random f32 weights, cast to bf16, decoder quantized to packed
@@ -2314,10 +2525,11 @@ def int4_serving_phase(seed: int, dev: torch.device, tokenizer, grammar) -> tupl
         del engine.model.prefill
     served = counts()
     steps = requests[0]["decode_steps"]
-    want = 7 * cfg.decoder.num_layers * steps
+    ran = steps + requests[0]["idle_steps"]
+    want = 7 * cfg.decoder.num_layers * ran
     if served["int4_matmul"] != want or prefill_k6 != [0] or not all(served[k.__name__] for k in KERNELS):
         raise AssertionError(f"7b int4 launches {served} (prefill K6 {prefill_k6}), expected K6 {want}")
-    check_write_routes(served, cfg.decoder.num_layers, 1, steps, "7b int4 serving")
+    check_write_routes(served, cfg.decoder.num_layers, 1, ran, "7b int4 serving")
     for line in requests:
         decode_s = line["call_seconds"] - line["prefill_ms"] / 1e3
         emit(dict(line, preset=cfg.name, quantize="int4", ms_per_step=decode_s * 1e3 / steps,
@@ -2327,6 +2539,7 @@ def int4_serving_phase(seed: int, dev: torch.device, tokenizer, grammar) -> tupl
     emit({"phase": "decode_step_launches", "preset": cfg.name, **decode_step_launches(engine, seed, cache_len)})
     line, fused = fused_7b_check(engine, clips)
     emit(line)
+    emit(decode_graph_line(engine, clips, "7b_int4", smi))
     return kernels, {name: served[name] + fused[name] for name in served}
 
 
@@ -2372,14 +2585,14 @@ def fused_7b_check(engine: InferenceEngine, clips: np.ndarray) -> tuple[dict, di
             return logits, cache
 
         cap, target.max_new_tokens = target.max_new_tokens, PROFILE_TOKENS
-        steps0 = target.stats.decode_steps
+        steps0 = launched_steps(target.stats)
         try:
             with mock.patch.object(target.model, "prefill", recorded_prefill), \
                     mock.patch.object(target.model, "decode_block_pick", recorded_pick):
                 _, _, ids = target.generate(clips, [PROMPT] * len(clips), return_status=True, return_tokens=True)
         finally:
             target.max_new_tokens = cap
-        return prefills, steps, ids, target.stats.decode_steps - steps0
+        return prefills, steps, ids, launched_steps(target.stats) - steps0
 
     want_prefill, want_steps, want_ids, _ = run(engine)
     reset_counts()
@@ -2761,8 +2974,9 @@ def qwen2vl_phase(seed: int, dev: torch.device, smi: str) -> tuple[dict, dict[st
         del model.encode_video, model.prefill
     launched = counts()
     steps, layers, depth = stats.decode_steps, cfg.decoder.num_layers, cfg.encoder.depth
-    want = {"flash_attention": depth + layers, "write_cache_rows": layers * (1 + steps),
-            "decode_attention": layers * steps, "int4_matmul": 7 * layers * steps, "decode_attention_update": 0,
+    ran = launched_steps(stats)
+    want = {"flash_attention": depth + layers, "write_cache_rows": layers * (1 + ran),
+            "decode_attention": layers * ran, "int4_matmul": 7 * layers * ran, "decode_attention_update": 0,
             "reference_backwards": 0, "quantize_kv_on_card": 0, "update_cache_rows_on_card": 0,
             "mha_reference_on_card": 0}
     got = {key: launched[key] for key in want}
@@ -2834,8 +3048,9 @@ def decode_carries(engine: InferenceEngine, out: list):
     decode = engine._decode
 
     def wrapped(logits, *args):
+        entry = logits.to("cpu", torch.float32, copy=True)  # the loop advances the carry in place
         result = decode(logits, *args)
-        out.append((logits.float().cpu(), result[1].cpu()))
+        out.append((entry, result[1].cpu()))
         return result
 
     with mock.patch.object(engine, "_decode", wrapped):
@@ -2880,7 +3095,7 @@ def engine_api_phase(engine: InferenceEngine, clips: np.ndarray) -> tuple[list[d
     prompts = [PROMPT, f"{PROMPT}（片段 2）", "请逐条展开每个要点。"]
     lines = []
     reset_counts()
-    before = (stats.generate_calls, stats.session_resumes, stats.decode_steps)
+    before = (stats.generate_calls, stats.session_resumes, stats.decode_steps, stats.idle_steps)
     t0 = time.perf_counter()
     try:
         texts, status, ids = engine.generate_text(API_PROMPTS, dfa=validator, return_status=True, return_tokens=True)
@@ -2961,15 +3176,15 @@ def engine_api_phase(engine: InferenceEngine, clips: np.ndarray) -> tuple[list[d
     finally:
         engine.max_new_tokens = cap
     launched = counts()
-    calls, resumes, steps = (now - then for now, then in zip(
-        (stats.generate_calls, stats.session_resumes, stats.decode_steps), before))
+    calls, resumes, steps, idle = (now - then for now, then in zip(
+        (stats.generate_calls, stats.session_resumes, stats.decode_steps, stats.idle_steps), before))
     prefills = calls - resumes
-    check_write_routes(launched, layers, prefills, steps, "engine_api")
+    check_write_routes(launched, layers, prefills, steps + idle, "engine_api")
     if not launched["flash_attention"]:
         raise AssertionError(f"engine_api: K1 never launched: {launched}")
     lines.append({"phase": "engine_api", "preset": engine.config.name, "seconds": time.perf_counter() - t0,
-                  "prefills": prefills, "session_rounds": resumes, "decode_steps": steps,
-                  "launches": {name: launched[name] for name in ("flash_attention", "write_cache_rows",
+                  "prefills": prefills, "session_rounds": resumes, "decode_steps": steps, "idle_steps": idle,
+                  "decode_route": stats.decode_route, "launches": {name: launched[name] for name in ("flash_attention", "write_cache_rows",
                                                                  "decode_attention")}})
     return lines, launched
 
@@ -3032,18 +3247,18 @@ def grounding_run(engine: InferenceEngine, setting: str, topics: int = GROUNDING
 
     topic_ids, pairs = eval_inputs(topics, composites)
     before = (stats.generate_calls, stats.decode_steps, stats.tokens_generated, stats.generate_seconds,
-              stats.prefill_seconds)
+              stats.prefill_seconds, stats.idle_steps)
     reset_counts()
     with mock.patch.object(engine, "generate", recorded), decode_carries(engine, carries):
         report = run_eval(engine, topic_ids, GROUNDING_BATCH, seed=GROUNDING_SEED, composite_pairs=pairs or None)
     launched = counts()
-    prefills, steps, tokens, seconds, prefill_seconds = (
+    prefills, steps, tokens, seconds, prefill_seconds, idle = (
         now - then for now, then in zip((stats.generate_calls, stats.decode_steps, stats.tokens_generated,
-                                         stats.generate_seconds, stats.prefill_seconds), before))
+                                         stats.generate_seconds, stats.prefill_seconds, stats.idle_steps), before))
     if engine.kv_quant == "int8":
-        check_write_routes(launched, layers, prefills, steps, f"grounding {setting}")
+        check_write_routes(launched, layers, prefills, steps + idle, f"grounding {setting}")
     elif (launched["write_cache_rows"], launched["decode_attention_update"], launched["decode_attention"],
-          launched["update_cache_rows_on_card"]) != (layers * prefills, layers * steps, 0, 0):
+          launched["update_cache_rows_on_card"]) != (layers * prefills, layers * (steps + idle), 0, 0):
         raise AssertionError(f"grounding {setting}: launches {launched} for {prefills} prefills, {steps} steps")
     if not launched["flash_attention"]:
         raise AssertionError(f"grounding {setting}: K1 never launched")
@@ -3060,7 +3275,8 @@ def grounding_run(engine: InferenceEngine, setting: str, topics: int = GROUNDING
         "per_composite_diff_vs_jax_greedy": {label: [JAX_GREEDY_COMPOSITES[label], got]
                                              for label, got in report.get("per_composite", {}).items()
                                              if got != JAX_GREEDY_COMPOSITES[label]},
-        "prefills": prefills, "decode_steps": steps, "tokens": tokens, "wall_seconds": report["wall_seconds"],
+        "prefills": prefills, "decode_steps": steps, "idle_steps": idle, "decode_route": stats.decode_route,
+        "tokens": tokens, "wall_seconds": report["wall_seconds"],
         "decode_tokens_per_s": tokens / decode_s if decode_s else 0.0,
         "ms_per_step": decode_s / steps * 1e3 if steps else 0.0,
         "launches": {name: launched[name] for name in ("flash_attention", "write_cache_rows", "decode_attention",
@@ -3240,7 +3456,8 @@ def analyzer_run(analyzer: ContentAnalyzer, log: LogLines, clip: Path, label: st
     engine = analyzer.engine
     layers = engine.config.decoder.num_layers
     stats = engine.stats
-    before = (stats.decode_steps, stats.tokens_generated, stats.session_resumes, stats.frames_preprocessed)
+    before = (stats.decode_steps, stats.tokens_generated, stats.session_resumes, stats.frames_preprocessed,
+              stats.idle_steps)
     logged = len(log.messages)
     tally = dict.fromkeys(("prefills", "engine_steps", "stages"), 0)
     reset_counts()
@@ -3251,14 +3468,16 @@ def analyzer_run(analyzer: ContentAnalyzer, log: LogLines, clip: Path, label: st
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launched = counts()
-    steps, tokens, resumes, frames = (now - then for now, then in zip(
-        (stats.decode_steps, stats.tokens_generated, stats.session_resumes, stats.frames_preprocessed), before))
+    steps, tokens, resumes, frames, idle = (now - then for now, then in zip(
+        (stats.decode_steps, stats.tokens_generated, stats.session_resumes, stats.frames_preprocessed,
+         stats.idle_steps), before))
     batcher_steps = steps - tally["engine_steps"]
+    engine_ran = tally["engine_steps"] + idle  # the batcher's refill periods run no idle step
     events = log.messages[logged:]
     route = ("batcher" if any(m.startswith("event=segment_serving") for m in events)
              else "engine" if result.metadata.get("segments", 1) == 1 else "engine_segments")
-    want = {"write_cache_rows": layers * (tally["prefills"] + tally["engine_steps"] + tally["stages"]),
-            "decode_attention": layers * tally["engine_steps"], "adopt_rows": layers * tally["stages"],
+    want = {"write_cache_rows": layers * (tally["prefills"] + engine_ran + tally["stages"]),
+            "decode_attention": layers * engine_ran, "adopt_rows": layers * tally["stages"],
             "decode_attention_update": layers * batcher_steps, "quantize_kv_on_card": 0,
             "update_cache_rows_on_card": 0}
     got = {key: launched[key] for key in want}
@@ -3276,7 +3495,8 @@ def analyzer_run(analyzer: ContentAnalyzer, log: LogLines, clip: Path, label: st
             "segments": result.metadata.get("segments", 1),
             "segments_analyzed": result.metadata.get("segments_analyzed", 1),
             "segment_gaps": len(result.metadata.get("segment_gaps", [])), "engine_prefills": tally["prefills"],
-            "engine_decode_steps": tally["engine_steps"], "batcher_stages": tally["stages"],
+            "engine_decode_steps": tally["engine_steps"], "engine_idle_steps": idle,
+            "decode_route": stats.decode_route, "batcher_stages": tally["stages"],
             "batcher_decode_steps": batcher_steps, "decode_steps": steps, "tokens": tokens,
             "session_resumes": resumes, "frames_preprocessed": frames,
             "tokens_per_s": tokens / wall, "ms_per_step": wall * 1e3 / steps if steps else 0.0,
@@ -3404,7 +3624,7 @@ def engine_calls(record: list, label=None):
 
     def counted(engine, frames, *args):
         stats = engine.stats
-        before = (stats.decode_steps, stats.tokens_generated, flash_attention.launches)
+        before = (stats.decode_steps, stats.tokens_generated, flash_attention.launches, stats.idle_steps)
         torch.cuda.synchronize()
         start = time.perf_counter()
         out = execute(engine, frames, *args)
@@ -3412,7 +3632,7 @@ def engine_calls(record: list, label=None):
         seconds = time.perf_counter() - start
         steps, tokens = stats.decode_steps - before[0], stats.tokens_generated - before[1]
         record.append({**({"call": label()} if label else {}), "video": frames is not None, "rows": args[3],
-                       "decode_steps": steps, "tokens": tokens, "seconds": seconds, "tokens_per_s": tokens / seconds,
+                       "decode_steps": steps, "idle_steps": stats.idle_steps - before[3], "tokens": tokens, "seconds": seconds, "tokens_per_s": tokens / seconds,
                        "ms_per_step": seconds * 1e3 / steps if steps else 0.0,
                        "k1_launches": flash_attention.launches - before[2]})
         return out
@@ -3480,8 +3700,9 @@ def pipeline_probes(record: dict):
 def pipeline_launch_check(launched: dict, calls: list[dict], layers: int, label: str) -> None:
     """K1 in every engine call's prefill (video or text); K2 once a layer
     for each prefill and int8 decode step; K3 once a layer a step; no
-    batcher kernel and nothing plain on the card."""
-    steps = sum(c["decode_steps"] for c in calls)
+    batcher kernel and nothing plain on the card (the decode graphs' idle
+    steps launch as a live step does)."""
+    steps = sum(c["decode_steps"] + c["idle_steps"] for c in calls)
     want = {"write_cache_rows": layers * (len(calls) + steps), "decode_attention": layers * steps,
             "adopt_rows": 0, "decode_attention_update": 0, "quantize_kv_on_card": 0, "update_cache_rows_on_card": 0}
     got = {key: launched[key] for key in want}
@@ -3873,8 +4094,9 @@ def train_staged_phase(dev: torch.device, workdir: Path, tokenizer, smi: str) ->
 def bf16_eval_launch_check(launched: dict, calls: list[dict], layers: int, label: str) -> None:
     """An eval engine's launches (bf16 KV cache): K1 in every call's
     prefill, K2 once a layer a prefill, K5 once a layer a decode step, no
-    K3 and nothing plain on the card."""
-    steps = sum(c["decode_steps"] for c in calls)
+    K3 and nothing plain on the card (the decode graphs' idle steps launch
+    as a live step does)."""
+    steps = sum(c["decode_steps"] + c["idle_steps"] for c in calls)
     want = {"write_cache_rows": layers * len(calls), "decode_attention_update": layers * steps,
             "decode_attention": 0, "adopt_rows": 0, "quantize_kv_on_card": 0, "update_cache_rows_on_card": 0}
     got = {key: launched[key] for key in want}
@@ -5552,7 +5774,8 @@ def run(seed: int) -> None:
         emit(dict(line, max_new_tokens_cap=MAX_NEW_TOKENS))
     if not all(served[kernel.__name__] for kernel in KERNELS):
         raise AssertionError(f"a kernel was not launched by the requests: {served}")
-    check_write_routes(served, layers, 2, requests[0]["decode_steps"] + requests[2]["decode_steps"], "serving")
+    ran = sum(requests[i]["decode_steps"] + requests[i]["idle_steps"] for i in (0, 2))  # the two calls'
+    check_write_routes(served, layers, 2, ran, "serving")
     emit(profile_phase(engine, clips[:2]))
     emit({"phase": "decode_step_launches", "preset": cfg.name, **decode_step_launches(engine, seed, cache_len)})
 
@@ -5577,6 +5800,26 @@ def run(seed: int) -> None:
         raise AssertionError(f"batcher launches {batch_launched} for {line['decode_steps']} decode steps")
     emit(batched["check"])
     emit(batcher_profile(batch_engine, batch_clips, batch_prompts, BATCHER_SLOTS))
+
+    # Main path 14, the decode graphs against the plain per-step loop: base
+    # at full width on path 1's engine (4 layers; then at 0.7 from one seed)
+    # and at all 24 decoder layers (int8, the note grammar, three requests),
+    # the batcher on path 2's engine; 7b int4 follows in path 4.
+    t0 = time.perf_counter()
+    deep_cfg = replace(cfg, decoder=replace(cfg.decoder, num_layers=DECODE_GRAPH_LAYERS))
+    emit(decode_graph_line(engine, clips, "base_4", smi, sampled=True))
+    t1 = time.perf_counter()
+    deep = InferenceEngine(deep_cfg, **dict(serving, max_new_tokens=DECODE_GRAPH_DEEP_TOKENS))
+    deep.dfa = engine.dfa
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t1
+    emit(dict(decode_graph_line(deep, clips, "base_24", smi), engine_seconds=engine_s,
+              seconds=time.perf_counter() - t1))
+    del deep
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(decode_graph_batcher_line(batch_engine, batch_clips, batch_prompts, BATCHER_SLOTS, smi))
+    emit({"phase": "decode_graph_done", "seconds": time.perf_counter() - t0})
 
     # Main path 5, the engine API on path 1's int8 engine: generate_text, id
     # prefixes, a session and a batch bucket through K1-K3; then K2 + K3 at
@@ -5633,7 +5876,7 @@ def run(seed: int) -> None:
     # between here and there builds a mesh.
     torch.cuda.empty_cache()
     spawned = in_background(build_mesh, {"data": 1, "model": 2}, devices=[dev, dev], timeout_s=MESH_TIMEOUT_S)
-    int4_kernels, int4_served = int4_serving_phase(seed, dev, tokenizer, grammar)
+    int4_kernels, int4_served = int4_serving_phase(seed, dev, tokenizer, grammar, smi)
     for name, result in int4_kernels.items():  # K1-K3 at the 7b shapes, beside the base ones
         for key in ("max_abs_err", "tol", "worst_ratio", "shifted_mask_ratio", "ms", "device_ms", "host_us",
                     "kernels_per_call", "unwarmed_kernels_per_call", "bit_identical_runs", "splits", "plain_ms",

@@ -92,6 +92,12 @@ def test_cuda_tests_skip_without_a_card(monkeypatch):
         require_cuda()
 
 
+def ran_steps(engine) -> int:
+    """The decode steps an engine's loops have launched: the live ones and
+    the decode graphs' idle ones."""
+    return engine.stats.decode_steps + engine.stats.idle_steps
+
+
 def randn(gen, *shape, device, dtype=torch.bfloat16):
     return torch.randn(*shape, generator=gen, device=device).to(dtype)
 
@@ -421,13 +427,14 @@ def test_tiny_engine_runs_through_every_kernel(cuda):
     engine.dfa = engine.wrap_grammar(note_dfa(engine.byte_vocab))
     kernels = (flash_attention, write_cache_rows, decode_attention)
     before = [k.launches for k in kernels]
-    steps = engine.stats.decode_steps
+    steps = ran_steps(engine)
     frames = np.random.default_rng(0).integers(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)
     texts, ids = engine.generate(frames, ["分析", "hi"], return_tokens=True)
     assert all(0 < len(row) <= 34 for row in ids)
     assert all(k.launches > n for k, n in zip(kernels, before))
-    # K2 once a layer for the prefill and for each decode step, K3 once a layer a step.
-    layers, steps = cfg.decoder.num_layers, engine.stats.decode_steps - steps
+    # K2 once a layer for the prefill and for each decode step, K3 once a
+    # layer a step (the decode graphs' idle steps launch too).
+    layers, steps = cfg.decoder.num_layers, ran_steps(engine) - steps
     assert [k.launches - n for k, n in zip(kernels[1:], before[1:])] == [layers * (1 + steps), layers * steps]
 
 
@@ -632,7 +639,7 @@ def test_tiny_int4_engine_decodes_through_k6(cuda):
     frames = np.random.default_rng(0).integers(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)
     _, ids = engine.generate(frames, ["分析", "hi"], return_tokens=True)
     assert all(0 < len(row) <= 34 for row in ids)
-    assert int4_matmul.launches - before == 7 * cfg.decoder.num_layers * engine.stats.decode_steps
+    assert int4_matmul.launches - before == 7 * cfg.decoder.num_layers * ran_steps(engine)
 
 
 def tiny_api_engines(cuda, max_new: int = 32):
@@ -673,14 +680,14 @@ def test_tiny_generate_text_on_card(cuda):
 
     card, cpu = tiny_api_engines(cuda)
     validator = card.wrap_grammar(validator_dfa(card.byte_vocab))
-    steps = card.stats.decode_steps
+    steps = ran_steps(card)
     reset_counts()
     _, status, ids = assert_first_logits_close(card, cpu, "generate_text", API_PROMPTS, dfa=validator,
                                                return_status=True, return_tokens=True)
     launched = counts()
     walk_rows(validator, status, ids, card.max_new_tokens + 2, "generate_text")
     assert launched["flash_attention"] > 0
-    check_write_routes(launched, card.config.decoder.num_layers, 1, card.stats.decode_steps - steps, "text")
+    check_write_routes(launched, card.config.decoder.num_layers, 1, ran_steps(card) - steps, "text")
 
 
 @pytest.mark.cuda
@@ -856,3 +863,116 @@ def test_tiny_speculative_engine_runs_through_k5(cuda):
     engine.detach_draft()
     assert len(parted_rows(engine, calls[0], got, status, "tiny speculative")) <= 1
 
+
+
+def graph_engine(cuda, kind: str, **kwargs):
+    """An engine for the decode graphs' checks, with the note grammar: the
+    tiny preset with an int8 KV cache (K2 + K3 each step) or a bf16 one (K5),
+    or 7b at full width and 2 of its 28 decoder layers (1 encoder layer) with
+    int4 weights (K6 in each projection) and an int8 KV cache. Returns the
+    engine, two clips and each step's launches by counter."""
+    from dataclasses import replace
+    from pathlib import Path
+
+    from video_transformer_tpu_torch.analyzer.schema import note_dfa
+    from video_transformer_tpu_torch.models.bpe import BpeTokenizer
+    from video_transformer_tpu_torch.models.config import get_preset
+    from video_transformer_tpu_torch.parallel.engine import InferenceEngine
+
+    tok = BpeTokenizer.load(Path(__file__).resolve().parents[1] / "data" / "tokenizers" / "bpe-zh-2048.json")
+    cfg = get_preset("7b" if kind == "int4" else "tiny")
+    cfg = replace(cfg, decoder=replace(cfg.decoder, vocab_size=tok.vocab_size,
+                                       num_layers=2 if kind == "int4" else cfg.decoder.num_layers))
+    if kind == "int4":
+        cfg = replace(cfg, encoder=replace(cfg.encoder, num_layers=1))
+    kwargs = dict(dict(max_new_tokens=64, temperature=0.0), **kwargs)
+    engine = InferenceEngine(cfg, tokenizer=tok, param_dtype="bfloat16", device=cuda,
+                             quantize="int4" if kind == "int4" else "int8",
+                             kv_quant=None if kind == "bf16" else "int8", **kwargs)
+    engine.dfa = engine.wrap_grammar(note_dfa(engine.byte_vocab))
+    enc = cfg.encoder
+    frames = np.random.default_rng(6).integers(0, 256, (2, enc.num_frames, enc.image_size, enc.image_size, 3),
+                                               dtype=np.uint8)
+    layers = cfg.decoder.num_layers
+    per_step = {"int8": {"write_cache_rows": layers, "decode_attention": layers},
+                "bf16": {"decode_attention_update": layers},
+                "int4": {"write_cache_rows": layers, "decode_attention": layers, "int4_matmul": 7 * layers}}[kind]
+    return engine, frames, per_step
+
+
+DECODE_COUNTERS = {"write_cache_rows": write_cache_rows, "decode_attention": decode_attention,
+                   "decode_attention_update": decode_attention_update, "int4_matmul": int4_matmul}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "bf16", "int4"])
+def test_decode_graphs_equal_the_plain_loop(cuda, kind):
+    """Greedy, the graph route's tokens, positions, completion flags and
+    live steps equal the plain per-step loop's bit for bit, on its first
+    call (an eager warm-up chunk, then a capture) and its second (replays
+    only); each kernel's counter moves by its launches a step x the steps
+    launched (live and idle) plus the prefill's K2."""
+    engine, frames, per_step = graph_engine(cuda, kind)
+    layers = engine.config.decoder.num_layers
+    outs = []
+    for route in ("plain", "graph", "graph"):
+        engine._plain_decode = route == "plain"
+        before = {name: counter.launches for name, counter in DECODE_COUNTERS.items()}
+        steps, ran = engine.stats.decode_steps, ran_steps(engine)
+        outs.append((engine.generate(frames, ["分析", "hi"], return_status=True, return_tokens=True),
+                     engine.stats.decode_steps - steps))
+        assert engine.stats.decode_route == ("eager" if route == "plain" else "graph")
+        ran = ran_steps(engine) - ran
+        want = {name: per_step.get(name, 0) * ran for name in DECODE_COUNTERS}
+        want["write_cache_rows"] += layers  # the prefill's
+        assert {name: DECODE_COUNTERS[name].launches - before[name] for name in DECODE_COUNTERS} == want
+    assert outs[0] == outs[1] == outs[2]
+    assert outs[0][1] > 16  # a second chunk: the graph was captured and replayed
+    assert engine.stats.graphs_captured == 1 and engine.stats.replays > 0
+
+
+@pytest.mark.cuda
+def test_decode_graphs_draw_what_the_plain_loop_draws(cuda):
+    """At temperature 0.7 from one seed, the graph route's tokens equal the
+    plain loop's, and the generator ends where the plain loop leaves it
+    (the idle steps' draws are taken back): a second call draws the same
+    too."""
+    engine, frames, _ = graph_engine(cuda, "int8", temperature=0.7)
+    outs = []
+    for route in ("plain", "graph"):
+        engine._plain_decode = route == "plain"
+        engine._generator.manual_seed(11)
+        first = engine.generate(frames, ["分析", "hi"], return_tokens=True)
+        offset = engine._generator.get_offset()
+        outs.append((first, offset, engine.generate(frames, ["分析", "hi"], return_tokens=True)))
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_refill", [True, False])
+def test_batcher_graphs_equal_the_plain_loop(cuda, device_refill):
+    """Five requests through two slots: the graph route's tokens equal the
+    plain loop's, and K5's counter moves by a launch a layer for every step
+    launched (the refill route runs whole periods either way; a host-driven
+    chunk's idle steps launch too)."""
+    from video_transformer_tpu_torch.parallel.serving import ContinuousBatcher, Request
+
+    engine = tiny_bf16_engine(cuda)
+    layers = engine.config.decoder.num_layers
+    rng = np.random.default_rng(2)
+    clips = rng.integers(0, 256, (5, 4, 64, 64, 3), dtype=np.uint8)
+    prompts = ["分析", "hi", "第三段", "summarize " * 30, "x"]
+    outs = []
+    for route in ("plain", "graph"):
+        engine._plain_decode = route == "plain"
+        batcher = ContinuousBatcher(engine, slots=2, device_refill=device_refill, chunk_steps=24)
+        for i in range(5):
+            batcher.submit(Request(i, clips[i], prompts[i]))
+        before, steps = decode_attention_update.launches, engine.stats.decode_steps
+        outs.append({c.request_id: c.token_ids for c in batcher.run()})
+        assert batcher.stats.decode_route == ("eager" if route == "plain" else "graph")
+        ran = engine.stats.decode_steps - steps + batcher.stats.idle_steps
+        assert decode_attention_update.launches - before == layers * ran
+        if route == "graph":
+            assert batcher.stats.graphs_captured > 0 and batcher.stats.replays > 0
+    assert outs[0] == outs[1] and sorted(outs[0]) == list(range(5))

@@ -54,6 +54,8 @@ SPEC_MODULES = ("models.fuse",)
 # Serving over a mesh, and the native .y4m reader; training over a mesh.
 MESH_MODULES = ("parallel.mesh", "parallel.sharding", "video.native_reader", "parallel.pipeline_parallel",
                 "parallel.context_parallel", "parallel.expert_parallel")
+# The compiled decode loop's CUDA graphs (torch alone).
+GRAPH_MODULES = ("parallel.graphs",)
 
 _ISOLATED_IMPORT = """
 import importlib, pkgutil, sys
@@ -130,11 +132,25 @@ def test_port_imports_without_jax_or_the_jax_package():
         [sys.executable, "-c", _ISOLATED_IMPORT.format(
             refused=REFUSED,
             analyzer=ANALYZER_MODULES + PIPELINE_MODULES + SLICE_MODULES + QWEN_MODULES + SPEC_MODULES
-            + MESH_MODULES)],
+            + MESH_MODULES + GRAPH_MODULES)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert result.returncode == 0, result.stderr[-2000:]
     assert int(result.stdout.split()[-1]) >= 20  # every module was walked
+
+
+def test_decode_graphs_import_torch_only():
+    """``parallel/graphs.py`` imports torch and the standard library, and
+    nothing of the port: the engine hands it the kernel counters."""
+    tree = ast.parse((PACKAGE / "parallel" / "graphs.py").read_text(encoding="utf-8"))
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported |= {alias.name.split(".")[0] for alias in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, f"graphs.py:{node.lineno} imports from the port"
+            imported.add((node.module or "").split(".")[0])
+    assert imported - {"__future__"} <= {"torch"} | set(sys.stdlib_module_names), imported
 
 
 def _module_ast(path: Path) -> ast.Module:

@@ -7,8 +7,29 @@ own 128-multiple bucket, a continuation prefix right after it), the same
 cache sizing, and the same decode loop semantics (frozen rows, EOS filler,
 grammar fast-forward blocks of 1 + max_forced_run tokens, per-row
 ``out_pos`` with ``out_width`` slack, the cache index rewound to
-``index_before + advance`` after each block). The loop runs on the host,
-one decoder call per step; the tensors stay on the device.
+``index_before + advance`` after each block).
+
+The decode loop is the JAX package's ``_decode_loop_fn`` as steps of a fixed
+carry (``_decode_step``): each step updates the logits, grammar state, done
+rows, output buffer, positions, KV cache, a device step counter and a device
+flag ``go`` in place, and reads nothing on the host; a step taken after the
+loop has ended (``go`` false) freezes every row and changes nothing that is
+read later. On one card the steps run as replayed CUDA graphs of
+``DECODE_CHUNK`` steps (``parallel/graphs.py``), the host reading ``go`` and
+the counter once a chunk; on the CPU the same steps run eagerly in the same
+chunks. A mesh engine reads ``go`` after every step (the plain loop), as
+does a card engine whose private ``_plain_decode`` is set (the loop's plain
+version, for the tests and the smoke). ``stats.decode_route`` names the
+route that ran.
+
+Graphs are cached as the JAX engine caches its programs: one a (batch,
+cache length, grammar, temperature above 0, closer bias, block width). Each
+key owns a static carry. A call without a session prefills straight into
+the key's KV cache; a call that keeps a session, and ``continue_session``,
+decode in their own cache, which is copied into the key's before the loop
+and back after it, so that no two live sessions share storage. Assigning
+the model, the draft, the grammar, the temperature, the closer bias, the
+forced-run cap or the token budget drops the graphs.
 
 Continuation: ``prefixes`` (token ids or text) re-prefill prompt + prefix
 and resume the grammar mid-document; ``session_rounds`` with
@@ -72,6 +93,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Callable
@@ -86,13 +108,28 @@ from ..models.port import load_qwen2vl_dir
 from ..models.quant import quantize_decoder, quantize_module
 from ..models.tokenizer import ByteTokenizer
 from ..models.vlm import VideoLM
+from ..ops.attention import flash_attention
+from ..ops.decode_attention import decode_attention, decode_attention_update, write_cache_rows
+from ..ops.int4_matmul import int4_matmul
 from ..ops.preprocess import preprocess_frames
 from ..utils.tracing import tracer
 from ..weights import cast_weights, flatten_tree, from_jax_params, from_state_dict, load_npz, random_params
+from .graphs import GeneratorMark, GraphPool, RouteStats, StepGraph
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, replicated
 from .sharding import shard_block, shard_model
 
-__all__ = ["InferenceEngine", "EngineStats", "EngineSession", "params_checkpoints", "resolve_params_dir"]
+__all__ = ["InferenceEngine", "EngineStats", "EngineSession", "params_checkpoints", "resolve_params_dir",
+           "DECODE_CHUNK", "LAUNCH_COUNTERS"]
+
+DECODE_CHUNK = 16
+"""Decode steps a captured graph (an eager chunk on the CPU) runs between two host reads."""
+GRAPH_KEYS = 8
+"""Graph keys an engine keeps (least recently used first out): each holds a KV cache."""
+LAUNCH_COUNTERS = (flash_attention, write_cache_rows, decode_attention, decode_attention_update, int4_matmul)
+"""The kernel wrappers a decode step may launch through, whose ``launches`` a graph keeps true."""
+# Assigning one of these drops the engine's graphs: a graph holds their values.
+_GRAPH_INPUTS = frozenset(("model", "draft_model", "dfa", "temperature", "structure_bias", "max_forced_run",
+                           "max_new_tokens", "tokenizer"))
 
 
 def _round_up(x: int, multiple: int) -> int:
@@ -128,8 +165,9 @@ def resolve_params_dir(path: str | Path) -> Path:
 
 
 @dataclass
-class EngineStats:
-    """Cumulative counters; seconds on the host clock after a device sync."""
+class EngineStats(RouteStats):
+    """Cumulative counters; seconds on the host clock after a device sync.
+    The decode route's (``RouteStats``) are the port's own."""
 
     generate_calls: int = 0
     tokens_generated: int = 0
@@ -180,6 +218,45 @@ class EngineSession:
     dfa: Any
     rounds_left: int
     draft_cache: dict | None = None
+
+
+@dataclass
+class _Carry:
+    """The decode loop's carry, which each step updates in place, and the
+    loop's constants."""
+
+    logits: torch.Tensor
+    state: torch.Tensor
+    finished: torch.Tensor
+    tokens: torch.Tensor  # [B, max_new + 2 x block width]
+    out_pos: torch.Tensor
+    cache: dict
+    step: torch.Tensor  # int32 []: live steps taken (JAX's ``steps``)
+    go: torch.Tensor  # bool []: the next step is live
+    dfa: Any
+    table: Any
+    forced: tuple[torch.Tensor, ...] | None
+    close_bias: torch.Tensor | None
+    cols: torch.Tensor  # [1, block width]
+
+
+@dataclass
+class _GraphEntry:
+    """A graph key's static carry, and its graph once captured."""
+
+    carry: _Carry
+    graph: StepGraph | None = None
+
+
+def _copy_cache(dst: dict, src: dict) -> None:
+    """Copy ``src``'s k/v, scales and index into ``dst``'s tensors, skipping
+    the tensors the two share."""
+    for name in ("k", "v", "k_scale", "v_scale"):
+        for d, s in zip(dst.get(name, ()), src.get(name, ())):
+            if d is not s:
+                d.copy_(s)
+    if dst["index"] is not src["index"]:
+        dst["index"].copy_(src["index"])
 
 
 class InferenceEngine:
@@ -286,10 +363,16 @@ class InferenceEngine:
         self.draft_model: VideoLM | None = None
         self.draft_config: VLMConfig | None = None
         self.spec_tokens = 0
+        # The compiled decode loop: graphs by key, sharing one pool.
+        self._graphs: OrderedDict[tuple, _GraphEntry] = OrderedDict()
+        self._graph_pool = GraphPool(self.device) if self.device.type == "cuda" else None
+        self._plain_decode = False
 
     def __setattr__(self, name: str, value: Any) -> None:
         """On a mesh's rank 0, a public attribute set outside any call (such
         as ``engine.dfa = ...``) is made on every rank."""
+        if name in _GRAPH_INPUTS and self.__dict__.get("_graphs"):
+            self._graphs.clear()
         mesh = self.__dict__.get("mesh")
         if mesh is not None and mesh.is_controller and self.__dict__.get("_ready") and not name.startswith("_"):
             with mesh.controlled(("call", self, "__setattr__", (name, value), {})):
@@ -858,12 +941,20 @@ class InferenceEngine:
 
         spec = self.draft_model is not None
         start = time.perf_counter()
-        # Speculative caches are in the compute dtype whatever kv_quant says,
-        # as the JAX engine's speculative program makes them.
-        cache = init_kv_cache(
-            self.config.decoder, b, cache_len, self.model.compute_dtype,
-            quant=self.kv_quant == "int8" and not spec, device=dev, kv_heads=self.model.decoder.kv_heads,
-        )
+        if not spec and not rounds and self._decode_route() == "graph":
+            # No session keeps this cache: the prefill writes straight into
+            # the graph key's KV cache (fresh index and scales).
+            static = self._graph_entry(b, cache_len, dfa).carry.cache
+            cache = init_kv_cache(self.config.decoder, b, 0, self.model.compute_dtype,
+                                  quant=self.kv_quant == "int8", device=dev, kv_heads=self.model.decoder.kv_heads)
+            cache["k"], cache["v"] = list(static["k"]), list(static["v"])
+        else:
+            # Speculative caches are in the compute dtype whatever kv_quant
+            # says, as the JAX engine's speculative program makes them.
+            cache = init_kv_cache(
+                self.config.decoder, b, cache_len, self.model.compute_dtype,
+                quant=self.kv_quant == "int8" and not spec, device=dev, kv_heads=self.model.decoder.kv_heads,
+            )
         if b != local_real:
             # Batch padding takes no part in the int8 KV scales: the JAX
             # engine lets pad rows raise them, which changes the real rows'
@@ -934,73 +1025,187 @@ class InferenceEngine:
             out += (session,)
         return out if len(out) > 1 else texts
 
+    # -- the decode loop -----------------------------------------------------------
+
+    def _decode_route(self) -> str:
+        """The loop's route, from the configuration alone: "graph" on one
+        card, "chunked" (the same steps, eagerly, in the same chunks) on the
+        CPU, "plain" (a host read after every step) on a mesh or where
+        ``_plain_decode`` asks for the loop's plain version. A draft takes
+        the speculative loop instead."""
+        if self.mesh is not None or self._plain_decode:
+            return "plain"
+        return "graph" if self.device.type == "cuda" else "chunked"
+
+    def _new_carry(self, logits, cache, state, finished, dfa) -> _Carry:
+        """A carry around these tensors, which the steps update in place,
+        with a new output buffer, positions, step counter and flag."""
+        dev = self.device
+        b = logits.shape[0]
+        block_width = self._block_width(dfa)
+        # Rows freeze at out_pos >= max_new and frozen rows still write an EOS
+        # block at out_pos each step: 2 x block_width of slack.
+        out_width = self.max_new_tokens + 2 * block_width
+        return _Carry(
+            logits=logits, state=state, finished=finished,
+            tokens=torch.empty((b, out_width), dtype=torch.long, device=dev),
+            out_pos=torch.empty((b,), dtype=torch.long, device=dev), cache=cache,
+            step=torch.empty((), dtype=torch.int32, device=dev), go=torch.empty((), dtype=torch.bool, device=dev),
+            dfa=dfa, table=self._table_for(dfa) if dfa is not None else None,
+            forced=self._forced_for(dfa) if dfa is not None else None, close_bias=self.close_bias_array(),
+            cols=torch.arange(block_width, device=dev)[None, :],
+        )
+
+    def _graph_entry(self, b: int, cache_len: int, dfa) -> _GraphEntry:
+        """The graph key's entry (made on first use: a static carry with its
+        own KV cache, no graph yet); the least recently used key past
+        ``GRAPH_KEYS`` is dropped."""
+        key = (b, cache_len, id(dfa) if dfa is not None else None, self.temperature > 0, self.structure_bias,
+               self._block_width(dfa))
+        entry = self._graphs.get(key)
+        if entry is not None:
+            self._graphs.move_to_end(key)
+            return entry
+        dev = self.device
+        cache = init_kv_cache(self.config.decoder, b, cache_len, self.model.compute_dtype,
+                              quant=self.kv_quant == "int8", device=dev, kv_heads=self.model.decoder.kv_heads)
+        logits = torch.zeros((b, self.config.decoder.vocab_size), dtype=torch.float32, device=dev)
+        state = torch.zeros((b,), dtype=torch.long, device=dev)
+        finished = torch.zeros((b,), dtype=torch.bool, device=dev)
+        entry = self._graphs[key] = _GraphEntry(self._new_carry(logits, cache, state, finished, dfa))
+        while len(self._graphs) > GRAPH_KEYS:
+            self._graphs.popitem(last=False)
+        return entry
+
     def _decode(self, logits, cache, state, finished, dfa):
         """The constrained decode loop: up to max_new_tokens per row.
 
         Takes and returns the full carry, so that ``generate`` and
         ``continue_session`` run this one loop: ``finished`` marks rows
         that have ended for good (accepted, EOS, batch padding); the token
-        cap freezes a row only for this round, through ``out_pos``.
+        cap freezes a row only for this round, through ``out_pos``. The
+        caller's logits, cache, state and finished advance in place.
         Returns (tokens, out_pos, complete, steps, logits, cache, state,
         finished).
         """
+        route = self._decode_route()
+        entry = None
+        if route == "graph":
+            entry = self._graph_entry(logits.shape[0], cache["k"][0].shape[2], dfa)
+            c = entry.carry
+            for dst, src in ((c.logits, logits), (c.state, state), (c.finished, finished)):
+                dst.copy_(src)
+            _copy_cache(c.cache, cache)
+        else:
+            c = self._new_carry(logits, cache, state, finished, dfa)
+        max_new = self.max_new_tokens
+        c.tokens.fill_(self.tokenizer.EOS)
+        c.out_pos.zero_()
+        c.step.zero_()
+        c.go.copy_((c.step < max_new) & ~(c.finished | (c.out_pos >= max_new)).all())
+        steps = self._run_loop(c, entry, route)
+        complete = (c.state == c.dfa.accept) if c.dfa is not None else c.finished.clone()
+        if entry is not None:
+            for dst, src in ((logits, c.logits), (state, c.state), (finished, c.finished)):
+                dst.copy_(src)
+            _copy_cache(cache, c.cache)
+        return c.tokens, c.out_pos, complete, steps, logits, cache, state, finished
+
+    def _run_loop(self, c: _Carry, entry: _GraphEntry | None, route: str) -> int:
+        """Run the steps on ``c`` until ``go`` is false; returns the live
+        steps. The graph and chunked routes read the device once a chunk of
+        ``DECODE_CHUNK`` steps (a key's first chunk runs eagerly on the
+        graphs' stream, the next is captured, then replayed); the plain route
+        once a step."""
+        stats = self.stats
+        stats.decode_route = "graph" if route == "graph" else "eager"
+        if route == "plain":
+            while bool(c.go):  # the plain loop's host read, one a step
+                self._decode_step(c)
+            return int(c.step)
+        sampling = self.temperature > 0
+        ran = 0
+        while True:
+            mark = GeneratorMark(self._generator) if sampling else None
+
+            def chunk():
+                for _ in range(DECODE_CHUNK):
+                    if mark is not None:
+                        mark.before_step()
+                    self._decode_step(c)
+
+            if entry is None:
+                chunk()
+            elif entry.graph is None:
+                self._graph_pool.warm(chunk)
+            else:
+                entry.graph.replay()
+                stats.replays += 1
+            ran += DECODE_CHUNK
+            go, live = torch.stack([c.go.to(torch.int32), c.step]).tolist()  # the one host read a chunk
+            if not go:
+                break
+            if entry is not None and entry.graph is None:
+                entry.graph = StepGraph(lambda: self._decode_step(c), DECODE_CHUNK, self._graph_pool,
+                                        LAUNCH_COUNTERS, (self._generator,) if sampling else ())
+                stats.graphs_captured += 1
+                stats.capture_seconds += entry.graph.seconds
+        if mark is not None:
+            # The chunk's idle steps drew too; the eager loop would have stopped.
+            mark.rewind(live - (ran - DECODE_CHUNK), DECODE_CHUNK)
+        stats.idle_steps += ran - live
+        return live
+
+    def _decode_step(self, c: _Carry) -> None:
+        """One step of the decode loop (the JAX ``_decode_loop_fn`` body), in
+        place on ``c``; reads nothing on the host. Every row is frozen when
+        ``go`` is false, so that a step past the loop's end changes nothing
+        read later: it writes an EOS block at an unmoved ``out_pos`` and k/v
+        at an unmoved cache index."""
         max_new = self.max_new_tokens
         eos = self.tokenizer.EOS
-        dev = self.device
-        b = logits.shape[0]
-        table = self._table_for(dfa) if dfa is not None else None
-        if dfa is not None:
-            forced_len, forced_tok, forced_end = self._forced_for(dfa)
-        block_width = self._block_width(dfa)
-        # Rows freeze at out_pos >= max_new and frozen rows still write an EOS
-        # block at out_pos each step: 2 x block_width of slack.
-        out_width = max_new + 2 * block_width
-        close_bias = self.close_bias_array()
-        tokens = torch.full((b, out_width), eos, dtype=torch.long, device=dev)
-        out_pos = torch.zeros((b,), dtype=torch.long, device=dev)
-        cols = torch.arange(block_width, device=dev)[None, :]
-        step = 0
-        while step < max_new:
-            frozen = finished | (out_pos >= max_new)
-            if bool(frozen.all()):
-                break
-            masked = dfa.constrain(logits, state, table) if table is not None else logits
-            if close_bias is not None:
-                masked = masked + close_bias
-            if self.temperature > 0:
-                probs = torch.softmax(masked / self.temperature, dim=-1)
-                tok = torch.multinomial(probs, 1, generator=self._generator)[:, 0]
-            else:
-                tok = masked.argmax(dim=-1)
-            tok = torch.where(frozen, torch.full_like(tok, eos), tok)
+        dfa, table = c.dfa, c.table
+        frozen = c.finished | (c.out_pos >= max_new) | ~c.go
+        masked = dfa.constrain(c.logits, c.state, table) if table is not None else c.logits
+        if c.close_bias is not None:
+            masked = masked + c.close_bias
+        if self.temperature > 0:
+            probs = torch.softmax(masked / self.temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=self._generator)[:, 0]
+        else:
+            tok = masked.argmax(dim=-1)
+        tok = torch.where(frozen, torch.full_like(tok, eos), tok)
 
-            if table is not None:
-                mid = torch.where(frozen, state, dfa.advance(state, tok, table))
-                run = torch.where(frozen, torch.zeros_like(mid), forced_len[mid])
-                run_block = torch.where(
-                    cols[:, 1:] - 1 < run[:, None], forced_tok[mid], torch.full_like(forced_tok[mid], eos)
-                )
-                block = torch.cat([tok[:, None], run_block], dim=1)
-                state = torch.where(run > 0, forced_end[mid], mid)
-                finished = finished | (state == dfa.accept)
-            else:
-                run = torch.zeros_like(tok)
-                block = tok[:, None]
-                finished = finished | (~frozen & (tok == eos))
+        if table is not None:
+            forced_len, forced_tok, forced_end = c.forced
+            mid = torch.where(frozen, c.state, dfa.advance(c.state, tok, table))
+            run = torch.where(frozen, torch.zeros_like(mid), forced_len[mid])
+            run_block = torch.where(
+                c.cols[:, 1:] - 1 < run[:, None], forced_tok[mid], torch.full_like(forced_tok[mid], eos)
+            )
+            block = torch.cat([tok[:, None], run_block], dim=1)
+            c.state.copy_(torch.where(run > 0, forced_end[mid], mid))
+            finished = c.finished | (c.state == dfa.accept)
+        else:
+            run = torch.zeros_like(tok)
+            block = tok[:, None]
+            finished = c.finished | (~frozen & (tok == eos))
 
-            tokens.scatter_(1, out_pos[:, None] + cols, block)
-            ended = finished | frozen
-            advance = torch.where(ended & (run == 0) & (tok == eos), 0, 1 + run)
-            out_pos = out_pos + advance
-            index_before = cache["index"]
-            new_logits, cache = self.model.decode_block_pick(block, cache, run)
-            cache["index"] = (index_before + advance).to(torch.int32)
-            # Frozen rows keep their last live logits: a resumed session
-            # samples its next token from them.
-            logits = torch.where(frozen[:, None], logits, new_logits)
-            step += 1
-        complete = (state == dfa.accept) if dfa is not None else finished
-        return tokens, out_pos, complete, step, logits, cache, state, finished
+        c.tokens.scatter_(1, c.out_pos[:, None] + c.cols, block)
+        ended = finished | frozen
+        advance = torch.where(ended & (run == 0) & (tok == eos), 0, 1 + run)
+        c.out_pos.add_(advance)
+        c.finished.copy_(finished)
+        cache = c.cache
+        index = cache["index"]
+        new_logits, _ = self.model.decode_block_pick(block, cache, run)
+        cache["index"] = index  # the decoder rebinds it; the carry keeps its tensor
+        index.copy_(index + advance)
+        # Frozen rows keep their last live logits: a resumed session
+        # samples its next token from them.
+        c.logits.copy_(torch.where(frozen[:, None], c.logits, new_logits))
+        c.step.add_(c.go.to(torch.int32))
+        c.go.copy_((c.step < max_new) & ~(c.finished | (c.out_pos >= max_new)).all())
 
     # -- the speculative loop -------------------------------------------------------
 
@@ -1116,6 +1321,7 @@ class InferenceEngine:
         rules (``logp`` is the processed distribution). Returns (tokens,
         out_pos, complete, cycles, logp, cache, draft_cache, state,
         finished)."""
+        self.stats.decode_route = "eager"
         max_new = self.max_new_tokens
         dev = self.device
         b = logp.shape[0]

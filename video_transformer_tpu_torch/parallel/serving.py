@@ -20,13 +20,27 @@ Two refill modes:
   The chunk loop then decodes and refills: every ``refill_period`` steps a
   finished lane takes the ring head by a table update,
   ``rows[slot] = q_phys[head]``, and a reset of its small state; no KV bytes
-  move. The chunk is a host loop over device tensors. The host reads the
-  device once per ``refill_period`` steps (the loop and refill conditions)
-  and once per chunk (the status pack); the refill itself is tensor ops
-  (``argmax(done)``, indexed updates) in the JAX order.
+  move. The host reads the device once per ``refill_period`` steps (the
+  loop and refill conditions) and once per chunk (the status pack); the
+  refill itself is tensor ops (``argmax(done)``, indexed updates) in the JAX
+  order, launched from Python.
 - **Host-driven refill** (``device_refill=False``): per-request prefill
   spliced into the pool between fixed decode chunks, with adaptive chunk
   sizing and an early exit. It is the parity oracle.
+
+Each decode step (``_step``) updates the batcher's carry (pool, logits,
+grammar state, done slots, output buffer, positions, cache index) in place
+and reads nothing on the host. On one card the steps between two host reads
+run as a replayed CUDA graph (``parallel/graphs.py``, the engine's pool): a
+refill period's ``refill_period`` steps (JAX ``_build_decode_refill``), or
+a host-driven chunk's ``n_steps`` (JAX ``_build_decode``), whose count sits
+in a device scalar set before each replay; a step past it, or past the
+point where every slot is done, freezes every slot. A key's first run of
+steps is eager (the graph's warm-up); the graph is captured at its second.
+On the CPU the same steps run eagerly. With a draft, on a mesh or where
+the engine's ``_plain_decode`` is set the route is eager (chosen at
+construction), and there a host-driven chunk reads the device after every
+step. ``stats`` names the route (``decode_route``).
 
 The pool is in the compute dtype, so on the card each decode step writes
 and attends through K5 (``decode_attention_update`` on a bf16 cache).
@@ -69,6 +83,8 @@ import torch
 
 from ..models.lm import init_kv_cache
 from ..ops.decode_attention import adopt_rows
+from .engine import LAUNCH_COUNTERS
+from .graphs import GeneratorMark, RouteStats, StepGraph
 from .mesh import DATA_AXIS, replicated
 
 __all__ = ["ContinuousBatcher", "Request", "Completion"]
@@ -194,6 +210,14 @@ class ContinuousBatcher:
         self._close_bias = engine.close_bias_array()
         # The columns one step writes: the fast-forward block, or the draft block.
         self._cols = torch.arange(self.spec_k or self.block_width, device=engine.device)[None, :]
+        # The decode route, from the configuration: graphs of steps on one
+        # card without a draft; else eager.
+        self._graphed = (engine.device.type == "cuda" and engine.mesh is None and not self.spec
+                         and not engine._plain_decode)
+        self.stats = RouteStats(decode_route="graph" if self._graphed else "eager")
+        self._graphs: dict[tuple, StepGraph] = {}
+        self._warm: set[tuple] = set()
+        self._graph_inputs: tuple = ()
         self._init_device_state()
         if self.device_refill:
             self._init_ring_state()
@@ -244,6 +268,12 @@ class ContinuousBatcher:
         # Empty slots sit "done" so the decode freezes them. With a draft,
         # ``logits`` holds the processed log-distribution (the spec carry).
         self.done = torch.ones((n,), dtype=torch.bool, device=dev)
+        # A step freezes every slot while ``_live`` is false; a host-driven
+        # chunk sets it before each step from its count ``_chunk_k`` of live
+        # steps and its length ``_chunk_n``.
+        self._live = torch.ones((), dtype=torch.bool, device=dev)
+        self._chunk_k = torch.zeros((), dtype=torch.int32, device=dev)
+        self._chunk_n = torch.zeros((), dtype=torch.int32, device=dev)
 
     def _group_rows(self, group: int) -> range:
         """Physical pool rows (of ``total_rows``) that data group ``group`` owns."""
@@ -292,15 +322,18 @@ class ContinuousBatcher:
 
     @torch.no_grad()
     def _step(self) -> None:
-        """One grammar-constrained decode iteration over all slots."""
+        """One grammar-constrained decode iteration over all slots, in place
+        on the batcher's carry; reads nothing on the host. Done slots, and
+        every slot while ``_live`` is false, are frozen: they write an EOS
+        block at an unmoved position and keep their logits."""
         if self.spec:
             self._spec_step()
             return
         engine = self.engine
         dfa = self.dfa
         eos = engine.tokenizer.EOS
-        done, state = self.done, self.state
-        masked = dfa.constrain(self.logits, state, self.table) if self.table is not None else self.logits
+        frozen = self.done | ~self._live
+        masked = dfa.constrain(self.logits, self.state, self.table) if self.table is not None else self.logits
         if self._close_bias is not None:
             masked = masked + self._close_bias
         if engine.temperature > 0:
@@ -308,35 +341,69 @@ class ContinuousBatcher:
             tok = torch.multinomial(probs, 1, generator=engine._generator)[:, 0]
         else:
             tok = masked.argmax(dim=-1)
-        tok = torch.where(done, torch.full_like(tok, eos), tok)
+        tok = torch.where(frozen, torch.full_like(tok, eos), tok)
 
         if self.table is not None:
             forced_len, forced_tok, forced_end = self._forced
-            mid = torch.where(done, state, dfa.advance(state, tok, self.table))
-            run = torch.where(done, torch.zeros_like(mid), forced_len[mid])
+            mid = torch.where(frozen, self.state, dfa.advance(self.state, tok, self.table))
+            run = torch.where(frozen, torch.zeros_like(mid), forced_len[mid])
             run_block = torch.where(
                 self._cols[:, 1:] - 1 < run[:, None], forced_tok[mid], torch.full_like(forced_tok[mid], eos)
             )
             block = torch.cat([tok[:, None], run_block], dim=1)
-            state = torch.where(run > 0, forced_end[mid], mid)
-            done = done | (state == dfa.accept)
+            self.state.copy_(torch.where(run > 0, forced_end[mid], mid))
+            done = self.done | (self.state == dfa.accept)
         else:
             run = torch.zeros_like(tok)
             block = tok[:, None]
-            done = done | (tok == eos)
+            done = self.done | (~frozen & (tok == eos))
 
         self.tokens_out.scatter_(1, self.out_pos[:, None] + self._cols, block)
-        advance = torch.where(done & (run == 0) & (tok == eos), 0, 1 + run)
-        self.out_pos = self.out_pos + advance
-        self.done = done | (self.out_pos >= self.max_new)
-        self.state = state
+        advance = torch.where((done | frozen) & (run == 0) & (tok == eos), 0, 1 + run)
+        self.out_pos.add_(advance)
+        self.done.copy_(done | (self.out_pos >= self.max_new))
 
         cache = self.cache
-        index_before = cache["index"]
+        index = cache["index"]
         # Logits at each row's last valid block column only.
-        picked, cache = engine.model.decode_block_pick(block, cache, run)
-        cache["index"] = (index_before + advance).to(torch.int32)
-        self.logits = picked.float()
+        picked, _ = engine.model.decode_block_pick(block, cache, run)
+        cache["index"] = index  # the decoder rebinds it; the carry keeps its tensor
+        index.copy_(index + advance)
+        self.logits.copy_(torch.where(frozen[:, None], self.logits, picked.float()))
+
+    def _chunk_step(self) -> None:
+        """A host-driven chunk's step: live while fewer than ``_chunk_n``
+        steps of the chunk were live and a slot is not done."""
+        self._live.copy_((self._chunk_k < self._chunk_n) & ~self.done.all())
+        self._chunk_k.add_(self._live.to(torch.int32))
+        self._step()
+
+    def _run_steps(self, key: tuple, n: int, step) -> None:
+        """``n`` calls of ``step``: on the graph route one replay of the
+        key's graph (the key's first run is eager on the graphs' stream, its
+        second is captured); else eagerly."""
+        if not self._graphed:
+            for _ in range(n):
+                step()
+            return
+        engine = self.engine
+        if self._graph_inputs != (engine.model, engine.temperature):
+            # A graph holds the weights and the temperature it was captured with.
+            self._graphs.clear()
+            self._graph_inputs = (engine.model, engine.temperature)
+        graph = self._graphs.get(key)
+        if graph is None and key in self._warm:
+            sampling = engine.temperature > 0
+            graph = self._graphs[key] = StepGraph(step, n, engine._graph_pool, LAUNCH_COUNTERS,
+                                                  (engine._generator,) if sampling else ())
+            self.stats.graphs_captured += 1
+            self.stats.capture_seconds += graph.seconds
+        if graph is None:
+            self._warm.add(key)
+            engine._graph_pool.warm(lambda: [step() for _ in range(n)])
+        else:
+            graph.replay()
+            self.stats.replays += 1
 
     def _spec_step(self) -> None:
         """One speculative cycle over all slots (the JAX batcher's
@@ -354,15 +421,41 @@ class ContinuousBatcher:
     def _decode_chunk(self, n_steps: int) -> np.ndarray:
         """Host-driven chunk: up to ``n_steps`` steps, stopping once every
         slot is done. Returns the status pack (done, out_pos, state, steps)
-        of every slot, each group's gathered in group order."""
-        steps = 0
-        while steps < n_steps and not bool(self.done.all()):
-            self._step()
-            steps += 1
+        of every slot, each group's gathered in group order.
+
+        On a mesh, or where the engine's ``_plain_decode`` is set, the host
+        reads ``done`` before each step; otherwise the chunk runs
+        ``n_steps`` steps with its count in the device scalar ``_chunk_n``,
+        and the host reads the device once, for the status pack."""
+        engine = self.engine
+        if engine.mesh is not None or engine._plain_decode:
+            steps = 0
+            while steps < n_steps and not bool(self.done.all()):
+                self._step()
+                steps += 1
+            status = torch.stack([
+                self.done.long(), self.out_pos, self.state, torch.full_like(self.out_pos, steps),
+            ]).cpu().numpy()
+            return status if self.n_groups == 1 else np.concatenate(self._groups(status), axis=1)
+        mark = GeneratorMark(engine._generator) if engine.temperature > 0 else None
+        self._chunk_k.zero_()
+        self._chunk_n.fill_(n_steps)
+
+        def step():
+            if mark is not None:
+                mark.before_step()
+            self._chunk_step()
+
+        self._run_steps(("chunk", n_steps), n_steps, step)
         status = torch.stack([
-            self.done.long(), self.out_pos, self.state, torch.full_like(self.out_pos, steps),
+            self.done.long(), self.out_pos, self.state, self._chunk_k.long().expand_as(self.out_pos),
         ]).cpu().numpy()
-        return status if self.n_groups == 1 else np.concatenate(self._groups(status), axis=1)
+        steps = int(status[3, 0])
+        self.stats.idle_steps += n_steps - steps
+        if mark is not None:
+            mark.rewind(steps, n_steps)  # the idle steps drew too
+        self._live.fill_(True)
+        return status
 
     def _all_tokens(self) -> np.ndarray:
         """Every slot's output buffer, each group's in group order."""
@@ -523,8 +616,7 @@ class ContinuousBatcher:
                 break
             for _ in range(min(n_done, self._q_tail - self._q_head)):
                 comp_count = self._refill_one(comp_count)
-            for _ in range(period):
-                self._step()
+            self._run_steps(("refill", period), period, self._step)
             steps += period
         status = torch.cat([
             torch.stack([self.done.long(), self.out_pos, self.state, self._slot_req,
