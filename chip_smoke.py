@@ -95,7 +95,7 @@ every projection takes K6, then training gradients), then:
   prefill and a step, K3 28 and K6 196 a step, and no plain attention or
   cache write on a CUDA tensor;
 - decodes speculatively (``speculative``) on the serving path's int8
-  weights (base width, 4 layers, 128 new tokens, the note grammar, bf16
+  weights (base width, 4 layers, 64 new tokens, the note grammar, bf16
   caches) with the trained tiny checkpoint as the draft
   (``attach_draft(tiny, checkpoint=...npz, spec_tokens=6)``): greedy on two
   clips against the plain loop one token a step (``SPEC_PLAIN_FORCED_RUN``:
@@ -111,10 +111,17 @@ every projection takes K6, then training gradients), then:
   twelve requests of 64 tokens; its first wave against the speculative
   ``generate`` at batch 8); the analyzer's (a) run with
   ``engine.draft`` in its config (``event=engine_draft_attached``; its
-  engine calls against the plain (a) run's). Launches are counted from 0
-  a call: K1 in every encoder and prefill layer of both models, K2 once a
+  engine calls against the plain (a) run's). Every run but the analyzer's
+  runs on both routes of the speculative loop: the per-cycle loop
+  (``engine._plain_decode``), then replayed CUDA graphs of ``SPEC_CHUNK``
+  cycles (the batcher: of a refill period), whose tokens, completion flags
+  and cycles must equal the per-cycle loop's bit for bit, with each
+  route's ms a cycle, busy share, capture seconds, graphs, replays, idle
+  cycles and peak GiB. Launches are counted from 0
+  a run: K1 in every encoder and prefill layer of both models, K2 once a
   layer of both a prefill or stage, K4 once a layer of each pool a stage,
-  K5 once a target layer a cycle (W = 6) and once a draft layer a draft
+  K5 once a target layer a cycle launched (W = 6; idle cycles past a
+  loop's end included) and once a draft layer a draft
   step (W = 1), no K3 and nothing plain on the card; then K5 is timed at
   the verify's and a draft step's shapes and held at every decode shape
   the phase ran (``path_decode``). Before it, ``grammar_advance`` times
@@ -201,8 +208,9 @@ every projection takes K6, then training gradients), then:
   at their decode shapes;
 - serves over a mesh of two ranks that share this card (``mesh``; gloo,
   whose collectives on CUDA tensors go through the host): ``base`` at full
-  width and depth (24 decoder layers, int8 weights and KV cache, the note
-  grammar, greedy, ``MESH_NEW_TOKENS``) on ``{"data": 1, "model": 2}``,
+  width and ``MESH_LAYERS`` of its 24 decoder layers (int8 weights and KV
+  cache, the note grammar, greedy, ``MESH_NEW_TOKENS``) on ``{"data": 1,
+  "model": 2}``,
   two clips through ``InferenceEngine.generate`` against the 1-rank engine
   on the same seeded weights (tokens equal, or parting only where the
   1-rank model's top-two constrained logits lie within 2e-2 x
@@ -4277,9 +4285,9 @@ def tracing_phase(dev: torch.device, tokenizer, workdir: Path, smi: str) -> dict
 
 SPEC_TOKENS = 6  # the shipped engine.draft.spec_tokens
 SPEC_TEMPERATURE = 0.7  # the shipped engine.temperature
-# New tokens a request of the speculative batcher, of the self-draft and of
+# New tokens a request of the speculative batcher, of the greedy runs and of
 # the run at 0.7 (the smoke's 5 minutes: at 128 they took 11.7 + 5, 5.6 and
-# 5 s of a host-bound 48-128 ms cycle).
+# 5 s of a host-bound 48-128 ms cycle; each runs on both routes).
 SPEC_SHORT_TOKENS = 64
 # A speculative row may part from the plain loop's tokens only where the
 # plain model's top-two constrained logits lie within this fraction of the
@@ -4295,6 +4303,8 @@ SPEC_TIE_TOL = 2e-2
 # runs; the JAX engine does the same (its speculative tests use the byte
 # vocabulary, where a forced byte is one token).
 SPEC_PLAIN_FORCED_RUN = 0
+SPEC_SEED = 7  # the runs at SPEC_TEMPERATURE draw from this seed on both routes
+SPEC_PROFILED_CYCLES = 2  # idle cycles under the profiler for a cycle's kernel ms (a busy share's numerator)
 
 
 def spec_session_grammar():
@@ -4326,19 +4336,32 @@ def recorded_calls(engine: InferenceEngine, out: list):
 
 @contextlib.contextmanager
 def spec_tally(engine: InferenceEngine, tally: dict):
-    """Count the speculative cycles (``_spec_cycle``, the batcher's too) and
-    sum each cycle's live rows and emitted tokens on the device."""
-    cycle = engine._spec_cycle
+    """Count the speculative cycles that ``engine``'s loops launch: the live
+    ones and the idle ones that a graph ran past a loop's end
+    (``launched_steps``; the batcher's refill periods have none). On the
+    per-cycle loop (``_plain_decode``), where Python runs every cycle, also
+    sum each cycle's live rows and emitted tokens on the device
+    (``_spec_cycle``, the batcher's too); a replayed graph runs no Python,
+    so there the sums stay None (the pair's per-cycle run has them)."""
+    before = launched_steps(engine.stats)
+    patch = contextlib.nullcontext()
+    if engine._plain_decode:
+        cycle = engine._spec_cycle
 
-    def counted(logp, cache, draft_cache, state, finished, frozen, *rest):
-        out = cycle(logp, cache, draft_cache, state, finished, frozen, *rest)
-        tally["cycles"] += 1
-        tally["live"] = tally["live"] + (~frozen).sum()
-        tally["emitted"] = tally["emitted"] + out[1].sum()
-        return out
+        def counted(logp, cache, draft_cache, state, finished, frozen, *rest):
+            out = cycle(logp, cache, draft_cache, state, finished, frozen, *rest)
+            tally["live"] = tally["live"] + (~frozen).sum()
+            tally["emitted"] = tally["emitted"] + out[1].sum()
+            return out
 
-    with mock.patch.object(engine, "_spec_cycle", counted):
-        yield
+        patch = mock.patch.object(engine, "_spec_cycle", counted)
+    else:
+        tally["live"] = tally["emitted"] = None
+    try:
+        with patch:
+            yield
+    finally:
+        tally["cycles"] += launched_steps(engine.stats) - before
 
 
 def new_tally() -> dict:
@@ -4346,8 +4369,11 @@ def new_tally() -> dict:
 
 
 def tally_line(tally: dict, spec_k: int) -> dict:
-    """Accepted tokens a live row a cycle (t0 counts), and the share of
-    the draft's proposals that the target accepted."""
+    """The cycles launched, accepted tokens a live row a cycle (t0 counts),
+    and the share of the draft's proposals that the target accepted (None
+    on the graphs: ``spec_tally``)."""
+    if tally["live"] is None:
+        return {"cycles": tally["cycles"], "accepted_tokens_per_cycle": None, "proposals_accepted": None}
     live, emitted = int(tally["live"]), int(tally["emitted"])
     return {"cycles": tally["cycles"], "accepted_tokens_per_cycle": emitted / live if live else 0.0,
             "proposals_accepted": (emitted - live) / (live * (spec_k - 1)) if live else 0.0}
@@ -4411,10 +4437,11 @@ def check_spec_routes(launched: dict[str, int], target: VLMConfig, draft: VLMCon
     """A speculative run's launches: K1 in every encoder layer (a prefill
     with video: ``prefills`` holds each prefill's with_video) and prefill
     layer of both models; K2 once a layer of both models a prefill (a
-    batcher stage prefills both); K5 once a target layer a cycle (the
-    verify, W = SPEC_TOKENS) and once a draft layer a draft step (W = 1,
-    SPEC_TOKENS a cycle); K4 once a layer of each pool a stage; no K3 and
-    nothing plain on the card. Raises otherwise."""
+    batcher stage prefills both); K5 once a target layer a cycle launched
+    (the verify, W = SPEC_TOKENS) and once a draft layer a draft step (W =
+    1, SPEC_TOKENS a cycle), ``cycles`` counting the idle cycles that a
+    graph ran past a loop's end (``spec_tally``); K4 once a layer of each
+    pool a stage; no K3 and nothing plain on the card. Raises otherwise."""
     lt, ld = target.decoder.num_layers, draft.decoder.num_layers
     encoders = target.encoder.num_layers + draft.encoder.num_layers
     n = len(prefills) + stages
@@ -4472,36 +4499,129 @@ def spec_k5_reading(gen: torch.Generator, dev: torch.device, dec: DecoderConfig,
             "shape": f"q bf16 [{batch},{hq},{width},{d}] caches bf16 [{batch},{hkv},{cache_len},{d}] index={index}"}
 
 
-def spec_generate(spec: InferenceEngine, plain: InferenceEngine, plain_call: dict | None, clips: np.ndarray,
-                  label: str, smi: str, plain_steps: int) -> tuple[dict, dict[str, int]]:
-    """One speculative generate of ``clips`` with the launches counted from
-    0 (``check_spec_routes``): every row walks the grammar, and the tokens
-    equal the plain call's (``plain_call``, made by ``plain``), or part
-    from them at printed near ties (``parted_rows``). Returns the line and
-    the launches."""
-    stats, tally, calls = spec.stats, new_tally(), []
-    before = (stats.generate_seconds, stats.prefill_seconds, stats.tokens_generated)
+def spec_route_run(engine: InferenceEngine, plain: bool, fn) -> dict:
+    """``fn`` (speculative calls of ``engine``) on the per-cycle loop
+    (``plain``: ``_plain_decode``) or on the graphs, with the launches
+    counted from 0, the cycles launched (``spec_tally``), the ``generate``
+    calls recorded (``recorded_calls``), and the route's stats, wall time
+    and peak GiB. Raises unless the loop took the route asked for."""
+    engine._plain_decode = plain
+    stats = engine.stats
+    keys = ROUTE_STATS + ("tokens_generated",)
+    before = {key: getattr(stats, key) for key in keys}
+    tally, calls = new_tally(), []
     reset_counts()
-    with spec_tally(spec, tally), recorded_calls(spec, calls):
-        spec.generate(clips, [PROMPT] * len(clips))
-    launched = counts()
-    check_spec_routes(launched, spec.config, spec.draft_config, [True], tally["cycles"], label)
-    seconds, prefill_s, tokens = (now - then for now, then in zip(
-        (stats.generate_seconds, stats.prefill_seconds, stats.tokens_generated), before))
-    call = calls[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        start = time.perf_counter()
+        with spec_tally(engine, tally), recorded_calls(engine, calls):
+            result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    finally:
+        engine._plain_decode = False
+    moved = {key: getattr(stats, key) - before[key] for key in keys}
+    route = "eager" if plain else "graph"
+    if stats.decode_route != route or (plain and moved["idle_steps"]):
+        raise AssertionError(f"speculative {route}: the loop took the {stats.decode_route} route, "
+                             f"{moved['idle_steps']} idle cycles")
+    return {"route": route, "result": result, "calls": calls, "tally": tally, "launched": counts(),
+            "cycles": moved["decode_steps"], "idle_cycles": moved["idle_steps"], "wall_s": wall,
+            "decode_s": moved["generate_seconds"] - moved["prefill_seconds"], "prefill_s": moved["prefill_seconds"],
+            "tokens": moved["tokens_generated"], "graphs_captured": moved["graphs_captured"],
+            "capture_s": moved["capture_seconds"], "replays": moved["replays"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def spec_route_summary(run: dict, kernel_ms: float) -> dict:
+    """A route's ms a live cycle and a launched one (over its decode
+    seconds), its busy share (``kernel_ms``, the kernels' ms a cycle, over
+    its ms a launched cycle), idle cycles, graphs captured, capture s,
+    replays and peak GiB."""
+    ms = run["decode_s"] * 1e3
+    launched = run["cycles"] + run["idle_cycles"]
+    out = {"ms_per_cycle": ms / run["cycles"], "ms_per_launched_cycle": ms / launched,
+           "busy_share": kernel_ms * launched / ms}
+    out.update({key: run[key] for key in ("wall_s", "cycles", "idle_cycles", "graphs_captured", "capture_s",
+                                          "replays", "peak_gib")})
+    return out
+
+
+def spec_kernel_ms(step) -> float:
+    """Kernel ms a speculative cycle: ``step`` (one cycle on a carry whose
+    loop has ended, so idle: the kernels a replay runs, at the call's last
+    extent) ``SPEC_PROFILED_CYCLES`` times eagerly under the profiler."""
+    return step_kernel_ms(lambda: [step() for _ in range(SPEC_PROFILED_CYCLES)], SPEC_PROFILED_CYCLES)
+
+
+def spec_routes(spec: InferenceEngine, fn, label: str, seed: int | None = None) -> tuple[list[dict], dict]:
+    """``fn`` on the per-cycle loop, then twice on the graphs (a first run
+    that warms up and captures, then one that replays), the generator
+    seeded with ``seed`` before each when sampling. Each run's launches
+    must equal its cycles launched x a cycle's (``check_spec_routes``), and
+    the runs' token ids, completion flags, results and cycles must be equal
+    bit for bit. Returns the runs and each route's summary
+    (``spec_route_summary``; the replay ms a cycle beside the graph's)."""
+    runs = []
+    for plain in (True, False, False):
+        if seed is not None:
+            spec._generator.manual_seed(seed)
+        run = spec_route_run(spec, plain, fn)
+        check_spec_routes(run["launched"], spec.config, spec.draft_config,
+                          [call["frames"] is not None for call in run["calls"]], run["tally"]["cycles"],
+                          f"speculative {label} {run['route']}")
+        runs.append(run)
+    outs = [([c["ids"] for c in r["calls"]], [c["status"] for c in r["calls"]], r["result"], r["cycles"])
+            for r in runs]
+    if any(out != outs[0] for out in outs):
+        raise AssertionError(f"speculative {label}: the graphs' tokens differ from the per-cycle loop's: "
+                             f"cycles {[r['cycles'] for r in runs]}, "
+                             f"tokens {[[[len(row) for row in c['ids']] for c in r['calls']] for r in runs]}")
+    if not runs[1]["graphs_captured"] or runs[2]["graphs_captured"] or not runs[2]["replays"]:
+        raise AssertionError(f"speculative {label}: captures {runs[1]['graphs_captured']} then "
+                             f"{runs[2]['graphs_captured']}, replays {runs[2]['replays']}")
+    entry = spec._graphs[next(reversed(spec._graphs))]  # the key the runs replayed
+    kernel_ms = spec_kernel_ms(lambda: spec._spec_step(entry.carry))
+    replay_ms = time_ms(entry.graph.replay, warmup=1, reps=2, rounds=3) / entry.graph.n
+    routes = {"kernel_ms_per_cycle": kernel_ms, "eager": spec_route_summary(runs[0], kernel_ms),
+              "graph_first": spec_route_summary(runs[1], kernel_ms),
+              "graph": dict(spec_route_summary(runs[2], kernel_ms), replay_ms_per_cycle=replay_ms),
+              "tokens_equal": True}
+    return runs, routes
+
+
+def sum_launches(runs: list[dict]) -> dict[str, int]:
+    return {name: sum(run["launched"][name] for run in runs) for name in runs[0]["launched"]}
+
+
+def spec_generate(spec: InferenceEngine, plain: InferenceEngine, plain_call: dict | None, clips: np.ndarray,
+                  label: str, smi: str, plain_steps: int, seed: int | None = None) -> tuple[dict, dict[str, int]]:
+    """One speculative generate of ``clips`` on both routes (``spec_routes``):
+    every row walks the grammar, and the tokens equal the plain call's
+    (``plain_call``, made by ``plain``), or part from them at printed near
+    ties (``parted_rows``). Returns the line and the launches summed over
+    the runs."""
+    runs, routes = spec_routes(spec, lambda: spec.generate(clips, [PROMPT] * len(clips)), label, seed)
+    eager, graph = runs[0], runs[2]
+    call = graph["calls"][0]
     walk_rows(spec.dfa, call["status"], call["ids"], spec.max_new_tokens + SPEC_TOKENS, label)
     line = {"phase": "speculative", "run": label, "temperature": spec.temperature, "spec_tokens": spec.spec_tokens,
             "draft": spec.draft_config.name, "rows": len(clips), "tokens": [len(r) for r in call["ids"]],
-            "complete": call["status"], **tally_line(tally, spec.spec_tokens), "plain_steps": plain_steps,
-            "target_forwards": tally["cycles"], "ms_per_cycle": (seconds - prefill_s) * 1e3 / tally["cycles"],
-            "prefill_ms": prefill_s * 1e3, "tokens_per_s": tokens / seconds,
-            "launches": {name: launched[name] for name in ("flash_attention", "write_cache_rows",
-                                                           "decode_attention_update", "decode_attention")},
+            "complete": call["status"], **tally_line(eager["tally"], spec.spec_tokens), "plain_steps": plain_steps,
+            "target_forwards": eager["cycles"], "ms_per_cycle": routes["graph"]["ms_per_cycle"],
+            "eager_ms_per_cycle": routes["eager"]["ms_per_cycle"], "prefill_ms": graph["prefill_s"] * 1e3,
+            "tokens_per_s": graph["tokens"] / graph["wall_s"], "eager_tokens_per_s": eager["tokens"] / eager["wall_s"],
+            "routes": routes,
+            "launches": {name: graph["launched"][name] for name in ("flash_attention", "write_cache_rows",
+                                                                    "decode_attention_update", "decode_attention")},
             "card": smi}
+    if seed is not None:
+        line["seed"] = seed
     if plain_call is not None:
         parted = parted_rows(plain, plain_call, call["ids"], call["status"], label)
         line.update(rows_parted=len(parted), parted=parted)
-    return line, launched
+    return line, sum_launches(runs)
 
 
 def grammar_advance_line(engine: InferenceEngine, seed: int, smi: str) -> dict:
@@ -4543,13 +4663,21 @@ def grammar_advance_line(engine: InferenceEngine, seed: int, smi: str) -> dict:
 def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine, clips: np.ndarray,
                       batch_clips: np.ndarray, batch_prompts: list[str], smi: str) -> tuple[list[dict], dict, dict]:
     """Main path 12, speculative decoding at base's full width and
-    ``SERVING_LAYERS`` layers on path 1's int8 weights, 256 new tokens, the
-    note grammar; the draft is the trained tiny checkpoint
-    (``attach_draft(tiny, checkpoint=TINY_WEIGHTS, spec_tokens=6)``). Both
+    ``SERVING_LAYERS`` layers on path 1's int8 weights, ``SPEC_SHORT_TOKENS``
+    new tokens (a session's from its grammar), the note grammar; the draft
+    is the trained tiny checkpoint (``attach_draft(tiny,
+    checkpoint=TINY_WEIGHTS, spec_tokens=6)``). Both
     caches are bf16, so the verify and every draft step run K5. ``plain``
     is the shipped plain loop on the same weights with a bf16 cache (its
     steps and tok/s are the comparison); the token reference is the same
     engine one token a step (``SPEC_PLAIN_FORCED_RUN``).
+
+    Every run below but the analyzer's runs on the per-cycle loop (the
+    loop's plain version, ``_plain_decode``) and on the graphs (replayed
+    CUDA graphs of ``SPEC_CHUNK`` cycles), whose tokens, flags and cycles
+    must be equal bit for bit (``spec_routes``); each route's ms a cycle,
+    busy share, capture s, graphs, replays, idle cycles and peak GiB are
+    printed.
 
     - greedy, two clips, against the plain loop (tokens equal, or parting
       at near ties; ``parted_rows``), with accepted tokens a cycle, target
@@ -4557,7 +4685,8 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
     - a self-draft (``share_target_params=True``, ``SPEC_SHORT_TOKENS``):
       fewer than half as many target forwards as the one-token loop's
       steps for the same tokens, which follow the greedy rule;
-    - temperature 0.7 (``SPEC_SHORT_TOKENS``): every row walks the grammar;
+    - temperature 0.7 (``SPEC_SHORT_TOKENS``, ``SPEC_SEED``): every row
+      walks the grammar;
     - a session under a short title grammar (``spec_session_grammar``),
       its round and reserve sized from one greedy call's longer document
       so that a continuation is needed, continued until it completes,
@@ -4567,8 +4696,8 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
       for both models each cycle); the first wave against the speculative
       engine's generate at batch 8;
     - the analyzer's (a) run with ``engine.draft`` in its config
-      (``event=engine_draft_attached``) against the plain (a) run one token
-      a step, both with a bf16 cache.
+      (``event=engine_draft_attached``, on the graphs) against the plain (a)
+      run one token a step, both with a bf16 cache.
 
     Its first line is ``grammar_advance_line``'s. Returns the lines, the
     launches summed over the phase and K5's
@@ -4598,10 +4727,12 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
     # token reference: the same, one token a step.
     steps0 = plain.stats.decode_steps
     gen0 = (plain.stats.generate_seconds, plain.stats.tokens_generated)
+    plain.max_new_tokens = SPEC_SHORT_TOKENS
     plain.generate(clips[:2], [PROMPT] * 2)
+    plain.max_new_tokens = MAX_NEW_TOKENS
     plain_steps = plain.stats.decode_steps - steps0
     plain_tok_s = (plain.stats.tokens_generated - gen0[1]) / (plain.stats.generate_seconds - gen0[0])
-    plain = InferenceEngine(cfg, params=engine.model, tokenizer=tokenizer, max_new_tokens=MAX_NEW_TOKENS,
+    plain = InferenceEngine(cfg, params=engine.model, tokenizer=tokenizer, max_new_tokens=SPEC_SHORT_TOKENS,
                             temperature=0.0, max_forced_run=SPEC_PLAIN_FORCED_RUN, device=dev)
     plain.dfa = engine.dfa
     plain_calls = []
@@ -4609,7 +4740,9 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
         plain.generate(clips[:2], [PROMPT] * 2)
     one_token_steps = plain.stats.decode_steps
 
+    spec.max_new_tokens = SPEC_SHORT_TOKENS
     line, launched = spec_generate(spec, plain, plain_calls[0], clips[:2], "greedy", smi, plain_steps)
+    spec.max_new_tokens = MAX_NEW_TOKENS
     lines.append(dict(line, setup_seconds=setup, plain_tokens_per_s=plain_tok_s, preset=cfg.name,
                       one_token_plain_steps=one_token_steps, decoder_layers=cfg.decoder.num_layers,
                       weights="int8", caches="bf16"))
@@ -4629,7 +4762,8 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
     del self_spec
 
     spec.temperature, spec.max_new_tokens = SPEC_TEMPERATURE, SPEC_SHORT_TOKENS
-    line, launched = spec_generate(spec, plain, None, clips[:2], "temperature_0.7", smi, plain_steps)
+    line, launched = spec_generate(spec, plain, None, clips[:2], "temperature_0.7", smi, plain_steps,
+                                   seed=SPEC_SEED)
     spec.temperature, spec.max_new_tokens = 0.0, MAX_NEW_TOKENS
     lines.append(line)
     add(launched)
@@ -4646,30 +4780,40 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
     longest = max(len(row) for row in whole)
     cap = max(1, (longest - SPEC_TOKENS) // 2)
     rounds = -(-longest // cap)
-    stats, tally = spec.stats, new_tally()
-    reset_counts()
-    spec.max_new_tokens = cap
-    try:
-        calls = []
-        with spec_tally(spec, tally), recorded_calls(spec, calls):
-            _, status, ids, session = spec.generate(clips[:2], API_PROMPTS, dfa=title,
-                                                    session_rounds=rounds, return_session=True,
-                                                    return_status=True, return_tokens=True)
-            if session is None or session.rounds_left != rounds or session.draft_cache is None:
-                raise AssertionError(f"speculative session reserve: {session and session.rounds_left}")
-            prefill_tokens = stats.prefill_tokens
-            session_len = session.cache["k"][0].shape[2]
-            combined, done, resumed = [list(r) for r in ids], list(status), 0
-            while not all(done) and session.rounds_left > 0:
-                _, done, more = spec.continue_session(session)
-                for row in range(len(done)):
-                    combined[row] += more[row]
-                resumed += 1
-        launched = counts()
+    stats = spec.stats
+
+    def session_run():
+        _, status, ids, session = spec.generate(clips[:2], API_PROMPTS, dfa=title, session_rounds=rounds,
+                                                return_session=True, return_status=True, return_tokens=True)
+        if session is None or session.rounds_left != rounds or session.draft_cache is None:
+            raise AssertionError(f"speculative session reserve: {session and session.rounds_left}")
+        prefill_tokens = stats.prefill_tokens
+        combined, done, resumed = [list(r) for r in ids], list(status), 0
+        while not all(done) and session.rounds_left > 0:
+            _, done, more = spec.continue_session(session)
+            for row in range(len(done)):
+                combined[row] += more[row]
+            resumed += 1
         if stats.prefill_tokens != prefill_tokens or not all(done) or not resumed:
             raise AssertionError(f"speculative session: complete {done} after {resumed} rounds, or a round prefilled")
-        check_spec_routes(launched, cfg, draft_cfg, [True], tally["cycles"], "speculative session")
-        add(launched)
+        return combined, done, resumed, session.cache["k"][0].shape[2], session.draft_cache["k"][0].shape[2]
+
+    spec.max_new_tokens = cap
+    try:
+        session_runs = []
+        for plain_route in (True, False):
+            run = spec_route_run(spec, plain_route, session_run)
+            check_spec_routes(run["launched"], cfg, draft_cfg, [True], run["tally"]["cycles"],
+                              f"speculative session {run['route']}")
+            add(run["launched"])
+            session_runs.append(run)
+        if (session_runs[0]["result"], session_runs[0]["cycles"]) != (session_runs[1]["result"],
+                                                                      session_runs[1]["cycles"]):
+            raise AssertionError(f"speculative session: the graphs' rounds differ from the per-cycle loop's: "
+                                 f"cycles {[r['cycles'] for r in session_runs]}")
+        entry = spec._graphs[next(reversed(spec._graphs))]  # the session's key
+        kernel_ms = spec_kernel_ms(lambda: spec._spec_step(entry.carry))
+        combined, done, resumed, session_len, draft_session_len = session_runs[1]["result"]
         spec.max_new_tokens = (1 + rounds) * cap + rounds * SPEC_TOKENS
         prompt_width = spec._prompt_bucket(API_PROMPTS, with_video=True)
         if spec._cache_len(prompt_width, True, title, 0) != session_len:
@@ -4681,42 +4825,84 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
         walk_rows(title, done, combined, spec.max_new_tokens + SPEC_TOKENS, "speculative session")
     finally:
         spec.max_new_tokens = MAX_NEW_TOKENS
+    launched = session_runs[1]["launched"]
     lines.append({"phase": "speculative", "run": "session", "grammar": "title", "round_cap": cap,
                   "reserve": rounds, "longest_row_tokens": longest, "rounds_resumed": resumed, "cache_len": session_len,
-                  "draft_cache_len": session.draft_cache["k"][0].shape[2],
+                  "draft_cache_len": draft_session_len,
                   "tokens": [len(r) for r in combined], "long_tokens": [len(r) for r in long_calls[0]["ids"]],
-                  "rows_parted": len(parted), "parted": parted, **tally_line(tally, SPEC_TOKENS),
+                  "rows_parted": len(parted), "parted": parted, **tally_line(session_runs[0]["tally"], SPEC_TOKENS),
+                  "routes": {"kernel_ms_per_cycle": kernel_ms,
+                             **{r["route"]: spec_route_summary(r, kernel_ms) for r in session_runs},
+                             "tokens_equal": True},
                   "launches": {name: launched[name] for name in ("flash_attention", "write_cache_rows",
                                                                  "decode_attention_update", "decode_attention")},
                   "card": smi})
-    del session
 
-    # The speculative batcher: twelve requests through 8 slots.
+    # The speculative batcher: twelve requests through 8 slots, on the
+    # per-cycle loop, then twice through one batcher on the graphs (its
+    # first refill period eager, then a capture; then replays only).
+    def sweep(batcher: ContinuousBatcher, route: str) -> dict:
+        stages, stage, stage_s = [], batcher._stage, [0.0]
+
+        def counted_stage():
+            before = batcher._staged_total
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            stage()
+            torch.cuda.synchronize()
+            stage_s[0] += time.perf_counter() - start
+            if batcher._staged_total > before:
+                stages.append(batcher._staged_total - before)
+
+        spec._plain_decode = route == "eager"
+        try:
+            for i, clip in enumerate(batch_clips):
+                batcher.submit(Request(i, clip, batch_prompts[i]))
+            tally, before = new_tally(), replace(batcher.stats)
+            cycles0 = spec.stats.decode_steps
+            reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            with spec_tally(spec, tally), mock.patch.object(batcher, "_stage", counted_stage):
+                completions = batcher.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        finally:
+            spec._plain_decode = False
+        launched = counts()
+        check_spec_routes(launched, cfg, draft_cfg, [], tally["cycles"], f"speculative batcher {route}",
+                          stages=len(stages))
+        add(launched)
+        if batcher.stats.decode_route != route or batcher.stats.idle_steps:
+            raise AssertionError(f"speculative batcher: route {batcher.stats.decode_route}, asked for {route}")
+        if sorted(c.request_id for c in completions) != list(range(len(batch_clips))):
+            raise AssertionError("speculative batcher: not every request completed once")
+        return {
+            "route": route, "stages": stages, "tally": tally, "launched": launched,
+            "tokens": {c.request_id: (c.token_ids, c.complete) for c in completions}, "completions": completions,
+            "cycles": spec.stats.decode_steps - cycles0, "idle_cycles": 0, "wall_s": wall, "stage_s": stage_s[0],
+            "decode_s": wall - stage_s[0], "graphs_captured": batcher.stats.graphs_captured - before.graphs_captured,
+            "capture_s": batcher.stats.capture_seconds - before.capture_seconds,
+            "replays": batcher.stats.replays - before.replays, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    spec._plain_decode = True
+    try:
+        batcher = ContinuousBatcher(spec, slots=BATCHER_SLOTS, max_new_tokens=SPEC_SHORT_TOKENS)
+    finally:
+        spec._plain_decode = False
+    batcher_runs = [sweep(batcher, "eager")]
     batcher = ContinuousBatcher(spec, slots=BATCHER_SLOTS, max_new_tokens=SPEC_SHORT_TOKENS)
-    stages, stage = [], batcher._stage
-
-    def counted_stage():
-        before = batcher._staged_total
-        stage()
-        if batcher._staged_total > before:
-            stages.append(batcher._staged_total - before)
-
-    batcher._stage = counted_stage
-    for i, clip in enumerate(batch_clips):
-        batcher.submit(Request(i, clip, batch_prompts[i]))
-    tally = new_tally()
-    reset_counts()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    with spec_tally(spec, tally):
-        completions = batcher.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - start
-    launched = counts()
-    check_spec_routes(launched, cfg, draft_cfg, [], tally["cycles"], "speculative batcher", stages=len(stages))
-    add(launched)
-    if sorted(c.request_id for c in completions) != list(range(len(batch_clips))):
-        raise AssertionError("speculative batcher: not every request completed once")
+    batcher_runs += [sweep(batcher, "graph"), sweep(batcher, "graph")]
+    eager_run, first_run, graph_run = batcher_runs
+    if any((r["tokens"], r["cycles"]) != (eager_run["tokens"], eager_run["cycles"]) for r in batcher_runs):
+        raise AssertionError(f"speculative batcher: the graphs' tokens differ from the per-cycle loop's: cycles "
+                             f"{[r['cycles'] for r in batcher_runs]}")
+    if not first_run["graphs_captured"] or graph_run["graphs_captured"] or not graph_run["replays"]:
+        raise AssertionError(f"speculative batcher: {first_run['graphs_captured']} then "
+                             f"{graph_run['graphs_captured']} graphs, {graph_run['replays']} replays")
+    stages, completions = graph_run["stages"], graph_run["completions"]
+    kernel_ms = spec_kernel_ms(batcher._step)  # every slot done: idle cycles at the sweep's last extent
     for c in completions:
         grammar_walk(spec.dfa, c.token_ids)
         if c.complete:
@@ -4730,16 +4916,24 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
     parted = parted_rows(plain, wave[0], [got[i].token_ids for i in range(BATCHER_SLOTS)],
                          [got[i].complete for i in range(BATCHER_SLOTS)], "speculative batcher first wave")
     tokens = sum(c.tokens for c in completions)
+    launched = graph_run["launched"]
     lines.append({"phase": "speculative", "run": "batcher", "requests": len(batch_clips), "slots": BATCHER_SLOTS,
                   "queue_depth": batcher.queue_depth, "cache_len": batcher.cache_len,
                   "draft_cache_len": batcher.draft_cache_len, "park_len": batcher.park_len,
-                  "draft_park_len": batcher.draft_park_len, "stages": stages, "seconds": wall, "tokens": tokens,
-                  "tokens_per_s": tokens / wall, "ms_per_cycle": wall * 1e3 / tally["cycles"],
-                  **tally_line(tally, SPEC_TOKENS), "first_wave_rows_parted": len(parted), "parted": parted,
+                  "draft_park_len": batcher.draft_park_len, "stages": stages, "seconds": graph_run["wall_s"],
+                  "stage_seconds": [r["stage_s"] for r in batcher_runs],
+                  "tokens": tokens, "tokens_per_s": tokens / graph_run["wall_s"],
+                  "eager_tokens_per_s": tokens / eager_run["wall_s"],
+                  "ms_per_cycle": graph_run["wall_s"] * 1e3 / graph_run["cycles"],
+                  **tally_line(eager_run["tally"], SPEC_TOKENS),
+                  "routes": {"kernel_ms_per_cycle": kernel_ms, "eager": spec_route_summary(eager_run, kernel_ms),
+                             "graph_first": spec_route_summary(first_run, kernel_ms),
+                             "graph": spec_route_summary(graph_run, kernel_ms), "tokens_equal": True},
+                  "first_wave_rows_parted": len(parted), "parted": parted,
                   "launches": {name: launched[name] for name in ("flash_attention", "write_cache_rows", "adopt_rows",
                                                                  "decode_attention_update", "decode_attention")},
                   "card": smi})
-    del batcher
+    del batcher, batcher_runs, eager_run, first_run, graph_run
 
     # The analyzer's (a) run with the draft in its config, against the plain (a) run.
     with tempfile.TemporaryDirectory(prefix="vtx_spec_analyzer_") as tmp:
@@ -4785,6 +4979,8 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
             if parted:
                 break
     lines.append({"phase": "speculative", "run": "analyzer", "event": "engine_draft_attached",
+                  "decode_route": runs["draft"]["analyzer"].engine.stats.decode_route,
+                  "idle_cycles": runs["draft"]["analyzer"].engine.stats.idle_steps,
                   "engine_calls": [len(runs["plain"]["calls"]), len(runs["draft"]["calls"])],
                   "calls_compared": compared, "rows_parted": len(parted), "parted": parted,
                   "note_equal_to_plain": runs["draft"]["report"] == runs["plain"]["report"],
@@ -4813,8 +5009,8 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
 
 # Main path 13, serving over a mesh (``mesh``): ranks that share the one
 # card (``build_mesh(..., devices=[cuda:0] * 2)``: gloo, CUDA tensors).
-# (a) base at its full width and depth (24 decoder layers; int8 weights and
-# KV cache, the note grammar, greedy) on ``{"data": 1, "model": 2}``:
+# (a) base at its full width and ``MESH_LAYERS`` decoder layers (int8 weights
+# and KV cache, the note grammar, greedy) on ``{"data": 1, "model": 2}``:
 # ``generate`` on two clips against the 1-rank engine on the same seeded
 # weights (equal tokens, or parting only at a printed near tie; the logits
 # at the first and the last decode step within ``MESH_LOGIT_TOL``), then
@@ -4826,7 +5022,11 @@ def speculative_phase(seed: int, engine: InferenceEngine, plain: InferenceEngine
 # ``SERVING_LAYERS`` layers) on the same two ranks: each group's requests
 # against a 1-rank batcher of the group's slots over the same requests. Every rank's
 # launches are counted from 0 a run; none is plain on a CUDA tensor.
-MESH_NEW_TOKENS = 32  # base on two model ranks, held to 1 rank over these
+MESH_NEW_TOKENS = 16  # base on two model ranks (and the uneven runs), held to 1 rank over these
+# Base's decoder layers on two model ranks, and the analyzer's on them: half
+# of its 24, so that the per-step loop over gloo, the smoke's longest, leaves
+# the speculative phase's per-cycle pairs their room in the smoke's time.
+MESH_LAYERS = 12
 MESH_BATCHER_NEW_TOKENS = 16
 # A step's logits on the mesh against 1 rank's: max|mesh - one| over
 # max|one|, a row. The row-parallel partial sums are rounded to bf16 before
@@ -4834,7 +5034,7 @@ MESH_BATCHER_NEW_TOKENS = 16
 MESH_LOGIT_TOL = 5e-2
 MESH_TIMEOUT_S = 120.0
 MESH_INT4_LAYERS = 2  # of 7b's 28
-MESH_ANALYZER_SCALE = ANALYZER_BASE_SCALE / 2  # the note's field budgets: at 24 layers 96-107 steps of 131-213 ms
+MESH_ANALYZER_SCALE = ANALYZER_BASE_SCALE / 2  # the note's field budgets: 96-128 steps at 12 or 24 layers
 MESH_INT4_NEW_TOKENS = 16
 MESH_BATCHER_SLOTS, MESH_BATCHER_REQUESTS = 4, 6  # two groups of 2 slots, one stage of 3 lanes each
 # 7b's products on a model axis of 2, (K/2, N) of the packed int4 kernels.
@@ -5438,6 +5638,7 @@ def mesh_phase(seed: int, dev: torch.device, tokenizer, grammar, spawned, smi: s
 
     rng = np.random.default_rng(seed + 13)
     cfg = base_config(tokenizer.vocab_size)
+    cfg = replace(cfg, decoder=replace(cfg.decoder, num_layers=MESH_LAYERS))
     layers, enc_layers = cfg.decoder.num_layers, cfg.encoder.num_layers
     serving = dict(max_new_tokens=MESH_NEW_TOKENS, temperature=0.0, seed=seed, tokenizer=tokenizer,
                    param_dtype="bfloat16", quantize="int8", kv_quant="int8", max_forced_run=2)
@@ -5891,7 +6092,7 @@ def run(seed: int) -> None:
     torch.cuda.empty_cache()
 
     # Main path 13, serving over a mesh of two ranks on this card: base at
-    # full depth on model 2 (then the analyzer on it), 7b int4 on model 2,
+    # MESH_LAYERS layers on model 2 (then the analyzer on it), 7b int4 on model 2,
     # two data groups through the batcher; K1-K6 at the per-rank shapes.
     t0 = time.perf_counter()
     mesh_lines, meshed, mesh_readings = mesh_phase(seed, dev, tokenizer, grammar, spawned, smi)

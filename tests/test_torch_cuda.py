@@ -517,8 +517,8 @@ def tiny_bf16_engine(cuda, **kwargs):
     tok = BpeTokenizer.load(Path(__file__).resolve().parents[1] / "data" / "tokenizers" / "bpe-zh-2048.json")
     cfg = get_preset("tiny")
     cfg = replace(cfg, decoder=replace(cfg.decoder, vocab_size=tok.vocab_size))
-    engine = InferenceEngine(cfg, max_new_tokens=32, temperature=0.0, tokenizer=tok, param_dtype="bfloat16",
-                             quantize="int8", device=cuda, **kwargs)
+    kwargs = dict(dict(max_new_tokens=32, temperature=0.0), **kwargs)
+    engine = InferenceEngine(cfg, tokenizer=tok, param_dtype="bfloat16", quantize="int8", device=cuda, **kwargs)
     engine.dfa = engine.wrap_grammar(note_dfa(engine.byte_vocab))
     return engine
 
@@ -837,9 +837,10 @@ def test_int4_matmul_at_the_fused_widths(cuda, m, shape):
 
 @pytest.mark.cuda
 def test_tiny_speculative_engine_runs_through_k5(cuda):
-    """A tiny bf16 target with a self-draft on the card: every cycle runs
-    K5 once a target layer (W = spec_tokens) and once a draft layer per
-    draft step (W = 1), each prefill writes through K2 once a layer of both
+    """A tiny bf16 target with a self-draft on the card: every cycle
+    launched (idle ones past the loop's end included) runs K5 once a target
+    layer (W = spec_tokens) and once a draft layer per draft step (W = 1),
+    each prefill writes through K2 once a layer of both
     models, no K3; the greedy tokens equal the one-token plain loop's on
     the card, or part from them only at a near tie (``parted_rows``: the
     verify's matmuls run at another row count)."""
@@ -855,9 +856,9 @@ def test_tiny_speculative_engine_runs_through_k5(cuda):
     layers = engine.config.decoder.num_layers
     kernels = (decode_attention_update, write_cache_rows, decode_attention)
     before = [k.launches for k in kernels]
-    steps0 = engine.stats.decode_steps
+    ran0 = ran_steps(engine)
     _, status, got = engine.generate(frames, ["分析", "hi"], return_status=True, return_tokens=True)
-    cycles = engine.stats.decode_steps - steps0
+    cycles = ran_steps(engine) - ran0  # the cycles launched: live, and idle past the loop's end
     launched = [k.launches - n for k, n in zip(kernels, before)]
     assert launched == [cycles * (layers + 4 * layers), 2 * layers, 0]
     engine.detach_draft()
@@ -975,4 +976,106 @@ def test_batcher_graphs_equal_the_plain_loop(cuda, device_refill):
         assert decode_attention_update.launches - before == layers * ran
         if route == "graph":
             assert batcher.stats.graphs_captured > 0 and batcher.stats.replays > 0
+    assert outs[0] == outs[1] and sorted(outs[0]) == list(range(5))
+
+
+def spec_engine(cuda, draft: str, **kwargs):
+    """The tiny bf16 engine with a draft of 4 tokens a cycle: the tiny
+    preset's own random weights (nearly every proposal rejected) or the
+    target's (``share_target_params``: every greedy proposal accepted).
+    Returns the engine and each cycle's K5 launches."""
+    engine = tiny_bf16_engine(cuda, **kwargs)
+    engine.attach_draft(engine.config, share_target_params=draft == "self", spec_tokens=4)
+    layers = engine.config.decoder.num_layers
+    return engine, layers + 4 * engine.draft_config.decoder.num_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft", ["tiny", "self"])
+def test_speculative_graphs_equal_the_per_cycle_loop(cuda, draft):
+    """Greedy, the speculative graph route's tokens, completion flags and
+    cycles equal the per-cycle loop's bit for bit, on its first call (an
+    eager warm-up chunk, then a capture) and its second (replays only); K5's
+    counter moves by its launches a cycle x the cycles launched (live and
+    idle), K2's by a launch a layer of both models a prefill, and K3's not."""
+    engine, per_cycle = spec_engine(cuda, draft, max_new_tokens=64)
+    frames = np.random.default_rng(5).integers(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)
+    layers = engine.config.decoder.num_layers + engine.draft_config.decoder.num_layers
+    outs = []
+    for route in ("plain", "graph", "graph"):
+        engine._plain_decode = route == "plain"
+        before = [k.launches for k in (decode_attention_update, write_cache_rows, decode_attention)]
+        cycles, ran = engine.stats.decode_steps, ran_steps(engine)
+        outs.append((engine.generate(frames, ["分析", "hi"], return_status=True, return_tokens=True),
+                     engine.stats.decode_steps - cycles))
+        assert engine.stats.decode_route == ("eager" if route == "plain" else "graph")
+        ran = ran_steps(engine) - ran
+        launched = [k.launches - n for k, n in zip((decode_attention_update, write_cache_rows, decode_attention),
+                                                   before)]
+        assert launched == [per_cycle * ran, layers, 0]
+    engine._plain_decode = False
+    assert outs[0] == outs[1] == outs[2]
+    assert outs[0][1] > 4  # a second chunk: the graph was captured and replayed
+    assert engine.stats.graphs_captured == 1 and engine.stats.replays > 0
+
+
+@pytest.mark.cuda
+def test_speculative_graphs_draw_what_the_per_cycle_loop_draws(cuda):
+    """At temperature 0.7 from one seed, the speculative graph route's
+    tokens equal the per-cycle loop's, and the generator ends where the
+    per-cycle loop leaves it (the idle cycles' draws are taken back): a
+    second call draws the same too."""
+    engine, _ = spec_engine(cuda, "tiny", temperature=0.7)
+    frames = np.random.default_rng(6).integers(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)
+    outs = []
+    for route in ("plain", "graph"):
+        engine._plain_decode = route == "plain"
+        engine._generator.manual_seed(11)
+        first = engine.generate(frames, ["分析", "hi"], return_tokens=True)
+        offset = engine._generator.get_offset()
+        outs.append((first, offset, engine.generate(frames, ["分析", "hi"], return_tokens=True)))
+    assert outs[0] == outs[1]
+    assert engine.stats.idle_steps > 0
+
+
+@pytest.mark.cuda
+def test_speculative_session_graphs_equal_the_per_cycle_loop(cuda):
+    """A speculative session's rounds on the graph route (both caches
+    copied into the key's and back each round) equal the per-cycle loop's."""
+    engine, _ = spec_engine(cuda, "tiny", max_new_tokens=12)
+    outs = []
+    for route in ("plain", "graph"):
+        engine._plain_decode = route == "plain"
+        *first, session = engine.generate_text(["分析", "hi"], return_status=True, return_tokens=True,
+                                               session_rounds=3, return_session=True)
+        rounds = [tuple(first)] + [engine.continue_session(session) for _ in range(2)]
+        outs.append(rounds)
+        assert engine.stats.decode_route == ("eager" if route == "plain" else "graph")
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+def test_speculative_batcher_graphs_equal_the_per_cycle_loop(cuda):
+    """Five requests through two slots with a draft: the graph route's
+    refill periods give the per-cycle loop's tokens, and K5's counter moves
+    by its launches a cycle for every cycle launched."""
+    from video_transformer_tpu_torch.parallel.serving import ContinuousBatcher, Request
+
+    engine, per_cycle = spec_engine(cuda, "tiny")
+    rng = np.random.default_rng(2)
+    clips = rng.integers(0, 256, (5, 4, 64, 64, 3), dtype=np.uint8)
+    prompts = ["分析", "hi", "第三段", "summarize " * 30, "x"]
+    outs = []
+    for route in ("plain", "graph"):
+        engine._plain_decode = route == "plain"
+        batcher = ContinuousBatcher(engine, slots=2)
+        for i in range(5):
+            batcher.submit(Request(i, clips[i], prompts[i]))
+        before, cycles = decode_attention_update.launches, engine.stats.decode_steps
+        outs.append({c.request_id: c.token_ids for c in batcher.run()})
+        assert batcher.stats.decode_route == ("eager" if route == "plain" else "graph")
+        assert decode_attention_update.launches - before == per_cycle * (engine.stats.decode_steps - cycles)
+        if route == "graph":
+            assert batcher.stats.graphs_captured > 0 and batcher.stats.replays > 0
+    engine._plain_decode = False
     assert outs[0] == outs[1] and sorted(outs[0]) == list(range(5))

@@ -20,16 +20,20 @@ the counter once a chunk; on the CPU the same steps run eagerly in the same
 chunks. A mesh engine reads ``go`` after every step (the plain loop), as
 does a card engine whose private ``_plain_decode`` is set (the loop's plain
 version, for the tests and the smoke). ``stats.decode_route`` names the
-route that ran.
+route that ran. With a draft attached the loop's step is a speculative
+cycle (``_spec_step``, the JAX ``_spec_decode_loop_fn`` body) on the same
+carry plus the draft's KV cache, on the same routes, in chunks of
+``SPEC_CHUNK`` cycles.
 
 Graphs are cached as the JAX engine caches its programs: one a (batch,
-cache length, grammar, temperature above 0, closer bias, block width). Each
-key owns a static carry. A call without a session prefills straight into
-the key's KV cache; a call that keeps a session, and ``continue_session``,
-decode in their own cache, which is copied into the key's before the loop
-and back after it, so that no two live sessions share storage. Assigning
-the model, the draft, the grammar, the temperature, the closer bias, the
-forced-run cap or the token budget drops the graphs.
+cache length, grammar, temperature above 0, closer bias, block width,
+draft cache length). Each key owns a static carry. A call without a session
+prefills straight into the key's KV caches (the target's and the draft's);
+a call that keeps a session, and ``continue_session``, decode in their own
+caches, which are copied into the key's before the loop and back after it,
+so that no two live sessions share storage. Assigning the model, the draft
+or its width, the grammar, the temperature, the closer bias, the forced-run
+cap or the token budget drops the graphs.
 
 Continuation: ``prefixes`` (token ids or text) re-prefill prompt + prefix
 and resume the grammar mid-document; ``session_rounds`` with
@@ -61,7 +65,8 @@ temperature 0: rejection sampling, with the residual ``norm(max(p - q,
 ``index_before + accepted``. Both caches are in the compute dtype whatever
 ``kv_quant`` says (as in the JAX engine), so the verify and every draft
 step decode through K5. Sessions carry the draft's cache beside the
-target's.
+target's. On one card the cycles replay as CUDA graphs, as the plain steps
+do.
 
 Each entry point opens the JAX engine's tracing span (``utils/tracing.py``):
 ``engine.preprocess`` (``frames=``), ``engine.generate`` and
@@ -119,17 +124,24 @@ from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, replicated
 from .sharding import shard_block, shard_model
 
 __all__ = ["InferenceEngine", "EngineStats", "EngineSession", "params_checkpoints", "resolve_params_dir",
-           "DECODE_CHUNK", "LAUNCH_COUNTERS"]
+           "DECODE_CHUNK", "SPEC_CHUNK", "LAUNCH_COUNTERS"]
 
 DECODE_CHUNK = 16
 """Decode steps a captured graph (an eager chunk on the CPU) runs between two host reads."""
+SPEC_CHUNK = 4
+"""Speculative cycles a captured graph runs between two host reads. A cycle
+is 1 + ``spec_tokens`` forwards (six draft steps and the verify at the
+shipped width), so 4 cycles launch more kernels than ``DECODE_CHUNK`` plain
+steps and the host read costs as little a forward; and a cycle emits up to
+``spec_tokens`` tokens a row, so a chunk past the loop's end wastes at most
+3 cycles, where 16 could waste 15 (90 tokens' worth of forwards at 6)."""
 GRAPH_KEYS = 8
 """Graph keys an engine keeps (least recently used first out): each holds a KV cache."""
 LAUNCH_COUNTERS = (flash_attention, write_cache_rows, decode_attention, decode_attention_update, int4_matmul)
 """The kernel wrappers a decode step may launch through, whose ``launches`` a graph keeps true."""
 # Assigning one of these drops the engine's graphs: a graph holds their values.
-_GRAPH_INPUTS = frozenset(("model", "draft_model", "dfa", "temperature", "structure_bias", "max_forced_run",
-                           "max_new_tokens", "tokenizer"))
+_GRAPH_INPUTS = frozenset(("model", "draft_model", "draft_config", "spec_tokens", "dfa", "temperature",
+                           "structure_bias", "max_forced_run", "max_new_tokens", "tokenizer"))
 
 
 def _round_up(x: int, multiple: int) -> int:
@@ -223,7 +235,8 @@ class EngineSession:
 @dataclass
 class _Carry:
     """The decode loop's carry, which each step updates in place, and the
-    loop's constants."""
+    loop's constants. With a draft, ``logits`` is the processed
+    log-distribution and ``draft_cache`` the draft's KV cache."""
 
     logits: torch.Tensor
     state: torch.Tensor
@@ -238,6 +251,7 @@ class _Carry:
     forced: tuple[torch.Tensor, ...] | None
     close_bias: torch.Tensor | None
     cols: torch.Tensor  # [1, block width]
+    draft_cache: dict | None = None
 
 
 @dataclass
@@ -897,15 +911,10 @@ class InferenceEngine:
             raise ValueError("session predates an attach_draft/detach_draft switch; restart its generation")
         start = time.perf_counter()
         with tracer.span("engine.continue_session", nvtx=self._nvtx, batch=session.b_real):
-            if session.draft_cache is not None:
-                (tokens, out_pos, complete, steps, session.logits, session.cache, session.draft_cache,
-                 session.state, session.done) = self._spec_decode(
-                    session.logits, session.cache, session.draft_cache, session.state, session.done, session.dfa
-                )
-            else:
-                tokens, out_pos, complete, steps, session.logits, session.cache, session.state, session.done = (
-                    self._decode(session.logits, session.cache, session.state, session.done, session.dfa)
-                )
+            tokens, out_pos, complete, steps, session.logits, session.cache, session.state, session.done = (
+                self._decode(session.logits, session.cache, session.state, session.done, session.dfa,
+                             session.draft_cache)
+            )
             tokens, out_pos, complete, steps = self._gather_rows(tokens, out_pos, complete, steps)
             tokens, out_pos, complete = tokens.cpu().numpy(), out_pos.cpu().numpy(), complete.cpu().numpy()
         session.rounds_left -= 1
@@ -940,21 +949,17 @@ class InferenceEngine:
         local_real = min(max(b_real - rows.start, 0), b)
 
         spec = self.draft_model is not None
+        draft_len = self._cache_len(prompt_width, with_video, dfa, rounds, self.draft_config) if spec else None
         start = time.perf_counter()
-        if not spec and not rounds and self._decode_route() == "graph":
-            # No session keeps this cache: the prefill writes straight into
-            # the graph key's KV cache (fresh index and scales).
-            static = self._graph_entry(b, cache_len, dfa).carry.cache
-            cache = init_kv_cache(self.config.decoder, b, 0, self.model.compute_dtype,
-                                  quant=self.kv_quant == "int8", device=dev, kv_heads=self.model.decoder.kv_heads)
-            cache["k"], cache["v"] = list(static["k"]), list(static["v"])
-        else:
-            # Speculative caches are in the compute dtype whatever kv_quant
-            # says, as the JAX engine's speculative program makes them.
-            cache = init_kv_cache(
-                self.config.decoder, b, cache_len, self.model.compute_dtype,
-                quant=self.kv_quant == "int8" and not spec, device=dev, kv_heads=self.model.decoder.kv_heads,
-            )
+        static = None
+        if not rounds and self._decode_route() == "graph":
+            # No session keeps these caches: the prefills write straight
+            # into the graph key's KV caches (fresh indices and scales).
+            static = self._graph_entry(b, cache_len, dfa, draft_len).carry
+        # Speculative caches are in the compute dtype whatever kv_quant
+        # says, as the JAX engine's speculative program makes them.
+        cache = self._prefill_cache(self.config, self.model, b, cache_len, self.kv_quant == "int8" and not spec,
+                                    static.cache if static else None)
         if b != local_real:
             # Batch padding takes no part in the int8 KV scales: the JAX
             # engine lets pad rows raise them, which changes the real rows'
@@ -969,10 +974,8 @@ class InferenceEngine:
         draft_cache = None
         if spec:
             # The draft prefills the same prompt block, with its own view of the clips.
-            draft_cache = init_kv_cache(
-                self.draft_config.decoder, b, self._cache_len(prompt_width, with_video, dfa, rounds, self.draft_config),
-                self.draft_model.compute_dtype, device=dev, kv_heads=self.draft_model.decoder.kv_heads,
-            )
+            draft_cache = self._prefill_cache(self.draft_config, self.draft_model, b, draft_len, False,
+                                              static.draft_cache if static else None)
             if with_video:
                 _, draft_cache = self.draft_model.prefill(self._draft_patches(frames), tokens_t, draft_cache, lengths_t)
             else:
@@ -987,13 +990,9 @@ class InferenceEngine:
         if spec:
             table = self._table_for(dfa) if dfa is not None else None
             logits = self._process(logits, state, dfa, table, self.close_bias_array())
-            tokens, out_pos, complete, steps, logits, cache, draft_cache, state, done = self._spec_decode(
-                logits, cache, draft_cache, state, done, dfa
-            )
-        else:
-            tokens, out_pos, complete, steps, logits, cache, state, done = self._decode(
-                logits, cache, state, done, dfa
-            )
+        tokens, out_pos, complete, steps, logits, cache, state, done = self._decode(
+            logits, cache, state, done, dfa, draft_cache
+        )
         tokens, out_pos, complete, steps = self._gather_rows(tokens, out_pos, complete, steps)
         tokens, out_pos, complete = tokens.cpu().numpy(), out_pos.cpu().numpy(), complete.cpu().numpy()
 
@@ -1031,13 +1030,23 @@ class InferenceEngine:
         """The loop's route, from the configuration alone: "graph" on one
         card, "chunked" (the same steps, eagerly, in the same chunks) on the
         CPU, "plain" (a host read after every step) on a mesh or where
-        ``_plain_decode`` asks for the loop's plain version. A draft takes
-        the speculative loop instead."""
+        ``_plain_decode`` asks for the loop's plain version. The speculative
+        loop takes the same routes."""
         if self.mesh is not None or self._plain_decode:
             return "plain"
         return "graph" if self.device.type == "cuda" else "chunked"
 
-    def _new_carry(self, logits, cache, state, finished, dfa) -> _Carry:
+    def _prefill_cache(self, config: VLMConfig, model: VideoLM, b: int, cache_len: int, quant: bool,
+                       static: dict | None) -> dict:
+        """A KV cache for ``model``'s prefill: a new one, or one on
+        ``static``'s k/v (a graph key's) with a fresh index and scales."""
+        cache = init_kv_cache(config.decoder, b, 0 if static else cache_len, model.compute_dtype, quant=quant,
+                              device=self.device, kv_heads=model.decoder.kv_heads)
+        if static is not None:
+            cache["k"], cache["v"] = list(static["k"]), list(static["v"])
+        return cache
+
+    def _new_carry(self, logits, cache, state, finished, dfa, draft_cache=None) -> _Carry:
         """A carry around these tensors, which the steps update in place,
         with a new output buffer, positions, step counter and flag."""
         dev = self.device
@@ -1053,51 +1062,62 @@ class InferenceEngine:
             step=torch.empty((), dtype=torch.int32, device=dev), go=torch.empty((), dtype=torch.bool, device=dev),
             dfa=dfa, table=self._table_for(dfa) if dfa is not None else None,
             forced=self._forced_for(dfa) if dfa is not None else None, close_bias=self.close_bias_array(),
-            cols=torch.arange(block_width, device=dev)[None, :],
+            cols=torch.arange(block_width, device=dev)[None, :], draft_cache=draft_cache,
         )
 
-    def _graph_entry(self, b: int, cache_len: int, dfa) -> _GraphEntry:
+    def _graph_entry(self, b: int, cache_len: int, dfa, draft_len: int | None = None) -> _GraphEntry:
         """The graph key's entry (made on first use: a static carry with its
-        own KV cache, no graph yet); the least recently used key past
-        ``GRAPH_KEYS`` is dropped."""
+        own KV cache, and with ``draft_len`` the draft's, no graph yet); the
+        least recently used key past ``GRAPH_KEYS`` is dropped."""
         key = (b, cache_len, id(dfa) if dfa is not None else None, self.temperature > 0, self.structure_bias,
-               self._block_width(dfa))
+               self._block_width(dfa), draft_len)
         entry = self._graphs.get(key)
         if entry is not None:
             self._graphs.move_to_end(key)
             return entry
         dev = self.device
+        spec = draft_len is not None
         cache = init_kv_cache(self.config.decoder, b, cache_len, self.model.compute_dtype,
-                              quant=self.kv_quant == "int8", device=dev, kv_heads=self.model.decoder.kv_heads)
+                              quant=self.kv_quant == "int8" and not spec, device=dev,
+                              kv_heads=self.model.decoder.kv_heads)
+        draft_cache = None
+        if spec:
+            draft_cache = init_kv_cache(self.draft_config.decoder, b, draft_len, self.draft_model.compute_dtype,
+                                        device=dev, kv_heads=self.draft_model.decoder.kv_heads)
         logits = torch.zeros((b, self.config.decoder.vocab_size), dtype=torch.float32, device=dev)
         state = torch.zeros((b,), dtype=torch.long, device=dev)
         finished = torch.zeros((b,), dtype=torch.bool, device=dev)
-        entry = self._graphs[key] = _GraphEntry(self._new_carry(logits, cache, state, finished, dfa))
+        entry = self._graphs[key] = _GraphEntry(self._new_carry(logits, cache, state, finished, dfa, draft_cache))
         while len(self._graphs) > GRAPH_KEYS:
             self._graphs.popitem(last=False)
         return entry
 
-    def _decode(self, logits, cache, state, finished, dfa):
-        """The constrained decode loop: up to max_new_tokens per row.
+    def _decode(self, logits, cache, state, finished, dfa, draft_cache=None):
+        """The constrained decode loop: up to max_new_tokens per row; with
+        ``draft_cache`` (a draft attached) the speculative loop, whose
+        ``logits`` are the processed log-distribution.
 
         Takes and returns the full carry, so that ``generate`` and
         ``continue_session`` run this one loop: ``finished`` marks rows
         that have ended for good (accepted, EOS, batch padding); the token
         cap freezes a row only for this round, through ``out_pos``. The
-        caller's logits, cache, state and finished advance in place.
+        caller's logits, caches, state and finished advance in place.
         Returns (tokens, out_pos, complete, steps, logits, cache, state,
-        finished).
+        finished); a speculative loop's steps are its cycles.
         """
         route = self._decode_route()
         entry = None
         if route == "graph":
-            entry = self._graph_entry(logits.shape[0], cache["k"][0].shape[2], dfa)
+            draft_len = draft_cache["k"][0].shape[2] if draft_cache is not None else None
+            entry = self._graph_entry(logits.shape[0], cache["k"][0].shape[2], dfa, draft_len)
             c = entry.carry
             for dst, src in ((c.logits, logits), (c.state, state), (c.finished, finished)):
                 dst.copy_(src)
             _copy_cache(c.cache, cache)
+            if draft_cache is not None:
+                _copy_cache(c.draft_cache, draft_cache)
         else:
-            c = self._new_carry(logits, cache, state, finished, dfa)
+            c = self._new_carry(logits, cache, state, finished, dfa, draft_cache)
         max_new = self.max_new_tokens
         c.tokens.fill_(self.tokenizer.EOS)
         c.out_pos.zero_()
@@ -1109,30 +1129,35 @@ class InferenceEngine:
             for dst, src in ((logits, c.logits), (state, c.state), (finished, c.finished)):
                 dst.copy_(src)
             _copy_cache(cache, c.cache)
+            if draft_cache is not None:
+                _copy_cache(draft_cache, c.draft_cache)
         return c.tokens, c.out_pos, complete, steps, logits, cache, state, finished
 
     def _run_loop(self, c: _Carry, entry: _GraphEntry | None, route: str) -> int:
-        """Run the steps on ``c`` until ``go`` is false; returns the live
-        steps. The graph and chunked routes read the device once a chunk of
-        ``DECODE_CHUNK`` steps (a key's first chunk runs eagerly on the
-        graphs' stream, the next is captured, then replayed); the plain route
-        once a step."""
+        """Run the steps (with a draft cache in ``c``, the speculative
+        cycles) on ``c`` until ``go`` is false; returns the live steps. The
+        graph and chunked routes read the device once a chunk of
+        ``DECODE_CHUNK`` steps or ``SPEC_CHUNK`` cycles (a key's first chunk
+        runs eagerly on the graphs' stream, the next is captured, then
+        replayed); the plain route once a step."""
         stats = self.stats
         stats.decode_route = "graph" if route == "graph" else "eager"
+        step = self._spec_step if c.draft_cache is not None else self._decode_step
         if route == "plain":
             while bool(c.go):  # the plain loop's host read, one a step
-                self._decode_step(c)
+                step(c)
             return int(c.step)
+        n = SPEC_CHUNK if c.draft_cache is not None else DECODE_CHUNK
         sampling = self.temperature > 0
         ran = 0
         while True:
             mark = GeneratorMark(self._generator) if sampling else None
 
             def chunk():
-                for _ in range(DECODE_CHUNK):
+                for _ in range(n):
                     if mark is not None:
                         mark.before_step()
-                    self._decode_step(c)
+                    step(c)
 
             if entry is None:
                 chunk()
@@ -1141,18 +1166,18 @@ class InferenceEngine:
             else:
                 entry.graph.replay()
                 stats.replays += 1
-            ran += DECODE_CHUNK
+            ran += n
             go, live = torch.stack([c.go.to(torch.int32), c.step]).tolist()  # the one host read a chunk
             if not go:
                 break
             if entry is not None and entry.graph is None:
-                entry.graph = StepGraph(lambda: self._decode_step(c), DECODE_CHUNK, self._graph_pool,
-                                        LAUNCH_COUNTERS, (self._generator,) if sampling else ())
+                entry.graph = StepGraph(lambda: step(c), n, self._graph_pool, LAUNCH_COUNTERS,
+                                        (self._generator,) if sampling else ())
                 stats.graphs_captured += 1
                 stats.capture_seconds += entry.graph.seconds
         if mark is not None:
             # The chunk's idle steps drew too; the eager loop would have stopped.
-            mark.rewind(live - (ran - DECODE_CHUNK), DECODE_CHUNK)
+            mark.rewind(live - (ran - n), n)
         stats.idle_steps += ran - live
         return live
 
@@ -1242,8 +1267,9 @@ class InferenceEngine:
         and an emitted EOS ends its row without counting. The next
         distribution is the target's after that prefix, or after a rejection
         the residual ``norm(max(p - q, 0))``. Both cache indices are
-        rewound to ``index_before + adv`` (the caches are updated in place).
-        Returns (block [B, K], adv [B], logp, state, finished).
+        rewound to ``index_before + adv`` in their own tensors (the caches
+        are updated in place and keep their index tensors); reads nothing on
+        the host. Returns (block [B, K], adv [B], logp, state, finished).
         """
         k = self.spec_tokens
         eos = self.tokenizer.EOS
@@ -1311,37 +1337,28 @@ class InferenceEngine:
             resid = torch.where(total > 0, resid / total.clamp(min=1e-30), p_next.exp())
             new_logp = torch.where((adv < k)[:, None], torch.log(resid + 1e-30), p_next)
         logp = torch.where(frozen[:, None], logp, new_logp)
-        cache["index"] = (index_before + adv).to(torch.int32)
-        draft_cache["index"] = (draft_index + adv).to(torch.int32)
+        # The decoders rebound both indices; the caches keep their tensors.
+        cache["index"], draft_cache["index"] = index_before, draft_index
+        index_before.add_(adv)
+        draft_index.add_(adv)
         return block, adv.long(), logp, new_state, new_finished
 
-    def _spec_decode(self, logp, cache, draft_cache, state, finished, dfa):
-        """The speculative decode loop: up to max_new_tokens per row, one
-        ``_spec_cycle`` an iteration, with ``_decode``'s carry and freezing
-        rules (``logp`` is the processed distribution). Returns (tokens,
-        out_pos, complete, cycles, logp, cache, draft_cache, state,
-        finished)."""
-        self.stats.decode_route = "eager"
+    def _spec_step(self, c: _Carry) -> None:
+        """One cycle of the speculative loop (the JAX ``run_spec`` body), in
+        place on ``c``; reads nothing on the host. Every row is frozen when
+        ``go`` is false, so that a cycle past the loop's end changes nothing
+        read later: it writes an EOS block at an unmoved ``out_pos``, and
+        draft and verify k/v at both caches' unmoved indices, inside the
+        tail slack that ``_cache_len`` leaves for a frozen row's block."""
         max_new = self.max_new_tokens
-        dev = self.device
-        b = logp.shape[0]
-        table = self._table_for(dfa) if dfa is not None else None
-        close_bias = self.close_bias_array()
-        k = self.spec_tokens
-        # Frozen rows still write an EOS block at out_pos each cycle.
-        tokens = torch.full((b, max_new + 2 * k), self.tokenizer.EOS, dtype=torch.long, device=dev)
-        out_pos = torch.zeros((b,), dtype=torch.long, device=dev)
-        cols = torch.arange(k, device=dev)[None, :]
-        step = 0
-        while step < max_new:
-            frozen = finished | (out_pos >= max_new)
-            if bool(frozen.all()):  # the one host sync a cycle
-                break
-            block, adv, logp, state, finished = self._spec_cycle(
-                logp, cache, draft_cache, state, finished, frozen, dfa, table, close_bias
-            )
-            tokens.scatter_(1, out_pos[:, None] + cols, block)
-            out_pos = out_pos + adv
-            step += 1
-        complete = (state == dfa.accept) if dfa is not None else finished
-        return tokens, out_pos, complete, step, logp, cache, draft_cache, state, finished
+        frozen = c.finished | (c.out_pos >= max_new) | ~c.go
+        block, adv, logp, state, finished = self._spec_cycle(
+            c.logits, c.cache, c.draft_cache, c.state, c.finished, frozen, c.dfa, c.table, c.close_bias
+        )
+        c.tokens.scatter_(1, c.out_pos[:, None] + c.cols, block)
+        c.out_pos.add_(adv)
+        c.logits.copy_(logp)
+        c.state.copy_(state)
+        c.finished.copy_(finished)
+        c.step.add_(c.go.to(torch.int32))
+        c.go.copy_((c.step < max_new) & ~(c.finished | (c.out_pos >= max_new)).all())

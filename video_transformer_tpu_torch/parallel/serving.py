@@ -37,10 +37,11 @@ a host-driven chunk's ``n_steps`` (JAX ``_build_decode``), whose count sits
 in a device scalar set before each replay; a step past it, or past the
 point where every slot is done, freezes every slot. A key's first run of
 steps is eager (the graph's warm-up); the graph is captured at its second.
-On the CPU the same steps run eagerly. With a draft, on a mesh or where
-the engine's ``_plain_decode`` is set the route is eager (chosen at
-construction), and there a host-driven chunk reads the device after every
-step. ``stats`` names the route (``decode_route``).
+With a draft each step is a speculative cycle, and a refill period's
+cycles replay the same way. On the CPU the same steps run eagerly. On a
+mesh or where the engine's ``_plain_decode`` is set the route is eager
+(chosen at construction), and there a host-driven chunk reads the device
+after every step. ``stats`` names the route (``decode_route``).
 
 The pool is in the compute dtype, so on the card each decode step writes
 and attends through K5 (``decode_attention_update`` on a bf16 cache).
@@ -60,13 +61,13 @@ request count and no stage has pad lanes.
 Speculative decoding composes (device refill only, as in JAX): with a draft
 attached to the engine (``attach_draft``), each step of the chunk loop is
 the engine's draft/verify cycle (``InferenceEngine._spec_cycle``) over the
-paged pools. The draft has its own bf16 pool of ``draft_cache_len``
-positions, addressed through the same ``rows`` table, with its own per-slot
-index (its encoder emits its own video-token count); a stage prefills both
-models into their scratch caches and K4 adopts both into the pools, and the
-ring parks the processed start-state log-distribution, the carry of the
-speculative step. Greedy acceptance is exact, so the tokens are the plain
-batcher's.
+paged pools, in place on the carry as a plain step is. The draft has its
+own bf16 pool of ``draft_cache_len`` positions, addressed through the same
+``rows`` table, with its own per-slot index (its encoder emits its own
+video-token count); a stage prefills both models into their scratch caches
+and K4 adopts both into the pools, and the ring parks the processed
+start-state log-distribution, the carry of the speculative step. Greedy
+acceptance is exact, so the tokens are the plain batcher's.
 """
 
 from __future__ import annotations
@@ -210,10 +211,9 @@ class ContinuousBatcher:
         self._close_bias = engine.close_bias_array()
         # The columns one step writes: the fast-forward block, or the draft block.
         self._cols = torch.arange(self.spec_k or self.block_width, device=engine.device)[None, :]
-        # The decode route, from the configuration: graphs of steps on one
-        # card without a draft; else eager.
-        self._graphed = (engine.device.type == "cuda" and engine.mesh is None and not self.spec
-                         and not engine._plain_decode)
+        # The decode route, from the configuration: graphs of steps (or of
+        # speculative cycles) on one card; else eager.
+        self._graphed = engine.device.type == "cuda" and engine.mesh is None and not engine._plain_decode
         self.stats = RouteStats(decode_route="graph" if self._graphed else "eager")
         self._graphs: dict[tuple, StepGraph] = {}
         self._warm: set[tuple] = set()
@@ -387,10 +387,11 @@ class ContinuousBatcher:
                 step()
             return
         engine = self.engine
-        if self._graph_inputs != (engine.model, engine.temperature):
+        inputs = (engine.model, engine.draft_model, engine.temperature)
+        if self._graph_inputs != inputs:
             # A graph holds the weights and the temperature it was captured with.
             self._graphs.clear()
-            self._graph_inputs = (engine.model, engine.temperature)
+            self._graph_inputs = inputs
         graph = self._graphs.get(key)
         if graph is None and key in self._warm:
             sampling = engine.temperature > 0
@@ -408,15 +409,19 @@ class ContinuousBatcher:
     def _spec_step(self) -> None:
         """One speculative cycle over all slots (the JAX batcher's
         ``_make_spec_step``): the engine's draft/verify cycle over both
-        paged pools, then the batcher's output and freezing rules."""
-        frozen = self.done | (self.out_pos >= self.max_new)
-        block, adv, self.logits, self.state, done = self.engine._spec_cycle(
+        paged pools, then the batcher's output and freezing rules, in place
+        on the carry; reads nothing on the host. Every slot is frozen while
+        ``_live`` is false."""
+        frozen = self.done | (self.out_pos >= self.max_new) | ~self._live
+        block, adv, logp, state, done = self.engine._spec_cycle(
             self.logits, self.cache, self.dcache, self.state, self.done, frozen, self.dfa, self.table,
             self._close_bias,
         )
         self.tokens_out.scatter_(1, self.out_pos[:, None] + self._cols, block)
-        self.out_pos = self.out_pos + adv
-        self.done = done | (self.out_pos >= self.max_new)
+        self.out_pos.add_(adv)
+        self.logits.copy_(logp)
+        self.state.copy_(state)
+        self.done.copy_(done | (self.out_pos >= self.max_new))
 
     def _decode_chunk(self, n_steps: int) -> np.ndarray:
         """Host-driven chunk: up to ``n_steps`` steps, stopping once every
