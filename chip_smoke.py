@@ -57,10 +57,16 @@ every projection takes K6, then training gradients), then:
   share, capture seconds, graphs, replays, idle steps and peak GiB;
 - trains three steps of ``python -m video_transformer_tpu_torch.train.run``'s
   code path at the full ``base`` width (seeded random f32 weights, bf16
-  compute, BPE vocabulary, batch 2, 1,024 video + 2,048 text positions),
-  shows that every step ran 36 launches each of K7a, K7b and K7c and no
-  reference backward, profiles one step, and saves and restores a
-  checkpoint in a temporary directory;
+  compute, BPE vocabulary, batch 2, 1,024 video + 2,048 text positions)
+  on the graph route (``Trainer.step`` on one card: one CUDA graph of the
+  whole step) beside the same steps on the eager route (``_eager_step``)
+  from a clone of the same seeded start, every metric of every step and
+  every parameter, moment and count after the last bit for bit, shows that
+  every step of both ran 36 launches each of K7a, K7b and K7c and no
+  reference backward, profiles one step a route (ms a step, busy share,
+  capture seconds, graphs, replays, peak GiB), and saves and restores a
+  checkpoint in a temporary directory, after which a replay must train the
+  restored weights as the eager route does;
 - serves one batch of two 16-frame clips through ``InferenceEngine.generate``
   at the full ``7b`` width and 4 of its 28 decoder layers
   (``INT4_SERVING_LAYERS``; seeded random weights, bf16, int4 weights, int8
@@ -1908,13 +1914,106 @@ def train_reference_phase(seed: int, dev: torch.device, vocab_size: int) -> dict
             "tensors": len(cpu_grads), "gpu_launches": gpu_counts, "seeds": readings}
 
 
-def train_phase(dev: torch.device, workdir: Path) -> tuple[list[dict], dict[str, int]]:
-    """Five steps of the training CLI's code path at base width; then one
-    profiled step and a checkpoint round trip. Returns the lines to print
-    and the launches of the three steps."""
+def optimizer_state(trainer: Trainer) -> dict[str, torch.Tensor]:
+    """Every tensor a training step changes: each parameter and its two
+    moments (and accumulated mean), the update and micro-step counts."""
+    names = [n for n, p in trainer.model.named_parameters() if p.requires_grad]
+    opt = trainer.optimizer
+    out = {}
+    for label, tensors in (("param", opt.params), ("mu", opt.mu), ("nu", opt.nu), ("acc", opt.acc)):
+        out.update({f"{label}:{name}": t for name, t in zip(names, tensors)})
+    out.update({"count": opt.count, "mini": opt.mini})
+    return out
+
+
+def differing(a: dict[str, torch.Tensor], b: dict[str, torch.Tensor]) -> dict[str, float]:
+    """The tensors of two ``optimizer_state``s that differ in a bit, with
+    their largest difference."""
+    return {k: (a[k].double() - b[k].double()).abs().max().item() for k in a if not torch.equal(a[k], b[k])}
+
+
+def train_route_steps(trainer: Trainer, batches: list, label: str) -> dict:
+    """``Trainer.step`` on ``batches`` on the trainer's route, each step
+    with a finite loss and gradient norm and exactly
+    ``TRAIN_STEP_LAUNCHES``: the metrics, ms a step, the launches, the
+    route's stats and the peak device memory (allocated and reserved)
+    over the memory resident before the steps."""
+    stats = trainer.stats
+    before_stats = (stats.graphs_captured, stats.capture_seconds, stats.replays)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    metrics, step_ms, lines = [], [], []
+    start_counts = counts()
+    for step, (patches, tokens, prompt_lens) in enumerate(batches, 1):
+        before = counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        got = trainer.step(patches, tokens, prompt_lens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - start) * 1e3
+        launched = {key: n - before[key] for key, n in counts().items()}
+        if not (math.isfinite(got["loss"]) and math.isfinite(got["grad_norm"])):
+            raise AssertionError(f"{label} step {step}: non-finite loss or gradient {got}")
+        if any(launched[key] != n for key, n in TRAIN_STEP_LAUNCHES.items()):
+            raise AssertionError(f"{label} step {step}: launches {launched}, expected {TRAIN_STEP_LAUNCHES}")
+        metrics.append(got)
+        step_ms.append(ms)
+        lines.append({"phase": "train_step", "route": stats.step_route, "step": step, "loss": got["loss"],
+                      "accuracy": got["accuracy"], "grad_norm": got["grad_norm"], "loss_tokens": got["tokens"],
+                      "step_ms": ms, "launches": launched})
+    return {"route": stats.step_route, "metrics": metrics, "step_ms": step_ms, "lines": lines,
+            "launches": {key: n - start_counts[key] for key, n in counts().items()},
+            "graphs_captured": stats.graphs_captured - before_stats[0],
+            "capture_s": stats.capture_seconds - before_stats[1], "replays": stats.replays - before_stats[2],
+            "resident_gib": resident, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+
+
+def train_profile(trainer: Trainer, batch: tuple) -> dict:
+    """One step on the trainer's route timed alone, then one under
+    torch.profiler (device activity only): wall ms, device busy ms and
+    share, kernels, and the device ms by kind. A replayed graph's kernels
+    are recorded as an eager step's are."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    trainer.step(*batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.step(*batch)
+        torch.cuda.synchronize()
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    ops = sorted((op for op in ops if op[1] > 0), key=lambda op: -op[1])
+    if not ops:
+        raise AssertionError(f"train profile ({trainer.stats.step_route}): no device ops")
+    device_ms = sum(op[1] for op in ops)
+    kinds = {"flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0, "flash_fwd": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, ms, _ in ops:
+        kind = next((k for k in ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd") if k in name), None)
+        kind = kind or ("matmul" if any(m in name for m in ("nvjet", "gemm", "cutlass")) else "other")
+        kinds[kind] += ms
+    return {"phase": "train_profile", "route": trainer.stats.step_route, "wall_ms": wall_ms,
+            "device_busy_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+            "device_launches": sum(op[2] for op in ops), "device_ms_by_kind": kinds,
+            "top_device_ops_ms": [[name[:60], ms, count] for name, ms, count in ops[:12]]}
+
+
+def train_phase(dev: torch.device, workdir: Path, smi: str) -> tuple[list[dict], dict[str, int]]:
+    """``TRAIN_STEPS`` steps of the training CLI's code path at base width
+    on the graph route (a replayed CUDA graph of the whole step), beside the
+    same steps from a clone of the same seeded start on the eager route
+    (``_eager_step``): every metric of every step, and every parameter,
+    moment and count after the last step, bit for bit; a difference raises,
+    with a second eager run's differences from the first beside it (whether
+    some op of the step is not deterministic). Then one profiled step a
+    route and a checkpoint round trip, followed by a replay that must train
+    the restored weights as the eager route does. Returns the lines to
+    print and the graph route's launches."""
     args = build_parser().parse_args(TRAIN_ARGS + ["--out", str(workdir / "ckpt"), "--log-dir", str(workdir)])
     t0 = time.perf_counter()
     config, trainer, batches = prepare(args, setup_logging(args.log_dir))
@@ -1923,64 +2022,65 @@ def train_phase(dev: torch.device, workdir: Path) -> tuple[list[dict], dict[str,
               "seq": config.video_tokens + args.text_len, "batch": args.batch, "vocab": config.decoder.vocab_size,
               "params": sum(p.numel() for p in trainer.optimizer.params), "weights": "random f32, seeded",
               "compute_dtype": config.dtype}]
-    expected = TRAIN_STEP_LAUNCHES
-    step_ms, loss_tokens = [], []
-    torch.cuda.reset_peak_memory_stats()
+    steps = [next(batches) for _ in range(TRAIN_STEPS)]
+    start = copy.deepcopy(trainer.model)  # the seeded start, for the eager route's runs
+
+    def eager_twin() -> Trainer:
+        twin = Trainer(config, trainer.train_config, device=dev, model=copy.deepcopy(start))
+        twin._eager_step = True
+        return twin
+
+    # The main path first: the CLI's trainer on its own route. (The eager
+    # route's steps after it find their activations' blocks cached: a
+    # capture empties the allocator's cache, and a warm-up on the graphs'
+    # stream cannot take blocks cached for another stream.)
     reset_counts()
-    for step in range(1, TRAIN_STEPS + 1):
-        patches, tokens, prompt_lens = next(batches)
-        before = counts()
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        metrics = trainer.step(patches, tokens, prompt_lens)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - start) * 1e3
-        launched = {key: n - before[key] for key, n in counts().items()}
-        if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])):
-            raise AssertionError(f"train step {step}: non-finite loss or gradient {metrics}")
-        if any(launched[key] != n for key, n in expected.items()):
-            raise AssertionError(f"train step {step}: launches {launched}, expected {expected}")
-        step_ms.append(ms)
-        loss_tokens.append(metrics["tokens"])
-        lines.append({"phase": "train_step", "step": step, "loss": metrics["loss"], "accuracy": metrics["accuracy"],
-                      "grad_norm": metrics["grad_norm"], "loss_tokens": metrics["tokens"], "step_ms": ms,
-                      "launches": launched})
+    graph = train_route_steps(trainer, steps, "train")
     total = counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    steady = statistics.median(step_ms[1:])
-    lines.append({"phase": "train", "steps": TRAIN_STEPS, "steady_step_ms": steady, "first_step_ms": step_ms[0],
-                  "loss_tokens_per_s": statistics.median(loss_tokens[1:]) / steady * 1e3,
+    twin = eager_twin()
+    eager = train_route_steps(twin, steps, "train eager")
+    if (graph["route"], eager["route"]) != ("graph", "eager") or graph["graphs_captured"] != 1 \
+            or graph["replays"] != TRAIN_STEPS - 1:
+        raise AssertionError(f"train routes {graph['route']} / {eager['route']}, captures "
+                             f"{graph['graphs_captured']}, replays {graph['replays']}")
+    diff = differing(optimizer_state(trainer), optimizer_state(twin))
+    parted = [i for i, (a, b) in enumerate(zip(graph["metrics"], eager["metrics"])) if a != b]
+    if diff or parted:
+        # A second eager run from the same start: does the eager route part from itself?
+        second = eager_twin()
+        again = train_route_steps(second, steps, "train eager (second run)")
+        spread = differing(optimizer_state(second), optimizer_state(twin))
+        raise AssertionError(
+            f"train: the graph route parts from the eager route at steps {parted}, in {len(diff)} tensors "
+            f"({dict(sorted(diff.items(), key=lambda kv: -kv[1])[:6])}); a second eager run parts from the first "
+            f"at steps {[i for i, (a, b) in enumerate(zip(again['metrics'], eager['metrics'])) if a != b]}, in "
+            f"{len(spread)} tensors ({dict(sorted(spread.items(), key=lambda kv: -kv[1])[:6])})")
+    lines += graph["lines"] + eager["lines"]
+    peak = graph["peak_gib"]
+    steady = statistics.median(graph["step_ms"][1:])
+    routes = {}
+    for timed, trained in ((graph, trainer), (eager, twin)):
+        profiled = train_profile(trained, steps[0])
+        lines.append(dict(profiled, card=smi))
+        routes[timed["route"]] = {
+            "steady_step_ms": statistics.median(timed["step_ms"][1:]), "first_step_ms": timed["step_ms"][0],
+            "step_ms": timed["step_ms"], "busy_share": profiled["device_busy_share"],
+            "profiled_wall_ms": profiled["wall_ms"], "device_busy_ms": profiled["device_busy_ms"],
+            "capture_s": timed["capture_s"], "graphs_captured": timed["graphs_captured"],
+            "replays": trained.stats.replays, "resident_gib": timed["resident_gib"],
+            "peak_gib": timed["peak_gib"], "peak_reserved_gib": timed["peak_reserved_gib"]}
+    lines.append({"phase": "train", "steps": TRAIN_STEPS, "route": graph["route"], "steady_step_ms": steady,
+                  "first_step_ms": graph["step_ms"][0],
+                  "loss_tokens_per_s": statistics.median([m["tokens"] for m in graph["metrics"][1:]]) / steady * 1e3,
                   "positions_per_s": args.batch * (config.video_tokens + args.text_len) / steady * 1e3,
-                  "peak_memory_gib": peak, "launches": total})
+                  "peak_memory_gib": peak, "launches": total, "routes": routes,
+                  "bit_equal": {"metrics_steps": TRAIN_STEPS, "tensors": len(optimizer_state(trainer))},
+                  "card": smi})
 
-    # One step timed alone, then the same under torch.profiler (device activity only).
-    patches, tokens, prompt_lens = next(batches)
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    trainer.step(patches, tokens, prompt_lens)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - start) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        trainer.step(patches, tokens, prompt_lens)
-        torch.cuda.synchronize()
-    ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
-    ops = sorted((op for op in ops if op[1] > 0), key=lambda op: -op[1])
-    device_ms = sum(op[1] for op in ops)
-    if not ops:
-        raise AssertionError("train profile: no device ops")
-    kinds = {"flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0, "flash_fwd": 0.0, "matmul": 0.0, "other": 0.0}
-    for name, ms, _ in ops:
-        kind = next((k for k in ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd") if k in name), None)
-        kind = kind or ("matmul" if any(m in name for m in ("nvjet", "gemm", "cutlass")) else "other")
-        kinds[kind] += ms
-    lines.append({"phase": "train_profile", "wall_ms": wall_ms, "device_busy_ms": device_ms,
-                  "device_busy_share": device_ms / wall_ms, "device_launches": sum(op[2] for op in ops),
-                  "device_ms_by_kind": kinds,
-                  "top_device_ops_ms": [[name[:60], ms, count] for name, ms, count in ops[:12]]})
-
-    # Checkpoint round trip: save, disturb a weight, restore.
-    start = time.perf_counter()
+    # Checkpoint round trip: save, disturb a weight, restore; then one more
+    # step on each route, bit for bit: the replay trains the restored
+    # weights (the eager twin holds the saved ones, undisturbed).
+    t0 = time.perf_counter()
     saved = trainer.save_checkpoint(args.out)
     state = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
     with torch.no_grad():
@@ -1989,8 +2089,15 @@ def train_phase(dev: torch.device, workdir: Path) -> tuple[list[dict], dict[str,
     mismatched = [k for k, v in trainer.model.state_dict().items() if not torch.equal(v, state[k])]
     if mismatched or trainer.step_count != TRAIN_STEPS + 2:
         raise AssertionError(f"checkpoint round trip: {mismatched[:4]}, step {trainer.step_count}")
+    replays = trainer.stats.replays
+    if trainer.step(*steps[1]) != twin.step(*steps[1]) or trainer.stats.replays != replays + 1 \
+            or differing(optimizer_state(trainer), optimizer_state(twin)):
+        raise AssertionError("checkpoint round trip: the replay after the restore parts from the eager route")
     lines.append({"phase": "train_checkpoint", "path": saved.name, "tensors": len(state),
-                  "seconds": time.perf_counter() - start})
+                  "replay_after_restore_bit_equal": True, "seconds": time.perf_counter() - t0})
+    del trainer, twin, start
+    gc.collect()
+    torch.cuda.empty_cache()
     return lines, total
 
 
@@ -3994,10 +4101,18 @@ def train_data_steps(trainer, batches, steps: int, label: str) -> tuple[list[dic
         if any(launched[key] != n for key, n in TRAIN_STEP_LAUNCHES.items()):
             raise AssertionError(f"{label} step {step}: launches {launched}, expected {TRAIN_STEP_LAUNCHES}")
         step_ms.append(ms)
-        lines.append({"phase": f"{label}_step", "step": step, "loss": metrics["loss"],
+        lines.append({"phase": f"{label}_step", "route": trainer.stats.step_route, "step": step,
+                      "loss": metrics["loss"],
                       "grad_norm": metrics["grad_norm"], "loss_tokens": metrics["tokens"], "step_ms": ms,
                       "batch_seconds": batch_s, "launches": {k: launched[k] for k in TRAIN_STEP_LAUNCHES}})
     return lines, step_ms, rows
+
+
+def route_stats(trainer: Trainer) -> dict:
+    """A trainer's ``StepStats``: its step route, graphs, capture seconds and replays."""
+    stats = trainer.stats
+    return {"step_route": stats.step_route, "graphs_captured": stats.graphs_captured,
+            "capture_seconds": stats.capture_seconds, "replays": stats.replays}
 
 
 def timed_grammar(record: list):
@@ -4039,7 +4154,10 @@ def train_grounded_phase(dev: torch.device, workdir: Path, smi: str) -> tuple[li
     lines, step_ms, _ = train_data_steps(trainer, itertools.chain([first], batches), GROUNDED_STEPS,
                                          "train_grounded")
     launched = counts()
+    if trainer.stats.step_route != "graph":
+        raise AssertionError(f"train_grounded: step route {trainer.stats.step_route}")
     lines.append({"phase": "train_grounded", "preset": config.name, "steps": GROUNDED_STEPS, "batch": args.batch,
+                  **route_stats(trainer),
                   "seq": config.video_tokens + args.text_len, "setup_seconds": setup_s,
                   "grammar_seconds": grammar_s, "pool": args.grounded_cache,
                   "first_batch_seconds_with_pool_render": first_s, "branches": branches,
@@ -4090,7 +4208,10 @@ def train_staged_phase(dev: torch.device, workdir: Path, tokenizer, smi: str) ->
             else:
                 grammar_walk(grammar, kept)
             bodies.append([len(kept), len(want)])
+    if trainer.stats.step_route != "graph":
+        raise AssertionError(f"train_staged: step route {trainer.stats.step_route}")
     lines.append({"phase": "train_staged", "preset": config.name, "pairs": len(records), "stage_seconds": stage_s,
+                  **route_stats(trainer),
                   "setup_seconds": setup_s, "steps": STAGED_STEPS, "step_ms": step_ms,
                   "aligned_body_tokens_kept_of": bodies, "launches": launched, "card": smi})
     del trainer, batches
@@ -6057,7 +6178,7 @@ def run(seed: int) -> None:
 
     # Main path 3, training: three base-width steps through K7a-c.
     with tempfile.TemporaryDirectory(prefix="vtx_train_") as workdir:
-        train_lines, trained = train_phase(dev, Path(workdir))
+        train_lines, trained = train_phase(dev, Path(workdir), smi)
     for line in train_lines:
         emit(line)
 

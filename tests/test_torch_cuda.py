@@ -1079,3 +1079,76 @@ def test_speculative_batcher_graphs_equal_the_per_cycle_loop(cuda):
             assert batcher.stats.graphs_captured > 0 and batcher.stats.replays > 0
     engine._plain_decode = False
     assert outs[0] == outs[1] and sorted(outs[0]) == list(range(5))
+
+
+def tiny_trainers(cuda, **train):
+    """Two tiny-preset trainers on the card from the same seeded weights:
+    the graph route and the eager route (``_eager_step``), the learning
+    rate changing at every step (warm-up 1 of 6)."""
+    from video_transformer_tpu_torch.models.config import get_preset
+    from video_transformer_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    config = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=6, **train)
+    graphed, eager = (Trainer(get_preset("tiny"), config, device=cuda, seed=5) for _ in range(2))
+    eager._eager_step = True
+    return graphed, eager
+
+
+def trainer_state(trainer) -> list[torch.Tensor]:
+    opt = trainer.optimizer
+    return [*opt.params, *opt.mu, *opt.nu, *opt.acc, opt.count, opt.mini]
+
+
+def tiny_train_batches(n: int):
+    from video_transformer_tpu_torch.models.config import get_preset
+    from video_transformer_tpu_torch.train.data import synthetic_batch
+
+    rng = np.random.default_rng(4)
+    return [(*synthetic_batch(rng, get_preset("tiny"), 2, 224), np.array([64, 16], np.int32)) for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [{}, {"accum_steps": 2}, {"remat": True}], ids=["plain", "accum2", "remat"])
+def test_train_graph_equals_the_eager_step(cuda, train):
+    """Four tiny steps (K7a-c in the decoder, K1 and the reference backward
+    in the encoder, all inside the graph): the graph route's metrics, and
+    every parameter, moment and count afterwards, equal the eager route's
+    bit for bit; each route moves every counter by the same launches."""
+    graphed, eager = tiny_trainers(cuda, **train)
+    batches = tiny_train_batches(4)
+    runs = []
+    for trainer in (eager, graphed):
+        before = [kernel.launches for kernel in TRAIN_KERNELS] + [flash_attention.launches,
+                                                                  flash_attention.reference_backwards]
+        metrics = [trainer.step(*b) for b in batches]
+        torch.cuda.synchronize()
+        after = [kernel.launches for kernel in TRAIN_KERNELS] + [flash_attention.launches,
+                                                                 flash_attention.reference_backwards]
+        runs.append((metrics, [a - b for a, b in zip(after, before)]))
+    assert runs[0] == runs[1]
+    layers = 2 * (2 if train.get("remat") else 1)  # remat runs each decoder forward again
+    assert runs[0][1] == [4 * layers, 8, 8, 8, 8]
+    assert all(torch.equal(a, b) for a, b in zip(trainer_state(graphed), trainer_state(eager)))
+    bodies = 2 if train.get("accum_steps") else 1
+    assert (graphed.stats.step_route, graphed.stats.graphs_captured, graphed.stats.replays) == ("graph", bodies,
+                                                                                                4 - bodies)
+    assert eager.stats.step_route == "eager" and eager.stats.graphs_captured == 0
+
+
+@pytest.mark.cuda
+def test_train_graph_replays_the_restored_weights(cuda, tmp_path):
+    """``restore_checkpoint`` copies into the parameters' own tensors: the
+    next replay trains the restored weights, bit for bit as the eager route
+    does after the same restore."""
+    graphed, eager = tiny_trainers(cuda)
+    batches = tiny_train_batches(3)
+    for trainer in (graphed, eager):
+        trainer.step(*batches[0])
+        trainer.step(*batches[1])
+    saved = graphed.save_checkpoint(tmp_path)
+    for trainer in (graphed, eager):
+        trainer.step(*batches[2])
+        trainer.restore_checkpoint(saved)
+    assert graphed.step(*batches[2]) == eager.step(*batches[2])
+    assert all(torch.equal(a, b) for a, b in zip(trainer_state(graphed), trainer_state(eager)))
+    assert graphed.stats.replays == 3 and graphed.stats.graphs_captured == 1

@@ -148,9 +148,9 @@ def test_synthetic_batch_matches_jax(mode):
 
 @pytest.mark.parametrize("warmup,total", [(1, 10), (5, 40), (100, 10_000), (3, 3)])
 def test_lr_schedule_matches_optax(warmup, total):
-    """Within rtol 1e-5 of optax's schedule at every count: optax evaluates
-    in float32 (its cosine argument alone carries ~1e-6 relative error), the
-    port in float64."""
+    """Within rtol 1e-5 of optax's schedule at every count: both evaluate in
+    float32 (the cosine argument alone carries ~1e-6 relative error), the
+    port on a count tensor, as its optimizer does on the device."""
     cfg = TrainConfig(learning_rate=3e-4, warmup_steps=warmup, total_steps=total)
     want = optax.warmup_cosine_decay_schedule(0.0, 3e-4, warmup, max(total, warmup + 1), 3e-5)
     ours = lr_schedule(cfg)

@@ -257,7 +257,9 @@ class Decoder(nn.Module):
         for i in range(cfg.num_layers):
             block = getattr(self, f"layer_{i}")
             if remat:
-                x, _ = checkpoint(block, x, positions, rope, None, use_reentrant=False)
+                # The blocks draw no random numbers, so the recompute needs no
+                # saved generator state (and a captured training step reads none).
+                x, _ = checkpoint(block, x, positions, rope, None, use_reentrant=False, preserve_rng_state=False)
             else:
                 x, cache = block(x, positions, rope, cache, prefill)
         x = self.final_norm(x)

@@ -1,8 +1,11 @@
-"""CUDA graphs of whole decode steps: the port's compiled decode loop.
+"""CUDA graphs of whole steps: the port's compiled decode loop and training step.
 
 The counterpart of the JAX package's compiled loops (``parallel/engine.py``
 ``_decode_loop_fn`` under ``_get_generate``/``_get_resume``, and
-``parallel/serving.py`` ``_build_decode``/``_build_decode_refill``). A step
+``parallel/serving.py`` ``_build_decode``/``_build_decode_refill``) and of
+its jitted training step (``train/trainer.py`` ``make_train_step``; the
+port's ``Trainer.step`` captures one step, forward, backward and update, as
+a graph of ``n = 1``). A decode step
 function updates a carry of fixed tensors in place and reads nothing on the
 host: it computes the loop's exit on the device, and a step taken after the
 loop has ended changes nothing that is read later. ``StepGraph`` captures
@@ -53,8 +56,8 @@ class RouteStats:
 
 
 class GraphPool:
-    """One engine's graphs: a memory pool they all share and the side stream
-    on which their warm-up chunks run and they are captured."""
+    """One engine's (or trainer's) graphs: a memory pool they all share and
+    the side stream on which their warm-up chunks run and they are captured."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -86,8 +89,10 @@ class GraphPool:
 class StepGraph:
     """``n`` calls of ``step`` captured into one CUDA graph.
 
-    ``counters`` are the kernel wrappers whose ``launches`` the steps move;
-    ``generators`` the generators the steps draw from. The caller has run
+    ``counters`` are the kernel wrappers whose ``launches`` the steps move,
+    or (object, attribute) pairs for another count that the steps' Python
+    code moves (``flash_attention.reference_backwards``); ``generators``
+    the generators the steps draw from. The caller has run
     the step at these shapes already (``GraphPool.warm``). A capture that
     fails raises.
     """
@@ -95,11 +100,11 @@ class StepGraph:
     def __init__(self, step: Callable[[], Any], n: int, pool: GraphPool, counters: Sequence[Any] = (),
                  generators: Sequence[torch.Generator] = ()):
         self.n = n
-        self.counters = tuple(counters)
+        self.counters = tuple(c if isinstance(c, tuple) else (c, "launches") for c in counters)
         self.graph = torch.cuda.CUDAGraph()
         for generator in generators:
             self.graph.register_generator_state(generator)
-        before = [counter.launches for counter in self.counters]
+        before = [getattr(counter, name) for counter, name in self.counters]
         start = time.perf_counter()
         # thread_local: a thread of the same process that uses the card
         # meanwhile (a mesh rank) is not refused by this capture.
@@ -108,15 +113,15 @@ class StepGraph:
                 step()
         self.seconds = time.perf_counter() - start
         # The capture called the wrappers but launched nothing.
-        self.deltas = [counter.launches - b for counter, b in zip(self.counters, before)]
-        for counter, b in zip(self.counters, before):
-            counter.launches = b
+        self.deltas = [getattr(counter, name) - b for (counter, name), b in zip(self.counters, before)]
+        for (counter, name), b in zip(self.counters, before):
+            setattr(counter, name, b)
 
     def replay(self) -> None:
         """Run the ``n`` steps; each wrapper's counter moves by what they launch."""
         self.graph.replay()
-        for counter, delta in zip(self.counters, self.deltas):
-            counter.launches += delta
+        for (counter, name), delta in zip(self.counters, self.deltas):
+            setattr(counter, name, getattr(counter, name) + delta)
 
 
 class GeneratorMark:

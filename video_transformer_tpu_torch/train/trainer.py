@@ -17,6 +17,20 @@ The ``grad_norm`` metric is the raw micro-step norm. Checkpoints are
 ``params_{step}/params.pt`` state dicts (orbax is not available on the
 card machine).
 
+One device runs JAX's jitted step (``make_train_step``) as one body on a
+fixed carry (``Trainer._step_body``): the key's static buffers of the batch,
+the loss, ``torch.autograd.grad``, the global norm and the optimizer's
+update, whose count, learning rate, bias corrections and Welford divisor
+live in device tensors, and the metrics written into a static tensor. The
+body reads nothing on the host; ``step`` copies the batch in, runs it and
+reads the metrics once. On one card it runs as a replayed CUDA graph
+(``parallel/graphs.py``): a key's first step runs eagerly on the graphs'
+side stream, then one step is captured. With accumulation the host picks
+the body ("accumulate" or "accumulate and apply") from its own micro-step
+count, as ``MultiSteps`` picks with ``lax.cond``; each has its graph. The
+CPU, a mesh (gloo's collectives run on the host) and a trainer whose
+private ``_eager_step`` is set run the same body eagerly (``stats``).
+
 On a mesh (``parallel/mesh.py``), JAX's two layouts:
 
 - ``(data, model)``: each rank holds its ``PARTITION_RULES`` shard of the
@@ -50,7 +64,8 @@ from __future__ import annotations
 
 import contextlib
 import math
-from dataclasses import dataclass
+from collections import OrderedDict
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable
 
@@ -60,6 +75,9 @@ import torch
 from ..models.config import VLMConfig
 from ..models.tokenizer import ByteTokenizer
 from ..models.vlm import VideoLM
+from ..ops.attention import flash_attention
+from ..ops.flash_bwd import flash_bwd_dkv, flash_bwd_dq, flash_fwd_lse
+from ..parallel.graphs import GraphPool, StepGraph
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, Mesh, replicated
 from ..parallel.pipeline_parallel import SCHEDULES, pipeline_vlm_logits, shard_stages, stage_range
 from ..parallel.sharding import (
@@ -75,6 +93,9 @@ from ..weights import from_state_dict, random_params
 
 __all__ = [
     "AdamW",
+    "STEP_KEYS",
+    "StepStats",
+    "TRAIN_COUNTERS",
     "TrainConfig",
     "Trainer",
     "distillation_loss",
@@ -112,19 +133,39 @@ class TrainConfig:
 GRAD_BUCKET_BYTES = 64 << 20
 """Gradients summed over ``data`` a bucket at a time (one all-reduce each)."""
 
+STEP_KEYS = 4
+"""Step keys (batch shapes and dtypes, accumulation) whose carries and
+graphs a trainer keeps; the least recently used past this is dropped."""
 
-def lr_schedule(config: TrainConfig) -> Callable[[int], float]:
+METRICS = ("loss", "accuracy", "tokens", "grad_norm")
+
+TRAIN_COUNTERS = (flash_attention, (flash_attention, "reference_backwards"), flash_fwd_lse, flash_bwd_dq,
+                  flash_bwd_dkv)
+"""The counts that a training step moves (``StepGraph``'s ``counters``)."""
+
+
+def lr_schedule(config: TrainConfig) -> Callable[[torch.Tensor | int], torch.Tensor]:
     """optax.warmup_cosine_decay_schedule(0, lr, warmup, max(total, warmup + 1),
-    0.1 * lr) as a function of the optimizer's update count."""
+    0.1 * lr) as a function of the optimizer's update count, evaluated in
+    float32 as optax evaluates it: a count tensor gives a 0-d float32 tensor
+    on its device (an int, one on the CPU), and nothing is read on the host."""
     peak, warmup = config.learning_rate, config.warmup_steps
     decay = max(config.total_steps, warmup + 1) - warmup
-    alpha = 0.1
+    end = peak * 0.1
+    alpha = end / peak if peak else 0.0
 
-    def schedule(count: int) -> float:
-        if count < warmup:
-            return peak * count / warmup
-        t = min(count - warmup, decay)
-        return peak * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t / decay)) + alpha)
+    def schedule(count: torch.Tensor | int) -> torch.Tensor:
+        count = torch.as_tensor(count).float()
+        # optax.cosine_decay_schedule(peak, decay, alpha) at count - warmup.
+        t = (count - warmup).clamp(max=float(decay))
+        cosine = 0.5 * (1 + torch.cos(math.pi * t / decay))
+        decayed = (1 - alpha) * cosine + alpha
+        lr = decayed * peak
+        if warmup <= 0:
+            return lr
+        # optax.linear_schedule(0, peak, warmup), joined at the warmup boundary.
+        frac = 1 - count.clamp(0, warmup) / warmup
+        return torch.where(count < warmup, frac * (0.0 - peak) + peak, lr)
 
     return schedule
 
@@ -146,6 +187,13 @@ class AdamW:
     in a few in-place list ops: bias-corrected first and second moments,
     ``m_hat / (sqrt(v_hat) + eps)``, plus the decoupled weight decay
     ``weight_decay * p``, the sum scaled by the scheduled learning rate.
+
+    Its state lives on the parameters' device, allocated once: the moments,
+    the accumulated mean (k > 1), optax's count of updates (``count``) and
+    MultiSteps' count of micro-steps accumulated (``mini``), from which
+    ``run`` computes the learning rate, the bias corrections and the
+    Welford divisor without a host read. The host keeps its own micro-step
+    count (``mini_step``), which picks ``run``'s body.
     """
 
     eps = 1e-8
@@ -156,33 +204,52 @@ class AdamW:
         self.norm = norm or global_norm
         """The clip's global norm (a mesh's sums split leaves over their axis)."""
         self.schedule = lr_schedule(config)
+        device = self.params[0].device if self.params else None
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0  # updates applied
-        self.mini_step = 0
-        self.acc: list[torch.Tensor] | None = None
+        self.acc = [torch.zeros_like(p) for p in self.params] if config.accum_steps > 1 else []
+        self.count = torch.zeros((), dtype=torch.int32, device=device)  # updates applied
+        self.mini = torch.zeros((), dtype=torch.int32, device=device)  # micro-steps in ``acc``
+        self.mini_step = 0  # the same on the host
 
-    @torch.no_grad()
+    @property
+    def applies(self) -> bool:
+        """Whether the next micro-step applies an update (MultiSteps' ``emit``)."""
+        return self.mini_step == max(self.config.accum_steps, 1) - 1
+
     def update(self, grads: list[torch.Tensor], norm: torch.Tensor | None = None) -> bool:
         """One micro-step; returns whether the parameters were updated.
         ``norm`` is the gradients' global norm when the caller has it (used
         without accumulation, where the clip's norm is the micro-step's)."""
+        apply = self.applies
+        self.run(grads, norm, apply)
+        self.advance()
+        return apply
+
+    def advance(self) -> None:
+        """The host's micro-step count after a micro-step."""
+        self.mini_step = (self.mini_step + 1) % max(self.config.accum_steps, 1)
+
+    @torch.no_grad()
+    def run(self, grads: list[torch.Tensor], norm: torch.Tensor | None, apply: bool) -> None:
+        """A micro-step's device work, which reads nothing on the host:
+        with accumulation, ``grads`` into the mean, then (``apply``) the
+        clip and the update on the mean; without, the clip and the update
+        on ``grads``."""
         config = self.config
-        k = config.accum_steps
-        if k > 1:
-            if self.acc is None:
-                self.acc = [torch.zeros_like(g) for g in grads]
-            for acc, g in zip(self.acc, grads):
-                acc.add_((g - acc) / (self.mini_step + 1))
-            self.mini_step += 1
-            if self.mini_step < k:
-                return False
-            grads, self.acc, self.mini_step = self.acc, None, 0
-        if norm is None or k > 1:
+        if config.accum_steps > 1:
+            delta = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(delta, (self.mini + 1).float())
+            torch._foreach_add_(self.acc, delta)
+            if not apply:
+                self.mini.add_(1)
+                return
+            grads, norm = self.acc, self.norm(self.acc)
+        elif norm is None:
             norm = self.norm(grads)
         factor = torch.where(norm < config.max_grad_norm, 1.0, config.max_grad_norm / norm)
         grads = torch._foreach_mul([g.float() for g in grads], factor.float())
-        lr, t = self.schedule(self.count), self.count + 1
+        lr, t = self.schedule(self.count), (self.count + 1).float()
         torch._foreach_mul_(self.mu, config.b1)
         torch._foreach_add_(self.mu, grads, alpha=1 - config.b1)
         torch._foreach_mul_(self.nu, config.b2)
@@ -193,9 +260,12 @@ class AdamW:
         step = torch._foreach_div(self.mu, 1 - config.b1**t)
         torch._foreach_div_(step, denom)
         torch._foreach_add_(step, self.params, alpha=config.weight_decay)
-        torch._foreach_add_(self.params, step, alpha=-lr)
-        self.count += 1
-        return True
+        torch._foreach_mul_(step, -lr)
+        torch._foreach_add_(self.params, step)
+        if self.acc:
+            torch._foreach_zero_(self.acc)
+            self.mini.zero_()
+        self.count.add_(1)
 
 
 def distillation_loss(
@@ -239,6 +309,32 @@ def distillation_loss(
     return loss, {"loss": loss.detach(), "accuracy": correct / denom, "tokens": mask.sum()}
 
 
+@dataclass
+class StepStats:
+    """How ``Trainer.step`` ran: ``step_route`` "graph" (a replayed CUDA
+    graph of the whole step) or "eager" (the step's ops launched from
+    Python), the graphs captured and the seconds their capture took, and
+    the replays."""
+
+    step_route: str = ""
+    graphs_captured: int = 0
+    capture_seconds: float = 0.0
+    replays: int = 0
+
+
+@dataclass
+class _StepEntry:
+    """A step key's static carry: the batch's buffers, which ``step``
+    copies each batch into, the metrics that the body writes
+    (``METRICS``), and a graph a body (keyed by whether it applies)."""
+
+    patches: torch.Tensor
+    tokens: torch.Tensor
+    prompt_lens: torch.Tensor
+    metrics: torch.Tensor
+    graphs: dict[bool, StepGraph] = field(default_factory=dict)
+
+
 class Trainer:
     """Owns the model (or a mesh rank's share of it), the optimizer and the
     step count.
@@ -249,6 +345,10 @@ class Trainer:
     rank whole). ``mesh`` is JAX's trainer's: a (data, model) mesh or a
     ("pipe",) mesh (``build_pipe_mesh``); each rank takes its mesh device,
     whatever ``device`` says. A mesh of one rank is no mesh.
+
+    ``stats`` (``StepStats``) says how ``step`` ran: "graph" on one card,
+    "eager" on the CPU, on a mesh, or where the private ``_eager_step``
+    asks for the step's plain version (the tests and the smoke set it).
     """
 
     def __init__(
@@ -312,6 +412,10 @@ class Trainer:
                         if name.startswith("decoder.layer_") and name.split(".")[-2] in ("k", "v")}
         self.optimizer = AdamW(self.model.parameters(), train_config, norm=self._global_norm)
         self.step_count = 0
+        self.stats = StepStats()
+        self._steps: OrderedDict[tuple, _StepEntry] = OrderedDict()
+        self._graph_pool = GraphPool(self.device) if self.device.type == "cuda" else None
+        self._eager_step = False
 
     # -- placement -------------------------------------------------------------
 
@@ -437,7 +541,10 @@ class Trainer:
         tokens = self._tensor(tokens)
         if prompt_lens is None:
             prompt_lens = np.full((tokens.shape[0],), self.train_config.prompt_len, np.int32)
-        patches, prompt_lens = self._tensor(patches), self._tensor(prompt_lens)
+        return self._grads(self._tensor(patches), tokens, self._tensor(prompt_lens))
+
+    def _grads(self, patches, tokens, prompt_lens) -> tuple[dict, list[torch.Tensor]]:
+        """``loss_and_grads`` on tensors already on the device."""
         data = self.mesh.axis_size(DATA_AXIS) if self.mesh is not None else 1
         if data > 1:
             b = tokens.shape[0]
@@ -460,13 +567,79 @@ class Trainer:
 
         ``prompt_lens`` [B] = per-row prompt block widths to mask from the
         loss; defaults to the uniform TrainConfig.prompt_len. On a mesh the
-        metrics are the whole batch's.
+        metrics are the whole batch's. One device copies the batch into its
+        key's buffers, runs ``_step_body`` on them (on one card a key's
+        first step eagerly on the graphs' stream, then as a captured graph)
+        and reads the metrics once.
         """
-        return self.apply(*self.loss_and_grads(patches, tokens, prompt_lens))
+        if prompt_lens is None:
+            prompt_lens = np.full((len(tokens),), self.train_config.prompt_len, np.int32)
+        if self.mesh is not None:
+            self.stats.step_route = "eager"
+            return self.apply(*self.loss_and_grads(patches, tokens, prompt_lens))
+        entry = self._step_entry(patches, tokens, prompt_lens)
+        apply = self.optimizer.applies
+        route = self._step_route()
+        self.stats.step_route = route
+
+        def body() -> None:
+            self._step_body(entry, apply)
+
+        graph = entry.graphs.get(apply)
+        if route == "eager":
+            body()
+        elif graph is None:
+            self._graph_pool.warm(body)
+            entry.graphs[apply] = StepGraph(body, 1, self._graph_pool, TRAIN_COUNTERS)
+            self.stats.graphs_captured += 1
+            self.stats.capture_seconds += entry.graphs[apply].seconds
+        else:
+            graph.replay()
+            self.stats.replays += 1
+        self.optimizer.advance()
+        self.step_count += 1
+        return dict(zip(METRICS, entry.metrics.tolist()))  # the one host read a step
+
+    def _step_route(self) -> str:
+        """"graph" on one card; "eager" on the CPU, on a mesh, or where
+        ``_eager_step`` asks for the step's plain version."""
+        if self.mesh is not None or self._eager_step or self.device.type != "cuda":
+            return "eager"
+        return "graph"
+
+    def _step_entry(self, patches, tokens, prompt_lens) -> _StepEntry:
+        """The batch's key's entry (made on first use: static buffers of the
+        batch's shapes and dtypes, no graph yet), with the batch copied in;
+        the least recently used key past ``STEP_KEYS`` is dropped."""
+        arrays = [a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+                  for a in (patches, tokens, prompt_lens)]
+        key = (*((tuple(a.shape), a.dtype) for a in arrays), self.optimizer.config.accum_steps)
+        entry = self._steps.get(key)
+        if entry is None:
+            buffers = [torch.empty(a.shape, dtype=a.dtype, device=self.device) for a in arrays]
+            metrics = torch.zeros(len(METRICS), dtype=torch.float32, device=self.device)
+            entry = self._steps[key] = _StepEntry(*buffers, metrics)
+            while len(self._steps) > STEP_KEYS:
+                self._steps.popitem(last=False)
+        else:
+            self._steps.move_to_end(key)
+        for buffer, array in zip((entry.patches, entry.tokens, entry.prompt_lens), arrays):
+            buffer.copy_(array)
+        return entry
+
+    def _step_body(self, entry: _StepEntry, apply: bool) -> None:
+        """One micro-step on ``entry``'s buffers, which reads nothing on the
+        host (JAX's ``train_step``): the loss and gradients, their global
+        norm, the optimizer's body (``apply``: the update, else the
+        accumulation only) and the metrics into ``entry.metrics``."""
+        metrics, grads = self._grads(entry.patches, entry.tokens, entry.prompt_lens)
+        norm = self._global_norm(grads)
+        self.optimizer.run(grads, norm, apply)
+        entry.metrics.copy_(torch.stack([metrics["loss"], metrics["accuracy"], metrics["tokens"], norm]).float())
 
     def apply(self, metrics: dict, grads: list[torch.Tensor]) -> dict[str, float]:
-        """The rest of ``step`` after ``loss_and_grads``: the grad norm, the
-        optimizer's micro-step and the metrics on the host."""
+        """The rest of a mesh's ``step`` after ``loss_and_grads``: the grad
+        norm, the optimizer's micro-step and the metrics on the host."""
         metrics["grad_norm"] = self._global_norm(grads)
         self.optimizer.update(grads, metrics["grad_norm"])
         self.step_count += 1
@@ -529,7 +702,8 @@ class Trainer:
     @replicated
     def restore_checkpoint(self, path: str | Path) -> None:
         """Load a ``params_N`` directory (a whole model; on a mesh each rank
-        keeps its share); the step count continues from N."""
+        keeps its share) into the parameters' own tensors, so that the step
+        graphs stay valid; the step count continues from N."""
         resolved = Path(path).resolve()
         state = torch.load(resolved / "params.pt", map_location="cpu", weights_only=True)
         placed = self._place(from_state_dict(state, self.config, device="cpu")).state_dict()
