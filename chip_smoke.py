@@ -238,7 +238,10 @@ every projection takes K6, then training gradients), then:
   plain on a CUDA tensor); K1 is held at a rank's prefill shape (4 q heads
   over 1 kv head), K4 at a group's pool, and K2 + K3 and K5 at every
   decode shape the ranks ran. The backend, ranks, devices, collectives a
-  step, ms a step and each rank's peak GiB are printed. The ``native_reader``
+  step, ms a step and each rank's peak GiB are printed, and every rank's
+  decode route is asserted: "eager" (gloo's collectives run on the host and
+  cannot be captured; an NCCL mesh, one card a rank, replays graphs:
+  ``tools/mesh_cards.py``). The ``native_reader``
   line: a ``.y4m`` read takes the C++ shim's route (the route counter) and
   its frames are within 2 of the numpy decode's (the two conversions'
   largest difference over every (y, u, v));
@@ -254,7 +257,9 @@ every projection takes K6, then training gradients), then:
   seeded weights and batch, K7a-c (and 1F1B's K1; the tiny encoder's K1
   and recompute) launches per rank as the design predicts, nothing plain on the card, the replicated leaves
   bit-equal on every rank after the steps, ms a step, collectives a step
-  and each rank's peak GiB; GPipe against 1F1B at batch 4 and 4
+  and each rank's peak GiB, the step route asserted ("eager" on gloo:
+  the ``(data, model)`` runs take the body of one card's step eagerly);
+  GPipe against 1F1B at batch 4 and 4
   microbatches (1F1B's peak below GPipe's on every rank); ``ring_attention``
   on a 2-rank ``cp`` mesh against ``mha_reference`` and ``moe_swiglu`` on a
   2-rank ``expert`` mesh against the dense evaluation, with gradients; then
@@ -5180,7 +5185,8 @@ def rank_counts() -> dict:
     """This rank's launches since ``rank_reset`` and its peak memory."""
     torch.cuda.synchronize()
     return dict(counts(), rank=torch.distributed.get_rank(), device=f"cuda:{torch.cuda.current_device()}",
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30)
 
 
 def mesh_launch_check(per_rank: list[dict], want: dict[str, int] | list[dict[str, int]], label: str) -> None:
@@ -5206,11 +5212,17 @@ def mesh_serve(engine: InferenceEngine, clips: np.ndarray, label: str) -> tuple[
         lines = serve(engine, clips)
     collectives = mesh.collectives - before
     per_rank = mesh.run_all(rank_counts)
+    # The route: graphs on an NCCL mesh (unless ``_plain_decode`` asks for
+    # the plain loop on every rank), the plain loop on gloo.
+    route = "graph" if mesh.capturable and not engine._plain_decode else "eager"
+    routes = [stats["decode_route"] for stats in mesh.run_all(rank_stats, engine)]
+    if any(r != route for r in routes):
+        raise AssertionError(f"mesh {label}: decode routes {routes} on a {mesh.backend} mesh, expected {route}")
     line = lines[0]
     steps = line["decode_steps"]
     decode_s = line["call_seconds"] - line["prefill_ms"] / 1e3
     prefill_collectives = 2 * engine.config.decoder.num_layers if mesh.model > 1 else 0
-    return {"phase": "mesh", "run": label, "shape": mesh.shape, "decode_steps": steps,
+    return {"phase": "mesh", "run": label, "shape": mesh.shape, "decode_route": route, "decode_steps": steps,
             "ms_per_step": decode_s * 1e3 / steps if steps else 0.0, "prefill_ms": line["prefill_ms"],
             "collectives": collectives,
             "collectives_per_step": (collectives - prefill_collectives) / steps if steps else 0.0,
@@ -5381,10 +5393,19 @@ def mesh_adopt_reading(gen: torch.Generator, dev: torch.device, cfg: VLMConfig, 
 
 
 def mesh_batcher_tokens(engine: InferenceEngine, requests: list, slots: int, depth: int) -> dict[int, list[int]]:
+    """The requests through a batcher of ``slots`` slots; on a mesh every
+    rank's route is checked (graphs on NCCL, eager on gloo)."""
     batcher = ContinuousBatcher(engine, slots=slots, queue_depth=depth)
     for request in requests:
         batcher.submit(request)
-    return {c.request_id: c.token_ids for c in batcher.run()}
+    got = {c.request_id: c.token_ids for c in batcher.run()}
+    mesh = engine.mesh
+    if mesh is not None:
+        route = "graph" if mesh.capturable and not engine._plain_decode else "eager"
+        routes = [stats["decode_route"] for stats in mesh.run_all(rank_stats, batcher)]
+        if any(r != route for r in routes):
+            raise AssertionError(f"mesh batcher: decode routes {routes} on a {mesh.backend} mesh, expected {route}")
+    return got
 
 
 # -- training over a mesh (main path 14) -------------------------------------------
@@ -5459,8 +5480,9 @@ def rank_arm(trainer, patches, tokens, prompt_lens) -> None:
     """On every rank, before the mesh's first step: the 1-rank trainer's
     loss and whole gradients on the same seeded weights and batch (drawn on
     this rank's card once a batch and kept), then the launches and the peak
-    counted from 0, and ``apply`` wrapped to keep the gradients that the
-    step applies."""
+    counted from 0, and the optimizer's ``run`` wrapped to keep the
+    gradients that the first step applies (its eager run: on the graph
+    route a key's first step is its warm-up, before the capture)."""
     key = (patches.shape, int(np.asarray(tokens).sum()))
     if key not in _ONE_RANK:  # every run starts from the same seeded weights: one reference a batch
         ref = Trainer(trainer.config, trainer.train_config, seed=TRAIN_MESH_SEED, device=trainer.device)
@@ -5470,12 +5492,13 @@ def rank_arm(trainer, patches, tokens, prompt_lens) -> None:
         del ref, ref_grads
     _ONE_RANK["key"] = key
     kept = {}
+    run = trainer.optimizer.run
 
-    def apply(metrics, grads):
-        kept["grads"] = grads
-        return type(trainer).apply(trainer, metrics, grads)
+    def kept_run(grads, norm, apply):
+        kept.setdefault("grads", grads)
+        return run(grads, norm, apply)
 
-    trainer.apply, trainer.kept = apply, kept
+    trainer.optimizer.run, trainer.kept = kept_run, kept
     rank_reset()
 
 
@@ -5486,7 +5509,7 @@ def rank_grad_check(trainer, step: dict) -> dict:
     mesh = trainer.mesh
     one_rank_loss, whole = _ONE_RANK[_ONE_RANK["key"]]
     grads = trainer.kept.pop("grads")
-    del trainer.apply, trainer.kept
+    del trainer.optimizer.run, trainer.kept
     names = [n for n, p in trainer.model.named_parameters() if p.requires_grad]
     worst, worst_name = 0.0, ""
     for name, got, axis in zip(names, grads, trainer._split):
@@ -5551,23 +5574,40 @@ def replicas_equal(per_rank: list[dict]) -> int:
     return compared
 
 
+def rank_stats(obj) -> dict:
+    """An engine's, a batcher's or a trainer's route stats on this rank."""
+    return dict(vars(obj.stats))
+
+
+def rank_set(obj, name: str, value) -> None:
+    """An attribute set on this rank alone (``_plain_decode``, ``_eager_step``)."""
+    setattr(obj, name, value)
+
+
 def train_mesh_run(cfg: VLMConfig, mesh, label: str, tc: TrainConfig, batch: tuple, want: dict,
-                   smi: str) -> tuple[dict, dict]:
-    """One mesh shape: the steps through ``Trainer.step`` with launches,
-    collectives, ms and peak GiB, the first step's gradients checked after
-    it; the replicas compared after the last."""
+                   smi: str, steps: int = TRAIN_MESH_STEPS, eager: bool = False) -> tuple[dict, dict, list]:
+    """One mesh shape: ``steps`` steps through ``Trainer.step`` (with
+    ``eager`` on the eager route, ``_eager_step`` on every rank) with
+    launches, collectives, ms and peak GiB, the first step's gradients
+    checked after it; the replicas compared after the last. Returns the
+    line, each rank's counts and each rank's leaves' bit sums."""
     t0 = time.perf_counter()
     trainer = Trainer(cfg, tc, seed=TRAIN_MESH_SEED, mesh=mesh)
     setup_s = time.perf_counter() - t0
+    if eager:
+        mesh.run_all(rank_set, trainer, "_eager_step", True)
     mesh.run_all(rank_arm, trainer, *batch)
     before = mesh.collectives
     metrics, step_ms, checks = [], [], None
-    for _ in range(TRAIN_MESH_STEPS):
+    for _ in range(steps):
         start = time.perf_counter()
         metrics.append(trainer.step(*batch))
         step_ms.append((time.perf_counter() - start) * 1e3)
         checks = checks or mesh.run_all(rank_grad_check, trainer, metrics[0])
     collectives = mesh.collectives - before
+    route = trainer.stats.step_route
+    if route != ("graph" if mesh.capturable and not eager else "eager"):
+        raise AssertionError(f"train_mesh {label}: step route {route} on a {mesh.backend} mesh {mesh.shape}")
     for got in checks:
         gap = abs(got["loss"] - got["one_rank_loss"]) / abs(got["one_rank_loss"])
         got["loss_gap"] = gap
@@ -5576,21 +5616,23 @@ def train_mesh_run(cfg: VLMConfig, mesh, label: str, tc: TrainConfig, batch: tup
                                  f"{got['worst_grad']} at {got['worst_grad_ratio']} x max (tolerances "
                                  f"{TRAIN_MESH_LOSS_TOL}, {GRAD_REL_TOL})")
     per_rank = mesh.run_all(rank_counts)
-    steps = [{k: TRAIN_MESH_STEPS * n for k, n in w.items()} for w in want] if isinstance(want, list) else \
-        {k: TRAIN_MESH_STEPS * n for k, n in want.items()}
-    mesh_launch_check(per_rank, steps, f"train {label}")
-    compared = replicas_equal(mesh.run_all(rank_replicas, trainer))
+    launched = [{k: steps * n for k, n in w.items()} for w in want] if isinstance(want, list) else \
+        {k: steps * n for k, n in want.items()}
+    mesh_launch_check(per_rank, launched, f"train {label}")
+    sums = mesh.run_all(rank_replicas, trainer)
+    compared = replicas_equal(sums)
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics):
         raise AssertionError(f"train_mesh {label}: non-finite metrics {metrics}")
+    stats = mesh.run_all(rank_stats, trainer)
     del trainer
     gc.collect()
     # step_ms: Trainer.step on rank 0, from the call to the host's metrics.
-    return {"phase": "train_mesh", "run": label, "shape": mesh.shape, "seconds": time.perf_counter() - t0,
-            "setup_seconds": setup_s,
+    return {"phase": "train_mesh", "run": label, "shape": mesh.shape, "step_route": route,
+            "seconds": time.perf_counter() - t0, "setup_seconds": setup_s,
             "grad_check": checks, "loss_tol": TRAIN_MESH_LOSS_TOL, "grad_tol": GRAD_REL_TOL,
-            "steps": metrics, "step_ms": step_ms, "collectives_per_step": collectives / TRAIN_MESH_STEPS,
+            "steps": metrics, "step_ms": step_ms, "collectives_per_step": collectives / steps,
             "replicated_leaves_bit_equal": compared, "per_rank": per_rank, "launches_per_step_per_rank": want,
-            "card": smi}, per_rank
+            "rank_stats": stats, "card": smi}, per_rank, sums
 
 
 def rank_ring(mesh, causal: bool, shape: tuple) -> dict:
@@ -5677,7 +5719,7 @@ def train_mesh_phase(seed: int, dev: torch.device, tokenizer, smi: str) -> tuple
     for label, run_cfg, shape, config, run_batch, want in runs:
         mesh = build_pipe_mesh(2, timeout_s=MESH_TIMEOUT_S) if shape == "pipe" else \
             build_mesh(shape, timeout_s=MESH_TIMEOUT_S)
-        line, per_rank = train_mesh_run(run_cfg, mesh, label, config, run_batch, want, smi)
+        line, per_rank, _ = train_mesh_run(run_cfg, mesh, label, config, run_batch, want, smi)
         lines.append(line)
         for got in per_rank:
             for name in total:
@@ -5912,6 +5954,7 @@ def mesh_phase(seed: int, dev: torch.device, tokenizer, grammar, spawned, smi: s
                 raise AssertionError(f"mesh batcher_dp2: rank {rank['rank']} launches {rank}")
         steps = engine.stats.decode_steps - steps_before
         batcher_line = {"phase": "mesh", "run": "batcher_dp2", "shape": mesh.shape, "backend": mesh.backend,
+                        "decode_route": "graph" if mesh.capturable else "eager",  # held by mesh_batcher_tokens
                         "devices": [str(d) for d in mesh.devices], "regroup_seconds": regroup_s,
                         "decoder_layers": SERVING_LAYERS, "requests": len(got), "decode_steps": steps,
                         "wall_seconds": wall, "ms_per_step": wall * 1e3 / steps if steps else 0.0,

@@ -317,7 +317,7 @@ class Replayed:
 
     captured = 0
 
-    def __init__(self, step, n, pool, counters=(), generators=()):
+    def __init__(self, step, n, pool, counters=(), generators=(), mesh=None):
         self.step, self.n, self.seconds = step, n, 0.0
         Replayed.captured += 1
 

@@ -341,7 +341,8 @@ def test_a_replay_after_restore_takes_the_restored_weights(deterministic, monkey
 
 def test_routes_on_the_cpu_and_on_a_mesh():
     """"eager" on the CPU, also where ``_eager_step`` asks for it, and on a
-    gloo mesh of two CPU ranks, whose step equals the 1-rank trainer's
+    gloo mesh of two CPU ranks, which runs the body on its key's carry as
+    one device does and whose step equals the 1-rank trainer's
     (``tests/test_torch_train.py``'s check: token count exact, loss and grad
     norm within rtol 1e-3)."""
     tiny = get_preset("tiny")
@@ -356,7 +357,7 @@ def test_routes_on_the_cpu_and_on_a_mesh():
     try:
         trainer = Trainer(tiny, device="cpu", mesh=mesh)
         got = trainer.step(*data)
-        assert trainer.stats.step_route == "eager" and not trainer._steps
+        assert trainer.stats.step_route == "eager" and len(trainer._steps) == 1
     finally:
         mesh.close()
     assert got["tokens"] == want["tokens"]

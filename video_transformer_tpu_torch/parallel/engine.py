@@ -17,8 +17,10 @@ loop has ended (``go`` false) freezes every row and changes nothing that is
 read later. On one card the steps run as replayed CUDA graphs of
 ``DECODE_CHUNK`` steps (``parallel/graphs.py``), the host reading ``go`` and
 the counter once a chunk; on the CPU the same steps run eagerly in the same
-chunks. A mesh engine reads ``go`` after every step (the plain loop), as
-does a card engine whose private ``_plain_decode`` is set (the loop's plain
+chunks. A mesh whose steps may be captured (``Mesh.capturable``: NCCL over
+``(data, model)``) replays the same graphs on every rank, its collectives
+inside them; a gloo mesh reads ``go`` after every step (the plain loop), as
+does an engine whose private ``_plain_decode`` is set (the loop's plain
 version, for the tests and the smoke). ``stats.decode_route`` names the
 route that ran. With a draft attached the loop's step is a speculative
 cycle (``_spec_step``, the JAX ``_spec_decode_loop_fn`` body) on the same
@@ -82,7 +84,11 @@ rounded up to it), each data group prefills and decodes its own rows, and
 the results are gathered in row order; within a group the model ranks hold
 ``parallel/sharding.py``'s shards (the serving transform casts, quantizes
 the whole kernels, then shards) and see the same all-reduced logits and the
-same seeded generator, so they make the same host decisions. ``model`` need
+same seeded generator, so they make the same host decisions: on the graph
+route every rank of a group warms up, captures and replays the same chunks
+and reads the same ``go``, in lockstep, and no step collects over ``data``
+(``_gather_rows`` runs after the loop), so that the groups may run
+different numbers of chunks. ``model`` need
 not divide the heads: each rank's KV cache holds its plan's kv heads
 (``parallel/sharding.py::head_plan``; a kv head shared by several ranks is
 replicated on them, as JAX replicates the cache), and the projection
@@ -1028,12 +1034,15 @@ class InferenceEngine:
 
     def _decode_route(self) -> str:
         """The loop's route, from the configuration alone: "graph" on one
-        card, "chunked" (the same steps, eagerly, in the same chunks) on the
-        CPU, "plain" (a host read after every step) on a mesh or where
+        card and on a mesh whose steps may be captured (NCCL), "chunked"
+        (the same steps, eagerly, in the same chunks) on the CPU, "plain" (a
+        host read after every step) on a gloo mesh or where
         ``_plain_decode`` asks for the loop's plain version. The speculative
         loop takes the same routes."""
-        if self.mesh is not None or self._plain_decode:
+        if self._plain_decode:
             return "plain"
+        if self.mesh is not None:
+            return "graph" if self.mesh.capturable else "plain"
         return "graph" if self.device.type == "cuda" else "chunked"
 
     def _prefill_cache(self, config: VLMConfig, model: VideoLM, b: int, cache_len: int, quant: bool,
@@ -1167,12 +1176,14 @@ class InferenceEngine:
                 entry.graph.replay()
                 stats.replays += 1
             ran += n
-            go, live = torch.stack([c.go.to(torch.int32), c.step]).tolist()  # the one host read a chunk
+            # The one host read a chunk; a mesh's model ranks read the same
+            # values (their logits are all-reduced), so they go on alike.
+            go, live = torch.stack([c.go.to(torch.int32), c.step]).tolist()
             if not go:
                 break
             if entry is not None and entry.graph is None:
                 entry.graph = StepGraph(lambda: step(c), n, self._graph_pool, LAUNCH_COUNTERS,
-                                        (self._generator,) if sampling else ())
+                                        (self._generator,) if sampling else (), self.mesh)
                 stats.graphs_captured += 1
                 stats.capture_seconds += entry.graph.seconds
         if mark is not None:

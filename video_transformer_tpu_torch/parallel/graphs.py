@@ -22,6 +22,17 @@ A kernel wrapper adds one to its ``launches`` counter where it launches
 without launching anything: ``StepGraph`` takes back what the capture
 added, and adds it again at each replay.
 
+Over an NCCL mesh (``Mesh.capturable``) every rank captures and replays
+the same steps, and the collectives between them are kernels of the graph:
+a ``StepGraph`` given the mesh counts its collectives at each replay, and
+each axis group's communicator exists before a capture, made by the
+warm-up's collectives (NCCL makes a communicator at a group's first
+collective). Every decision to warm up, capture, replay or stop rests on
+values that the ranks of a group share, so that they replay in lockstep.
+NCCL destroys a communicator only once no graph holds its collectives, so
+the mesh keeps each such graph and destroys it before it leaves the world
+(``Mesh.hold``).
+
 Sampling draws from the engine's generator, which each graph registers
 (``CUDAGraph.register_generator_state``): a replay draws what the same
 steps would draw eagerly. A chunk runs on past the loop's end, and its idle
@@ -91,15 +102,19 @@ class StepGraph:
 
     ``counters`` are the kernel wrappers whose ``launches`` the steps move,
     or (object, attribute) pairs for another count that the steps' Python
-    code moves (``flash_attention.reference_backwards``); ``generators``
-    the generators the steps draw from. The caller has run
-    the step at these shapes already (``GraphPool.warm``). A capture that
-    fails raises.
+    code moves (``flash_attention.reference_backwards``); ``generators`` the
+    generators the steps draw from; ``mesh`` the mesh whose collectives the
+    steps issue, whose ``collectives`` count is then a counter too, and which
+    holds the graph until it leaves its world (``Mesh.hold``). The caller
+    has run the step at these shapes already (``GraphPool.warm``). A capture
+    that fails raises.
     """
 
     def __init__(self, step: Callable[[], Any], n: int, pool: GraphPool, counters: Sequence[Any] = (),
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (), mesh: Any = None):
         self.n = n
+        if mesh is not None:
+            counters = (*counters, (mesh, "collectives"))
         self.counters = tuple(c if isinstance(c, tuple) else (c, "launches") for c in counters)
         self.graph = torch.cuda.CUDAGraph()
         for generator in generators:
@@ -107,7 +122,8 @@ class StepGraph:
         before = [getattr(counter, name) for counter, name in self.counters]
         start = time.perf_counter()
         # thread_local: a thread of the same process that uses the card
-        # meanwhile (a mesh rank) is not refused by this capture.
+        # meanwhile (a mesh rank, NCCL's watchdog) is not refused by this
+        # capture.
         with torch.cuda.graph(self.graph, pool=pool.pool, stream=pool.stream, capture_error_mode="thread_local"):
             for _ in range(n):
                 step()
@@ -116,12 +132,19 @@ class StepGraph:
         self.deltas = [getattr(counter, name) - b for (counter, name), b in zip(self.counters, before)]
         for (counter, name), b in zip(self.counters, before):
             setattr(counter, name, b)
+        if mesh is not None:
+            mesh.hold(self)
 
     def replay(self) -> None:
-        """Run the ``n`` steps; each wrapper's counter moves by what they launch."""
+        """Run the ``n`` steps; each wrapper's counter moves by what they
+        launch. A graph that ``reset`` destroyed raises."""
         self.graph.replay()
         for (counter, name), delta in zip(self.counters, self.deltas):
             setattr(counter, name, getattr(counter, name) + delta)
+
+    def reset(self) -> None:
+        """Destroy the captured graph (and with it what it holds of NCCL's)."""
+        self.graph.reset()
 
 
 class GeneratorMark:

@@ -45,6 +45,10 @@ the CPU. The rule depends on ``devices`` alone; the choice is logged
 (``event=mesh_built``). The collectives are ``all_reduce`` and
 ``all_gather`` on both backends: gloo takes CUDA tensors for both
 (``tools/gloo_cuda_probe.py``), staging them through the host itself.
+Under NCCL the collectives are kernels on the card, which a CUDA graph
+captures with the steps around them (``Mesh.capturable``): the decode loops
+and the training step over such a mesh replay as graphs, as on one card
+(``parallel/graphs.py``); gloo's run on the host, outside any graph.
 ``ppermute`` is an all_gather from which each rank takes its source's
 part: gloo aborts the process on an ``isend`` of a CUDA tensor (the probe,
 on an H100: ``writev ... Bad address``), and one route serves every
@@ -256,6 +260,31 @@ class _Process:
 
 
 _PROCESS: _Process | None = None
+# The CUDA graphs that captured collectives of this process's world. NCCL
+# destroys a communicator only once no graph holds its collectives (its
+# destroy waits for them), so leaving the world destroys these first.
+_GRAPHS: weakref.WeakSet = weakref.WeakSet()
+
+
+def _leave(proc: _Process) -> None:
+    """Leave the world with the other ranks: destroy this rank's held graphs
+    (a replay of one raises after) once the card has run what was launched,
+    wait through the store until every rank has done so (at most the
+    world's timeout, then raise), and only then leave the process group.
+    On 2 and 4 H100s a rank that left while another had not yet begun to
+    leave stalled until that one began, so all leave at once."""
+    graphs = list(_GRAPHS)
+    if graphs and torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for graph in graphs:
+        graph.reset()
+    _GRAPHS.clear()
+    proc.store.set(f"left/{proc.rank}", b"1")
+    proc.store.wait([f"left/{r}" for r in range(proc.world)], timedelta(seconds=proc.timeout_s))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 # The store takes values of at most 8 MiB; larger ones go in parts.
 _PART_BYTES = 4 << 20
 
@@ -401,6 +430,15 @@ class Mesh:
         return self.devices[self.rank]
 
     @property
+    def capturable(self) -> bool:
+        """Whether the steps over this mesh may be captured into CUDA graphs:
+        NCCL (one card a rank, the collectives kernels on it) over a
+        ``(data, model)`` mesh. Gloo's collectives run on the host, and the
+        one-axis meshes (``pipe``, ``cp``, ``expert``) keep their eager
+        schedules."""
+        return self.backend == "nccl" and set(self.axes) <= {DATA_AXIS, MODEL_AXIS}
+
+    @property
     def is_controller(self) -> bool:
         """Rank 0 of a mesh of more than one rank: it sends the calls."""
         return self.rank == 0 and self.size > 1 and not self._closed
@@ -429,7 +467,11 @@ class Mesh:
     def all_reduce(self, tensor: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
         """The reduction of ``tensor`` over ``axis`` (a new tensor of its
         dtype; the input when the axis has one rank). Half-precision floats
-        are reduced in float32 and rounded once (a max is exact)."""
+        are reduced in float32 and rounded once (a max is exact).
+
+        Safe inside a CUDA graph's capture (NCCL): ``buf`` then comes from
+        the graph's pool and each replay reduces into it again; the count
+        ``collectives`` is a ``StepGraph`` counter, moved at each replay."""
         if self.axis_size(axis) == 1:
             return tensor
         wide = tensor.dtype in (torch.bfloat16, torch.float16)
@@ -441,7 +483,8 @@ class Mesh:
 
     def all_gather(self, tensor: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
         """Every rank's ``tensor`` along ``axis``, concatenated on ``dim`` in
-        rank order (the input when the axis has one rank)."""
+        rank order (the input when the axis has one rank); safe inside a
+        capture, as ``all_reduce`` is."""
         n = self.axis_size(axis)
         if n == 1:
             return tensor
@@ -465,6 +508,11 @@ class Mesh:
         dist.all_gather(parts, tensor, group=self._group(axis))
         self.collectives += 1
         return parts[src] if src is not None else torch.zeros_like(tensor)
+
+    def hold(self, graph) -> None:
+        """Keep ``graph`` (a ``StepGraph`` whose steps issue this mesh's
+        collectives) until the world is left, which destroys it first."""
+        _GRAPHS.add(graph)
 
     def gather_objects(self, obj: Any, axis: str = DATA_AXIS) -> list[Any]:
         """Every rank's ``obj`` along ``axis``, in rank order."""
@@ -564,9 +612,10 @@ class Mesh:
         return [mine] + values
 
     def close(self) -> None:
-        """Stop the workers (they leave ``serve``), join the processes this
-        rank started and leave the world. Idempotent; a no-op once the world
-        is left (another mesh on it was closed)."""
+        """Stop the workers (they leave ``serve``), leave the world with them
+        (``_leave``), then join the processes this rank started, ending
+        those still alive after the timeout. Idempotent; a no-op once the
+        world is left (another mesh on it was closed)."""
         global _PROCESS
         if self._closed or self.size == 1 or _PROCESS is None:
             self._closed = True
@@ -574,15 +623,16 @@ class Mesh:
         if self.rank == 0:
             with self.controlled(("stop",)):
                 pass
-            procs = _PROCESS.procs
-            for proc in procs:
-                proc.join(timeout=self.timeout_s)
+        self._closed = True
+        try:
+            _leave(_PROCESS)
+        finally:
+            deadline = time.monotonic() + self.timeout_s
+            for proc in _PROCESS.procs:
+                proc.join(timeout=max(0.0, deadline - time.monotonic()))
                 if proc.is_alive():
                     proc.terminate()
-        self._closed = True
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        _PROCESS = None
+            _PROCESS = None
 
 
 # -- differentiable collectives (training) -------------------------------------------
@@ -845,8 +895,7 @@ def serve() -> None:
     if mesh is not None:
         mesh._objects.clear()
         mesh._closed = True
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    _leave(proc)
 
 
 class _Unpickler(pickle.Unpickler):

@@ -38,10 +38,12 @@ in a device scalar set before each replay; a step past it, or past the
 point where every slot is done, freezes every slot. A key's first run of
 steps is eager (the graph's warm-up); the graph is captured at its second.
 With a draft each step is a speculative cycle, and a refill period's
-cycles replay the same way. On the CPU the same steps run eagerly. On a
-mesh or where the engine's ``_plain_decode`` is set the route is eager
-(chosen at construction), and there a host-driven chunk reads the device
-after every step. ``stats`` names the route (``decode_route``).
+cycles replay the same way. On the CPU the same steps run eagerly. The
+route is the engine's (``InferenceEngine._decode_route``, chosen at
+construction): graphs also on a mesh whose steps may be captured (NCCL),
+each data group replaying its own; eager on a gloo mesh or where the
+engine's ``_plain_decode`` is set, and there a host-driven chunk reads the
+device after every step. ``stats`` names the route (``decode_route``).
 
 The pool is in the compute dtype, so on the card each decode step writes
 and attends through K5 (``decode_attention_update`` on a bf16 cache).
@@ -211,9 +213,9 @@ class ContinuousBatcher:
         self._close_bias = engine.close_bias_array()
         # The columns one step writes: the fast-forward block, or the draft block.
         self._cols = torch.arange(self.spec_k or self.block_width, device=engine.device)[None, :]
-        # The decode route, from the configuration: graphs of steps (or of
-        # speculative cycles) on one card; else eager.
-        self._graphed = engine.device.type == "cuda" and engine.mesh is None and not engine._plain_decode
+        # The decode route, the engine's: graphs of steps (or of speculative
+        # cycles) on one card or a capturable mesh; else eager.
+        self._graphed = engine._decode_route() == "graph"
         self.stats = RouteStats(decode_route="graph" if self._graphed else "eager")
         self._graphs: dict[tuple, StepGraph] = {}
         self._warm: set[tuple] = set()
@@ -396,7 +398,7 @@ class ContinuousBatcher:
         if graph is None and key in self._warm:
             sampling = engine.temperature > 0
             graph = self._graphs[key] = StepGraph(step, n, engine._graph_pool, LAUNCH_COUNTERS,
-                                                  (engine._generator,) if sampling else ())
+                                                  (engine._generator,) if sampling else (), engine.mesh)
             self.stats.graphs_captured += 1
             self.stats.capture_seconds += graph.seconds
         if graph is None:
@@ -428,12 +430,13 @@ class ContinuousBatcher:
         slot is done. Returns the status pack (done, out_pos, state, steps)
         of every slot, each group's gathered in group order.
 
-        On a mesh, or where the engine's ``_plain_decode`` is set, the host
-        reads ``done`` before each step; otherwise the chunk runs
+        On the engine's plain route (a gloo mesh, or ``_plain_decode``) the
+        host reads ``done`` before each step; otherwise the chunk runs
         ``n_steps`` steps with its count in the device scalar ``_chunk_n``,
-        and the host reads the device once, for the status pack."""
+        and the host reads the device once, for the status pack (gathered
+        over the groups after that read, outside any graph)."""
         engine = self.engine
-        if engine.mesh is not None or engine._plain_decode:
+        if engine._decode_route() == "plain":
             steps = 0
             while steps < n_steps and not bool(self.done.all()):
                 self._step()
@@ -460,7 +463,7 @@ class ContinuousBatcher:
         if mark is not None:
             mark.rewind(steps, n_steps)  # the idle steps drew too
         self._live.fill_(True)
-        return status
+        return status if self.n_groups == 1 else np.concatenate(self._groups(status), axis=1)
 
     def _all_tokens(self) -> np.ndarray:
         """Every slot's output buffer, each group's in group order."""

@@ -27,9 +27,13 @@ reads the metrics once. On one card it runs as a replayed CUDA graph
 (``parallel/graphs.py``): a key's first step runs eagerly on the graphs'
 side stream, then one step is captured. With accumulation the host picks
 the body ("accumulate" or "accumulate and apply") from its own micro-step
-count, as ``MultiSteps`` picks with ``lax.cond``; each has its graph. The
-CPU, a mesh (gloo's collectives run on the host) and a trainer whose
-private ``_eager_step`` is set run the same body eagerly (``stats``).
+count, as ``MultiSteps`` picks with ``lax.cond``; each has its graph. A
+``(data, model)`` mesh runs the same body on every rank, its collectives
+inside it: as a graph where the mesh's steps may be captured
+(``Mesh.capturable``: NCCL), eagerly on gloo (whose collectives run on the
+host). The CPU and a trainer whose private ``_eager_step`` is set run the
+body eagerly too (``stats``); a pipe mesh runs ``loss_and_grads`` then
+``apply``, eagerly.
 
 On a mesh (``parallel/mesh.py``), JAX's two layouts:
 
@@ -346,9 +350,10 @@ class Trainer:
     ("pipe",) mesh (``build_pipe_mesh``); each rank takes its mesh device,
     whatever ``device`` says. A mesh of one rank is no mesh.
 
-    ``stats`` (``StepStats``) says how ``step`` ran: "graph" on one card,
-    "eager" on the CPU, on a mesh, or where the private ``_eager_step``
-    asks for the step's plain version (the tests and the smoke set it).
+    ``stats`` (``StepStats``) says how ``step`` ran: "graph" on one card
+    and on an NCCL ``(data, model)`` mesh, "eager" on the CPU, on a gloo or
+    a pipe mesh, or where the private ``_eager_step`` asks for the step's
+    plain version (the tests and the smoke set it).
     """
 
     def __init__(
@@ -567,14 +572,15 @@ class Trainer:
 
         ``prompt_lens`` [B] = per-row prompt block widths to mask from the
         loss; defaults to the uniform TrainConfig.prompt_len. On a mesh the
-        metrics are the whole batch's. One device copies the batch into its
-        key's buffers, runs ``_step_body`` on them (on one card a key's
-        first step eagerly on the graphs' stream, then as a captured graph)
-        and reads the metrics once.
+        metrics are the whole batch's. One device, and every rank of a
+        ``(data, model)`` mesh, copies the batch into its key's buffers, runs
+        ``_step_body`` on them (on the graph route a key's first step
+        eagerly on the graphs' stream, then as a captured graph) and reads
+        the metrics once; a pipe mesh runs ``loss_and_grads`` and ``apply``.
         """
         if prompt_lens is None:
             prompt_lens = np.full((len(tokens),), self.train_config.prompt_len, np.int32)
-        if self.mesh is not None:
+        if self.use_pp:
             self.stats.step_route = "eager"
             return self.apply(*self.loss_and_grads(patches, tokens, prompt_lens))
         entry = self._step_entry(patches, tokens, prompt_lens)
@@ -590,7 +596,7 @@ class Trainer:
             body()
         elif graph is None:
             self._graph_pool.warm(body)
-            entry.graphs[apply] = StepGraph(body, 1, self._graph_pool, TRAIN_COUNTERS)
+            entry.graphs[apply] = StepGraph(body, 1, self._graph_pool, TRAIN_COUNTERS, mesh=self.mesh)
             self.stats.graphs_captured += 1
             self.stats.capture_seconds += entry.graphs[apply].seconds
         else:
@@ -601,11 +607,15 @@ class Trainer:
         return dict(zip(METRICS, entry.metrics.tolist()))  # the one host read a step
 
     def _step_route(self) -> str:
-        """"graph" on one card; "eager" on the CPU, on a mesh, or where
-        ``_eager_step`` asks for the step's plain version."""
-        if self.mesh is not None or self._eager_step or self.device.type != "cuda":
+        """"graph" on one card and on a mesh whose steps may be captured
+        (NCCL over ``(data, model)``); "eager" on the CPU, on a gloo or a
+        pipe mesh, or where ``_eager_step`` asks for the step's plain
+        version."""
+        if self._eager_step:
             return "eager"
-        return "graph"
+        if self.mesh is not None:
+            return "graph" if self.mesh.capturable else "eager"
+        return "graph" if self.device.type == "cuda" else "eager"
 
     def _step_entry(self, patches, tokens, prompt_lens) -> _StepEntry:
         """The batch's key's entry (made on first use: static buffers of the
@@ -638,8 +648,8 @@ class Trainer:
         entry.metrics.copy_(torch.stack([metrics["loss"], metrics["accuracy"], metrics["tokens"], norm]).float())
 
     def apply(self, metrics: dict, grads: list[torch.Tensor]) -> dict[str, float]:
-        """The rest of a mesh's ``step`` after ``loss_and_grads``: the grad
-        norm, the optimizer's micro-step and the metrics on the host."""
+        """The rest of a pipe mesh's ``step`` after ``loss_and_grads``: the
+        grad norm, the optimizer's micro-step and the metrics on the host."""
         metrics["grad_norm"] = self._global_norm(grads)
         self.optimizer.update(grads, metrics["grad_norm"])
         self.step_count += 1
