@@ -258,7 +258,8 @@ every projection takes K6, then training gradients), then:
   and recompute) launches per rank as the design predicts, nothing plain on the card, the replicated leaves
   bit-equal on every rank after the steps, ms a step, collectives a step
   and each rank's peak GiB, the step route asserted ("eager" on gloo:
-  the ``(data, model)`` runs take the body of one card's step eagerly);
+  the ``(data, model)`` and the GPipe and 1F1B runs take the body of one
+  card's step eagerly);
   GPipe against 1F1B at batch 4 and 4
   microbatches (1F1B's peak below GPipe's on every rank); ``ring_attention``
   on a 2-rank ``cp`` mesh against ``mha_reference`` and ``moe_swiglu`` on a
@@ -5446,14 +5447,16 @@ MOE_EXPERTS, MOE_HIDDEN, MOE_MLP, MOE_TOKENS = 8, 1024, 4096, 2048
 MOE_TOL = 1e-4
 
 
-def train_mesh_launches(cfg: VLMConfig, per_rank_layers: int, n_micro: int, schedule: str | None) -> dict:
+def train_mesh_launches(cfg: VLMConfig, per_rank_layers: int, n_micro: int, schedule: str | None,
+                        remat: bool = False) -> dict:
     """The launches a step of one rank by the design: K7a-c once an encoder
     layer and once a decoder layer a rank holds (a pipeline stage's once a
-    microbatch); 1F1B's primal forward and recompute wave attend without
+    microbatch), K7a once more a decoder layer under GPipe's ``remat`` (the
+    recompute); 1F1B's primal forward and recompute wave attend without
     grad, through K1, twice a stage layer a microbatch."""
     dec = per_rank_layers * n_micro
     k7 = cfg.encoder.num_layers + dec
-    return {"flash_fwd_lse": k7, "flash_bwd_dq": k7, "flash_bwd_dkv": k7,
+    return {"flash_fwd_lse": k7 + dec * remat, "flash_bwd_dq": k7, "flash_bwd_dkv": k7,
             "flash_attention": 2 * dec if schedule == "1f1b" else 0, "reference_backwards": 0}
 
 
@@ -5490,6 +5493,8 @@ def rank_arm(trainer, patches, tokens, prompt_lens) -> None:
         _ONE_RANK[key] = (ref_metrics["loss"].item(),
                           dict(zip([n for n, p in ref.model.named_parameters() if p.requires_grad], ref_grads)))
         del ref, ref_grads
+        gc.collect()
+        torch.cuda.empty_cache()  # the mesh trainer's reserved GiB are its own
     _ONE_RANK["key"] = key
     kept = {}
     run = trainer.optimizer.run
@@ -5606,7 +5611,7 @@ def train_mesh_run(cfg: VLMConfig, mesh, label: str, tc: TrainConfig, batch: tup
         checks = checks or mesh.run_all(rank_grad_check, trainer, metrics[0])
     collectives = mesh.collectives - before
     route = trainer.stats.step_route
-    if route != ("graph" if mesh.capturable and not eager else "eager"):
+    if route != ("graph" if mesh.trains_on_graphs and not eager else "eager"):
         raise AssertionError(f"train_mesh {label}: step route {route} on a {mesh.backend} mesh {mesh.shape}")
     for got in checks:
         gap = abs(got["loss"] - got["one_rank_loss"]) / abs(got["one_rank_loss"])
@@ -5736,6 +5741,9 @@ def train_mesh_phase(seed: int, dev: torch.device, tokenizer, smi: str) -> tuple
         t0 = time.perf_counter()
         metrics = trainer.step(*wide)
         ms = (time.perf_counter() - t0) * 1e3
+        if trainer.stats.step_route != ("graph" if mesh.trains_on_graphs else "eager"):
+            raise AssertionError(f"train_mesh pp2_{schedule}_m4: step route {trainer.stats.step_route} on a "
+                                 f"{mesh.backend} pipe")
         per_rank = mesh.run_all(rank_counts)
         mesh_launch_check(per_rank, train_mesh_launches(cfg, layers // 2, 4, schedule), f"train pp2_{schedule}_m4")
         for got in per_rank:

@@ -27,7 +27,9 @@ float32, greedy, a short grammar:
   JAX's ``Trainer`` at ``tests/test_torch_train_mesh.py``'s tolerances and
   against the eager route bit for bit; every rank's body run with every
   host read of a tensor refused;
-- the route rule: "graph" only for NCCL on a ``(data, model)`` mesh.
+- the route rule: the engine's "graph" only for NCCL on a ``(data,
+  model)`` mesh, the trainer's for NCCL on a ``(data, model)`` or a pipe
+  mesh (``tests/test_torch_pipe_graph.py`` holds the pipe's step).
 """
 
 import dataclasses
@@ -332,8 +334,9 @@ def test_the_training_body_reads_nothing_on_any_rank(runs):
 
 
 def test_route_rule():
-    """"graph" only for NCCL on a ``(data, model)`` mesh; gloo and the
-    pipe, ``cp`` and ``expert`` meshes keep the plain (eager) routes, and
+    """The engine: "graph" only for NCCL on a ``(data, model)`` mesh. The
+    trainer: "graph" for NCCL on a ``(data, model)`` or a pipe mesh. Gloo
+    and the ``cp`` and ``expert`` meshes keep the plain (eager) routes, and
     ``_plain_decode``/``_eager_step`` ask for them anywhere."""
     cards = [torch.device("cuda", i) for i in range(2)]
     meshes = {
@@ -341,20 +344,23 @@ def test_route_rule():
         "nccl_dp": Mesh({"data": 2, "model": 1}, cards, "nccl"),
         "gloo_dp_tp": Mesh({"data": 1, "model": 2}, [torch.device("cpu")] * 2, "gloo"),
         "nccl_pipe": Mesh({"pipe": 2}, cards, "nccl"),
+        "gloo_pipe": Mesh({"pipe": 2}, [torch.device("cuda", 0)] * 2, "gloo"),
         "nccl_cp": Mesh({"cp": 2}, cards, "nccl"),
         "nccl_expert": Mesh({"expert": 2}, cards, "nccl"),
     }
     assert {name: mesh.capturable for name, mesh in meshes.items()} == {
-        "nccl_dp_tp": True, "nccl_dp": True, "gloo_dp_tp": False, "nccl_pipe": False, "nccl_cp": False,
-        "nccl_expert": False}
+        "nccl_dp_tp": True, "nccl_dp": True, "gloo_dp_tp": False, "nccl_pipe": False, "gloo_pipe": False,
+        "nccl_cp": False, "nccl_expert": False}
+    assert {name: mesh.trains_on_graphs for name, mesh in meshes.items()} == {
+        "nccl_dp_tp": True, "nccl_dp": True, "gloo_dp_tp": False, "nccl_pipe": True, "gloo_pipe": False,
+        "nccl_cp": False, "nccl_expert": False}
     engine = InferenceEngine(tiny(get_preset), device="cpu", max_new_tokens=4)
     trainer = Trainer(tiny(get_preset), device="cpu")
     assert (engine._decode_route(), trainer._step_route()) == ("chunked", "eager")  # the CPU, no mesh
     for name, mesh in meshes.items():
         engine.__dict__["mesh"], trainer.mesh = mesh, mesh
-        want = "graph" if mesh.capturable else None
-        assert engine._decode_route() == (want or "plain"), name
-        assert trainer._step_route() == (want or "eager"), name
+        assert engine._decode_route() == ("graph" if mesh.capturable else "plain"), name
+        assert trainer._step_route() == ("graph" if name in ("nccl_dp_tp", "nccl_dp", "nccl_pipe") else "eager"), name
         engine._plain_decode = trainer._eager_step = True
         assert (engine._decode_route(), trainer._step_route()) == ("plain", "eager"), name
         engine._plain_decode = trainer._eager_step = False

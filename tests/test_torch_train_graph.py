@@ -43,7 +43,7 @@ from video_transformer_tpu.train.trainer import Trainer as JTrainer
 from video_transformer_tpu_torch.models.config import get_preset
 from video_transformer_tpu_torch.ops import flash_bwd as flash_bwd_module
 from video_transformer_tpu_torch.ops.attention import flash_attention
-from video_transformer_tpu_torch.parallel.mesh import build_mesh
+from video_transformer_tpu_torch.parallel.mesh import build_mesh, build_pipe_mesh
 from video_transformer_tpu_torch.train import trainer as trainer_module
 from video_transformer_tpu_torch.train.data import synthetic_batch
 from video_transformer_tpu_torch.train.trainer import STEP_KEYS, TrainConfig, Trainer
@@ -341,27 +341,36 @@ def test_a_replay_after_restore_takes_the_restored_weights(deterministic, monkey
 
 def test_routes_on_the_cpu_and_on_a_mesh():
     """"eager" on the CPU, also where ``_eager_step`` asks for it, and on a
-    gloo mesh of two CPU ranks, which runs the body on its key's carry as
-    one device does and whose step equals the 1-rank trainer's
-    (``tests/test_torch_train.py``'s check: token count exact, loss and grad
-    norm within rtol 1e-3)."""
+    gloo mesh of two CPU ranks, ``(data, model)`` and pipe alike, each of
+    which runs the body on its key's carry as one device does and whose
+    step equals the 1-rank trainer's (``tests/test_torch_train.py``'s
+    check: token count exact, loss and grad norm within rtol 1e-3). On NCCL
+    both meshes take "graph" (``tests/test_torch_mesh_graph.py::
+    test_route_rule``; the pipe's step ``tests/test_torch_pipe_graph.py``)."""
     tiny = get_preset("tiny")
+    tc = TrainConfig(pp_microbatches=2)
     data = synthetic_batch(np.random.default_rng(0), tiny, 2, 224)
-    one = Trainer(tiny, device="cpu")
+    one = Trainer(tiny, tc, device="cpu")
     assert one._step_route() == "eager"
     want = one.step(*data)
     assert one.stats.step_route == "eager"
     one._eager_step = True
     assert one._step_route() == "eager"
-    mesh = build_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2)
+    got = {}
+    mesh = build_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2, timeout_s=120)
     try:
-        trainer = Trainer(tiny, device="cpu", mesh=mesh)
-        got = trainer.step(*data)
-        assert trainer.stats.step_route == "eager" and len(trainer._steps) == 1
+        for name in ("model", "pipe"):
+            if name == "pipe":
+                mesh = build_pipe_mesh(2, timeout_s=120)  # the running world, new groups
+            trainer = Trainer(tiny, tc, device="cpu", mesh=mesh)
+            got[name] = trainer.step(*data)
+            assert (trainer.stats.step_route, len(trainer._steps), mesh.trains_on_graphs) == ("eager", 1, False), name
     finally:
         mesh.close()
-    assert got["tokens"] == want["tokens"]
-    np.testing.assert_allclose([got["loss"], got["grad_norm"]], [want["loss"], want["grad_norm"]], rtol=1e-3)
+    for name, metrics in got.items():
+        assert metrics["tokens"] == want["tokens"], name
+        np.testing.assert_allclose([metrics["loss"], metrics["grad_norm"]], [want["loss"], want["grad_norm"]],
+                                   rtol=1e-3, err_msg=name)
 
 
 def test_step_key_and_what_drops_it(tmp_path):

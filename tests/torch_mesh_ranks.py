@@ -209,9 +209,10 @@ def graph_stand_in(on: bool) -> None:
     """On this rank: take the graph route on a gloo CPU mesh (``TapeGraph``,
     ``Mesh.capturable`` true) in chunks of 5 steps (2 speculative cycles),
     so that a short call warms up, captures and replays, and count a call of a kernel's plain version
-    on a CPU tensor as a launch of its wrapper (K3's decode attention, K7a-c
-    and K1's recompute backward count where they run); ``False`` puts back
-    what ``True`` replaced."""
+    on a CPU tensor as a launch of its wrapper (K1, K3's decode attention,
+    K7a-c and K1's recompute backward count where they run); ``False`` puts
+    back what ``True`` replaced."""
+    from video_transformer_tpu_torch.ops import attention as attention_module
     from video_transformer_tpu_torch.ops import decode_attention as decode_module
     from video_transformer_tpu_torch.ops import flash_bwd as flash_bwd_module
     from video_transformer_tpu_torch.parallel import engine as engine_module
@@ -226,7 +227,8 @@ def graph_stand_in(on: bool) -> None:
                 (torch.cuda, "graph"): lambda graph, **kwargs: graph.capture(),
                 (engine_module, "DECODE_CHUNK"): STAND_IN_CHUNK, (engine_module, "SPEC_CHUNK"): STAND_IN_SPEC_CHUNK,
                 (decode_module, "_scaled_reference"): _counted(decode_module._scaled_reference,
-                                                               decode_module.decode_attention)}
+                                                               decode_module.decode_attention),
+                (attention_module, "_forward"): _counted(attention_module._forward, attention_module.flash_attention)}
     for name in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"):
         replaced[(flash_bwd_module, f"{name}_reference")] = _counted(getattr(flash_bwd_module, f"{name}_reference"),
                                                                      getattr(flash_bwd_module, name))
@@ -245,7 +247,8 @@ def launch_counts() -> dict:
     from video_transformer_tpu_torch.ops.decode_attention import decode_attention
     from video_transformer_tpu_torch.ops.flash_bwd import flash_bwd_dkv, flash_bwd_dq, flash_fwd_lse
 
-    return {"decode_attention": decode_attention.launches, "flash_fwd_lse": flash_fwd_lse.launches,
+    return {"flash_attention": flash_attention.launches, "decode_attention": decode_attention.launches,
+            "flash_fwd_lse": flash_fwd_lse.launches,
             "flash_bwd_dq": flash_bwd_dq.launches, "flash_bwd_dkv": flash_bwd_dkv.launches,
             "reference_backwards": flash_attention.reference_backwards}
 

@@ -3,36 +3,45 @@ and on both routes.
 
 Run from the repo root on a host with at least 4 visible cards:
 
-    python tools/mesh_cards.py [--seed 0] [--cards 4]
+    python tools/mesh_cards.py [--seed 0] [--cards 4] [--only pipe]
 
 Each rank has a card of its own, so ``parallel/mesh.py::choose_backend``
 picks ``nccl``, and the mesh's steps replay as CUDA graphs with their
-collectives inside them (``Mesh.capturable``); ``--cards 1`` puts every
-rank on ``cuda:0`` (gloo: the plain routes), the same runs and checks on
-one card. Two ranks: ``base`` at full width and depth (24 decoder layers,
-int8 weights and KV, the note grammar, greedy, ``NEW_TOKENS`` new tokens,
+collectives inside them (``Mesh.capturable``, for training
+``Mesh.trains_on_graphs``); ``--cards 1`` puts every rank on ``cuda:0``
+(gloo: the plain routes), the same runs and checks on one card, but for
+the full-depth pipe, whose ranks each also hold a 1-rank reference
+trainer of the whole model at batch 4 (it needs a card a rank). Two
+ranks: ``base`` at full width and depth (24 decoder layers, int8 weights
+and KV, the note grammar, greedy, ``NEW_TOKENS`` new tokens,
 so that a call warms up, captures and replays) served on ``{"model": 2}``
 and on ``{"data": 2}``, and a greedy speculative run on ``{"model": 2}``
 (the trained tiny checkpoint as the draft, bf16 caches); then the
 ``train_mesh`` runs of ``chip_smoke.py`` (base at full width, 4 decoder
 layers, batch 2 of 1,024 video + 2,048 text positions) on ``{"model":
 2}`` and ``{"data": 2}`` for ``TRAIN_STEPS`` steps whose learning rate
-changes, and a 2-stage pipe under GPipe and 1F1B. Four ranks: the same
-serving on ``{"model": 4}`` (base's 2 kv heads each replicated on two
-ranks, the plan of heads of ``parallel/sharding.py``) and on ``{"data": 2,
-"model": 2}``, and one training step on ``{"model": 4}``.
+changes, and the pipe at full depth (24 decoder layers, 12 a stage; batch
+4 of the same positions in ``PIPE_MICRO`` = 4 microbatches, so that a K7
+call is [1, 8, 3072, 128]) on ``{"pipe": 2}`` under GPipe, 1F1B and GPipe
+with remat. Four ranks: the same serving on ``{"model": 4}`` (base's 2 kv
+heads each replicated on two ranks, the plan of heads of
+``parallel/sharding.py``) and on ``{"data": 2, "model": 2}``, one training
+step on ``{"model": 4}``, and the full-depth pipe on ``{"pipe": 4}`` (6
+layers a stage) under GPipe and 1F1B. ``--only pipe`` runs the pipe's
+training runs alone.
 
 Every serving run decodes on the graph route, then from the same start on
 the plain route (``_plain_decode`` on every rank): on each rank the tokens,
 completion flags and live steps of each of its decode loops must be equal
 bit for bit, and its launches must be its own loops' steps (live and idle)
-times a step's kernels. The ``{"model": 2}`` and ``{"data": 2}`` training
-runs step on the graph route, then from the same seeded start on the eager
-route (``_eager_step`` on every rank): every metric of every step and
-every leaf on every rank bit for bit. Every run is held to the 1-rank
-engine or trainer with ``chip_smoke.py``'s checks (tokens equal or parting
-at a near tie, logits within ``MESH_LOGIT_TOL``, the step's loss and
-gradients, replicas bit-equal). Each route prints ms a step (serving: a
+times a step's kernels. The ``{"model": 2}``, ``{"data": 2}`` and pipe
+training runs step on the graph route, then from the same seeded start on
+the eager route (``_eager_step`` on every rank): every metric of every
+step and every leaf on every rank bit for bit, and each rank's launches
+as ``chip_smoke.train_mesh_launches`` predicts for its stage. Every run is
+held to the 1-rank engine or trainer with ``chip_smoke.py``'s checks
+(tokens equal or parting at a near tie, logits within ``MESH_LOGIT_TOL``,
+the step's loss and gradients, replicas bit-equal). Each route prints ms a step (serving: a
 second graph call, of replays only), the busy share (the kernels' ms of a
 profiled replay or step, NCCL's given apart, over the ms a step), capture
 seconds, graphs, replays, and each rank's peak and reserved GiB.
@@ -71,6 +80,8 @@ RANKS = 4  # the widest world: model 4 over base's 2 kv heads
 NEW_TOKENS = 64  # four chunks of DECODE_CHUNK (16): a warm-up, a capture, replays
 SPEC_NEW_TOKENS = 32  # the speculative run: chunks of 4 cycles
 TRAIN_STEPS = 3  # a warm-up and a capture, then replays; the learning rate moves each step
+PIPE_MICRO = 4  # the full-depth pipe's microbatches (of one row each)
+PIPE_RUNS = {2: (("gpipe", False), ("1f1b", False), ("gpipe", True)), 4: (("gpipe", False), ("1f1b", False))}
 
 
 def leave(mesh, ranks: int) -> None:
@@ -296,14 +307,30 @@ def train_pair(train_cfg, mesh, label: str, tc: TrainConfig, batch: tuple, want:
             "launches_per_step_per_rank": want, "card": smi}
 
 
+def pipe_runs(stages: int, cfg, tc: TrainConfig, batch: tuple, smi: str):
+    """The full-depth pipe on ``stages`` ranks (a mesh on the running world
+    a run), each of ``PIPE_RUNS[stages]`` through ``train_pair``; returns
+    the last mesh."""
+    for schedule, remat in PIPE_RUNS[stages]:
+        mesh = build_pipe_mesh(stages, timeout_s=cs.MESH_TIMEOUT_S)
+        label = f"pp{stages}_{schedule}" + ("_remat" if remat else "")
+        want = cs.train_mesh_launches(cfg, cfg.decoder.num_layers // stages, PIPE_MICRO, schedule, remat)
+        config = replace(tc, pp_microbatches=PIPE_MICRO, pp_schedule=schedule, remat=remat)
+        cs.emit(dict(train_pair(cfg, mesh, label, config, batch, want, smi), decoder_layers=cfg.decoder.num_layers,
+                     batch=len(batch[1]), n_micro=PIPE_MICRO, remat=remat))
+    return mesh
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--cards", type=int, default=RANKS,
                         help="cards to spread the ranks over (rank i on cuda:i %% cards; 1: every rank on cuda:0, "
                              "gloo)")
+    parser.add_argument("--only", choices=["all", "pipe"], default="all",
+                        help="pipe: the full-depth pipe's training runs alone")
     args = parser.parse_args()
-    seed, cards = args.seed, args.cards
+    seed, cards, everything = args.seed, args.cards, args.only == "all"
     if torch.cuda.device_count() < cards:
         raise SystemExit(f"mesh_cards: {torch.cuda.device_count()} cards visible, {cards} needed")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -325,21 +352,23 @@ def main() -> None:
     spec_serving = dict(serving, max_new_tokens=SPEC_NEW_TOKENS)
     rng = np.random.default_rng(seed + 13)
     clips = rng.integers(0, 256, (2, cfg.encoder.num_frames, 256, 256, 3), dtype=np.uint8)
-    one = InferenceEngine(cfg, **serving)
-    grammar = one.wrap_grammar(note_dfa(one.byte_vocab))
-    one.dfa = grammar
     calls: list = []
-    with cs.recorded_calls(one, calls):
-        one.generate(clips, [cs.PROMPT] * 2)
-    one_spec = InferenceEngine(cfg, **spec_serving)
-    one_spec.dfa = grammar
-    one_spec.attach_draft(draft, checkpoint=cs.TINY_WEIGHTS, spec_tokens=cs.SPEC_TOKENS)
-    with cs.recorded_calls(one_spec, calls):
-        one_spec.generate(clips, [cs.PROMPT] * 2)
+    if everything:
+        one = InferenceEngine(cfg, **serving)
+        grammar = one.wrap_grammar(note_dfa(one.byte_vocab))
+        one.dfa = grammar
+        with cs.recorded_calls(one, calls):
+            one.generate(clips, [cs.PROMPT] * 2)
+        one_spec = InferenceEngine(cfg, **spec_serving)
+        one_spec.dfa = grammar
+        one_spec.attach_draft(draft, checkpoint=cs.TINY_WEIGHTS, spec_tokens=cs.SPEC_TOKENS)
+        with cs.recorded_calls(one_spec, calls):
+            one_spec.generate(clips, [cs.PROMPT] * 2)
 
     train_cfg = replace(cfg, decoder=replace(cfg.decoder, num_layers=cs.TRAIN_MESH_LAYERS))
     layers = cs.TRAIN_MESH_LAYERS
     batch = cs.train_mesh_batch(train_cfg, 2, seed + 41)
+    pipe_batch = cs.train_mesh_batch(cfg, 4, seed + 43)
     tc = TrainConfig(learning_rate=1e-4, warmup_steps=1, total_steps=10, prompt_len=cs.TRAIN_MESH_PROMPT)
     per_step = cs.train_mesh_launches(train_cfg, layers, 1, None)
 
@@ -351,38 +380,35 @@ def main() -> None:
         cs.emit({"phase": "world", "ranks": 2, "backend": mesh.backend, "capturable": mesh.capturable,
                  "seconds": time.perf_counter() - t0})
         try:
-            cs.emit(serve_run(mesh, "base_tp2", cfg, serving, grammar, clips, one, calls[0], smi))
-            cs.emit(serve_run(mesh, "spec_tp2", cfg, spec_serving, grammar, clips, one_spec, calls[1], smi,
-                              draft=draft))
-            mesh = build_mesh({"data": 2, "model": 1}, timeout_s=cs.MESH_TIMEOUT_S)
-            cs.emit(serve_run(mesh, "base_dp2", cfg, serving, grammar, clips, one, calls[0], smi))
-            for label, shape in (("tp2", {"data": 1, "model": 2}), ("dp2", {"data": 2, "model": 1})):
-                mesh = build_mesh(shape, timeout_s=cs.MESH_TIMEOUT_S)
-                cs.emit(train_pair(train_cfg, mesh, label, tc, batch, per_step, smi))
-            for s in ("gpipe", "1f1b"):
-                mesh = build_pipe_mesh(2, timeout_s=cs.MESH_TIMEOUT_S)
-                line, _, _ = cs.train_mesh_run(train_cfg, mesh, f"pp2_{s}", replace(tc, pp_microbatches=2,
-                                                                                   pp_schedule=s), batch,
-                                               cs.train_mesh_launches(train_cfg, layers // 2, 2, s), smi)
-                cs.emit(dict(line, backend=mesh.backend, devices=[str(d) for d in mesh.devices]))
-            mesh.run_all(cs.rank_release)
+            if everything:
+                cs.emit(serve_run(mesh, "base_tp2", cfg, serving, grammar, clips, one, calls[0], smi))
+                cs.emit(serve_run(mesh, "spec_tp2", cfg, spec_serving, grammar, clips, one_spec, calls[1], smi,
+                                  draft=draft))
+                mesh = build_mesh({"data": 2, "model": 1}, timeout_s=cs.MESH_TIMEOUT_S)
+                cs.emit(serve_run(mesh, "base_dp2", cfg, serving, grammar, clips, one, calls[0], smi))
+                for label, shape in (("tp2", {"data": 1, "model": 2}), ("dp2", {"data": 2, "model": 1})):
+                    mesh = build_mesh(shape, timeout_s=cs.MESH_TIMEOUT_S)
+                    cs.emit(train_pair(train_cfg, mesh, label, tc, batch, per_step, smi))
+            mesh = pipe_runs(2, cfg, tc, pipe_batch, smi)
         finally:
             leave(mesh, 2)
 
-        # Four ranks: model 4 over base's 2 kv heads, and data 2 x model 2.
+        # Four ranks: model 4 over base's 2 kv heads, data 2 x model 2, and the pipe.
         t0 = time.perf_counter()
         mesh = build_mesh({"data": 1, "model": RANKS}, devices=[f"cuda:{i % cards}" for i in range(RANKS)],
                           timeout_s=cs.MESH_TIMEOUT_S)
         cs.emit({"phase": "world", "ranks": RANKS, "backend": mesh.backend, "capturable": mesh.capturable,
                  "seconds": time.perf_counter() - t0})
         try:
-            cs.emit(serve_run(mesh, "base_tp4", cfg, serving, grammar, clips, one, calls[0], smi))
-            mesh = build_mesh({"data": 2, "model": 2}, timeout_s=cs.MESH_TIMEOUT_S)
-            cs.emit(serve_run(mesh, "base_dp2tp2", cfg, serving, grammar, clips, one, calls[0], smi))
-            mesh = build_mesh({"data": 1, "model": RANKS}, timeout_s=cs.MESH_TIMEOUT_S)
-            line, _, _ = cs.train_mesh_run(train_cfg, mesh, "tp4", tc, batch, per_step, smi)
-            cs.emit(dict(line, backend=mesh.backend, devices=[str(d) for d in mesh.devices]))
-            mesh.run_all(cs.rank_release)
+            if everything:
+                cs.emit(serve_run(mesh, "base_tp4", cfg, serving, grammar, clips, one, calls[0], smi))
+                mesh = build_mesh({"data": 2, "model": 2}, timeout_s=cs.MESH_TIMEOUT_S)
+                cs.emit(serve_run(mesh, "base_dp2tp2", cfg, serving, grammar, clips, one, calls[0], smi))
+                mesh = build_mesh({"data": 1, "model": RANKS}, timeout_s=cs.MESH_TIMEOUT_S)
+                line, _, _ = cs.train_mesh_run(train_cfg, mesh, "tp4", tc, batch, per_step, smi)
+                cs.emit(dict(line, backend=mesh.backend, devices=[str(d) for d in mesh.devices]))
+                mesh.run_all(cs.rank_release)
+            mesh = pipe_runs(RANKS, cfg, tc, pipe_batch, smi)
         finally:
             leave(mesh, RANKS)
     print(json.dumps({"ok": True, "cards": cards, "card": smi}), flush=True)

@@ -46,9 +46,10 @@ the CPU. The rule depends on ``devices`` alone; the choice is logged
 ``all_gather`` on both backends: gloo takes CUDA tensors for both
 (``tools/gloo_cuda_probe.py``), staging them through the host itself.
 Under NCCL the collectives are kernels on the card, which a CUDA graph
-captures with the steps around them (``Mesh.capturable``): the decode loops
-and the training step over such a mesh replay as graphs, as on one card
-(``parallel/graphs.py``); gloo's run on the host, outside any graph.
+captures with the steps around them: the decode loops and the training step
+over a ``(data, model)`` mesh (``Mesh.capturable``) and the training step
+over a pipe mesh (``Mesh.trains_on_graphs``) replay as graphs, as on one
+card (``parallel/graphs.py``); gloo's run on the host, outside any graph.
 ``ppermute`` is an all_gather from which each rank takes its source's
 part: gloo aborts the process on an ``isend`` of a CUDA tensor (the probe,
 on an H100: ``writev ... Bad address``), and one route serves every
@@ -431,12 +432,19 @@ class Mesh:
 
     @property
     def capturable(self) -> bool:
-        """Whether the steps over this mesh may be captured into CUDA graphs:
-        NCCL (one card a rank, the collectives kernels on it) over a
-        ``(data, model)`` mesh. Gloo's collectives run on the host, and the
-        one-axis meshes (``pipe``, ``cp``, ``expert``) keep their eager
-        schedules."""
+        """Whether the serving steps over this mesh may be captured into
+        CUDA graphs: NCCL (one card a rank, the collectives kernels on it)
+        over a ``(data, model)`` mesh. Gloo's collectives run on the host;
+        no serving route runs on a one-axis mesh."""
         return self.backend == "nccl" and set(self.axes) <= {DATA_AXIS, MODEL_AXIS}
+
+    @property
+    def trains_on_graphs(self) -> bool:
+        """Whether a trainer's step over this mesh may be captured: a
+        ``capturable`` mesh, or NCCL over ``pipe`` (whose tick schedule
+        branches only on the stage count, the microbatches and the stage).
+        ``cp`` and ``expert`` meshes stay eager: no trainer builds them."""
+        return self.capturable or (self.backend == "nccl" and set(self.axes) == {PIPE_AXIS})
 
     @property
     def is_controller(self) -> bool:

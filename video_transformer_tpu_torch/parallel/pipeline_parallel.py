@@ -36,6 +36,14 @@ replicated encoder and embedding take the same, whole gradient on every
 rank; a stage's blocks take gradients on that stage only. A tied
 embedding, read at the input and as the head, sums both contributions on
 every rank.
+
+Both tick loops branch only on Python ints (the stage count, ``n_micro``,
+the stage, the schedule), and an idle tick still sends zeros, so every
+stage issues the same collectives in the same order on every step. The
+trainer's step (``train/trainer.py``) therefore captures the whole
+pipelined step, forward ticks, backward ticks, norm and update, as one CUDA
+graph on each stage over NCCL and replays them in lockstep, as JAX jits its
+pipeline inside the step; on gloo the same step runs eagerly.
 """
 
 from __future__ import annotations
@@ -103,9 +111,11 @@ def shard_stages(model: nn.Module, mesh: Mesh) -> nn.Module:
 
 def block_forward(block: nn.Module, x: torch.Tensor, positions: torch.Tensor, rope, remat: bool = False):
     """One decoder block on the training path (no cache); ``remat``
-    recomputes it in the backward."""
+    recomputes it in the backward. The blocks draw no random numbers, so
+    the recompute needs no saved generator state (and a captured step reads
+    none)."""
     if remat:
-        return checkpoint(block, x, positions, rope, None, use_reentrant=False)[0]
+        return checkpoint(block, x, positions, rope, None, use_reentrant=False, preserve_rng_state=False)[0]
     return block(x, positions, rope, None)[0]
 
 

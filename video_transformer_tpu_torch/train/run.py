@@ -449,11 +449,14 @@ def main(argv: list[str] | None = None) -> int:
 
 def _train(args, logger, trainer, batches) -> int:
     start = time.perf_counter()
+    first_done = start
     tokens_seen = 0
     for step in range(1, args.steps + 1):
         patches, tokens, prompt_lens = next(batches)
         metrics = trainer.step(patches, tokens, prompt_lens)
         tokens_seen += int(metrics.get("tokens", 0))
+        if step == 1:
+            first_done = time.perf_counter()  # the first step sets up (on the card: warm-up and capture)
         if step % 10 == 0 or step == 1:
             elapsed = time.perf_counter() - start
             logger.info(
@@ -465,10 +468,13 @@ def _train(args, logger, trainer, batches) -> int:
             trainer.save_checkpoint(args.out)
             logger.info(f"event=checkpoint step={step} dir={args.out}")
 
+    # Every step but the first, batches included (0 for a run of one step).
+    later_ms = (time.perf_counter() - first_done) * 1e3 / max(args.steps - 1, 1)
     trainer.save_checkpoint(args.out)
     logger.info(
         f"event=train_complete steps={args.steps} "
-        f"final_loss={metrics['loss']:.4f} checkpoint={args.out}"
+        f"final_loss={metrics['loss']:.4f} first_step_ms={(first_done - start) * 1e3:.1f} "
+        f"later_step_ms={later_ms:.1f} step_route={trainer.stats.step_route} checkpoint={args.out}"
     )
     return 0
 

@@ -28,12 +28,15 @@ reads the metrics once. On one card it runs as a replayed CUDA graph
 side stream, then one step is captured. With accumulation the host picks
 the body ("accumulate" or "accumulate and apply") from its own micro-step
 count, as ``MultiSteps`` picks with ``lax.cond``; each has its graph. A
-``(data, model)`` mesh runs the same body on every rank, its collectives
-inside it: as a graph where the mesh's steps may be captured
-(``Mesh.capturable``: NCCL), eagerly on gloo (whose collectives run on the
-host). The CPU and a trainer whose private ``_eager_step`` is set run the
-body eagerly too (``stats``); a pipe mesh runs ``loss_and_grads`` then
-``apply``, eagerly.
+mesh, ``(data, model)`` or ``("pipe",)``, runs the same body on every rank,
+its collectives inside it: as a graph where the mesh's training steps may
+be captured (``Mesh.trains_on_graphs``: NCCL), eagerly on gloo (whose
+collectives run on the host). On a pipe mesh the body's forward is the
+pipeline's tick loop and its ``torch.autograd.grad`` runs the schedule's
+backward (GPipe or 1F1B), as JAX jits ``pipeline_vlm_logits`` inside its
+step; every stage issues the same collectives in the same order, so the
+stages capture and replay in lockstep. The CPU and a trainer whose private
+``_eager_step`` is set run the body eagerly too (``stats``).
 
 On a mesh (``parallel/mesh.py``), JAX's two layouts:
 
@@ -351,8 +354,8 @@ class Trainer:
     whatever ``device`` says. A mesh of one rank is no mesh.
 
     ``stats`` (``StepStats``) says how ``step`` ran: "graph" on one card
-    and on an NCCL ``(data, model)`` mesh, "eager" on the CPU, on a gloo or
-    a pipe mesh, or where the private ``_eager_step`` asks for the step's
+    and on an NCCL ``(data, model)`` or pipe mesh, "eager" on the CPU, on a
+    gloo mesh, or where the private ``_eager_step`` asks for the step's
     plain version (the tests and the smoke set it).
     """
 
@@ -573,16 +576,12 @@ class Trainer:
         ``prompt_lens`` [B] = per-row prompt block widths to mask from the
         loss; defaults to the uniform TrainConfig.prompt_len. On a mesh the
         metrics are the whole batch's. One device, and every rank of a
-        ``(data, model)`` mesh, copies the batch into its key's buffers, runs
-        ``_step_body`` on them (on the graph route a key's first step
-        eagerly on the graphs' stream, then as a captured graph) and reads
-        the metrics once; a pipe mesh runs ``loss_and_grads`` and ``apply``.
+        mesh, copies the batch into its key's buffers, runs ``_step_body`` on
+        them (on the graph route a key's first step eagerly on the graphs'
+        stream, then as a captured graph) and reads the metrics once.
         """
         if prompt_lens is None:
             prompt_lens = np.full((len(tokens),), self.train_config.prompt_len, np.int32)
-        if self.use_pp:
-            self.stats.step_route = "eager"
-            return self.apply(*self.loss_and_grads(patches, tokens, prompt_lens))
         entry = self._step_entry(patches, tokens, prompt_lens)
         apply = self.optimizer.applies
         route = self._step_route()
@@ -607,14 +606,14 @@ class Trainer:
         return dict(zip(METRICS, entry.metrics.tolist()))  # the one host read a step
 
     def _step_route(self) -> str:
-        """"graph" on one card and on a mesh whose steps may be captured
-        (NCCL over ``(data, model)``); "eager" on the CPU, on a gloo or a
-        pipe mesh, or where ``_eager_step`` asks for the step's plain
-        version."""
+        """"graph" on one card and on a mesh whose training steps may be
+        captured (``Mesh.trains_on_graphs``: NCCL over ``(data, model)`` or
+        ``pipe``); "eager" on the CPU, on a gloo mesh, or where
+        ``_eager_step`` asks for the step's plain version."""
         if self._eager_step:
             return "eager"
         if self.mesh is not None:
-            return "graph" if self.mesh.capturable else "eager"
+            return "graph" if self.mesh.trains_on_graphs else "eager"
         return "graph" if self.device.type == "cuda" else "eager"
 
     def _step_entry(self, patches, tokens, prompt_lens) -> _StepEntry:
@@ -646,16 +645,6 @@ class Trainer:
         norm = self._global_norm(grads)
         self.optimizer.run(grads, norm, apply)
         entry.metrics.copy_(torch.stack([metrics["loss"], metrics["accuracy"], metrics["tokens"], norm]).float())
-
-    def apply(self, metrics: dict, grads: list[torch.Tensor]) -> dict[str, float]:
-        """The rest of a pipe mesh's ``step`` after ``loss_and_grads``: the
-        grad norm, the optimizer's micro-step and the metrics on the host."""
-        metrics["grad_norm"] = self._global_norm(grads)
-        self.optimizer.update(grads, metrics["grad_norm"])
-        self.step_count += 1
-        names = list(metrics)
-        values = torch.stack([metrics[n].float() for n in names]).tolist()
-        return dict(zip(names, values))
 
     # -- checkpointing ---------------------------------------------------------
 
